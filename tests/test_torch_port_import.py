@@ -95,6 +95,13 @@ CONVERT_CASES = {
         CAAT_TINY, share_input_output_embed=False)),
     "encoder_proj": (W2V_TINY, dataclasses.replace(
         CAAT_TINY, encoder_proj=True)),
+    # an encoder wider than the decoder: the jointer's k/v projections read
+    # the 32-wide encoder output directly, or its projection to 24
+    "wide_encoder": (dataclasses.replace(
+        W2V_TINY, encoder_embed_dim=32, encoder_ffn_embed_dim=64), CAAT_TINY),
+    "wide_encoder_proj": (dataclasses.replace(
+        W2V_TINY, encoder_embed_dim=32, encoder_ffn_embed_dim=64),
+        dataclasses.replace(CAAT_TINY, encoder_proj=True)),
 }
 
 

@@ -2,20 +2,26 @@
 
 Parameter containers named like fairseq's modules, so the state dicts that
 ``wav2vec_s_tpu/checkpoint/torch_export.py`` emits load with
-``strict=True``, plus the plain functions the incremental steps run on
-them.  As in the JAX package, parameters stay float32 and every matmul runs
-in the activation's dtype (``dense`` casts the weight), while layer norms
-always compute in float32 (``fp32_layer_norm``).
+``strict=True``, plus the plain functions the encoders run on them: the
+full-sequence self-attention layer (``encoder_layer``, dense or block-sparse
+flash attention) and the pieces the incremental step shares with it.  As in
+the JAX package, parameters stay float32 and every matmul runs in the
+activation's dtype (``dense`` casts the weight), while layer norms always
+compute in float32 (``fp32_layer_norm``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Callable
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from wav2vec_s_tpu_torch.ops.flash_attention import (
+    blockwise_flash_attention_packed)
 
 
 def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -43,14 +49,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiheadAttention(nn.Module):
-    """fairseq ``MultiheadAttention`` parameters: q/k/v/out projections."""
+    """fairseq ``MultiheadAttention`` parameters: q/k/v/out projections;
+    keys and values may come from a source of another width ``kdim``."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, kdim: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
         self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(kdim or dim, dim)
+        self.v_proj = nn.Linear(kdim or dim, dim)
         self.out_proj = nn.Linear(dim, dim)
 
 
@@ -65,6 +72,52 @@ class TransformerEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(dim, ffn_dim)
         self.fc2 = nn.Linear(ffn_dim, dim)
         self.final_layer_norm = nn.LayerNorm(dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashSpec:
+    """Passed to ``self_attention`` in place of a dense bias: attend through
+    the block-sparse flash kernel (``ops/flash_attention.py``)."""
+
+    key_padding_mask: torch.Tensor   # [B, S] bool, True = pad (rc copies in)
+    seq_len: int
+    main_context: int
+    right_context: int
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """[B, H, T, Dh] attention as ``wav2vec_s_tpu/models/modules.py:106``:
+    f32 logits plus the additive bias, softmax, probabilities cast to the
+    compute dtype before P.V."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    logits = logits * q.shape[-1] ** -0.5
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def self_attention(att: MultiheadAttention, x: torch.Tensor,
+                   bias: Union[torch.Tensor, FlashSpec, None]) -> torch.Tensor:
+    """Full-sequence self-attention of ``MultiheadSelfAttention``
+    (``wav2vec_s_tpu/models/modules.py:133-173``), ``out_proj`` applied.
+    ``bias`` is an additive mask broadcastable to [B, H, T, T], or a
+    ``FlashSpec`` for the block-sparse kernel on the packed projections."""
+    B, T, D = x.shape
+    H = att.num_heads
+    q, k, v = (dense(p, x) for p in (att.q_proj, att.k_proj, att.v_proj))
+    if isinstance(bias, FlashSpec):
+        out = blockwise_flash_attention_packed(
+            q, k, v, bias.key_padding_mask, H, bias.seq_len,
+            bias.main_context, bias.right_context)
+    else:
+        def split(t):
+            return t.reshape(B, T, H, D // H).transpose(1, 2)
+
+        out = dot_product_attention(split(q), split(k), split(v), bias)
+        out = out.transpose(1, 2).reshape(B, T, D)
+    return dense(att.out_proj, out)
 
 
 def attn_input(layer: TransformerEncoderLayer, x: torch.Tensor,
@@ -86,6 +139,15 @@ def layer_tail(layer: TransformerEncoderLayer, x: torch.Tensor,
     x = ln(layer.self_attn_layer_norm, x + h)
     return ln(layer.final_layer_norm,
               x + dense(layer.fc2, act(dense(layer.fc1, x))))
+
+
+def encoder_layer(layer: TransformerEncoderLayer, x: torch.Tensor,
+                  bias: Union[torch.Tensor, FlashSpec, None],
+                  layer_norm_first: bool) -> torch.Tensor:
+    """One wav2vec-S encoder layer over the full sequence (GELU FFN)."""
+    h = self_attention(layer.self_attn, attn_input(layer, x, layer_norm_first),
+                       bias)
+    return layer_tail(layer, x, h, layer_norm_first, gelu)
 
 
 @torch.no_grad()

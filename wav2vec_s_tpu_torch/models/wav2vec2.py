@@ -1,25 +1,34 @@
-"""wav2vec-S encoder configuration and parameter container (torch).
+"""wav2vec-S encoder: configuration, parameters and one-shot forward (torch).
 
 Port of the parts of ``wav2vec_s_tpu/models/wav2vec2.py`` that the
-incremental streaming path reads: ``Wav2Vec2Config`` (streaming and
-encoder fields) and a ``Wav2Vec2Model`` holding the fairseq-named
-parameters of the conv front-end, the feature norm/projection and the
-encoder layers.  The quantizer and the pre-training head are not part of
-this container; ``mask_emb`` is, because fine-tuned checkpoints carry it.
-The forward math lives in ``stream/incremental.py``.
+streaming and corpus decoders read: ``Wav2Vec2Config`` (streaming and
+encoder fields), a ``Wav2Vec2Model`` holding the fairseq-named parameters
+of the conv front-end, the feature norm/projection and the encoder layers,
+and the full-utterance forward ``Wav2Vec2Model.extract_features`` through
+the blockwise encoder (``TransformerEncoder.forward``, the JAX
+``BlockwiseTransformerEncoder``).  The quantizer and the pre-training head
+are not part of this container; ``mask_emb`` is, because fine-tuned
+checkpoints carry it.  The incremental step lives in
+``stream/incremental.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from wav2vec_s_tpu_torch.models.feature_extractor import (
     ConvFeatureExtractor, DEFAULT_CONV_LAYERS)
-from wav2vec_s_tpu_torch.models.modules import TransformerEncoderLayer
+from wav2vec_s_tpu_torch.models.modules import (
+    FlashSpec, TransformerEncoderLayer, dense, encoder_layer, ln)
+from wav2vec_s_tpu_torch.ops.block_mask import (
+    append_right_context, block_attn_bias, block_layout, extend_padding_mask,
+    strip_right_context)
+from wav2vec_s_tpu_torch.utils.positional import (
+    sinusoidal_positions_from_padding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +46,10 @@ class Wav2Vec2Config:
     # streaming context (wav2vec-S)
     main_context: int = 16
     right_context: int = 8
+    # one-shot encoder
+    required_seq_len_multiple: int = 2
+    attention_impl: str = "dense"          # "dense" | "flash" (the
+                                           # block-sparse kernel)
     dtype: str = "float32"
 
     @property
@@ -57,14 +70,74 @@ def wav2vec_s_base_config(**kw) -> Wav2Vec2Config:
 
 
 class TransformerEncoder(nn.Module):
+    """The wav2vec-S blockwise encoder (wav2vec_S.py:355-440)."""
+
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        if cfg.attention_impl not in ("dense", "flash"):
+            raise ValueError(f"attention_impl={cfg.attention_impl!r} is not "
+                             f"'dense' or 'flash'")
+        self.cfg = cfg
         self.layer_norm = nn.LayerNorm(cfg.encoder_embed_dim)
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(cfg.encoder_embed_dim,
                                     cfg.encoder_ffn_embed_dim,
                                     cfg.encoder_attention_heads)
             for _ in range(cfg.encoder_layers))
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None,
+                main_context: Optional[int] = None,
+                right_context: Optional[int] = None) -> torch.Tensor:
+        """x: [B, T, D] features, padding_mask: [B, T] bool (True = pad) ->
+        [B, T, D].  The JAX ``BlockwiseTransformerEncoder`` order: zero the
+        pad frames, add positions, post-LN norm, pad T to the seq multiple
+        (pad frames masked), append the rc copies, the layers, strip the
+        copies, pre-LN norm, cut the pad."""
+        c = self.cfg
+        mc = c.main_context if main_context is None else main_context
+        rc = c.right_context if right_context is None else right_context
+        B, T, D = x.shape
+        if padding_mask is not None:
+            x = x * (~padding_mask)[:, :, None].to(x.dtype)
+            pm = padding_mask
+        else:
+            pm = torch.zeros((B, T), dtype=torch.bool, device=x.device)
+        x = x + sinusoidal_positions_from_padding(pm, D, dtype=x.dtype)
+        if not c.layer_norm_first:
+            x = ln(self.layer_norm, x)
+
+        pad_len = (-T) % c.required_seq_len_multiple
+        if pad_len:
+            x = torch.cat([x, x.new_zeros((B, pad_len, D))], dim=1)
+            pm = torch.cat([pm, pm.new_ones((B, pad_len))], dim=1)
+        layout = block_layout(T + pad_len, mc, rc)
+        x = append_right_context(x, layout)
+        # the flash kernel takes the exact length: no tile padding
+        if c.attention_impl == "flash":
+            bias = FlashSpec(extend_padding_mask(pm, layout), T + pad_len,
+                             mc, rc)
+        else:
+            bias = block_attn_bias(layout, pm, dtype=torch.float32)
+        for layer in self.layers:
+            x = encoder_layer(layer, x, bias, c.layer_norm_first)
+        x = strip_right_context(x, layout)
+        if c.layer_norm_first:
+            # the one `layer_norm` runs after the stack in pre-LN models,
+            # before it in post-LN models (wav2vec2.py:846-871)
+            x = ln(self.layer_norm, x)
+        return x[:, :T]
+
+
+def downsample_padding_mask(padding_mask: torch.Tensor,
+                            t_out: int) -> torch.Tensor:
+    """[B, T_samples] -> [B, T_frames]; a frame is pad iff *all* its samples
+    are pad (reference wav2vec2.py:572-577)."""
+    B, T = padding_mask.shape
+    extra = T % t_out
+    if extra:
+        padding_mask = padding_mask[:, :-extra]
+    return padding_mask.reshape(B, t_out, -1).all(dim=-1)
 
 
 class Wav2Vec2Model(nn.Module):
@@ -79,3 +152,23 @@ class Wav2Vec2Model(nn.Module):
                                   if embed != cfg.encoder_embed_dim else None)
         self.mask_emb = nn.Parameter(torch.zeros(cfg.encoder_embed_dim))
         self.encoder = TransformerEncoder(cfg)
+
+    def forward_features(self, source: torch.Tensor) -> torch.Tensor:
+        """[B, S] samples -> [B, T, C] conv features in the compute dtype."""
+        return self.feature_extractor(source, self.cfg.compute_dtype)
+
+    @torch.no_grad()
+    def extract_features(self, source: torch.Tensor,
+                         padding_mask: Optional[torch.Tensor] = None,
+                         main_context: Optional[int] = None,
+                         right_context: Optional[int] = None):
+        """Downstream feature path, no masking: ([B, T, D] encoder output,
+        [B, T] frame padding mask or None)."""
+        feats = ln(self.layer_norm, self.forward_features(source))
+        if padding_mask is not None:
+            padding_mask = downsample_padding_mask(padding_mask,
+                                                   feats.shape[1])
+        if self.post_extract_proj is not None:
+            feats = dense(self.post_extract_proj, feats)
+        x = self.encoder(feats, padding_mask, main_context, right_context)
+        return x, padding_mask

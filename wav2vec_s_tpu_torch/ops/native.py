@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The build runs
-at first use, in the process that first launches a kernel, into
-``wav2vec_s_tpu_torch/_build/`` (git-ignored); the library's file name
-carries a hash of the sources and flags, so an edited source is rebuilt and
-an unchanged one is loaded as it is.  Nothing here runs at import time.
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use, in
+the process that first launches a kernel, into ``wav2vec_s_tpu_torch/_build/``
+(git-ignored); the library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is loaded as it
+is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib = None
 #: seconds the last build took (None: loaded without building) and what
@@ -46,17 +47,30 @@ def _nvcc() -> str:
 def _build(sources, target: Path) -> None:
     global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    nvcc = _nvcc()
     t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, target)          # atomic: a reader never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp, src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]     # waits for every one
+        build_log = "".join(logs)
+        failed = [(src.name, p.returncode)
+                  for src, p in zip(sources, procs) if p.returncode]
+        if not failed:
+            so = Path(tmp, "lib.so")
+            link = subprocess.run([nvcc, "-shared", "-o", str(so),
+                                   *map(str, objs)], capture_output=True,
+                                  text=True)
+            build_log += link.stdout + link.stderr
+            if link.returncode:
+                failed = [("link", link.returncode)]
+        build_seconds = time.perf_counter() - t
+        if failed:
+            raise RuntimeError(f"nvcc failed {failed}:\n{build_log}")
+        os.replace(so, target)       # atomic: a reader never sees half a file
 
 
 def library() -> ctypes.CDLL:
@@ -80,6 +94,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(target))
     fn = lib.w2vs_chunk_attention
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.w2vs_flash_attention
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib

@@ -2,7 +2,8 @@
 
 Copy of the numpy table of ``wav2vec_s_tpu/utils/positional.py``: row ``p``
 holds the embedding of absolute position ``p``, the first real frame uses
-row ``PADDING_IDX + 1 = 2`` and row ``PADDING_IDX`` is all zeros.
+row ``PADDING_IDX + 1 = 2`` and row ``PADDING_IDX`` is all zeros; and the
+lookup of the full-sequence encoder, ``sinusoidal_positions_from_padding``.
 """
 
 from __future__ import annotations
@@ -39,3 +40,15 @@ def sinusoidal_table(num_embeddings: int, dim: int,
     """[num_embeddings, dim] float32 table on ``device``; one copy per
     device is kept, so callers must not write into it."""
     return _table_on(num_embeddings, dim, str(torch.device(device or "cpu")))
+
+
+def sinusoidal_positions_from_padding(padding_mask: torch.Tensor, dim: int,
+                                      dtype=torch.float32) -> torch.Tensor:
+    """[B, T, dim] embeddings for a [B, T] bool padding mask (True = pad):
+    the i-th non-pad frame gets row ``i + 2``, pad frames the zero row
+    (fairseq ``make_positions`` on the bool mask)."""
+    T = padding_mask.shape[1]
+    nonpad = (~padding_mask).long()
+    positions = torch.cumsum(nonpad, dim=1) * nonpad + PADDING_IDX
+    table = sinusoidal_table(T + POS_OFFSET + 1, dim, padding_mask.device)
+    return table[positions].to(dtype)
