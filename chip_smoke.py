@@ -15,21 +15,42 @@ Phases, each printed on its own line:
                streams, T 488, mc 16, rc 8 -> S 728, 12 heads of 64, float32
                and bfloat16, padded keys; and an rc 0 layout): output on
                valid rows and the row stats m/l; then both timed per call;
-  4. parity  — a tiny model decoded on the card equals the same decode on
+  4. dropout — the counter-based dropout kernel (K4) against its twin:
+               bit-equal outputs and masks at the training step's shapes
+               ([8*748, 768], [8*748, 3072], the attention probabilities
+               [8*12*748, 748]), float32 and bfloat16, p 0.1 and 0.3; keep
+               share within 4 sigma, forward mask == backward mask, new
+               seed / offset -> new mask; then both timed per call;
+  5. lattice — the transducer kernels (K5a alphas, K5b betas, K6 affine
+               rows forward and reverse) against their row-scan twins at
+               [8, 8, 41], [16, 32, 65] and [4, 512, 129] with ragged
+               lengths, then the delay-transducer loss and d/dacts through
+               the kernels against float64 twins; kernels and twins timed;
+  6. parity  — a tiny model decoded on the card equals the same decode on
                the CPU (plain twins), texts and delays;
-  5. one-shot parity — the tiny one-shot decode (flash attention) on the
+  7. one-shot parity — the tiny one-shot decode (flash attention) on the
                card equals the one on the CPU and the cached decode on the
                card;
-  6. full    — wav2vec-S Base + CAAT base, bfloat16, random weights from a
+  8. train parity — tiny CAAT fine-tuning, dropout off: two updates on the
+               card (kernels) equal the CPU's (twins): loss, grad norm,
+               every parameter; then a 30-step overfit with the recipe's
+               dropouts, whose loss must fall;
+  9. full    — wav2vec-S Base + CAAT base, bfloat16, random weights from a
                seed, DECISION_STEP=2, max_emit 4, int16 wire: the cached
                agent on 128 streams of 10 s per corpus, one warm-up corpus,
                then CORPORA timed ones; K1's launch count must equal
                layers x chunks x corpora;
-  7. one-shot full — the same model with attention_impl="flash", the
+  10. one-shot full — the same model with attention_impl="flash", the
                one-shot corpus decoder on 256 streams of 10 s, encode batch
                32: one warm-up corpus, then CORPORA timed ones; K2's launch
-               count must equal layers x sub-batches x corpora.
-Each of the two full paths runs with every launch count set to 0 just
+               count must equal layers x sub-batches x corpora;
+  11. train full — the CAAT fine-tuning step at Base + CAAT base width,
+               bfloat16, dense attention, the recipe's dropouts on, B 8 x
+               10 s of seeded noise, U 40: one warm step, then two windows
+               of 5 steps; K4/K5a/K5b/K6 launch counts must equal what the
+               dropout sites and the loss chunks give, K1/K2 none; finite
+               loss and grad norm, no skipped step.
+Each of the three full paths runs with every launch count set to 0 just
 before it and read just after.  Then the card (nvidia-smi name, power
 limit), the kernel summary as JSON, and the result line.  Any failure
 raises: no result line, non-zero exit.  Without a CUDA device it exits 2
@@ -53,12 +74,18 @@ SECONDS = 10.0
 
 def _counters():
     from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
+    from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
     from wav2vec_s_tpu_torch.ops.flash_attention import (
         blockwise_flash_attention_packed)
+    from wav2vec_s_tpu_torch.ops.transducer import kernels
 
     return {"chunk_cache_attention": chunk_cache_attention,
             "blockwise_flash_attention_packed":
-                blockwise_flash_attention_packed}
+                blockwise_flash_attention_packed,
+            "hw_dropout": hw_dropout,
+            "transducer_alphas": kernels.alphas,
+            "transducer_betas": kernels.betas,
+            "transducer_affine_rows": kernels.affine_rows}
 
 
 def _reset_counts():
@@ -203,6 +230,219 @@ def phase_flash():
     print(f"phase flash: B={B} S={S} H={H} dh={D // H} bf16 per call: "
           f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
     return worst, ms, plain_ms
+
+
+def _keep_share(keep, p):
+    """Keep share within 4 sigma of 1 - p."""
+    n = keep.numel()
+    share = keep.float().mean().item()
+    return share, abs(share - (1 - p)) <= 4 * (p * (1 - p) / n) ** 0.5
+
+
+def phase_dropout():
+    """K4 vs its twin: bit-equal outputs and masks at the training step's
+    dropout shapes -> (max_abs_err, ms, plain_ms)."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.dropout import (
+        dropout_ref, hw_dropout, keep_mask)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    N = 8 * 748                       # encoder rows of the full-width step
+    shapes = [(N, 768), (N, 3072), (8 * 12 * 748, 748)]
+    seed, offset = 0x1234_5678_9ABC_DEF, 17
+    worst = 0.0
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            for p in (0.1, 0.3):
+                got = hw_dropout(x, p, seed, offset)
+                torch.cuda.synchronize()
+                want = dropout_ref(x, p, seed, offset)
+                worst = max(worst, (got.float() - want.float()).abs().max()
+                            .item())
+                assert torch.equal(got, want), (shape, dtype, p)
+                ones = torch.ones_like(x)
+                mask = hw_dropout(ones, p, seed, offset) != 0
+                twin_mask = keep_mask(x.numel(), p, seed, offset,
+                                      dev).reshape(shape)
+                assert torch.equal(mask, twin_mask), (shape, dtype, p)
+                share, ok = _keep_share(mask, p)
+                assert ok, (shape, dtype, p, share)
+                xg = x.detach().clone().requires_grad_(True)
+                hw_dropout(xg, p, seed, offset).backward(ones)
+                assert torch.equal(xg.grad != 0, mask), "fwd/bwd masks"
+                for s, o in ((seed + 1, offset), (seed, offset + 1)):
+                    other = hw_dropout(ones, p, s, o) != 0
+                    diff = (other != mask).float().mean().item()
+                    assert diff > p * (1 - p), (s, o, diff)
+                print(f"phase dropout: {shape} {str(dtype)[6:]} p={p}: "
+                      f"outputs and masks bit-equal to the twin, keep "
+                      f"share {share:.5f}, fwd == bwd mask, new seed and "
+                      f"new offset change the mask")
+                del got, want, ones, mask, twin_mask, xg
+            del x
+    # timing: the attention-probability call, bf16, p 0.1
+    x = torch.randn(shapes[2], generator=g, device=dev).to(torch.bfloat16)
+    ms = _cuda_ms(lambda: hw_dropout(x, 0.1, seed, offset), 20)
+    plain_ms = _cuda_ms(lambda: dropout_ref(x, 0.1, seed, offset), 3)
+    gbs = 2 * x.numel() * x.element_size() / ms / 1e6
+    print(f"phase dropout: {tuple(x.shape)} bf16 per call: kernel "
+          f"{ms:.4f} ms ({gbs:.0f} GB/s), plain twin {plain_ms:.4f} ms")
+    return worst, ms, plain_ms
+
+
+def _lattice_inputs(dev, B, T, U, V, seed):
+    import torch
+    from wav2vec_s_tpu_torch.ops.transducer.lattice import (
+        delay_cost_diag_positive, lattice_log_probs_lse)
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acts = torch.randn((B, T, U, V), generator=g, device=dev)
+    labels = torch.randint(1, V, (B, U - 1), generator=g, device=dev)
+    # ragged: the first utterance fills the lattice, the others do not
+    al = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev)
+    ll = torch.randint(U // 2, U, (B,), generator=g, device=dev)
+    al[0], ll[0] = T, U - 1
+    dv = delay_cost_diag_positive((B, T, U), al, ll)
+    lpb, lpe, _ = lattice_log_probs_lse(acts, labels, 0)
+    return acts, labels, al, ll, dv, lpb.contiguous(), lpe
+
+
+def _rel_err(a, b, where=None):
+    e = (a.double() - b.double()).abs() / (1.0 + b.double().abs())
+    return (e if where is None else e[where]).max().item()
+
+
+LATTICE_SHAPES = ((8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512))
+# loss total err/(1+|x|), delay err/(1+|x|), grad max|diff|/max|g| of the
+# kernels against float64 twins, and the most the f32 twins' own error may
+# widen them to (the f32 twins showed 1.3e-6, 9.0e-4, 2.9e-3 at T 512)
+LOSS_TOL, LOSS_TOL_CEILING = (1e-5, 5e-4, 1e-3), (1e-5, 2e-3, 5e-3)
+
+
+def phase_lattice():
+    """K5a, K5b, K6 (forward and reverse) vs their twins, then the loss and
+    its gradient through the kernels (CUDA) against float64 twins (CPU) ->
+    {name: (max_abs_err, ms, plain_ms)} at the full-width step's lattice
+    (the first shape)."""
+    import types
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.ops.transducer import analytic, kernels, lattice
+
+    dev = torch.device("cuda")
+    # f32 throughout; the twins' prefix form loses ~1e-6 relative to the
+    # recursion at T 512 (the kernels are the more exact of the two)
+    tol = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5}
+    out = {}
+    for i, (B, T, U, V) in enumerate(LATTICE_SHAPES):
+        acts, labels, al, ll, dv, lpb, lpe = _lattice_inputs(dev, B, T, U,
+                                                             V, i)
+        valid = ((torch.arange(T, device=dev)[None, :, None]
+                  < al[:, None, None])
+                 & (torch.arange(U, device=dev)[None, None, :]
+                    <= ll[:, None, None]))
+        a_k = kernels.alphas(lpb, lpe)
+        a_t = lattice.alphas(lpb, lpe)
+        b_k = kernels.betas(lpb, lpe, al, ll)[0]
+        b_t = lattice.betas(lpb, lpe, al, ll)[0]
+        ad_k = lattice.expected_delay(lpb, lpe, a_k, dv,
+                                      rows=kernels.affine_rows)
+        ad_t = lattice.expected_delay(lpb, lpe, a_k, dv)
+        t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
+        down, up = lattice.beta_shifts(b_k, ll)
+        bd_k = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
+                                          t_valid, emit_ok,
+                                          rows=kernels.affine_rows)[0]
+        bd_t = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
+                                          t_valid, emit_ok)[0]
+        torch.cuda.synchronize()
+        errs = {"alphas": _rel_err(a_k, a_t),
+                "betas": _rel_err(b_k, b_t, valid),
+                "affine_rows": max(_rel_err(ad_k, ad_t),
+                                   _rel_err(bd_k, bd_t, valid))}
+        print(f"phase lattice: [{B},{T},{U}] err/(1+|x|) vs twin: "
+              + ", ".join(f"{k} {v:.3g} (tol {tol[k]:g})"
+                          for k, v in errs.items()))
+        for k, v in errs.items():
+            assert v <= tol[k], (B, T, U, k, v)
+        abs_errs = {
+            "alphas": (a_k - a_t).abs().max().item(),
+            "betas": (b_k - b_t).abs()[valid].max().item(),
+            "affine_rows": max((ad_k - ad_t).abs().max().item(),
+                               (bd_k - bd_t).abs()[valid].max().item())}
+
+        # the loss and d/dacts: kernels (CUDA, f32) against the twins on
+        # the CPU in float64; the f32 twins' own error is printed beside
+        # it (their prefix form cancels large partial sums, see PERF.md)
+        def loss_grad(a):
+            a = a.detach().clone().requires_grad_(True)
+            total, prob, delay = analytic.delay_transducer_loss(
+                a, labels.to(a.device), al.to(a.device), ll.to(a.device),
+                dv.to(a.device))
+            w = torch.arange(1, B + 1, device=a.device, dtype=a.dtype)
+            (total * w).sum().backward()
+            return total.detach(), delay.detach(), a.grad
+
+        ref = loss_grad(acts.cpu().double())
+        errs_vs_f64 = {}
+        for name, res in (("kernels", loss_grad(acts)),
+                          ("f32 twins", loss_grad(acts.cpu()))):
+            t, d, g_ = (r.cpu().double() for r in res)
+            errs_vs_f64[name] = (
+                _rel_err(t, ref[0]), _rel_err(d, ref[1]),
+                ((g_ - ref[2]).abs().max() / ref[2].abs().max()).item())
+        print(f"phase lattice: [{B},{T},{U},{V}] loss vs float64 twins "
+              f"(total err/(1+|x|), delay err/(1+|x|), grad "
+              f"max|diff|/max|g|): "
+              + "; ".join(f"{k} " + ", ".join(f"{e:.3g}" for e in v)
+                          for k, v in errs_vs_f64.items())
+              + " (kernel tol: 1e-5, 5e-4, 1e-3, or the f32 twins' own "
+                "error where larger, capped at 1e-5, 2e-3, 5e-3)")
+        # f32 bounds the posteriors exp(alpha + beta - ll) to ~|alpha| * eps
+        # relative (|alpha| ~ 2400 at T 512): the kernels must be as exact
+        # as the plain f32 computation, within the fixed bounds where that
+        # is tighter, and never past the ceilings (which the twins must
+        # meet too)
+        twin = errs_vs_f64["f32 twins"]
+        bound = [min(c, max(b, t)) for b, t, c in zip(
+            LOSS_TOL, twin, LOSS_TOL_CEILING)]
+        assert all(t <= c for t, c in zip(twin, LOSS_TOL_CEILING)), twin
+        assert all(e <= b for e, b in zip(errs_vs_f64["kernels"], bound)), (
+            errs_vs_f64, bound)
+        del ref
+        del acts
+
+        # timing at the full-width step's lattice (the first shape) and the
+        # bench.py lattice (the second)
+        if i < 2:
+            acts = _lattice_inputs(dev, B, T, U, V, i)[0]
+            twins = types.SimpleNamespace(alphas=lattice.alphas,
+                                          betas=lattice.betas,
+                                          affine_rows=lattice.affine_rows)
+            step = lambda: loss_grad(acts)                      # noqa: E731
+            ms = _cuda_ms(step, 10)
+            with mock.patch.object(analytic, "kernels", twins):
+                plain_ms = _cuda_ms(step, 5)
+            print(f"phase lattice: [{B},{T},{U},{V}] loss forward+backward: "
+                  f"kernels {ms:.4f} ms, plain twins {plain_ms:.4f} ms")
+            coef = [torch.rand((B, T, U), device=dev) for _ in range(3)]
+            per = {
+                "alphas": (lambda: kernels.alphas(lpb, lpe),
+                           lambda: lattice.alphas(lpb, lpe)),
+                "betas": (lambda: kernels.betas(lpb, lpe, al, ll),
+                          lambda: lattice.betas(lpb, lpe, al, ll)),
+                "affine_rows": (lambda: kernels.affine_rows(*coef),
+                                lambda: lattice.affine_rows(*coef))}
+            for name, (kern, twin) in per.items():
+                k_ms, t_ms = _cuda_ms(kern, 20), _cuda_ms(twin, 5)
+                print(f"phase lattice: [{B},{T},{U}] {name}: kernel "
+                      f"{k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
+                if i == 0:
+                    out[name] = (abs_errs[name], k_ms, t_ms)
+    return out
 
 
 def _vocab(size):
@@ -443,6 +683,221 @@ def phase_oneshot_full(card):
     return launches
 
 
+TRAIN_B, TRAIN_U, TRAIN_WINDOW = 8, 40, 5
+
+
+def _train_batch(B, S, U, vocab, eos, dev, seed=0):
+    """Seeded noise audio and random targets with eos last
+    (bench.py:333-337)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    src = torch.randn((B, S), generator=g)
+    tgt = torch.randint(4, vocab, (B, U), generator=g)
+    tgt[:, -1] = eos
+    return {"source": src.to(dev), "targets": tgt.to(dev)}
+
+
+def _tiny_train_model(dropout: bool):
+    """The tiny dims, random weights from seed 0; the recipe's dropouts
+    (rand_pos 30 scaled to the tiny U) or none at all."""
+    import dataclasses
+
+    import torch
+    from wav2vec_s_tpu_torch.models.caat import W2V2CaatModel
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+
+    w2v, caat, _ = _tiny_model()
+    caat = dataclasses.replace(caat, transducer_downsample=8,
+                               tokens_per_step=200)
+    if not dropout:
+        w2v = dataclasses.replace(w2v, dropout=0.0, attention_dropout=0.0,
+                                  activation_dropout=0.0,
+                                  encoder_layerdrop=0.0)
+        caat = dataclasses.replace(caat, dropout=0.0, attention_dropout=0.0,
+                                   activation_dropout=0.0,
+                                   rand_pos_decoder=0)
+    model = random_init_(W2V2CaatModel(w2v, caat),
+                         torch.Generator().manual_seed(0))
+    return w2v, caat, model
+
+
+def _trainer(model, caat, cfg, **kw):
+    from wav2vec_s_tpu_torch.train.optim import build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    opt = build_optimizer(cfg)
+    state = TrainState.create(model, opt)
+    return state, make_train_step(make_caat_loss_fn(model, caat, **kw), opt)
+
+
+def phase_train_parity():
+    """Tiny model, dropout off: two updates on the card (kernels) equal the
+    same updates on the CPU (twins): loss, grad norm, every parameter.
+    Then a tiny overfit on the card with the recipe's dropouts on."""
+    import torch
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig
+
+    cfg = OptimConfig(lr=1e-3, clip_norm=2.0, weight_decay=0.01,
+                      lr_scheduler="inverse_sqrt", warmup_updates=2)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        w2v, caat, model = _tiny_train_model(dropout=False)
+        model.to(dev)
+        state, step = _trainer(model, caat, cfg)
+        gen = torch.Generator().manual_seed(0)
+        _reset_counts()
+        logs = []
+        for i in range(2):
+            batch = _train_batch(3, 2400, 6, caat.vocab_size, caat.eos, dev,
+                                 seed=i)
+            state, out = step(state, batch, gen)
+            logs.append({k: float(out[k]) for k in
+                         ("loss_total", "grad_norm", "skipped")})
+        runs[dev] = (logs, {k: v.detach().cpu() for k, v in
+                            model.state_dict().items()}, _counts())
+    (lc, pc, nc), (lg, pg, ng) = runs["cpu"], runs["cuda"]
+    param_err = max((pc[k] - pg[k]).abs().max().item() for k in pc)
+    for a, b in zip(lc, lg):
+        assert abs(a["loss_total"] - b["loss_total"]) <= 1e-5 * abs(
+            a["loss_total"]), (a, b)
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * a[
+            "grad_norm"], (a, b)
+        assert a["skipped"] == b["skipped"] == 0.0
+    assert param_err <= 1e-2 * cfg.lr, param_err
+    assert all(v == 0 for v in nc.values()), nc
+    assert ng["transducer_alphas"] > 0 and ng["transducer_betas"] > 0
+    assert ng["transducer_affine_rows"] > 0 and ng["hw_dropout"] == 0
+    print(f"phase train parity: tiny, dropout off, 2 updates: cuda "
+          f"(kernels) == cpu (twins): loss {[x['loss_total'] for x in lg]} "
+          f"vs {[x['loss_total'] for x in lc]} (rtol 1e-5), grad norm "
+          f"{[x['grad_norm'] for x in lg]} vs "
+          f"{[x['grad_norm'] for x in lc]} (rtol 1e-4), params max abs "
+          f"diff {param_err:.3g} (tol {1e-2 * cfg.lr:g}); cuda launches "
+          f"{ng}")
+
+    # a tiny overfit: 30 steps on one batch, the recipe's dropouts on
+    w2v, caat, model = _tiny_train_model(dropout=True)
+    model.to("cuda")
+    state, step = _trainer(model, caat, OptimConfig(
+        lr=2e-3, clip_norm=2.0, lr_scheduler="inverse_sqrt",
+        warmup_updates=5))
+    gen = torch.Generator().manual_seed(0)
+    batch = _train_batch(3, 2400, 6, caat.vocab_size, caat.eos, "cuda")
+    _reset_counts()
+    per_token = []
+    for _ in range(30):
+        state, out = step(state, batch, gen)
+        per_token.append(float(out["loss_total"]) / float(out["sample_size"]))
+    first, last = np.mean(per_token[:5]), np.mean(per_token[-5:])
+    launched = _counts()["hw_dropout"]
+    print(f"phase train parity: tiny overfit, dropout on, 30 steps: loss "
+          f"per token {first:.4f} (first 5) -> {last:.4f} (last 5), "
+          f"K4 launches {launched}")
+    assert np.isfinite(per_token).all() and last < 0.7 * first
+    assert launched > 0
+
+
+def phase_train_full(card):
+    """wav2vec-S Base + CAAT base, bf16, dense attention, the recipe's
+    dropouts on: B 8 x 10 s, U 40 (bench.py:306-350's shapes and optimizer):
+    one warm step, then two timed windows of TRAIN_WINDOW steps with every
+    launch count set to 0 before them."""
+    import math
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
+    from wav2vec_s_tpu_torch.models.caat import (
+        W2V2CaatModel, caat_base_config)
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.train import recipes
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    w2v = wav2vec_s_base_config(dtype="bfloat16", attention_impl="dense")
+    caat = caat_base_config(dtype="bfloat16")
+    with dev:
+        model = W2V2CaatModel(w2v, caat)
+    random_init_(model, torch.Generator(device=dev).manual_seed(0))
+    S = int(SECONDS * 16000)
+    batch = _train_batch(TRAIN_B, S, TRAIN_U, caat.vocab_size, caat.eos, dev)
+    state, step = _trainer(model, caat, OptimConfig(lr=1e-4,
+                                                    warmup_updates=100),
+                           main_context=16, right_context=8)
+    gen = torch.Generator().manual_seed(0)
+    print(f"phase train full: model ready in {time.perf_counter() - t:.1f} s"
+          f", {sum(p.numel() for p in model.parameters())} parameters")
+    state, logs = step(state, batch, gen)                        # warm-up
+    torch.cuda.synchronize()
+
+    contexts = []
+
+    class Recorded(DropoutContext):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            contexts.append(self)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    times, all_logs = [], []
+    with mock.patch.object(recipes, "DropoutContext", Recorded):
+        for _ in range(2):
+            t = time.perf_counter()
+            for _ in range(TRAIN_WINDOW):
+                state, logs = step(state, batch, gen)
+                all_logs.append(logs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = 2 * TRAIN_WINDOW
+    frames = (S - 400) // 320 + 1
+    G = -(-frames // caat.transducer_downsample)
+    chunk_b = max(1, min(TRAIN_B, caat.tokens_per_step
+                         // (G * (TRAIN_U + 1))))
+    n_chunks = math.ceil(TRAIN_B / chunk_b)
+    # forward + checkpoint recompute run alphas and the forward rows, the
+    # backward the betas and the reverse rows; each dropout site launches
+    # once forward and once backward
+    sites = sum(c.sites for c in contexts)
+    want = {"transducer_alphas": 2 * n_chunks * n_steps,
+            "transducer_betas": n_chunks * n_steps,
+            "transducer_affine_rows": 3 * n_chunks * n_steps,
+            "hw_dropout": 2 * sites,
+            "chunk_cache_attention": 0,
+            "blockwise_flash_attention_packed": 0}
+    per_step = {k: v / n_steps for k, v in counts.items()}
+    print(f"phase train full: launches {counts} over {n_steps} steps "
+          f"(per step {per_step}); expected {want} (G {G}, U+1 "
+          f"{TRAIN_U + 1}, {n_chunks} chunk(s) of {chunk_b}; "
+          f"{sites} dropout sites over {len(contexts)} steps)")
+    assert counts == want, (counts, want)
+    # 1 + 3 per kept encoder layer + 1 + 4 per LM layer + 4 per jointer layer
+    fixed = 2 + 4 * (caat.decoder_layers + caat.jointer_layers)
+    assert all(fixed <= c.sites <= fixed + 3 * w2v.encoder_layers
+               for c in contexts)
+    vals = [{k: float(v) for k, v in lg.items()} for lg in all_logs]
+    assert all(math.isfinite(v["loss_total"]) and math.isfinite(
+        v["grad_norm"]) and v["skipped"] == 0.0 for v in vals), vals
+    ups = n_steps / sum(times)
+    best = TRAIN_WINDOW / min(times)
+    print(f"phase train full: B {TRAIN_B} x {SECONDS:g} s, U {TRAIN_U}, "
+          f"window times {['%.4f' % x for x in times]} s -> {ups:.3f} "
+          f"updates/s over all {n_steps} steps ({TRAIN_B * SECONDS * ups:.2f}"
+          f" audio-sec/s; best window {best:.3f} updates/s, "
+          f"{TRAIN_B * SECONDS * best:.2f} audio-sec/s), peak memory "
+          f"{peak_gb:.3f} GB, loss "
+          f"{vals[0]['loss_total']:.2f} -> {vals[-1]['loss_total']:.2f}, "
+          f"grad norm {vals[-1]['grad_norm']:.3f}, skipped 0 [{card}]")
+    return {k: counts[k] for k in ("hw_dropout", "transducer_alphas",
+                                   "transducer_betas",
+                                   "transducer_affine_rows")}
+
+
 def main() -> int:
     import torch
 
@@ -469,23 +924,38 @@ def main() -> int:
 
     err, ms, plain_ms = phase_kernel()
     flash_err, flash_ms, flash_plain_ms = phase_flash()
+    drop_err, drop_ms, drop_plain_ms = phase_dropout()
+    lat = phase_lattice()
     phase_parity()
     phase_oneshot_parity()
+    phase_train_parity()
     launches = phase_full(card)
     flash_launches = phase_oneshot_full(card)
+    train_launches = phase_train_full(card)
 
+    src = "wav2vec_s_tpu_torch/csrc/"
+    pk = "wav2vec_s_tpu/ops/transducer/pallas_kernel.py:"
+    rows = [("chunk_cache_attention", "chunk_attention.cu",
+             "wav2vec_s_tpu/ops/chunk_attention.py:89", launches,
+             (err, ms, plain_ms)),
+            ("blockwise_flash_attention_packed", "flash_attention.cu",
+             "wav2vec_s_tpu/ops/pallas_attention.py:281", flash_launches,
+             (flash_err, flash_ms, flash_plain_ms)),
+            ("hw_dropout", "dropout.cu", "wav2vec_s_tpu/ops/dropout.py:64",
+             train_launches["hw_dropout"],
+             (drop_err, drop_ms, drop_plain_ms)),
+            ("transducer_alphas", "transducer.cu", pk + "206",
+             train_launches["transducer_alphas"], lat["alphas"]),
+            ("transducer_betas", "transducer.cu", pk + "224",
+             train_launches["transducer_betas"], lat["betas"]),
+            ("transducer_affine_rows", "transducer.cu", pk + "99",
+             train_launches["transducer_affine_rows"], lat["affine_rows"])]
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "chunk_cache_attention", "route": "cuda",
-        "source": "wav2vec_s_tpu_torch/csrc/chunk_attention.cu",
-        "replaces": "wav2vec_s_tpu/ops/chunk_attention.py:89",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}, {
-        "name": "blockwise_flash_attention_packed", "route": "cuda",
-        "source": "wav2vec_s_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "wav2vec_s_tpu/ops/pallas_attention.py:281",
-        "launches": flash_launches, "max_abs_err": flash_err,
-        "ms": flash_ms, "plain_ms": flash_plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src + file,
+         "replaces": replaces, "launches": n, "max_abs_err": e, "ms": k_ms,
+         "plain_ms": p_ms}
+        for name, file, replaces, n, (e, k_ms, p_ms) in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

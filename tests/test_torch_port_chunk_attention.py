@@ -125,3 +125,19 @@ def _bad(case):
 def test_rejects_what_the_kernel_does_not_take(case):
     with pytest.raises(ValueError):
         chunk_cache_attention(*_bad(case))
+
+
+@pytest.mark.parametrize("grad_input", [0, 1, 3])     # q, a cache, k_new
+def test_refuses_autograd_runs_under_no_grad(grad_input):
+    """An inference kernel under grad mode with an input that requires grad
+    raises, on every device, instead of returning a tensor that lost its
+    gradient; under torch.no_grad() it runs."""
+    args = [torch.from_numpy(a) for a in _inputs(6)]
+    args[grad_input].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        chunk_cache_attention(*args, 5, H)
+    with torch.no_grad():
+        out = chunk_cache_attention(*args, 5, H)
+    assert not out.requires_grad
+    assert torch.equal(out, chunk_cache_attention_ref(
+        *(a.detach() for a in args), 5, H))

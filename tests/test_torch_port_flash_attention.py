@@ -204,3 +204,22 @@ def test_positions_from_padding_match_jax():
     got = sinusoidal_positions_from_padding(torch.from_numpy(pad), 24)
     want = jax_positions(jnp.asarray(pad), 24)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("grad_input", [0, 1, 2])          # q, k, v
+def test_refuses_autograd_runs_under_no_grad(grad_input):
+    """Under grad mode with an input that requires grad the wrapper raises
+    on every device (the flash backward K3 is not ported, so a CUDA result
+    would silently lose its gradient); under torch.no_grad() it runs."""
+    T, mc, rc, B, H, dh = CASES[0]
+    q, k, v, pad = map(torch.from_numpy, _inputs(T, mc, rc, B, H, dh))
+    qkv = [q, k, v]
+    qkv[grad_input].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="K3"):
+        blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc)
+    with torch.no_grad():
+        out = blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc)
+    assert not out.requires_grad
+    want = blockwise_flash_attention_ref(q.detach(), k.detach(), v.detach(),
+                                         pad, H, T, mc, rc)[0]
+    assert torch.equal(out, want)

@@ -1,7 +1,8 @@
 """CUDA checks of the torch port: the hand-written kernels (chunk attention,
-block-sparse flash attention) against their plain twins, and the tiny
-cached and one-shot decodes on the card against the same decodes on the
-CPU.  They skip without a CUDA device.  On a card:
+block-sparse flash attention, dropout, the transducer lattices and affine
+rows) against their plain twins, the tiny cached and one-shot decodes and
+the tiny training step on the card against the same on the CPU.  They skip
+without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -189,3 +190,178 @@ def test_tiny_oneshot_on_cuda_equals_cpu(cuda):
     cached = CachedFusedGreedyDecoder(model, vocab, w2v, **kw)
     assert out["cuda"] == out["cpu"] == cached.decode_corpus(wavs)
     assert sum(len(d) for d in out["cuda"][1]) > 0
+
+
+# --- training kernels: K4 dropout, K5a/K5b lattices, K6 affine rows ---
+
+from wav2vec_s_tpu_torch.ops.dropout import (  # noqa: E402
+    dropout_ref, hw_dropout, keep_mask)
+from wav2vec_s_tpu_torch.ops.transducer import (  # noqa: E402
+    analytic, kernels, lattice)
+
+# the full-width step's encoder rows (8 x 748 with the rc copies) at the
+# model and FFN widths, the attention probabilities, and an odd size
+DROPOUT_SHAPES = [(8 * 748, 768), (8 * 748, 3072), (8 * 12 * 748, 748),
+                  (7, 13)]
+
+
+@pytest.mark.parametrize("p", [0.1, 0.3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DROPOUT_SHAPES)
+def test_dropout_kernel_bit_equal_to_twin(cuda, shape, dtype, p):
+    g = torch.Generator(device=cuda).manual_seed(len(shape) + shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    seed, offset = 0xDEADBEEF12345, 41
+    before = hw_dropout.launches
+    got = hw_dropout(x, p, seed, offset)
+    torch.cuda.synchronize()
+    assert hw_dropout.launches == before + 1
+    assert torch.equal(got, dropout_ref(x, p, seed, offset))
+    mask = hw_dropout(torch.ones_like(x), p, seed, offset) != 0
+    assert torch.equal(mask.reshape(-1),
+                       keep_mask(x.numel(), p, seed, offset, cuda))
+
+
+def test_dropout_kernel_backward_regenerates_the_mask(cuda):
+    x = torch.rand((333, 257), device=cuda).add_(0.5).requires_grad_(True)
+    y = hw_dropout(x, 0.3, 7, 9)
+    dy = torch.randn_like(y)
+    before = hw_dropout.launches
+    y.backward(dy)
+    assert hw_dropout.launches == before + 1
+    keep = y.detach() != 0
+    torch.testing.assert_close(x.grad, torch.where(keep, dy / 0.7, 0.0))
+    for s, o in ((8, 9), (7, 10)):
+        other = hw_dropout(torch.ones_like(x), 0.3, s, o) != 0
+        assert (other != keep).float().mean() > 0.3 * 0.7
+
+
+LATTICE = [(8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512),
+           (2, 6, 1100, 64)]          # U past one block of 1024 threads
+
+
+def _lattice_problem(dev, B, T, U, V, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    acts = torch.randn((B, T, U, V), generator=g, device=dev)
+    labels = torch.randint(1, V, (B, U - 1), generator=g, device=dev)
+    al = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev)
+    ll = torch.randint(U // 2, U, (B,), generator=g, device=dev)
+    al[0], ll[0] = T, U - 1
+    dv = lattice.delay_cost_diag_positive((B, T, U), al, ll)
+    return acts, labels, al, ll, dv
+
+
+@pytest.mark.parametrize("B,T,U,V", LATTICE)
+def test_lattice_kernels_match_twins(cuda, B, T, U, V):
+    """alphas everywhere, betas and the reverse rows on the valid cells,
+    err / (1 + |x|) <= 2e-5 (5e-5 for betas): the twins' prefix sums lose
+    ~1e-6 relative at T 512."""
+    acts, labels, al, ll, dv = _lattice_problem(cuda, B, T, U, V)
+    lpb, lpe, _ = lattice.lattice_log_probs_lse(acts, labels, 0)
+    lpb = lpb.contiguous()
+    valid = ((torch.arange(T, device=cuda)[None, :, None] < al[:, None, None])
+             & (torch.arange(U, device=cuda)[None, None, :]
+                <= ll[:, None, None]))
+
+    def rel(a, b, where=None):
+        e = (a - b).abs() / (1 + b.abs())
+        return (e if where is None else e[where]).max().item()
+
+    n = (kernels.alphas.launches, kernels.betas.launches,
+         kernels.affine_rows.launches)
+    a = kernels.alphas(lpb, lpe)
+    assert rel(a, lattice.alphas(lpb, lpe)) <= 2e-5
+    be = kernels.betas(lpb, lpe, al, ll)[0]
+    assert rel(be, lattice.betas(lpb, lpe, al, ll)[0], valid) <= 5e-5
+    rows = [lattice.expected_delay(lpb, lpe, a, dv, rows=r)
+            for r in (kernels.affine_rows, lattice.affine_rows)]
+    assert rel(*rows) <= 2e-5
+    t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
+    down, up = lattice.beta_shifts(be, ll)
+    rows = [lattice.expected_delay_bwd(lpb, lpe, be, down, up, dv, t_valid,
+                                       emit_ok, rows=r)[0]
+            for r in (kernels.affine_rows, lattice.affine_rows)]
+    assert rel(*rows, valid) <= 2e-5
+    torch.cuda.synchronize()
+    assert (kernels.alphas.launches, kernels.betas.launches,
+            kernels.affine_rows.launches) == (n[0] + 1, n[1] + 1, n[2] + 2)
+
+
+@pytest.mark.parametrize("B,T,U,V", LATTICE[:3])
+def test_loss_and_grad_kernels_match_float64_twins(cuda, B, T, U, V):
+    """The loss through the kernels (f32) against the twins in float64 on
+    the CPU: total err/(1+|x|) 1e-5, delay 5e-4, grad max|diff| / max|g|
+    1e-3, or the f32 twins' own error where that is larger (at T 512 f32
+    posteriors exp(alpha + beta - ll) carry ~2e-3 of rounding, |alpha| ~
+    2400), capped at 1e-5, 2e-3 and 5e-3, which the f32 twins must meet
+    too (they showed 1.3e-6, 9.0e-4 and 2.9e-3 at T 512)."""
+    acts, labels, al, ll, dv = _lattice_problem(cuda, B, T, U, V, seed=1)
+
+    def run(a):
+        a = a.detach().clone().requires_grad_(True)
+        total, _, delay = analytic.delay_transducer_loss(
+            a, labels.to(a.device), al.to(a.device), ll.to(a.device),
+            dv.to(a.device))
+        total.sum().backward()
+        return [x.detach().cpu().double() for x in (total, delay, a.grad)]
+
+    want = run(acts.cpu().double())
+
+    def errs(got):
+        return [((got[0] - want[0]).abs() / (1 + want[0].abs())).max(),
+                ((got[1] - want[1]).abs() / (1 + want[1].abs())).max(),
+                (got[2] - want[2]).abs().max() / want[2].abs().max()]
+
+    ceiling = (1e-5, 2e-3, 5e-3)
+    twin = errs(run(acts.cpu()))
+    assert all(t <= c for t, c in zip(twin, ceiling))
+    bound = [min(c, max(b, t)) for b, t, c in zip((1e-5, 5e-4, 1e-3), twin,
+                                                  ceiling)]
+    assert all(e <= b for e, b in zip(errs(run(acts)), bound))
+
+
+def test_training_kernels_reject(cuda):
+    lp = torch.zeros((2, 5, 4), device=cuda)
+    with pytest.raises(ValueError):
+        kernels.alphas(lp.double(), lp.double())
+    with pytest.raises(ValueError):
+        kernels.alphas(lp.transpose(1, 2).contiguous().transpose(1, 2), lp)
+    with pytest.raises(ValueError):
+        hw_dropout(lp, 1.0, 0, 0)
+
+
+def test_tiny_train_step_on_cuda_equals_cpu(cuda):
+    """Dropout off: two updates on the card (kernels) equal the CPU's
+    (twins): loss rtol 1e-5, grad norm rtol 1e-4, params atol 1e-5."""
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    w2v = dataclasses.replace(W2V_TINY, dropout=0.0, attention_dropout=0.0,
+                              encoder_layerdrop=0.0)
+    caat = dataclasses.replace(CAAT_TINY, dropout=0.0, attention_dropout=0.0,
+                               activation_dropout=0.0, rand_pos_decoder=0,
+                               transducer_downsample=8, tokens_per_step=200)
+    cfg = OptimConfig(lr=1e-3, clip_norm=2.0, lr_scheduler="inverse_sqrt",
+                      warmup_updates=2)
+    g = torch.Generator().manual_seed(0)
+    src = torch.randn((3, 2400), generator=g)
+    tgt = torch.randint(4, caat.vocab_size, (3, 6), generator=g)
+    tgt[:, -1] = caat.eos
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = random_init_(W2V2CaatModel(w2v, caat),
+                             torch.Generator().manual_seed(0)).to(dev)
+        opt = build_optimizer(cfg)
+        state = TrainState.create(model, opt)
+        step = make_train_step(make_caat_loss_fn(model, caat), opt)
+        logs = [step(state, {"source": src.to(dev), "targets": tgt.to(dev)},
+                     torch.Generator().manual_seed(0))[1] for _ in range(2)]
+        out[dev] = ([(float(x["loss_total"]), float(x["grad_norm"]))
+                     for x in logs],
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+    for (lc, gc), (lg, gg) in zip(out["cpu"][0], out["cuda"][0]):
+        assert abs(lc - lg) <= 1e-5 * abs(lc)
+        assert abs(gc - gg) <= 1e-4 * gc
+    for k, v in out["cpu"][1].items():
+        assert (v - out["cuda"][1][k]).abs().max() <= 1e-2 * cfg.lr, k

@@ -5,24 +5,31 @@ each module's counterpart is easy to find.  It imports torch and numpy and
 never JAX: the JAX package is the reference the port is tested against.
 
 Ported so far: the cached streaming greedy agent (wav2vec-S encoder + CAAT
-decoder/jointer), ``stream.batched.CachedFusedGreedyDecoder``, and its
+decoder/jointer), ``stream.batched.CachedFusedGreedyDecoder``, its
 corpus-evaluation twin ``stream.batched.OneShotCorpusDecoder`` (one
-blockwise encode per utterance, the same greedy loop replayed).  Their
+blockwise encode per utterance, the same greedy loop replayed), and the
+CAAT fine-tuning step on dense attention (``W2V2CaatModel.forward``,
+``caat_loss``, ``train.recipes.make_caat_loss_fn`` +
+``train.step.make_train_step`` + ``train.optim.build_optimizer``).  Their
 hand-written kernels are the incremental chunk attention
-(``ops/chunk_attention.py`` + ``csrc/chunk_attention.cu``) and the
+(``ops/chunk_attention.py`` + ``csrc/chunk_attention.cu``), the
 block-sparse flash-attention forward (``ops/flash_attention.py`` +
-``csrc/flash_attention.cu``), built with nvcc at first use on a CUDA
-device; on CPU tensors every kernel wrapper runs its plain PyTorch twin.
+``csrc/flash_attention.cu``), the counter-based dropout (``ops/dropout.py``
++ ``csrc/dropout.cu``) and the transducer lattices and affine rows
+(``ops/transducer/kernels.py`` + ``csrc/transducer.cu``), built with nvcc
+at first use on a CUDA device; on CPU tensors every kernel wrapper runs its
+plain PyTorch twin.
 
 Subpackages
 -----------
 - ``ops``        : the kernel wrappers and their plain twins, the block
-                   layout, the nvcc build.
+                   layout, the delay-transducer loss, the nvcc build.
 - ``models``     : parameter containers named like the fairseq/rain state
                    dicts (wav2vec-S encoder, CAAT decoder/jointer).
 - ``stream``     : incremental encoder, cached CAAT decode steps, the
                    batched greedy decoders.
 - ``data``       : the fairseq-format dictionary.
+- ``train``      : the fine-tuning step: optimizer, LR schedules, recipe.
 - ``checkpoint`` : JAX parameter tree -> port state dict.
 """
 

@@ -2,14 +2,17 @@
 
 Defaults mirror the published fine-tune recipe (``w2v2_caat``,
 rain/models/w2v2_transducer.py:317-347): 768-d decoder LM (6 layers, pre-LN,
-relu, shared in/out embedding) and a 6-layer 768-d MHA jointer.  Only the
-fields the streaming greedy decode reads are kept; the loss and training
-fields come with the training slice.
+relu, shared in/out embedding), a 6-layer 768-d MHA jointer,
+transducer_downsample 64 with sampled decision steps, and the loss and
+dropout fields of the fine-tuning recipe.  Names and defaults are the JAX
+package's (the fbank-family fields ``frontend``/``jointer_type`` are not
+ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,9 +38,36 @@ class CaatConfig:
     jointer_embed_dim: int = 768
     jointer_ffn_embed_dim: int = 3072
     jointer_attention_heads: int = 12
+    transducer_downsample: int = 64
     # --use-linear-layer: project encoder features to decoder_embed_dim
     encoder_proj: bool = False
+    # decision steps: "constant" | "random" (the published recipes train
+    # with random); sampled from {2, 4, 10, 20} * step_scale unless
+    # decision_steps gives the set
+    step_mode: str = "random"
+    decision_steps: Optional[Tuple[int, ...]] = None
+    # loss
+    delay_scale: float = 1.0
+    delay_func: str = "diag_positive"
+    transducer_temperature: float = 1.0   # gradient smoothing (1.0 = exact)
+    transducer_label_smoothing: float = 0.1
+    transducer_ce_scale: float = 1.0
+    tokens_per_step: int = 6000
+    # dropouts
+    dropout: float = 0.3
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
     dtype: str = "float32"
+
+    @property
+    def step_scale(self) -> int:
+        return 8 if self.transducer_downsample == 32 else 16
+
+    @property
+    def sampled_steps(self) -> Tuple[int, ...]:
+        if self.decision_steps:
+            return tuple(self.decision_steps)
+        return tuple(s * self.step_scale for s in (2, 4, 10, 20))
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -8,6 +8,13 @@ flash attention) and the pieces the incremental step shares with it.  As in
 the JAX package, parameters stay float32 and every matmul runs in the
 activation's dtype (``dense`` casts the weight), while layer norms always
 compute in float32 (``fp32_layer_norm``).
+
+Training: the dropout sites of ``wav2vec_s_tpu/models/modules.py`` (the
+attention probabilities after the softmax cast, ``drop(h, dropout)`` after
+the attention and the FFN, ``activation_dropout`` inside the FFN, in both
+layer-norm orders) run through an optional ``DropoutContext``
+(``ops/dropout.py``, kernel K4); without one (inference) every site is the
+identity.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 from wav2vec_s_tpu_torch.ops.flash_attention import (
     blockwise_flash_attention_packed)
 
@@ -46,6 +54,30 @@ def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="none")      # exact erf GELU
+
+
+class GradMultiply(torch.autograd.Function):
+    """Identity forward, gradient scaled by ``scale`` (fairseq
+    ``GradMultiply``, the JAX ``grad_multiply``; ``feature_grad_mult``)."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy * ctx.scale, None
+
+
+@dataclasses.dataclass(frozen=True)
+class Dropouts:
+    """A layer's dropout rates: after attention and FFN (``dropout``), on
+    the attention probabilities, inside the FFN (``activation``)."""
+
+    dropout: float = 0.0
+    attention: float = 0.0
+    activation: float = 0.0
 
 
 class MultiheadAttention(nn.Module):
@@ -86,36 +118,46 @@ class FlashSpec:
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: Optional[torch.Tensor]) -> torch.Tensor:
+                          bias: Optional[torch.Tensor],
+                          dropout_rate: float = 0.0,
+                          ctx: Optional[DropoutContext] = None
+                          ) -> torch.Tensor:
     """[B, H, T, Dh] attention as ``wav2vec_s_tpu/models/modules.py:106``:
-    f32 logits plus the additive bias, softmax, probabilities cast to the
-    compute dtype before P.V."""
+    f32 logits plus the additive bias (broadcastable to [B, H, Tq, Tk]: a
+    block mask, a causal-plus-padding mask, a group mask), softmax,
+    probabilities cast to the compute dtype, dropped, then P.V."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     logits = logits * q.shape[-1] ** -0.5
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = drop(ctx, probs, dropout_rate)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
 def self_attention(att: MultiheadAttention, x: torch.Tensor,
-                   bias: Union[torch.Tensor, FlashSpec, None]) -> torch.Tensor:
+                   bias: Union[torch.Tensor, FlashSpec, None],
+                   dropout_rate: float = 0.0,
+                   ctx: Optional[DropoutContext] = None) -> torch.Tensor:
     """Full-sequence self-attention of ``MultiheadSelfAttention``
     (``wav2vec_s_tpu/models/modules.py:133-173``), ``out_proj`` applied.
     ``bias`` is an additive mask broadcastable to [B, H, T, T], or a
-    ``FlashSpec`` for the block-sparse kernel on the packed projections."""
+    ``FlashSpec`` for the block-sparse kernel on the packed projections
+    (inference only: its wrapper raises under autograd and for dropout)."""
     B, T, D = x.shape
     H = att.num_heads
     q, k, v = (dense(p, x) for p in (att.q_proj, att.k_proj, att.v_proj))
     if isinstance(bias, FlashSpec):
+        rate = dropout_rate if ctx is not None else 0.0
         out = blockwise_flash_attention_packed(
             q, k, v, bias.key_padding_mask, H, bias.seq_len,
-            bias.main_context, bias.right_context)
+            bias.main_context, bias.right_context, dropout_rate=rate)
     else:
         def split(t):
             return t.reshape(B, T, H, D // H).transpose(1, 2)
 
-        out = dot_product_attention(split(q), split(k), split(v), bias)
+        out = dot_product_attention(split(q), split(k), split(v), bias,
+                                    dropout_rate, ctx)
         out = out.transpose(1, 2).reshape(B, T, D)
     return dense(att.out_proj, out)
 
@@ -128,26 +170,37 @@ def attn_input(layer: TransformerEncoderLayer, x: torch.Tensor,
 
 def layer_tail(layer: TransformerEncoderLayer, x: torch.Tensor,
                h: torch.Tensor, layer_norm_first: bool,
-               act: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+               act: Callable[[torch.Tensor], torch.Tensor],
+               rates: Dropouts = Dropouts(),
+               ctx: Optional[DropoutContext] = None) -> torch.Tensor:
     """Residuals, norms and FFN after the attention output ``h``
     (``out_proj`` applied) — the two orderings of
-    ``wav2vec_s_tpu/stream/incremental.py:275-285``."""
+    ``wav2vec_s_tpu/stream/incremental.py:275-285``, with the dropout sites
+    of ``wav2vec_s_tpu/models/modules.py:257-268``."""
+    def ffn(t):
+        t = drop(ctx, act(dense(layer.fc1, t)), rates.activation)
+        return drop(ctx, dense(layer.fc2, t), rates.dropout)
+
+    h = drop(ctx, h, rates.dropout)
     if layer_norm_first:
         x = x + h
-        return x + dense(layer.fc2, act(dense(
-            layer.fc1, ln(layer.final_layer_norm, x))))
+        return x + ffn(ln(layer.final_layer_norm, x))
     x = ln(layer.self_attn_layer_norm, x + h)
-    return ln(layer.final_layer_norm,
-              x + dense(layer.fc2, act(dense(layer.fc1, x))))
+    return ln(layer.final_layer_norm, x + ffn(x))
 
 
 def encoder_layer(layer: TransformerEncoderLayer, x: torch.Tensor,
                   bias: Union[torch.Tensor, FlashSpec, None],
-                  layer_norm_first: bool) -> torch.Tensor:
-    """One wav2vec-S encoder layer over the full sequence (GELU FFN)."""
+                  layer_norm_first: bool,
+                  act: Callable[[torch.Tensor], torch.Tensor] = gelu,
+                  rates: Dropouts = Dropouts(),
+                  ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+    """One transformer layer over the full sequence: the wav2vec-S encoder
+    layer (GELU FFN) or, with ``act=F.relu`` and a causal bias, the CAAT
+    LM layer."""
     h = self_attention(layer.self_attn, attn_input(layer, x, layer_norm_first),
-                       bias)
-    return layer_tail(layer, x, h, layer_norm_first, gelu)
+                       bias, rates.attention, ctx)
+    return layer_tail(layer, x, h, layer_norm_first, act, rates, ctx)
 
 
 @torch.no_grad()

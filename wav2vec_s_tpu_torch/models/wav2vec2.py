@@ -10,6 +10,11 @@ the blockwise encoder (``TransformerEncoder.forward``, the JAX
 are not part of this container; ``mask_emb`` is, because fine-tuned
 checkpoints carry it.  The incremental step lives in
 ``stream/incremental.py``.
+
+``extract_features`` follows the ambient grad mode: the fine-tuning
+forward passes a ``DropoutContext`` (dropout, layerdrop) and back-propagates
+through it, the decoders reach it through ``W2V2CaatModel.encode`` under
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -23,10 +28,12 @@ from torch import nn
 from wav2vec_s_tpu_torch.models.feature_extractor import (
     ConvFeatureExtractor, DEFAULT_CONV_LAYERS)
 from wav2vec_s_tpu_torch.models.modules import (
-    FlashSpec, TransformerEncoderLayer, dense, encoder_layer, ln)
+    Dropouts, FlashSpec, GradMultiply, TransformerEncoderLayer, dense,
+    encoder_layer, gelu, ln)
 from wav2vec_s_tpu_torch.ops.block_mask import (
     append_right_context, block_attn_bias, block_layout, extend_padding_mask,
     strip_right_context)
+from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 from wav2vec_s_tpu_torch.utils.positional import (
     sinusoidal_positions_from_padding)
 
@@ -37,12 +44,17 @@ class Wav2Vec2Config:
     conv_feature_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
     extractor_mode: str = "layer_norm"     # only "layer_norm" streams
     conv_bias: bool = False
+    feature_grad_mult: float = 0.1
     # encoder
     encoder_layers: int = 12
     encoder_embed_dim: int = 768
     encoder_ffn_embed_dim: int = 3072
     encoder_attention_heads: int = 12
     layer_norm_first: bool = False
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+    encoder_layerdrop: float = 0.05
     # streaming context (wav2vec-S)
     main_context: int = 16
     right_context: int = 8
@@ -88,12 +100,14 @@ class TransformerEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
                 main_context: Optional[int] = None,
-                right_context: Optional[int] = None) -> torch.Tensor:
+                right_context: Optional[int] = None,
+                ctx: Optional[DropoutContext] = None) -> torch.Tensor:
         """x: [B, T, D] features, padding_mask: [B, T] bool (True = pad) ->
         [B, T, D].  The JAX ``BlockwiseTransformerEncoder`` order: zero the
         pad frames, add positions, post-LN norm, pad T to the seq multiple
-        (pad frames masked), append the rc copies, the layers, strip the
-        copies, pre-LN norm, cut the pad."""
+        (pad frames masked), dropout, append the rc copies, the layers (each
+        skipped on a host layerdrop draw), strip the copies, pre-LN norm,
+        cut the pad."""
         c = self.cfg
         mc = c.main_context if main_context is None else main_context
         rc = c.right_context if right_context is None else right_context
@@ -111,6 +125,7 @@ class TransformerEncoder(nn.Module):
         if pad_len:
             x = torch.cat([x, x.new_zeros((B, pad_len, D))], dim=1)
             pm = torch.cat([pm, pm.new_ones((B, pad_len))], dim=1)
+        x = drop(ctx, x, c.dropout)
         layout = block_layout(T + pad_len, mc, rc)
         x = append_right_context(x, layout)
         # the flash kernel takes the exact length: no tile padding
@@ -119,8 +134,12 @@ class TransformerEncoder(nn.Module):
                              mc, rc)
         else:
             bias = block_attn_bias(layout, pm, dtype=torch.float32)
+        rates = Dropouts(c.dropout, c.attention_dropout, c.activation_dropout)
         for layer in self.layers:
-            x = encoder_layer(layer, x, bias, c.layer_norm_first)
+            if ctx is not None and ctx.layer_dropped(c.encoder_layerdrop):
+                continue
+            x = encoder_layer(layer, x, bias, c.layer_norm_first, gelu,
+                              rates, ctx)
         x = strip_right_context(x, layout)
         if c.layer_norm_first:
             # the one `layer_norm` runs after the stack in pre-LN models,
@@ -154,21 +173,28 @@ class Wav2Vec2Model(nn.Module):
         self.encoder = TransformerEncoder(cfg)
 
     def forward_features(self, source: torch.Tensor) -> torch.Tensor:
-        """[B, S] samples -> [B, T, C] conv features in the compute dtype."""
-        return self.feature_extractor(source, self.cfg.compute_dtype)
+        """[B, S] samples -> [B, T, C] conv features in the compute dtype,
+        their gradient scaled by ``feature_grad_mult`` (cut at 0)."""
+        feats = self.feature_extractor(source, self.cfg.compute_dtype)
+        mult = self.cfg.feature_grad_mult
+        if mult == 1.0:
+            return feats
+        return GradMultiply.apply(feats, mult) if mult > 0 else feats.detach()
 
-    @torch.no_grad()
     def extract_features(self, source: torch.Tensor,
                          padding_mask: Optional[torch.Tensor] = None,
                          main_context: Optional[int] = None,
-                         right_context: Optional[int] = None):
+                         right_context: Optional[int] = None,
+                         ctx: Optional[DropoutContext] = None):
         """Downstream feature path, no masking: ([B, T, D] encoder output,
-        [B, T] frame padding mask or None)."""
+        [B, T] frame padding mask or None).  ``ctx`` carries the training
+        randomness (dropout, layerdrop); None is the inference forward."""
         feats = ln(self.layer_norm, self.forward_features(source))
         if padding_mask is not None:
             padding_mask = downsample_padding_mask(padding_mask,
                                                    feats.shape[1])
         if self.post_extract_proj is not None:
             feats = dense(self.post_extract_proj, feats)
-        x = self.encoder(feats, padding_mask, main_context, right_context)
+        x = self.encoder(feats, padding_mask, main_context, right_context,
+                         ctx)
         return x, padding_mask

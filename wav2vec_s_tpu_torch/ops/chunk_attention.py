@@ -10,7 +10,8 @@ softmax of ``wav2vec_s_tpu/stream/incremental.py:231-256``.
 
 ``chunk_cache_attention`` checks its arguments, then runs the twin for CPU
 tensors and launches the kernel for CUDA tensors; a build or launch failure
-raises, it never falls back to the twin.  Inference only, no backward.
+raises, it never falls back to the twin.  Inference only, no backward: under
+autograd with inputs that require grad it raises on every device.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
+from wav2vec_s_tpu_torch.ops.flash_attention import no_grad_guard
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DH = 128             # kMaxDh in csrc/chunk_attention.cu
@@ -60,6 +62,9 @@ def chunk_cache_attention_ref(q, k_cache, v_cache, k_new, v_new, intra_bias,
 
 
 def _check(q, k_cache, v_cache, k_new, v_new, intra_bias, t0, n_heads):
+    no_grad_guard("chunk_cache_attention",
+                  "an inference kernel, as on the TPU; training runs the "
+                  "full-sequence encoder", q, k_cache, v_cache, k_new, v_new)
     B, R, D = q.shape
     if D % n_heads or D // n_heads > _MAX_DH:
         raise ValueError(f"D={D} must split into {n_heads} heads of at most "

@@ -12,7 +12,9 @@ masked pairs and padded keys, f32 softmax, P.V in f32, cast at the end.
 ``blockwise_flash_attention_packed`` checks its arguments, then runs the
 twin for CPU tensors and launches the kernel for CUDA tensors; a build or
 launch failure raises, it never falls back to the twin.  Inference only:
-dropout (a training feature) raises until the training kernels exist.
+dropout raises, and so does a call under autograd with inputs that require
+grad, on every device (the kernel has no backward until the flash backward
+K3 is ported; a CUDA result would silently lose its gradient).
 
 The kernel reads a host-built table of tile kinds (``tile_kinds``: skip,
 full or partial for each ``Q_TILE x K_TILE`` tile of the layout), uploaded
@@ -90,8 +92,21 @@ def _kinds_on(seq_len: int, main_context: int, right_context: int,
         tile_kinds(seq_len, main_context, right_context)).to(device)
 
 
+def no_grad_guard(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a backward that the kernel lacks:
+    grad mode on and an input that requires grad.  The same on every
+    device, so the CPU twin does not train where the card could not."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward ({why}); call it "
+                                  f"under torch.no_grad()")
+
+
 def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate):
+    no_grad_guard("blockwise_flash_attention_packed",
+                  "the flash-attention backward K3, wav2vec_s_tpu/ops/"
+                  "pallas_attention.py _flash_attn_bwd, is not ported yet: "
+                  "train with attention_impl='dense'", q, k, v)
     if dropout_rate:
         raise NotImplementedError("attention dropout needs the training "
                                   "kernels; this is the inference forward")

@@ -1,0 +1,96 @@
+"""The CAAT fine-tuning recipe bound to the generic train step (port of the
+CAAT parts of ``wav2vec_s_tpu/train/recipes.py``).
+
+- ``make_caat_loss_fn``: delay-transducer + label-smoothed CE through the
+  joint lattice, prev tokens ``[bos; targets]`` built per call;
+- ``sample_context_bucket`` / ``DEFAULT_CONTEXT_BUCKETS``: the host-side
+  (mc, rc) draw of the sampled-context schedule;
+- ``make_freeze_mask``: the reference's encoder freeze schedules, by
+  parameter name.
+"""
+
+from __future__ import annotations
+
+import random
+import re
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from wav2vec_s_tpu_torch.models.caat.transducer_model import caat_loss
+from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+
+
+def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
+                      right_context: Optional[int] = None,
+                      downsample: Optional[int] = None):
+    """loss_fn for ``make_train_step`` over ``model`` (a
+    ``W2V2CaatModel``): batch {source, targets, [padding_mask]}; each call
+    draws the step's dropout seed, layerdrop and position offsets from the
+    host ``generator``."""
+
+    def loss_fn(batch, generator: torch.Generator, step: int):
+        tgt = batch["targets"]
+        B = tgt.shape[0]
+        prev = torch.cat([tgt.new_full((B, 1), caat_cfg.bos), tgt], dim=1)
+        ctx = DropoutContext(generator)
+        joint_h, glens = model(batch["source"], prev,
+                               padding_mask=batch.get("padding_mask"),
+                               main_context=main_context,
+                               right_context=right_context,
+                               downsample=downsample, ctx=ctx)
+        tgt_lens = (tgt != caat_cfg.pad).sum(dim=1).to(torch.int32)
+        loss, logs = caat_loss(joint_h, model.decoder.lm.embed_tokens.weight,
+                               tgt, glens, tgt_lens, caat_cfg)
+        n = logs.pop("sample_size")
+        return loss, n, {k: v.float() for k, v in logs.items()}
+
+    return loss_fn
+
+
+def sample_context_bucket(rng: random.Random,
+                          buckets: Sequence[Tuple[int, int]]):
+    """Host-side (mc, rc) draw with the reference distribution
+    (wav2vec_S.py:392-395: ``mc = randint(4,16)*2``,
+    ``rc = min(randint(2,8)*2, mc // 2)``), snapped to the nearest bucket."""
+    mc = rng.randint(4, 16) * 2
+    rc = min(rng.randint(2, 8) * 2, mc // 2)
+    return min(buckets, key=lambda b: abs(b[0] - mc) + abs(b[1] - rc))
+
+
+# default bucket set covering the sampled range
+DEFAULT_CONTEXT_BUCKETS = (
+    (8, 4), (12, 6), (16, 8), (20, 8), (24, 12), (28, 12), (32, 16),
+)
+
+_W2V2 = "encoder.w2v2_model."
+_W2V2_LAYER = re.compile(re.escape(_W2V2) + r"encoder\.layers\.(\d+)\.")
+
+
+def make_freeze_mask(freeze_w2v2_enc: int = 0,
+                     freeze_finetune_updates: int = 0):
+    """Gradient mask for ``make_train_step`` implementing the reference's
+    freeze schedules over the wav2vec-S parameters (names under
+    ``encoder.w2v2_model.``):
+
+    - ``freeze_w2v2_enc`` (rain/models/w2v2_transducer.py:163-174): every
+      one of them is frozen for good except encoder layers >= N;
+    - ``freeze_finetune_updates`` (unidirect_w2v2_encoder.py:585-588): all
+      of them get no gradient before step N.
+
+    Frozen gradients are multiplied by 0 in place, as the JAX mask does (a
+    non-finite frozen gradient still skips the step)."""
+
+    def grad_mask(grads: Dict[str, torch.Tensor], step: int) -> None:
+        for name, g in grads.items():
+            if not name.startswith(_W2V2):
+                continue
+            frozen = 0 < freeze_finetune_updates and step < (
+                freeze_finetune_updates)
+            if freeze_w2v2_enc > 0:
+                m = _W2V2_LAYER.match(name)
+                frozen |= not (m and int(m.group(1)) >= freeze_w2v2_enc)
+            if frozen:
+                g.mul_(0.0)
+
+    return grad_mask
