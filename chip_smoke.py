@@ -15,6 +15,12 @@ Phases, each printed on its own line:
                streams, T 488, mc 16, rc 8 -> S 728, 12 heads of 64, float32
                and bfloat16, padded keys; and an rc 0 layout): output on
                valid rows and the row stats m/l; then both timed per call;
+  3b. flash backward — the flash backward kernels (K3) against their plain
+               twin at the training call (8 streams, T 500 -> S 748, mc 16,
+               rc 8, 12 heads of 64, padded keys; and an rc 0 layout; float32
+               and bfloat16; dropout 0 and 0.1): dQ on valid rows, dK, dV;
+               the forward with dropout against its twin; two runs
+               bit-identical; then kernel, twin and the library call timed;
   4. dropout — the counter-based dropout kernel (K4) against its twin:
                bit-equal outputs and masks at the training step's shapes
                ([8*748, 768], [8*748, 3072], the attention probabilities
@@ -35,6 +41,10 @@ Phases, each printed on its own line:
                card (kernels) equal the CPU's (twins): loss, grad norm,
                every parameter; then a 30-step overfit with the recipe's
                dropouts, whose loss must fall;
+  8b. train flash parity — the same two updates with
+               attention_impl="flash" (K2 with row stats and K3 in every
+               layer) on the card equal the CPU's; then, with the recipe's
+               dropouts on, flash equals dense on the card under one seed;
   9. full    — wav2vec-S Base + CAAT base, bfloat16, random weights from a
                seed, DECISION_STEP=2, max_emit 4, int16 wire: the cached
                agent on 128 streams of 10 s per corpus, one warm-up corpus,
@@ -49,9 +59,24 @@ Phases, each printed on its own line:
                10 s of seeded noise, U 40: one warm step, then two windows
                of 5 steps; K4/K5a/K5b/K6 launch counts must equal what the
                dropout sites and the loss chunks give, K1/K2 none; finite
-               loss and grad norm, no skipped step.
-Each of the three full paths runs with every launch count set to 0 just
-before it and read just after.  Then the card (nvidia-smi name, power
+               loss and grad norm, no skipped step;
+  12. cli full — the training entry point, wav2vec_s_tpu_torch.train.cli
+               main(), at the same width on seeded-noise wavs (16 x 10 s), a
+               tsv and a 10000-entry dict written to a temp dir: bfloat16,
+               attention_impl="flash", the recipe's dropouts, batches of 8,
+               2 warm updates then 10 timed ones, the final checkpoint; a
+               second call resumes from it and takes 2 more updates; then
+               the same 12 updates on dense attention through the same entry
+               point, beside it.  K2 launches == K3 launches == encoder
+               layers kept by layerdrop, K4/K5/K6 as in phase 11 (the
+               attention sites launch no K4), K1 none; finite losses, no
+               skipped step.
+Each of the full paths runs with every launch count set to 0 just before
+it and read just after.  Beside each kernel's time stands its bound (the
+least time the card could take: bytes over 3.35 TB/s or operations over the
+peak rate of their type, whichever is larger) and, where one PyTorch call
+computes the same function, that call's time (timed here, used nowhere in
+the package).  Then the card (nvidia-smi name, power
 limit), the kernel summary as JSON, and the result line.  Any failure
 raises: no result line, non-zero exit.  Without a CUDA device it exits 2
 at once.
@@ -76,12 +101,13 @@ def _counters():
     from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
     from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
     from wav2vec_s_tpu_torch.ops.flash_attention import (
-        blockwise_flash_attention_packed)
+        blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
     from wav2vec_s_tpu_torch.ops.transducer import kernels
 
     return {"chunk_cache_attention": chunk_cache_attention,
             "blockwise_flash_attention_packed":
                 blockwise_flash_attention_packed,
+            "blockwise_flash_attention_bwd": blockwise_flash_attention_bwd,
             "hw_dropout": hw_dropout,
             "transducer_alphas": kernels.alphas,
             "transducer_betas": kernels.betas,
@@ -104,6 +130,21 @@ def _card() -> str:
     return out.stdout.strip()
 
 
+# NVIDIA's data sheet for the H100 SXM: device memory rate, dense bf16
+# tensor-core rate, float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def _bound(n_bytes, flops, dtype):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that must move ``n_bytes`` (each input read once, each output written
+    once) and do ``flops`` operations on inputs of ``dtype``."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _cuda_ms(fn, reps):
     import torch
 
@@ -117,9 +158,17 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _row(err, ms, plain_ms, bound, library_ms):
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
 def phase_kernel():
-    """Kernel vs twin at main-path shapes -> (max_abs_err, ms, plain_ms)."""
+    """Kernel vs twin at main-path shapes -> the kernel's row (max_abs_err,
+    ms, plain_ms, bound_ms, bound_by, library_ms)."""
     import torch
+    import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.chunk_attention import (
         chunk_cache_attention, chunk_cache_attention_ref)
     from wav2vec_s_tpu_torch.stream.incremental import chunk_layout
@@ -171,15 +220,72 @@ def phase_kernel():
 
     ms = _cuda_ms(run(chunk_cache_attention), 10) / len(calls)
     plain_ms = _cuda_ms(run(chunk_cache_attention_ref), 10) / len(calls)
+
+    # the library call: scaled_dot_product_attention over [visible cache
+    # rows; chunk rows] under the boolean mask of the same layout (q is
+    # pre-scaled, so scale 1); inputs built outside the timed region
+    R, dh = bias.shape[0], D // H
+    intra = bias == 0
+
+    def heads(x):                       # [B, T, D] -> [B, H, T, dh]
+        return x.reshape(B, -1, H, dh).transpose(1, 2)
+
+    sdpa_in = []
+    for t0, _ in calls:
+        k_all = torch.cat([kc[:t0].transpose(0, 1), kn], dim=1)
+        v_all = torch.cat([vc[:t0].transpose(0, 1), vn], dim=1)
+        mask = torch.cat([torch.ones((R, t0), dtype=torch.bool, device=dev),
+                          intra], dim=1)
+        sdpa_in.append((heads(q), heads(k_all), heads(v_all), mask))
+
+    def library():
+        for qh, kh, vh, mask in sdpa_in:
+            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                           scale=1.0)
+
+    library_ms = _cuda_ms(library, 10) / len(calls)
+    del sdpa_in
+    # bound, mean over the calls: q, the chunk's k and v, the visible cache
+    # rows of k and v and the bias read once, out written once; two
+    # products over the visible pairs
+    n_intra = int(intra.sum())
+    n_bytes = sum(2 * (4 * B * R * D + 2 * t0 * B * D) + 4 * R * R
+                  for t0, _ in calls) / len(calls)
+    flops = sum(4 * B * D * (R * t0 + n_intra) for t0, _ in calls) / len(calls)
+    bound = _bound(n_bytes, flops, "bfloat16")
     print(f"phase kernel: ds2 bf16 mean per call over t0=0..448: "
-          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, library "
+          f"(scaled_dot_product_attention, boolean mask) {library_ms:.4f} "
+          f"ms, bound {bound[0]:.5f} ms by {bound[1]}")
+    return _row(worst, ms, plain_ms, bound, library_ms)
+
+
+def _sdpa_inputs(q, k, v, pad, H, T, mc, rc):
+    """The library call's view of a packed flash-attention call: per-head
+    [B, H, S, dh] views and the [B, 1, S, S] boolean mask of the same
+    layout and key padding."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+
+    B, S, D = q.shape
+    allowed = torch.as_tensor(block_layout(T, mc, rc).allowed,
+                              device=q.device)
+    mask = allowed[None, None] & ~pad[:, None, None, :]
+    return [t.reshape(B, S, H, D // H).transpose(1, 2)
+            for t in (q, k, v)] + [mask]
+
+
+def _allowed_pairs(T, mc, rc):
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+
+    return int(block_layout(T, mc, rc).allowed.sum())
 
 
 def phase_flash():
-    """K2 vs twin at the one-shot encoder's full-width call ->
-    (max_abs_err, ms, plain_ms)."""
+    """K2 vs twin at the one-shot encoder's full-width call -> the
+    kernel's row."""
     import torch
+    import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.block_mask import block_layout
     from wav2vec_s_tpu_torch.ops.flash_attention import (
         blockwise_flash_attention_packed, blockwise_flash_attention_ref)
@@ -227,9 +333,136 @@ def phase_flash():
     args = (q, k, v, pad, H, T, mc, 8)
     ms = _cuda_ms(lambda: blockwise_flash_attention_packed(*args), 20)
     plain_ms = _cuda_ms(lambda: blockwise_flash_attention_ref(*args), 5)
+    qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, 8)
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask), 20)
+    # bound: q, k, v and the padding mask read once, out written once; two
+    # products over the allowed pairs
+    bound = _bound(2 * 4 * B * S * D + B * S,
+                   4 * B * D * _allowed_pairs(T, mc, 8), "bfloat16")
     print(f"phase flash: B={B} S={S} H={H} dh={D // H} bf16 per call: "
-          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, library "
+          f"(scaled_dot_product_attention, boolean mask) {library_ms:.4f} "
+          f"ms, bound {bound[0]:.5f} ms by {bound[1]}")
+    return _row(worst, ms, plain_ms, bound, library_ms)
+
+
+TRAIN_T = 500        # 499 frames of 10 s, padded to the seq multiple of 2
+
+
+def phase_flash_bwd():
+    """K3 (and K2 with dropout) vs their twins at the training call -> the
+    kernel's row."""
+    import torch
+    import torch.nn.functional as F
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        blockwise_flash_attention_bwd, blockwise_flash_attention_bwd_ref,
+        blockwise_flash_attention_packed, blockwise_flash_attention_ref)
+
+    B, T, mc, H, D = TRAIN_B, TRAIN_T, 16, 12, 768
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    seed, offset = 0x1234_5678_9ABC_DEF, 17
+    # forward: max abs error on valid rows; backward: max abs error over
+    # the largest gradient entry (dQ on valid rows; dK and dV everywhere)
+    tol_fwd = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    tol_bwd = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    worst = 0.0
+    for rc in (8, 0):
+        S = block_layout(T, mc, rc).total_len
+        pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        pad[1, T - 10:T] = True
+        pad[1, S - 3:] = True
+        valid = ~pad
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
+                           .to(dtype) for _ in range(4))
+            do = do * valid[:, :, None].to(dtype)   # padded rows: stripped
+            for rate in (0.0, 0.1):
+                lay = (pad, H, T, mc, rc)
+                out, m, l = blockwise_flash_attention_packed(
+                    q, k, v, *lay, rate, True, seed, offset)
+                torch.cuda.synchronize()
+                want = blockwise_flash_attention_ref(q, k, v, *lay, rate,
+                                                     seed, offset)[0]
+                err_f = (out[valid].float() - want[valid].float()).abs().max()
+                err_f = err_f.item()
+                del want
+                got = blockwise_flash_attention_bwd(
+                    q, k, v, out, do, m, l, *lay, rate, seed, offset)
+                again = blockwise_flash_attention_bwd(
+                    q, k, v, out, do, m, l, *lay, rate, seed, offset)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                del again
+                ref = blockwise_flash_attention_bwd_ref(
+                    q, k, v, out, do, m, l, *lay, rate, seed, offset)
+                errs = []
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    if i == 0:
+                        a, b = a[valid], b[valid]
+                    assert torch.isfinite(a).all()
+                    worst = max(worst, (a.float() - b.float()).abs().max()
+                                .item())
+                    errs.append(((a.float() - b.float()).abs().max()
+                                 / b.float().abs().max()).item())
+                print(f"phase flash backward: S={S} rc={rc} "
+                      f"{str(dtype)[6:]} rate={rate}: forward max_abs_err="
+                      f"{err_f:.3g} (tol {tol_fwd[dtype]:g}); dQ, dK, dV max "
+                      f"|diff| / max |grad| = "
+                      f"{', '.join(f'{e:.3g}' for e in errs)} (tol "
+                      f"{tol_bwd[dtype]:g}); two runs bit-identical: {same}")
+                assert err_f <= tol_fwd[dtype], (rc, dtype, rate, err_f)
+                assert max(errs) <= tol_bwd[dtype], (rc, dtype, rate, errs)
+                assert same, (rc, dtype, rate)
+                del got, ref, out, m, l
+
+    # timing: the training call (rc 8, bfloat16, dropout 0.1), mean per call
+    S = block_layout(T, mc, 8).total_len
+    q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    lay, rate = (pad, H, T, mc, 8), 0.1
+    times = {}
+    for r in (0.0, rate):
+        out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, r, True,
+                                                     seed, offset)
+        times[r] = (
+            _cuda_ms(lambda: blockwise_flash_attention_packed(
+                q, k, v, *lay, r, True, seed, offset), 20),
+            _cuda_ms(lambda: blockwise_flash_attention_bwd(
+                q, k, v, out, do, m, l, *lay, r, seed, offset), 20))
+    plain_ms = _cuda_ms(lambda: blockwise_flash_attention_bwd_ref(
+        q, k, v, out, do, m, l, *lay, rate, seed, offset), 3)
+    # the library call: scaled_dot_product_attention forward + backward
+    # (its own dropout of the same rate), and its forward alone
+    qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, 8)
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    doh = do.reshape(B, S, H, D // H).transpose(1, 2)
+
+    def library():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           dropout_p=rate)
+        torch.autograd.grad(o, leaves, doh)
+
+    library_ms = _cuda_ms(library, 20)
+    library_fwd_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, dropout_p=rate), 20)
+    # bound: q, k, v, out, dout, m, l and the padding mask read once, dQ,
+    # dK, dV written once; five products over the allowed pairs
+    bound = _bound(2 * 8 * B * S * D + 2 * 4 * B * H * S + B * S,
+                   10 * B * D * _allowed_pairs(T, mc, 8), "bfloat16")
+    print(f"phase flash backward: B={B} S={S} H={H} dh={D // H} bf16 per "
+          f"call: K3 {times[rate][1]:.4f} ms at dropout {rate} "
+          f"({times[0.0][1]:.4f} ms without), plain twin {plain_ms:.4f} ms, "
+          f"library (scaled_dot_product_attention forward + backward, "
+          f"boolean mask, dropout {rate}) {library_ms:.4f} ms (its forward "
+          f"alone {library_fwd_ms:.4f} ms), bound {bound[0]:.5f} ms by "
+          f"{bound[1]}; K2 at this call with row stats: "
+          f"{times[rate][0]:.4f} ms at dropout {rate}, {times[0.0][0]:.4f} "
+          f"ms without")
+    return _row(worst, times[rate][1], plain_ms, bound, library_ms)
 
 
 def _keep_share(keep, p):
@@ -241,8 +474,9 @@ def _keep_share(keep, p):
 
 def phase_dropout():
     """K4 vs its twin: bit-equal outputs and masks at the training step's
-    dropout shapes -> (max_abs_err, ms, plain_ms)."""
+    dropout shapes -> the kernel's row."""
     import torch
+    import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.dropout import (
         dropout_ref, hw_dropout, keep_mask)
 
@@ -286,10 +520,15 @@ def phase_dropout():
     x = torch.randn(shapes[2], generator=g, device=dev).to(torch.bfloat16)
     ms = _cuda_ms(lambda: hw_dropout(x, 0.1, seed, offset), 20)
     plain_ms = _cuda_ms(lambda: dropout_ref(x, 0.1, seed, offset), 3)
+    library_ms = _cuda_ms(lambda: F.dropout(x, 0.1), 20)
     gbs = 2 * x.numel() * x.element_size() / ms / 1e6
+    # bound: the tensor read once and written once; one multiply per element
+    bound = _bound(2 * x.numel() * x.element_size(), x.numel(), "float32")
     print(f"phase dropout: {tuple(x.shape)} bf16 per call: kernel "
-          f"{ms:.4f} ms ({gbs:.0f} GB/s), plain twin {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+          f"{ms:.4f} ms ({gbs:.0f} GB/s), plain twin {plain_ms:.4f} ms, "
+          f"library (F.dropout) {library_ms:.4f} ms, bound {bound[0]:.5f} "
+          f"ms by {bound[1]}")
+    return _row(worst, ms, plain_ms, bound, library_ms)
 
 
 def _lattice_inputs(dev, B, T, U, V, seed):
@@ -324,8 +563,8 @@ LOSS_TOL, LOSS_TOL_CEILING = (1e-5, 5e-4, 1e-3), (1e-5, 2e-3, 5e-3)
 def phase_lattice():
     """K5a, K5b, K6 (forward and reverse) vs their twins, then the loss and
     its gradient through the kernels (CUDA) against float64 twins (CPU) ->
-    {name: (max_abs_err, ms, plain_ms)} at the full-width step's lattice
-    (the first shape)."""
+    {name: the kernel's row} at the full-width step's lattice (the first
+    shape)."""
     import types
     from unittest import mock
 
@@ -441,7 +680,15 @@ def phase_lattice():
                 print(f"phase lattice: [{B},{T},{U}] {name}: kernel "
                       f"{k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
                 if i == 0:
-                    out[name] = (abs_errs[name], k_ms, t_ms)
+                    # bound: every [B, T, U] f32 input read once, the
+                    # output written once; ~10 operations per cell of the
+                    # log-space recursions, 4 of the affine one.  No
+                    # PyTorch call computes these recursions.
+                    cells = B * T * U
+                    n_arrays, ops = (4, 4) if name == "affine_rows" else (
+                        3, 10)
+                    out[name] = _row(abs_errs[name], k_ms, t_ms, _bound(
+                        4 * n_arrays * cells, ops * cells, "float32"), None)
     return out
 
 
@@ -612,7 +859,7 @@ def phase_full(card):
           f"{['%.4f' % s for s in times]} s -> {rate:.2f} audio-sec/s "
           f"(best corpus), peak memory {peak_gb:.3f} GB, words in the last "
           f"corpus {sum(len(d) for d in delays)} [{card}]")
-    return launches
+    return counts
 
 
 def phase_oneshot_full(card):
@@ -680,7 +927,7 @@ def phase_oneshot_full(card):
           f"corpus times {['%.4f' % s for s in times]} s -> {rate:.2f} "
           f"audio-sec/s (best corpus), peak memory {peak_gb:.3f} GB, words "
           f"in the last corpus {sum(len(d) for d in delays)} [{card}]")
-    return launches
+    return counts
 
 
 TRAIN_B, TRAIN_U, TRAIN_WINDOW = 8, 40, 5
@@ -698,7 +945,7 @@ def _train_batch(B, S, U, vocab, eos, dev, seed=0):
     return {"source": src.to(dev), "targets": tgt.to(dev)}
 
 
-def _tiny_train_model(dropout: bool):
+def _tiny_train_model(dropout: bool, attention_impl="dense"):
     """The tiny dims, random weights from seed 0; the recipe's dropouts
     (rand_pos 30 scaled to the tiny U) or none at all."""
     import dataclasses
@@ -707,7 +954,7 @@ def _tiny_train_model(dropout: bool):
     from wav2vec_s_tpu_torch.models.caat import W2V2CaatModel
     from wav2vec_s_tpu_torch.models.modules import random_init_
 
-    w2v, caat, _ = _tiny_model()
+    w2v, caat, _ = _tiny_model(attention_impl)
     caat = dataclasses.replace(caat, transducer_downsample=8,
                                tokens_per_step=200)
     if not dropout:
@@ -732,10 +979,10 @@ def _trainer(model, caat, cfg, **kw):
     return state, make_train_step(make_caat_loss_fn(model, caat, **kw), opt)
 
 
-def phase_train_parity():
-    """Tiny model, dropout off: two updates on the card (kernels) equal the
-    same updates on the CPU (twins): loss, grad norm, every parameter.
-    Then a tiny overfit on the card with the recipe's dropouts on."""
+def _two_updates_cpu_vs_cuda(attention_impl):
+    """Tiny model, dropout off: two updates on the card (kernels) against
+    the same updates on the CPU (twins): loss, grad norm, every parameter.
+    Returns (cpu launches, cuda launches, the line to print)."""
     import torch
     from wav2vec_s_tpu_torch.train.optim import OptimConfig
 
@@ -743,7 +990,7 @@ def phase_train_parity():
                       lr_scheduler="inverse_sqrt", warmup_updates=2)
     runs = {}
     for dev in ("cpu", "cuda"):
-        w2v, caat, model = _tiny_train_model(dropout=False)
+        w2v, caat, model = _tiny_train_model(False, attention_impl)
         model.to(dev)
         state, step = _trainer(model, caat, cfg)
         gen = torch.Generator().manual_seed(0)
@@ -769,13 +1016,69 @@ def phase_train_parity():
     assert all(v == 0 for v in nc.values()), nc
     assert ng["transducer_alphas"] > 0 and ng["transducer_betas"] > 0
     assert ng["transducer_affine_rows"] > 0 and ng["hw_dropout"] == 0
-    print(f"phase train parity: tiny, dropout off, 2 updates: cuda "
-          f"(kernels) == cpu (twins): loss {[x['loss_total'] for x in lg]} "
-          f"vs {[x['loss_total'] for x in lc]} (rtol 1e-5), grad norm "
-          f"{[x['grad_norm'] for x in lg]} vs "
-          f"{[x['grad_norm'] for x in lc]} (rtol 1e-4), params max abs "
-          f"diff {param_err:.3g} (tol {1e-2 * cfg.lr:g}); cuda launches "
-          f"{ng}")
+    line = (f"tiny, {attention_impl} attention, dropout off, 2 updates: cuda "
+            f"(kernels) == cpu (twins): loss "
+            f"{[x['loss_total'] for x in lg]} vs "
+            f"{[x['loss_total'] for x in lc]} (rtol 1e-5), grad norm "
+            f"{[x['grad_norm'] for x in lg]} vs "
+            f"{[x['grad_norm'] for x in lc]} (rtol 1e-4), params max abs "
+            f"diff {param_err:.3g} (tol {1e-2 * cfg.lr:g}); cuda launches "
+            f"{ng}")
+    return nc, ng, line
+
+
+def phase_train_flash_parity():
+    """Tiny flash training on the card equals the CPU over 2 updates; then,
+    with the recipe's dropouts on, one forward and backward on flash
+    attention equals the one on dense attention on the card under one
+    seed (the kernels draw the mask the dense branch drops with)."""
+    import torch
+    from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
+
+    _, ng, line = _two_updates_cpu_vs_cuda("flash")
+    layers, n_steps = 2, 2
+    assert ng["blockwise_flash_attention_packed"] == layers * n_steps, ng
+    assert ng["blockwise_flash_attention_bwd"] == layers * n_steps, ng
+    print(f"phase train flash parity: {line}")
+
+    runs = {}
+    for impl in ("flash", "dense"):
+        w2v, caat, model = _tiny_train_model(True, impl)
+        model.to("cuda")
+        batch = _train_batch(3, 2400, 6, caat.vocab_size, caat.eos, "cuda")
+        _reset_counts()
+        loss, _, _ = make_caat_loss_fn(model, caat)(
+            batch, torch.Generator().manual_seed(11), 0)
+        loss.backward()
+        runs[impl] = (loss.item(), {k: p.grad for k, p in
+                                    model.named_parameters()}, _counts())
+    (lf, gf, nf), (ld, gd, nd) = runs["flash"], runs["dense"]
+    top = max(g.abs().max().item() for g in gd.values() if g is not None)
+    err = max((gf[k] - g).abs().max().item() for k, g in gd.items()
+              if g is not None)
+    assert all((gf[k] is None) == (g is None) for k, g in gd.items())
+    kept = nf["blockwise_flash_attention_packed"]
+    print(f"phase train flash parity: tiny, the recipe's dropouts on, one "
+          f"seed: flash loss {lf:.6f} vs dense {ld:.6f} (rtol 1e-5), "
+          f"gradients max |diff| / max |grad| {err / top:.3g} (tol 1e-4); "
+          f"flash launches {nf}, dense launches {nd}")
+    assert abs(lf - ld) <= 1e-5 * abs(ld), (lf, ld)
+    assert err <= 1e-4 * top, (err, top)
+    assert kept == nf["blockwise_flash_attention_bwd"] > 0
+    assert nd["blockwise_flash_attention_packed"] == 0
+    # the attention sites launch K4 forward and backward only when dense
+    assert nd["hw_dropout"] - nf["hw_dropout"] == 2 * kept, (nf, nd)
+
+
+def phase_train_parity():
+    """Tiny model, dropout off: two updates on the card (kernels) equal the
+    same updates on the CPU (twins): loss, grad norm, every parameter.
+    Then a tiny overfit on the card with the recipe's dropouts on."""
+    import torch
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig
+
+    _, _, line = _two_updates_cpu_vs_cuda("dense")
+    print(f"phase train parity: {line}")
 
     # a tiny overfit: 30 steps on one batch, the recipe's dropouts on
     w2v, caat, model = _tiny_train_model(dropout=True)
@@ -869,7 +1172,8 @@ def phase_train_full(card):
             "transducer_affine_rows": 3 * n_chunks * n_steps,
             "hw_dropout": 2 * sites,
             "chunk_cache_attention": 0,
-            "blockwise_flash_attention_packed": 0}
+            "blockwise_flash_attention_packed": 0,
+            "blockwise_flash_attention_bwd": 0}
     per_step = {k: v / n_steps for k, v in counts.items()}
     print(f"phase train full: launches {counts} over {n_steps} steps "
           f"(per step {per_step}); expected {want} (G {G}, U+1 "
@@ -893,9 +1197,172 @@ def phase_train_full(card):
           f"{peak_gb:.3f} GB, loss "
           f"{vals[0]['loss_total']:.2f} -> {vals[-1]['loss_total']:.2f}, "
           f"grad norm {vals[-1]['grad_norm']:.3f}, skipped 0 [{card}]")
-    return {k: counts[k] for k in ("hw_dropout", "transducer_alphas",
-                                   "transducer_betas",
-                                   "transducer_affine_rows")}
+    return counts, ups, peak_gb
+
+
+CLI_WARM, CLI_TIMED, CLI_RESUMED, CLI_CLIPS, CLI_WORDS = 2, 10, 2, 16, 39
+
+
+def _cli_corpus(root, n_clips, n_samples, vocab_size, n_words):
+    """Seeded-noise wavs, an S2T tsv and a fairseq dict under ``root`` ->
+    (tsv path, dict path)."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(vocab_size - Dictionary().nspecial)]
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    lines = ["id\taudio\tn_frames\ttgt_text"]
+    for i in range(n_clips):
+        write_wav(root / f"utt{i}.wav",
+                  rng.standard_normal(n_samples).astype(np.float32) * 0.1)
+        text = " ".join(words[j] for j in rng.integers(0, len(words),
+                                                       n_words))
+        lines.append(f"utt{i}\t{root}/utt{i}.wav\t{n_samples}\t{text}")
+    (root / "train.tsv").write_text("\n".join(lines) + "\n")
+    return root / "train.tsv", root / "dict.txt"
+
+
+def _run_cli(argv, n_layers, n_dec_layers):
+    """One call of the trainer's entry point with every launch count set
+    to 0 before it -> (counts, progress records with the host time of each,
+    dropout contexts of its steps, peak GB)."""
+    import io
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.train import cli, recipes
+    from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
+
+    contexts, records = [], []
+
+    class Recorded(DropoutContext):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            contexts.append(self)
+
+    class Timed(JsonProgress):
+        def __init__(self, **kw):
+            super().__init__(stream=io.StringIO(), **kw)
+
+        def log(self, stats, step, tag="train"):
+            torch.cuda.synchronize()
+            records.append(dict(stats, step=step, tag=tag,
+                                at=time.perf_counter()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+            mock.patch.object(cli, "JsonProgress", Timed):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # 1 + 3 per kept encoder layer + 1 + 4 per LM layer + 4 per jointer
+    # layer dropout sites in a step
+    fixed = 2 + 4 * n_dec_layers
+    kept = [(c.sites - fixed) // 3 for c in contexts]
+    assert all(0 <= k <= n_layers and fixed + 3 * k == c.sites
+               for k, c in zip(kept, contexts)), [c.sites for c in contexts]
+    return counts, records, contexts, kept, peak_gb
+
+
+def phase_cli_full(card):
+    """The training entry point at Base + CAAT base width, bf16, the
+    recipe's dropouts, batches of 8 x 10 s: flash attention (12 updates, a
+    checkpoint, a resumed call of 2 more), then dense attention through the
+    same entry point."""
+    import math
+    import pathlib
+    import tempfile
+
+    import torch
+
+    S = int(SECONDS * 16000)
+    n_layers, n_dec = 12, 6 + 6
+    total = CLI_WARM + CLI_TIMED
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        tsv, vocab = _cli_corpus(root, CLI_CLIPS, S, 10000, CLI_WORDS)
+        print(f"phase cli full: {CLI_CLIPS} wavs of {SECONDS:g} s, tsv and "
+              f"dict written in {time.perf_counter() - t:.1f} s")
+
+        def argv(impl, max_update):
+            return ["--device", "cuda", "run.task=caat",
+                    f"run.save_dir={root}/ckpt_{impl}",
+                    f"run.max_update={max_update}", "run.log_interval=1",
+                    "run.save_interval_updates=0", "run.keep_last=1",
+                    f"data.train_manifest={tsv}", f"data.vocab={vocab}",
+                    f"data.max_tokens={TRAIN_B * S}",
+                    f"data.max_sample_size={S}", "optim.lr=1e-4",
+                    "optim.warmup_updates=100", "model.dtype=bfloat16",
+                    f"model.attention_impl={impl}", "caat.dtype=bfloat16",
+                    "caat.step_mode=constant"]
+
+        for impl in ("flash", "dense"):
+            t = time.perf_counter()
+            counts, recs, ctxs, kept, peak_gb = _run_cli(argv(impl, total),
+                                                         n_layers, n_dec)
+            wall = time.perf_counter() - t
+            assert [r["step"] for r in recs] == list(range(1, total + 1))
+            assert all(math.isfinite(r["loss_total"]) and math.isfinite(
+                r["grad_norm"]) and r["skipped"] == 0.0
+                and "oom_skipped" not in r for r in recs), recs
+            assert all(r["sample_size"] == TRAIN_B * (CLI_WORDS + 1)
+                       for r in recs)
+            # G 8 groups x (U 64 + 1): one chunk of the loss per step
+            want = {"transducer_alphas": 2 * total,
+                    "transducer_betas": total,
+                    "transducer_affine_rows": 3 * total,
+                    "chunk_cache_attention": 0}
+            flash_calls = sum(kept) if impl == "flash" else 0
+            want.update(
+                blockwise_flash_attention_packed=flash_calls,
+                blockwise_flash_attention_bwd=flash_calls,
+                hw_dropout=2 * (sum(c.sites for c in ctxs) - flash_calls))
+            print(f"phase cli full: {impl}: launches {counts} over {total} "
+                  f"updates; expected {want} (encoder layers kept by "
+                  f"layerdrop per update {kept})")
+            assert counts == want, (counts, want)
+            span = recs[-1]["at"] - recs[CLI_WARM - 1]["at"]
+            ups = CLI_TIMED / span
+            out[impl] = (counts, ups, peak_gb)
+            print(f"phase cli full: {impl}: B {TRAIN_B} x {SECONDS:g} s, U "
+                  f"{CLI_WORDS + 1} in a bucket of 64, {CLI_WARM} warm + "
+                  f"{CLI_TIMED} timed updates in {span:.4f} s -> {ups:.3f} "
+                  f"updates/s ({TRAIN_B * SECONDS * ups:.2f} audio-sec/s), "
+                  f"peak memory {peak_gb:.3f} GB, loss "
+                  f"{recs[0]['loss_total']:.2f} -> "
+                  f"{recs[-1]['loss_total']:.2f}, grad norm "
+                  f"{recs[-1]['grad_norm']:.3f}, skipped 0; the whole call "
+                  f"(model, {total} updates, checkpoint) {wall:.1f} s "
+                  f"[{card}]")
+            if impl == "flash":
+                # resume: a second call continues from the saved step
+                counts2, recs2, _, kept2, _ = _run_cli(
+                    argv(impl, total + CLI_RESUMED), n_layers, n_dec)
+                assert [r["step"] for r in recs2] == [total + 1, total + 2]
+                assert all(math.isfinite(r["loss_total"])
+                           and r["skipped"] == 0.0 for r in recs2), recs2
+                assert counts2["blockwise_flash_attention_packed"] == sum(
+                    kept2) == counts2["blockwise_flash_attention_bwd"]
+                saved = sorted(p.name for p in (root / "ckpt_flash").glob(
+                    "step_*"))
+                assert saved == [f"step_{total + CLI_RESUMED:09d}"], saved
+                print(f"phase cli full: flash: a second call resumed at "
+                      f"update {total} and took {CLI_RESUMED} more (loss "
+                      f"{recs2[-1]['loss_total']:.2f}; K2 == K3 == "
+                      f"{sum(kept2)} launches); checkpoints kept: {saved}")
+            torch.cuda.empty_cache()
+    (fc, fu, fg), (dc, du, dg) = out["flash"], out["dense"]
+    print(f"phase cli full: flash {fu:.3f} updates/s, {fg:.3f} GB peak; "
+          f"dense {du:.3f} updates/s, {dg:.3f} GB peak, through the same "
+          f"entry point in this call [{card}]")
+    return fc
 
 
 def main() -> int:
@@ -922,40 +1389,46 @@ def main() -> int:
           f"(nvcc {native.build_seconds and round(native.build_seconds, 1)} s)"
           f"; ptxas: {' | '.join(ptxas)}")
 
-    err, ms, plain_ms = phase_kernel()
-    flash_err, flash_ms, flash_plain_ms = phase_flash()
-    drop_err, drop_ms, drop_plain_ms = phase_dropout()
+    k1 = phase_kernel()
+    k2 = phase_flash()
+    k3 = phase_flash_bwd()
+    k4 = phase_dropout()
     lat = phase_lattice()
     phase_parity()
     phase_oneshot_parity()
     phase_train_parity()
-    launches = phase_full(card)
-    flash_launches = phase_oneshot_full(card)
-    train_launches = phase_train_full(card)
+    phase_train_flash_parity()
+    paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
+    paths["train_dense"], dense_ups, dense_gb = phase_train_full(card)
+    paths["cli_flash"] = phase_cli_full(card)
+    print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
+          f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 
     src = "wav2vec_s_tpu_torch/csrc/"
+    pa = "wav2vec_s_tpu/ops/pallas_attention.py:"
     pk = "wav2vec_s_tpu/ops/transducer/pallas_kernel.py:"
+    # (counter, source, TPU kernel, the path whose run gives `launches`)
     rows = [("chunk_cache_attention", "chunk_attention.cu",
-             "wav2vec_s_tpu/ops/chunk_attention.py:89", launches,
-             (err, ms, plain_ms)),
+             "wav2vec_s_tpu/ops/chunk_attention.py:89", "agent", k1),
             ("blockwise_flash_attention_packed", "flash_attention.cu",
-             "wav2vec_s_tpu/ops/pallas_attention.py:281", flash_launches,
-             (flash_err, flash_ms, flash_plain_ms)),
+             pa + "281", "one_shot", k2),
+            ("blockwise_flash_attention_bwd", "flash_attention_bwd.cu",
+             pa + "324", "cli_flash", k3),
             ("hw_dropout", "dropout.cu", "wav2vec_s_tpu/ops/dropout.py:64",
-             train_launches["hw_dropout"],
-             (drop_err, drop_ms, drop_plain_ms)),
-            ("transducer_alphas", "transducer.cu", pk + "206",
-             train_launches["transducer_alphas"], lat["alphas"]),
-            ("transducer_betas", "transducer.cu", pk + "224",
-             train_launches["transducer_betas"], lat["betas"]),
+             "train_dense", k4),
+            ("transducer_alphas", "transducer.cu", pk + "206", "train_dense",
+             lat["alphas"]),
+            ("transducer_betas", "transducer.cu", pk + "224", "train_dense",
+             lat["betas"]),
             ("transducer_affine_rows", "transducer.cu", pk + "99",
-             train_launches["transducer_affine_rows"], lat["affine_rows"])]
+             "train_dense", lat["affine_rows"])]
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src + file,
-         "replaces": replaces, "launches": n, "max_abs_err": e, "ms": k_ms,
-         "plain_ms": p_ms}
-        for name, file, replaces, n, (e, k_ms, p_ms) in rows]}))
+        dict({"name": name, "route": "cuda", "source": src + file,
+              "replaces": replaces, "launches": paths[path][name],
+              "launches_by_path": {p: c[name] for p, c in paths.items()}},
+             **row)
+        for name, file, replaces, path, row in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

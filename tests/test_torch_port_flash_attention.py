@@ -1,5 +1,5 @@
-"""Block-sparse flash attention (K2) and the block layout: the port against
-the JAX package.
+"""Block-sparse flash attention (K2 forward, K3 backward, in-kernel dropout)
+and the block layout: the port against the JAX package.
 
 - ``blockwise_flash_attention_ref`` (the twin the CUDA kernel is held
   against on the card) equals the JAX ``blockwise_flash_attention_packed``
@@ -11,10 +11,23 @@ the JAX package.
   rule the kernel evaluates in partial tiles equals ``allowed``;
 - the wrapper runs the twin on CPU tensors and rejects what the kernel
   does not take;
+- the backward twin ``blockwise_flash_attention_bwd_ref`` (what the CUDA
+  backward kernels are held against), reached through the wrapper's
+  ``torch.autograd.Function``, equals torch autograd through the dense
+  masked softmax and ``jax.grad`` through the JAX kernel in interpret mode,
+  atol/rtol 3e-5 in f32 as tests/test_pallas_attention.py, with cotangents
+  zero on padded rows;
+- attention dropout: the flash twins equal the dense attention that drops
+  the materialised probabilities through ``drop`` at the same site under
+  one seed (forward and gradients, f32 rounding apart), the forward's mask
+  is the backward's, the keep share is within 4 sigma, masks differ across
+  batch slots, heads, seeds and offsets, the scaling preserves the mean
+  and a rate near 1 empties rows (tests/test_flash_dropout.py);
 - block layout, rc copies, padding extension, dense bias and the positions
   of the full-sequence encoder equal their JAX originals.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,11 +38,14 @@ from wav2vec_s_tpu.ops.pallas_attention import (
     TILE, _flash_attn_impl, _tile_plan)
 from wav2vec_s_tpu.ops.pallas_attention import (
     blockwise_flash_attention_packed as jax_flash)
+from wav2vec_s_tpu_torch.models.modules import dot_product_attention
+from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, keep_mask
 from wav2vec_s_tpu.utils.positional import (
     sinusoidal_positions_from_padding as jax_positions)
 from wav2vec_s_tpu_torch.ops import block_mask as bm
 from wav2vec_s_tpu_torch.ops.flash_attention import (
-    K_TILE, NEG, Q_TILE, blockwise_flash_attention_packed,
+    K_TILE, NEG, Q_TILE, blockwise_flash_attention_bwd,
+    blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
     blockwise_flash_attention_ref, tile_kinds)
 from wav2vec_s_tpu_torch.utils.positional import (
     sinusoidal_positions_from_padding)
@@ -139,14 +155,16 @@ def test_wrapper_runs_the_twin_on_cpu():
     assert out_bf16.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("bad", ["dropout", "length", "mask_dtype", "dtypes",
-                                 "heads", "head_width", "kv_shape"])
+@pytest.mark.parametrize("bad", ["rate", "seed", "length", "mask_dtype",
+                                 "dtypes", "heads", "head_width", "kv_shape"])
 def test_wrapper_rejects(bad):
     T, mc, rc, B, H, dh = CASES[0]
     q, k, v, key_pad = map(torch.from_numpy, _inputs(T, mc, rc, B, H, dh))
     kw = {}
-    if bad == "dropout":
-        kw["dropout_rate"] = 0.1
+    if bad == "rate":
+        kw["dropout_rate"] = 1.0
+    elif bad == "seed":
+        kw.update(dropout_rate=0.1, dropout_seed=-1)
     elif bad == "length":
         T = T - 16                              # S no longer the layout's
     elif bad == "mask_dtype":
@@ -159,8 +177,7 @@ def test_wrapper_rejects(bad):
         q = k = v = torch.zeros(B, q.shape[1], 2 * 129)    # dh 129 > 128
     else:
         v = v[:, :-1]
-    err = NotImplementedError if bad == "dropout" else ValueError
-    with pytest.raises(err):
+    with pytest.raises(ValueError):
         blockwise_flash_attention_packed(q, k, v, key_pad, H, T, mc, rc, **kw)
 
 
@@ -206,20 +223,222 @@ def test_positions_from_padding_match_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# (T, mc, rc, B, H, dh): tests/test_pallas_attention.py's backward shapes
+GRAD_CASES = [(96, 16, 8, 2, 2, 32), (64, 8, 0, 1, 2, 64)]
+
+
+def _grad_inputs(T, mc, rc, B, H, dh, seed=2):
+    """q, k, v, the ragged non-contiguous key padding of ``_inputs`` and a
+    cotangent that is zero on padded rows (the encoder strips them before
+    the loss)."""
+    q, k, v, key_pad = _inputs(T, mc, rc, B, H, dh, seed)
+    w = np.random.default_rng(seed + 100).standard_normal(q.shape).astype(
+        np.float32) * ~key_pad[:, :, None]
+    return q, k, v, key_pad, w
+
+
+def _dense_bias(key_pad, T, mc, rc):
+    allowed = torch.from_numpy(bm.block_layout(T, mc, rc).allowed)
+    return (torch.where(allowed, 0.0, NEG)[None, None]
+            + torch.where(key_pad, NEG, 0.0)[:, None, None, :])
+
+
+def _dense(q, k, v, key_pad, H, T, mc, rc, rate=0.0, ctx=None):
+    """The dense branch of ``self_attention`` on packed tensors."""
+    B, S, D = q.shape
+
+    def split(t):
+        return t.reshape(B, S, H, D // H).transpose(1, 2)
+
+    out = dot_product_attention(split(q), split(k), split(v),
+                                _dense_bias(key_pad, T, mc, rc), rate, ctx)
+    return out.transpose(1, 2).reshape(B, S, D)
+
+
+def _flash_grads(q, k, v, key_pad, w, H, T, mc, rc, **kw):
+    qkv = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = blockwise_flash_attention_packed(*qkv, torch.from_numpy(key_pad),
+                                           H, T, mc, rc, **kw)
+    return out, torch.autograd.grad(out, qkv, torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("T,mc,rc,B,H,dh", GRAD_CASES)
+def test_twin_backward_matches_dense_autograd(T, mc, rc, B, H, dh):
+    q, k, v, key_pad, w = _grad_inputs(T, mc, rc, B, H, dh)
+    _, got = _flash_grads(q, k, v, key_pad, w, H, T, mc, rc)
+    qkv = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        _dense(*qkv, torch.from_numpy(key_pad), H, T, mc, rc), qkv,
+        torch.from_numpy(w))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=3e-5,
+                                   rtol=3e-5)
+
+
+@pytest.mark.parametrize("T,mc,rc,B,H,dh", GRAD_CASES)
+def test_twin_backward_matches_jax_grad(T, mc, rc, B, H, dh):
+    """Against jax.grad through the Pallas forward and backward kernels in
+    interpret mode (the custom_vjp of ``_flash_attn``)."""
+    q, k, v, key_pad, w = _grad_inputs(T, mc, rc, B, H, dh)
+
+    def loss(q_, k_, v_):
+        out = jax_flash(q_, k_, v_, jnp.asarray(key_pad), H, T, mc, rc,
+                        interpret=True)
+        return jnp.sum(out * jnp.asarray(w))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    _, got = _flash_grads(q, k, v, key_pad, w, H, T, mc, rc)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=3e-5,
+                                   rtol=3e-5)
+
+
+def test_backward_wrapper_runs_the_twin_on_cpu_and_checks_shapes():
+    T, mc, rc, B, H, dh = GRAD_CASES[0]
+    q, k, v, key_pad, w = map(torch.from_numpy,
+                              _grad_inputs(T, mc, rc, B, H, dh))
+    out, m, l = blockwise_flash_attention_ref(q, k, v, key_pad, H, T, mc, rc)
+    before = blockwise_flash_attention_bwd.launches
+    got = blockwise_flash_attention_bwd(q, k, v, out, w, m, l, key_pad, H, T,
+                                        mc, rc)
+    assert blockwise_flash_attention_bwd.launches == before
+    want = blockwise_flash_attention_bwd_ref(q, k, v, out, w, m, l, key_pad,
+                                             H, T, mc, rc)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="m must be"):
+        blockwise_flash_attention_bwd(q, k, v, out, w, m[:, :1], l, key_pad,
+                                      H, T, mc, rc)
+    with pytest.raises(ValueError, match="dout must be"):
+        blockwise_flash_attention_bwd(q, k, v, out, w.bfloat16(), m, l,
+                                      key_pad, H, T, mc, rc)
+
+
 @pytest.mark.parametrize("grad_input", [0, 1, 2])          # q, k, v
-def test_refuses_autograd_runs_under_no_grad(grad_input):
-    """Under grad mode with an input that requires grad the wrapper raises
-    on every device (the flash backward K3 is not ported, so a CUDA result
-    would silently lose its gradient); under torch.no_grad() it runs."""
+def test_autograd_follows_the_grad_mode(grad_input):
+    """One input requiring grad is enough for a differentiable result with
+    gradients for exactly that input; under torch.no_grad() the inference
+    path runs and nothing is recorded."""
     T, mc, rc, B, H, dh = CASES[0]
     q, k, v, pad = map(torch.from_numpy, _inputs(T, mc, rc, B, H, dh))
     qkv = [q, k, v]
     qkv[grad_input].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="K3"):
-        blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc)
+    out, m, l = blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc,
+                                                 return_stats=True)
+    assert out.requires_grad and not m.requires_grad and not l.requires_grad
+    out.sum().backward()
+    assert [t.grad is not None for t in qkv] == [i == grad_input
+                                                 for i in range(3)]
     with torch.no_grad():
-        out = blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc)
-    assert not out.requires_grad
-    want = blockwise_flash_attention_ref(q.detach(), k.detach(), v.detach(),
-                                         pad, H, T, mc, rc)[0]
-    assert torch.equal(out, want)
+        quiet = blockwise_flash_attention_packed(*qkv, pad, H, T, mc, rc)
+    assert not quiet.requires_grad
+    assert torch.equal(quiet, out.detach())
+
+
+DROP = dict(dropout_rate=0.3, dropout_seed=0x1234_5678_9ABC_DEF,
+            dropout_offset=5)
+
+
+class _Site(DropoutContext):
+    """A context whose next site is a given (seed, offset)."""
+
+    def __init__(self, seed, offset):
+        self.seed, self.sites = seed, offset
+
+
+@pytest.mark.parametrize("T,mc,rc,B,H,dh", GRAD_CASES + [(97, 16, 8, 2, 3, 8)])
+def test_dropout_equals_dense_attention_under_one_seed(T, mc, rc, B, H, dh):
+    """Forward and gradients; tolerances are f32 rounding (the two sides
+    normalise and scale in a different order): atol/rtol 3e-5."""
+    q, k, v, key_pad, w = _grad_inputs(T, mc, rc, B, H, dh)
+    out, got = _flash_grads(q, k, v, key_pad, w, H, T, mc, rc, **DROP)
+    qkv = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    ctx = _Site(DROP["dropout_seed"], DROP["dropout_offset"])
+    ref = _dense(*qkv, torch.from_numpy(key_pad), H, T, mc, rc,
+                 DROP["dropout_rate"], ctx)
+    assert ctx.sites == DROP["dropout_offset"] + 1
+    want = torch.autograd.grad(ref, qkv, torch.from_numpy(w))
+    valid = ~key_pad
+    np.testing.assert_allclose(out.detach().numpy()[valid],
+                               ref.detach().numpy()[valid], atol=3e-5,
+                               rtol=3e-5)
+    plain = blockwise_flash_attention_ref(
+        *map(torch.from_numpy, (q, k, v, key_pad)), H, T, mc, rc)[0]
+    assert (out.detach() - plain)[torch.from_numpy(valid)].abs().max() > 1e-2
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=3e-5,
+                                   rtol=3e-5)
+
+
+def _probe(B, H, T, mc, rc, **drop):
+    """[B, H, S, S] dropped probabilities read back through the forward
+    twin (v = identity per head) and [B, H, S, S] through the backward twin
+    (dV for a cotangent of ones picks sum_q p*keep; with do = identity
+    columns it is p*keep transposed)."""
+    S = bm.block_layout(T, mc, rc).total_len
+    q = k = torch.zeros(B, S, H * S)
+    v = torch.eye(S).repeat(B, 1, H)
+    pad = torch.zeros(B, S, dtype=torch.bool)
+    out, m, l = blockwise_flash_attention_ref(q, k, v, pad, H, T, mc, rc,
+                                              **drop)
+    fwd = out.reshape(B, S, H, S).transpose(1, 2)            # [B, H, q, k]
+    _, _, dv = blockwise_flash_attention_bwd_ref(
+        q, k, v, out, v, m, l, pad, H, T, mc, rc, **drop)
+    bwd = dv.reshape(B, S, H, S).transpose(1, 2).transpose(2, 3)
+    return fwd, bwd
+
+
+def test_dropout_forward_mask_is_backward_mask_and_keep_share():
+    B, H, T, mc, rc, rate = 2, 3, 32, 8, 4, 0.25
+    fwd, bwd = _probe(B, H, T, mc, rc, **dict(DROP, dropout_rate=rate))
+    plain, _ = _probe(B, H, T, mc, rc)
+    allowed = plain != 0
+    S = allowed.shape[-1]
+    assert torch.equal(fwd != 0, bwd != 0)
+    want = keep_mask(B * H * S * S, rate, DROP["dropout_seed"],
+                     DROP["dropout_offset"]).reshape(B, H, S, S)
+    assert torch.equal(fwd != 0, want & allowed)              # bit-equal
+    np.testing.assert_allclose(fwd[fwd != 0].numpy(),
+                               (plain / (1 - rate))[fwd != 0].numpy(),
+                               rtol=1e-6)
+    n = int(allowed.sum())
+    share = float((fwd != 0).sum()) / n
+    assert abs(share - (1 - rate)) <= 4 * (rate * (1 - rate) / n) ** 0.5
+
+
+def test_dropout_masks_differ_across_slots_heads_seeds_and_offsets():
+    """The seed-fold trap of the JAX kernel (every batch slot drew one
+    mask): coordinates are counter words here, no seed arithmetic."""
+    B, H, T, mc, rc = 2, 2, 32, 8, 4
+    base, _ = _probe(B, H, T, mc, rc, **DROP)
+    keep = base != 0
+    allowed = _probe(B, H, T, mc, rc)[0] != 0
+
+    def differs(a, b):
+        return float((a != b)[allowed[0, 0]].float().mean()) > 0.2
+
+    assert differs(keep[0, 0], keep[1, 0])                    # batch slots
+    assert differs(keep[0, 0], keep[0, 1])                    # heads
+    for other in (dict(DROP, dropout_seed=DROP["dropout_seed"] + 1),
+                  dict(DROP, dropout_offset=DROP["dropout_offset"] + 1)):
+        assert differs(keep[0, 0], (_probe(B, H, T, mc, rc, **other)[0]
+                                    != 0)[0, 0])
+    again, _ = _probe(B, H, T, mc, rc, **DROP)
+    assert torch.equal(base, again)                           # deterministic
+
+
+def test_dropout_preserves_the_mean_and_a_rate_near_one_empties_rows():
+    T, mc, rc, B, H, dh = 96, 16, 8, 2, 4, 16
+    q, k, v, _ = map(torch.from_numpy, _inputs(T, mc, rc, B, H, dh))
+    pad = torch.zeros(q.shape[:2], dtype=torch.bool)
+    o0 = blockwise_flash_attention_packed(q, k, v, pad, H, T, mc, rc)
+    outs = [blockwise_flash_attention_packed(
+        q, k, v, pad, H, T, mc, rc, dropout_rate=0.1, dropout_seed=seed)
+        for seed in range(8)]
+    ratio = float(torch.stack(outs).mean(0).abs().mean() / o0.abs().mean())
+    assert 0.93 < ratio < 1.08, ratio
+    o = blockwise_flash_attention_packed(q, k, v, pad, H, T, mc, rc,
+                                         dropout_rate=0.97, dropout_seed=3)
+    rows = o.reshape(B, -1, H, dh)
+    zero_frac = float((rows.abs() < 1e-6).all(-1).float().mean())
+    assert zero_frac > 0.05, zero_frac
+    assert float(o.abs().max()) > 3 * float(o0.abs().max())

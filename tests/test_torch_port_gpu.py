@@ -1,7 +1,8 @@
 """CUDA checks of the torch port: the hand-written kernels (chunk attention,
-block-sparse flash attention, dropout, the transducer lattices and affine
-rows) against their plain twins, the tiny cached and one-shot decodes and
-the tiny training step on the card against the same on the CPU.  They skip
+block-sparse flash attention forward and backward with its in-kernel
+dropout, dropout, the transducer lattices and affine rows) against their
+plain twins, the tiny cached and one-shot decodes, the tiny training step
+and a tiny run of the training CLI on the card against the same on the CPU.  They skip
 without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
@@ -25,6 +26,7 @@ from wav2vec_s_tpu_torch.ops.block_mask import block_layout
 from wav2vec_s_tpu_torch.ops.chunk_attention import (
     chunk_cache_attention, chunk_cache_attention_ref)
 from wav2vec_s_tpu_torch.ops.flash_attention import (
+    blockwise_flash_attention_bwd, blockwise_flash_attention_bwd_ref,
     blockwise_flash_attention_packed, blockwise_flash_attention_ref)
 from wav2vec_s_tpu_torch.stream.batched import (
     CachedFusedGreedyDecoder, OneShotCorpusDecoder)
@@ -365,3 +367,145 @@ def test_tiny_train_step_on_cuda_equals_cpu(cuda):
         assert abs(gc - gg) <= 1e-4 * gc
     for k, v in out["cpu"][1].items():
         assert (v - out["cuda"][1][k]).abs().max() <= 1e-2 * cfg.lr, k
+
+
+SEED, OFFSET = 0x1234_5678_9ABC_DEF, 5
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("D,H,T,mc,rc", [
+    (24, 4, 97, 4, 2),            # dh 6, S 145: a Philox block per element
+    (768, 12, 500, 16, 8),        # dh 64, S 748: the training call
+    (256, 2, 64, 8, 0)])          # dh 128, the widest head, no copies
+def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, rate, D, H, T,
+                                            mc, rc):
+    """K3 against ``blockwise_flash_attention_bwd_ref`` on the forward
+    kernel's own out, m, l: dQ on valid rows, dK and dV everywhere, max
+    |diff| over the largest gradient entry; the cotangent is zero on padded
+    rows (callers strip them); two runs are bit-identical (no atomics)."""
+    q, k, v, pad = _flash_inputs(cuda, dtype, 2, T, mc, rc, D)
+    valid = ~pad
+    do = torch.randn(q.shape, device=cuda).to(dtype) * valid[:, :, None]
+    lay = (pad, H, T, mc, rc, rate)
+    out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
+                                                 OFFSET)
+    before = blockwise_flash_attention_bwd.launches
+    got = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay, SEED,
+                                        OFFSET)
+    torch.cuda.synchronize()
+    assert blockwise_flash_attention_bwd.launches == before + 1
+    again = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay, SEED,
+                                          OFFSET)
+    want = blockwise_flash_attention_bwd_ref(q, k, v, out, do, m, l, *lay,
+                                             SEED, OFFSET)
+    for i, (a, b, c) in enumerate(zip(got, want, again)):
+        assert a.dtype == dtype and a.shape == q.shape
+        assert torch.equal(a, c)
+        if i == 0:
+            a, b = a[valid], b[valid]
+        assert torch.isfinite(a).all()
+        err = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert err.item() <= tol, (i, err.item())
+
+
+@pytest.mark.parametrize("T,mc,rc", [(32, 8, 4), (33, 8, 4)])   # S % 4: 0, 1
+def test_flash_dropout_masks_forward_equals_backward_on_the_card(cuda, T, mc,
+                                                                 rc):
+    """The mask read back through the forward kernel (v = identity per
+    head) is bit-equal to the twin's and to the one the backward kernels
+    regenerate (dV for identity cotangents), with both Philox paths."""
+    from wav2vec_s_tpu_torch.ops.dropout import keep_mask
+
+    B, H, rate = 2, 3, 0.25
+    S = block_layout(T, mc, rc).total_len
+    q = k = torch.zeros((B, S, H * S), device=cuda)
+    v = torch.eye(S, device=cuda).repeat(B, 1, H)
+    pad = torch.zeros((B, S), dtype=torch.bool, device=cuda)
+    lay = (pad, H, T, mc, rc, rate)
+    out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
+                                                 OFFSET)
+    dv = blockwise_flash_attention_bwd(q, k, v, out, v, m, l, *lay, SEED,
+                                       OFFSET)[2]
+    fwd = out.reshape(B, S, H, S).transpose(1, 2) != 0        # [B, H, q, k]
+    bwd = dv.reshape(B, S, H, S).transpose(1, 2).transpose(2, 3) != 0
+    allowed = torch.as_tensor(block_layout(T, mc, rc).allowed, device=cuda)
+    want = keep_mask(B * H * S * S, rate, SEED, OFFSET, cuda).reshape(
+        B, H, S, S) & allowed
+    assert torch.equal(fwd, want) and torch.equal(bwd, want)
+    assert not torch.equal(fwd[0], fwd[1])                    # batch slots
+    assert not torch.equal(fwd[:, 0], fwd[:, 1])              # heads
+
+
+def test_flash_autograd_on_the_card_equals_the_cpu(cuda):
+    """The wrapper's autograd.Function on CUDA tensors (kernels, a
+    non-contiguous cotangent) against the same on the CPU (twins), dropout
+    on; under no_grad the result carries no graph."""
+    q, k, v, pad = _flash_inputs(cuda, torch.float32, 2, 96, 16, 8, 64)
+    w = torch.randn((q.shape[0], q.shape[2], q.shape[1]), device=cuda)
+    w = w.transpose(1, 2) * (~pad)[:, :, None]                # a view
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        out = blockwise_flash_attention_packed(
+            *leaves, pad.to(dev), 4, 96, 16, 8, 0.2, False, SEED, OFFSET)
+        grads[dev] = torch.autograd.grad(out, leaves, w.to(dev))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        assert not blockwise_flash_attention_packed(
+            q.requires_grad_(True), k, v, pad, 4, 96, 16, 8).requires_grad
+
+
+def test_tiny_cli_run_on_cuda_equals_cpu(cuda, tmp_path):
+    """Four updates through the training entry point, flash attention,
+    dropout off, a validation and a checkpoint: the parameters saved by the
+    run on the card equal the CPU run's (atol 1e-2 * lr)."""
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+    from wav2vec_s_tpu_torch.train import cli
+
+    rng = np.random.default_rng(0)
+    lines = ["id\taudio\tn_frames\ttgt_text"]
+    words = [f"w{i}" for i in range(20)]
+    for i in range(6):
+        n = 1920 + 320 * i
+        write_wav(tmp_path / f"u{i}.wav",
+                  rng.standard_normal(n).astype(np.float32) * 0.1)
+        text = " ".join(rng.choice(words, 3))
+        lines.append(f"u{i}\t{tmp_path}/u{i}.wav\t{n}\t{text}")
+    (tmp_path / "train.tsv").write_text("\n".join(lines) + "\n")
+    (tmp_path / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    lr = 1e-3
+    saved = {}
+    for dev in ("cpu", "cuda"):
+        cli.main([
+            "--device", dev, "run.task=caat",
+            f"run.save_dir={tmp_path}/ckpt_{dev}", "run.max_update=4",
+            "run.log_interval=2", "run.validate_interval_updates=4",
+            f"data.train_manifest={tmp_path}/train.tsv",
+            f"data.valid_manifest={tmp_path}/train.tsv",
+            f"data.vocab={tmp_path}/dict.txt", "data.max_tokens=7100",
+            "data.max_sample_size=3840", f"optim.lr={lr}",
+            "optim.lr_scheduler=inverse_sqrt", "optim.warmup_updates=2",
+            "optim.clip_norm=2.0", "context.main_context=4",
+            "context.right_context=2",
+            "model.conv_feature_layers=((16,10,5),(16,3,2),(16,2,2))",
+            "model.encoder_layers=2", "model.encoder_embed_dim=24",
+            "model.encoder_ffn_embed_dim=48",
+            "model.encoder_attention_heads=4", "model.attention_impl=flash",
+            "model.dropout=0.0", "model.attention_dropout=0.0",
+            "model.encoder_layerdrop=0.0", "caat.decoder_layers=2",
+            "caat.decoder_embed_dim=24", "caat.decoder_ffn_embed_dim=48",
+            "caat.decoder_attention_heads=4", "caat.jointer_layers=2",
+            "caat.jointer_embed_dim=24", "caat.jointer_ffn_embed_dim=48",
+            "caat.jointer_attention_heads=4", "caat.transducer_downsample=8",
+            "caat.decision_steps=(4,8)", "caat.tokens_per_step=500",
+            "caat.dropout=0.0", "caat.attention_dropout=0.0",
+            "caat.activation_dropout=0.0", "caat.rand_pos_decoder=0"])
+        saved[dev], meta = CheckpointManager(
+            tmp_path / f"ckpt_{dev}").restore()
+        assert saved[dev]["step"] == 4 and meta["step"] == 4
+    for k, v in saved["cpu"]["model"].items():
+        assert (v - saved["cuda"]["model"][k]).abs().max() <= 1e-2 * lr, k

@@ -1,0 +1,176 @@
+"""Checkpoint save/restore with keep-K and keep-best policies (port of
+``CheckpointManager`` of ``wav2vec_s_tpu/checkpoint/orbax_io.py`` onto
+``torch.save`` / ``torch.load(weights_only=True)``).
+
+fairseq's policies (fairseq/fairseq/checkpoint_utils.py:31-163):
+every-N-updates, keep-K pruning, best metric, full resume of optimizer and
+iterator state.  On disk: ``<dir>/step_<N>/state.pt`` (model state dict,
+Adam moments and update count, the step) plus ``meta.json`` (step, metric,
+iterator state).  ``meta.json`` doubles as the commit marker: both files
+are written to a temp name and renamed, ``meta.json`` last, so an
+interrupted save leaves a step directory that ``all_steps`` / ``restore``
+ignore.
+
+``async_save``: ``save`` copies the tensors to host memory (one device
+synchronisation), then a background thread writes the file while training
+goes on; at most one write is in flight, ``wait`` commits it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from wav2vec_s_tpu_torch.train.step import TrainState
+
+
+def state_to_host(state: TrainState) -> Dict[str, Any]:
+    """The checkpoint payload of a train state: CPU copies of the model's
+    state dict and the Adam moments, the update count and the step."""
+    def cpu(t):
+        return t.detach().to("cpu", copy=True)
+
+    return {"step": state.step,
+            "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
+            "opt": {"count": state.opt_state.count,
+                    "mu": [cpu(t) for t in state.opt_state.mu],
+                    "nu": [cpu(t) for t in state.opt_state.nu]}}
+
+
+def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
+    """Copy a payload of ``state_to_host`` into ``state`` in place (strict:
+    every parameter and moment must be present and shape-matched)."""
+    state.model.load_state_dict(payload["model"], strict=True)
+    opt = payload["opt"]
+    for name in ("mu", "nu"):
+        dst, src = getattr(state.opt_state, name), opt[name]
+        if len(dst) != len(src):
+            raise ValueError(f"checkpoint holds {len(src)} Adam {name} "
+                             f"tensors, the model has {len(dst)}")
+        with torch.no_grad():
+            for d, s in zip(dst, src):
+                d.copy_(s)
+    state.opt_state.count = int(opt["count"])
+    state.step = int(payload["step"])
+    return state
+
+
+class CheckpointManager:
+    def __init__(self, directory, keep_last: int = 3, keep_best: int = 0,
+                 maximize_metric: bool = False, async_save: bool = False):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep_last = keep_last
+        self.keep_best = keep_best
+        self.maximize = maximize_metric
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # -- paths ----------------------------------------------------------
+    def _step_dir(self, step: int) -> Path:
+        return self.dir / f"step_{step:09d}"
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(p.name.split("_")[1]) for p in
+                      self.dir.glob("step_*")
+                      if p.is_dir() and (p / "meta.json").exists())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # -- save / restore -------------------------------------------------
+    def save(self, step: int, state: TrainState,
+             extra: Optional[Dict[str, Any]] = None,
+             metric: Optional[float] = None) -> None:
+        # at most one write in flight: commit the previous one first
+        self.wait()
+        payload = state_to_host(state)
+        meta = {"step": step, "metric": metric, "extra": extra or {}}
+        if self.async_save:
+            self._writer = threading.Thread(
+                target=self._write_guarded, args=(step, payload, meta))
+            self._writer.start()
+        else:
+            self._write(step, payload, meta)
+
+    def _write_guarded(self, step, payload, meta):
+        try:
+            self._write(step, payload, meta)
+        except BaseException as e:       # noqa: BLE001 — re-raised by wait()
+            self._error = e
+
+    def _write(self, step: int, payload, meta) -> None:
+        path = self._step_dir(step)
+        if path.exists():
+            shutil.rmtree(path)
+        path.mkdir(parents=True)
+        tmp = path / "state.pt.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, path / "state.pt")
+        tmp = path / "meta.json.tmp"
+        tmp.write_text(json.dumps(meta))
+        os.replace(tmp, path / "meta.json")
+        self._prune()
+
+    def wait(self) -> None:
+        """Block until any in-flight write has committed; re-raise its
+        failure."""
+        if self._writer is not None:
+            self._writer.join()
+            self._writer = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore(self, step: Optional[int] = None,
+                template: Optional[TrainState] = None):
+        """``(state, meta)`` of ``step`` (default: the latest), or
+        ``(None, None)`` when the directory holds none.  With a
+        ``template`` the payload is loaded into it (and it is returned);
+        without one the raw payload dict is returned."""
+        self.wait()
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        path = self._step_dir(step)
+        payload = torch.load(path / "state.pt", map_location="cpu",
+                             weights_only=True)
+        meta = json.loads((path / "meta.json").read_text())
+        if template is not None:
+            payload = load_into_state(template, payload)
+        return payload, meta
+
+    # -- policies -------------------------------------------------------
+    def _metric_of(self, step: int) -> Optional[float]:
+        try:
+            return json.loads(
+                (self._step_dir(step) / "meta.json").read_text())["metric"]
+        except (OSError, ValueError, KeyError):
+            return None
+
+    def _scored(self):
+        scored = [(s, self._metric_of(s)) for s in self.all_steps()]
+        scored = [(s, m) for s, m in scored if m is not None]
+        scored.sort(key=lambda sm: sm[1], reverse=self.maximize)
+        return scored
+
+    def _prune(self) -> None:
+        steps = self.all_steps()
+        keep = set(steps[-self.keep_last:]) if self.keep_last else set(steps)
+        if self.keep_best:
+            keep |= {s for s, _ in self._scored()[:self.keep_best]}
+        for s in steps:
+            if s not in keep:
+                shutil.rmtree(self._step_dir(s), ignore_errors=True)
+
+    def best_step(self) -> Optional[int]:
+        scored = self._scored()
+        return scored[0][0] if scored else None

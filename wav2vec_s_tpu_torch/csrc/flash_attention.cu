@@ -14,6 +14,14 @@
 // pointers are not null.  Neither logits nor probabilities reach device
 // memory.
 //
+// Attention dropout (training; the TPU kernel's _keep_scale) acts on the
+// normalised probabilities: l sums the plain p, the value product takes
+// p * keep with keep 0 or 1/(1 - rate), so m and l are the same with and
+// without it.  The mask is a function of the element's coordinates
+// (flash_common.cuh), which the backward kernels regenerate.  The kernel is
+// compiled twice: without dropout (threshold 0) it is the inference kernel,
+// instruction for instruction.
+//
 // The layout rule (wav2vec_s_tpu/ops/block_mask.py:40-80): index i < T is
 // frame i of block i / mc; index i >= T is an rc copy of block (i - T) / rc.
 // A query of (effective) block qb may attend frame key j iff qb >= j / mc,
@@ -43,41 +51,11 @@
 // Plain C interface (loaded with ctypes): w2vs_flash_attention returns the
 // cudaGetLastError() code of its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                         // warps per block
-constexpr int kRowsPerWarp = 4;                   // query rows per warp
-constexpr int kRows = kWarps * kRowsPerWarp;      // query rows per block (32)
-constexpr int kTile = 64;                         // keys per tile (2 per lane)
-constexpr int kKStride = kTile + 2;               // transposed K row (even)
-constexpr int kMaxDh = 128;                       // 2 float2 of dims per lane
-constexpr float kNeg = -1e9f;
-constexpr unsigned kFull = 0xffffffffu;
-static_assert(kRowsPerWarp == 4, "p_s and q_t hold one float4 of rows");
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
+using namespace w2vs_flash;
 
 // Shared-memory layout, in floats (each part keeps the alignment its vector
 // loads need):
@@ -91,7 +69,7 @@ __host__ __device__ constexpr int smem_floats(int dh, int dv) {
 }
 
 // grid (query tiles, H, B); block kWarps * 32 threads
-template <typename T>
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
@@ -99,7 +77,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const signed char* __restrict__ kinds,
                        T* __restrict__ out, float* __restrict__ m_out,
                        float* __restrict__ l_out, int S, int D, int dh,
-                       int T_frames, int mc, int rc, float scale) {
+                       int T_frames, int mc, int rc, float scale,
+                       Dropout drop) {
   extern __shared__ float4 smem4[];
   const int dv = (dh + 1) & ~1;
   float* p_s = reinterpret_cast<float*>(smem4);
@@ -133,7 +112,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + wr + i;
-    q_blk[i] = (r < T_frames || rc == 0) ? r / mc : (r - T_frames) / rc;
+    q_blk[i] = query_block(r, T_frames, mc, rc);
+  }
+  // flat index of key 0 of each row in the [B, H, S, S] probabilities
+  unsigned long long row_base[kRowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    row_base[i] = (((unsigned long long)b * H + h) * S + (r0 + wr + i)) * S;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][4];
@@ -185,16 +170,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool in = j < n_k;
       const float key_bias = (in && pad[key]) ? kNeg : 0.f;
       const bool copy = key >= T_frames;
-      const int k_blk = !in ? 0 : copy ? (key - T_frames) / rc : key / mc;
+      const int k_blk = in ? key_block(key, T_frames, mc, rc) : 0;
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         float x = -INFINITY;
         if (in) {
           x = s[i][c] + key_bias;
-          if (kind == 2 &&
-              !(copy ? q_blk[i] == k_blk : q_blk[i] >= k_blk)) {
-            x += kNeg;
-          }
+          if (kind == 2 && !pair_allowed(q_blk[i], k_blk, copy)) x += kNeg;
         }
         s[i][c] = x;
       }
@@ -212,6 +194,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[i] = m_new;
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+    }
+    if (kDrop) {
+      // the value product takes p * keep; l above summed the plain p
+      float keep[kRowsPerWarp][2];
+      keep_query_rows(drop, row_base, j0 + 2 * lane, (S & 3) == 0, lane, keep);
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        p[i][0] *= keep[i][0];
+        p[i][1] *= keep[i][1];
+      }
     }
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
@@ -268,22 +260,26 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v,
            const unsigned char* key_pad, const signed char* kinds, void* out,
            float* m_out, float* l_out, int B, int S, int D, int H,
-           int T_frames, int mc, int rc, cudaStream_t stream) {
+           int T_frames, int mc, int rc, const Dropout& drop,
+           cudaStream_t stream) {
   const int dh = D / H;
   if (dh > kMaxDh || dh < 1 || mc < 1 || rc < 0 ||
       (m_out == nullptr) != (l_out == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = smem_floats(dh, (dh + 1) & ~1) * sizeof(float);
-  auto kernel = flash_attention_kernel<T>;
+  auto kernel = drop.threshold ? flash_attention_kernel<T, true>
+                               : flash_attention_kernel<T, false>;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, key_pad, kinds, (T*)out, m_out,
-      l_out, S, D, dh, T_frames, mc, rc, (float)(1.0 / sqrt((double)dh)));
+      l_out, S, D, dh, T_frames, mc, rc, (float)(1.0 / sqrt((double)dh)),
+      drop);
   return (int)cudaGetLastError();
 }
 
@@ -292,21 +288,29 @@ int launch(const void* q, const void* k, const void* v,
 // q, k, v, out: [B, S, D] packed (head h at columns h*dh); key_pad: [B, S]
 // bool (1 = padded key); kinds: [ceil(S/32), ceil(S/64)] int8 tile kinds;
 // m_out, l_out: [B, H, S] f32, both null or both set; all contiguous, on the
-// current device.  dtype_code 0 is float32, 1 is bfloat16.
+// current device.  dtype_code 0 is float32, 1 is bfloat16.  Attention dropout:
+// threshold = ceil(rate * 2^24) (0: none), keep_scale = 1 / (1 - rate), under
+// the step seed and the site offset.
 extern "C" int w2vs_flash_attention(const void* q, const void* k,
                                     const void* v, const void* key_pad,
                                     const void* kinds, void* out, void* m_out,
                                     void* l_out, int B, int S, int D, int H,
                                     int T_frames, int mc, int rc,
-                                    int dtype_code, void* stream) {
+                                    int dtype_code, unsigned long long seed,
+                                    unsigned long long offset,
+                                    unsigned threshold, double keep_scale,
+                                    void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* pad = (const unsigned char*)key_pad;
   const auto* kd = (const signed char*)kinds;
+  const Dropout drop = {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)),
+                        (uint32_t)offset, (uint32_t)(offset >> 32), threshold,
+                        (float)keep_scale};
   if (dtype_code == 1) {
     return launch<__nv_bfloat16>(q, k, v, pad, kd, out, (float*)m_out,
                                  (float*)l_out, B, S, D, H, T_frames, mc, rc,
-                                 s);
+                                 drop, s);
   }
   return launch<float>(q, k, v, pad, kd, out, (float*)m_out, (float*)l_out,
-                       B, S, D, H, T_frames, mc, rc, s);
+                       B, S, D, H, T_frames, mc, rc, drop, s);
 }

@@ -1,0 +1,168 @@
+"""Audio IO without heavyweight deps (own copy of the readers of
+``wav2vec_s_tpu/data/audio.py``; the log-mel features come with the fbank
+model family).
+
+Re-provides the reference's waveform loading paths
+(fairseq/fairseq/data/audio/raw_audio_dataset.py:54-71 via soundfile;
+rain/data/st_raw_audio_triple_dataset.py:155-186 zip/flac/npy resolution):
+
+- 16-bit PCM WAV via the stdlib ``wave`` module,
+- ``.npy`` arrays,
+- anything else through ``soundfile`` when installed (flac etc.),
+- raw int16 little-endian with explicit ``.raw`` extension.
+
+All readers return float32 in [-1, 1] at the file's native rate.
+"""
+
+from __future__ import annotations
+
+import io
+import wave
+from pathlib import Path
+
+import numpy as np
+
+
+def _read_wav(path) -> tuple[np.ndarray, int]:
+    with wave.open(str(path), "rb") as w:
+        rate = w.getframerate()
+        n = w.getnframes()
+        width = w.getsampwidth()
+        channels = w.getnchannels()
+        raw = w.readframes(n)
+    if width == 2:
+        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    elif width == 4:
+        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
+    elif width == 1:
+        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128) / 128.0
+    else:
+        raise ValueError(f"unsupported sample width {width} in {path}")
+    if channels > 1:
+        data = data.reshape(-1, channels).mean(axis=1)
+    return data, rate
+
+
+def _read_bytes_blob(data: bytes, expected_rate) -> tuple[np.ndarray, int]:
+    """Decode an in-memory npy / wav / flac blob
+    (reference st_raw_audio_triple_dataset.py:110-147 magic-byte sniffing)."""
+    f = io.BytesIO(data)
+    if data[:2] == b"\x93N":                       # npy magic
+        return np.load(f).astype(np.float32), expected_rate or 16000
+    if data[:2] == b"RI":                          # RIFF/wav
+        with wave.open(f, "rb") as w:
+            rate = w.getframerate()
+            raw = w.readframes(w.getnframes())
+            width, channels = w.getsampwidth(), w.getnchannels()
+        arr = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+        if channels > 1:
+            arr = arr.reshape(-1, channels).mean(axis=1)
+        return arr, rate
+    try:
+        import soundfile as sf
+    except ImportError as e:
+        raise ImportError("decoding this embedded blob (flac?) needs the "
+                          "optional 'soundfile' package") from e
+    arr, rate = sf.read(f, dtype="float32")
+    if arr.ndim > 1:
+        arr = arr.mean(axis=1)
+    return arr, rate
+
+
+def _read_wav_segment(path, offset: int, length: int
+                      ) -> tuple[np.ndarray, int]:
+    """Sample segment [offset, offset+length) of a PCM wav (stdlib)."""
+    with wave.open(str(path), "rb") as w:
+        rate = w.getframerate()
+        width = w.getsampwidth()
+        channels = w.getnchannels()
+        w.setpos(min(offset, w.getnframes()))
+        raw = w.readframes(length)
+    if width != 2:
+        raise ValueError(f"segment reads support 16-bit PCM only: {path}")
+    data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
+    if channels > 1:
+        data = data.reshape(-1, channels).mean(axis=1)
+    return data, rate
+
+
+def read_audio(path, expected_rate: int | None = 16000) -> np.ndarray:
+    """Load a waveform as float32 mono; checks the sample rate like the
+    reference (raw_audio_dataset.py:236-241).
+
+    Also accepts the reference's two segment syntaxes
+    (``get_features_or_waveform``, st_raw_audio_triple_dataset.py:154-186):
+
+    - ``<zip path>:<byte offset>:<byte length>`` — an audio blob embedded
+      in an uncompressed zip container,
+    - ``<wav/flac path>:<sample offset>:<n samples>`` — a sample segment
+      of a long recording (the MuST-C *raw* manifests written by
+      prep_mustc_data_raw.py; decoded via ``get_segment_waveform``,
+      fairseq/fairseq/data/audio/audio_utils.py:38-54).
+    """
+    spath = str(path)
+    if spath.count(":") == 2:
+        base, off, size = spath.rsplit(":", 2)
+        ext = Path(base).suffix.lower()
+        if ext == ".wav":
+            data, rate = _read_wav_segment(base, int(off), int(size))
+        elif ext in (".flac", ".ogg"):
+            try:
+                import soundfile as sf
+            except ImportError as e:
+                raise ImportError(f"reading a segment of {base} needs the "
+                                  "optional 'soundfile' package") from e
+            data, rate = sf.read(base, dtype="float32", start=int(off),
+                                 frames=int(size))
+            if data.ndim > 1:
+                data = data.mean(axis=1)
+        else:       # .zip (reference) or any generic blob container (ours)
+            with open(base, "rb") as f:
+                f.seek(int(off))
+                blob = f.read(int(size))
+            data, rate = _read_bytes_blob(blob, expected_rate)
+        if expected_rate is not None and rate != expected_rate:
+            raise ValueError(f"{path}: sample rate {rate} != {expected_rate}")
+        return np.ascontiguousarray(data, dtype=np.float32)
+    p = Path(path)
+    suffix = p.suffix.lower()
+    if suffix == ".wav":
+        data, rate = _read_wav(p)
+    elif suffix == ".npy":
+        data = np.load(p).astype(np.float32)
+        rate = expected_rate or 16000
+    elif suffix == ".raw":
+        data = np.fromfile(p, dtype="<i2").astype(np.float32) / 32768.0
+        rate = expected_rate or 16000
+    else:
+        try:
+            import soundfile as sf
+        except ImportError as e:
+            raise ImportError(
+                f"reading {suffix} needs the optional 'soundfile' package"
+            ) from e
+        data, rate = sf.read(str(p), dtype="float32")
+        if data.ndim > 1:
+            data = data.mean(axis=1)
+    if expected_rate is not None and rate != expected_rate:
+        raise ValueError(f"{path}: sample rate {rate} != {expected_rate}")
+    return np.ascontiguousarray(data, dtype=np.float32)
+
+
+def write_wav(path, data: np.ndarray, rate: int = 16000) -> None:
+    """Write float32 [-1, 1] mono as 16-bit PCM (test fixtures, demos)."""
+    pcm = np.clip(data, -1.0, 1.0)
+    pcm = np.round(pcm * 32767.0).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def instance_normalize(wav: np.ndarray) -> np.ndarray:
+    """Per-utterance layer-norm of the waveform (``normalize: true`` task
+    option for large models, raw_audio_dataset.py:66-70)."""
+    m = wav.mean()
+    v = wav.var()
+    return ((wav - m) / np.sqrt(v + 1e-5)).astype(np.float32)

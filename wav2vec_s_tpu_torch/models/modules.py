@@ -142,16 +142,21 @@ def self_attention(att: MultiheadAttention, x: torch.Tensor,
     """Full-sequence self-attention of ``MultiheadSelfAttention``
     (``wav2vec_s_tpu/models/modules.py:133-173``), ``out_proj`` applied.
     ``bias`` is an additive mask broadcastable to [B, H, T, T], or a
-    ``FlashSpec`` for the block-sparse kernel on the packed projections
-    (inference only: its wrapper raises under autograd and for dropout)."""
+    ``FlashSpec`` for the block-sparse kernels on the packed projections,
+    which drop the probabilities in-kernel at the site the dense branch's
+    ``drop(ctx, probs, rate)`` would take: one seed gives both the same
+    mask."""
     B, T, D = x.shape
     H = att.num_heads
     q, k, v = (dense(p, x) for p in (att.q_proj, att.k_proj, att.v_proj))
     if isinstance(bias, FlashSpec):
-        rate = dropout_rate if ctx is not None else 0.0
+        rate, seed, offset = 0.0, 0, 0
+        if ctx is not None and dropout_rate:
+            rate, (seed, offset) = dropout_rate, ctx.next_site()
         out = blockwise_flash_attention_packed(
             q, k, v, bias.key_padding_mask, H, bias.seq_len,
-            bias.main_context, bias.right_context, dropout_rate=rate)
+            bias.main_context, bias.right_context, dropout_rate=rate,
+            dropout_seed=seed, dropout_offset=offset)
     else:
         def split(t):
             return t.reshape(B, T, H, D // H).transpose(1, 2)

@@ -19,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
-from wav2vec_s_tpu_torch.ops.flash_attention import no_grad_guard
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DH = 128             # kMaxDh in csrc/chunk_attention.cu
@@ -59,6 +58,15 @@ def chunk_cache_attention_ref(q, k_cache, v_cache, k_new, v_new, intra_bias,
     o = (torch.einsum("bhqt,tbhd->bhqd", p1, vc)
          + torch.einsum("bhqk,bhkd->bhqd", p2, _split(v_new, H)))
     return o.transpose(1, 2).reshape(B, R, D)
+
+
+def no_grad_guard(name: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would need a backward that the kernel lacks:
+    grad mode on and an input that requires grad.  The same on every
+    device, so the CPU twin does not train where the card could not."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name} has no backward ({why}); call it "
+                                  f"under torch.no_grad()")
 
 
 def _check(q, k_cache, v_cache, k_new, v_new, intra_bias, t0, n_heads):

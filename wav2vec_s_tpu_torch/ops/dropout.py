@@ -183,9 +183,13 @@ class DropoutContext:
     def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
         if rate == 0.0:
             return x
-        out = hw_dropout(x, rate, self.seed, self.sites)
+        return hw_dropout(x, rate, *self.next_site())
+
+    def next_site(self):
+        """``(seed, offset)`` of the next dropout site, for an operator
+        that draws its mask itself (the flash-attention kernels)."""
         self.sites += 1
-        return out
+        return self.seed, self.sites - 1
 
     def layer_dropped(self, p: float) -> bool:
         """One host Bernoulli(p) draw per layer (layerdrop)."""

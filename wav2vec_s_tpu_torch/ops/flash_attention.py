@@ -1,25 +1,43 @@
-"""Block-sparse flash attention forward: CUDA kernel wrapper and its plain twin.
+"""Block-sparse flash attention, forward and backward: CUDA kernel wrappers
+and their plain twins.
 
 The one-shot blockwise encoder attends the full utterance (T frames plus
 the rc look-ahead copies) under the wav2vec-S block mask.  Port of the
-forward of the Pallas kernel ``wav2vec_s_tpu/ops/pallas_attention.py``
-(``_flash_attn_impl``); the kernel is ``csrc/flash_attention.cu`` (its
-header says what bounds it and how it is laid out).  The twin
-``blockwise_flash_attention_ref`` is the JAX package's own jnp reference
-(``pallas_attention.py:388-405``, dropout off): f32 logits, ``NEG`` for
-masked pairs and padded keys, f32 softmax, P.V in f32, cast at the end.
+Pallas kernels of ``wav2vec_s_tpu/ops/pallas_attention.py``: the forward
+(``_flash_attn_impl``, kernel ``csrc/flash_attention.cu``), the backward
+(``_flash_attn_bwd``, kernels ``csrc/flash_attention_bwd.cu``) and the
+in-kernel attention dropout (``_keep_scale``, ``csrc/flash_common.cuh``);
+the sources' headers say what bounds them and how they are laid out.
 
 ``blockwise_flash_attention_packed`` checks its arguments, then runs the
 twin for CPU tensors and launches the kernel for CUDA tensors; a build or
-launch failure raises, it never falls back to the twin.  Inference only:
-dropout raises, and so does a call under autograd with inputs that require
-grad, on every device (the kernel has no backward until the flash backward
-K3 is ported; a CUDA result would silently lose its gradient).
+launch failure raises, it never falls back to the twin.  Under autograd
+(grad mode on and q, k or v requiring grad) it goes through a
+``torch.autograd.Function``: the forward always writes the row stats ``m``,
+``l`` and saves them with q, k, v, out and the mask; the backward
+(``blockwise_flash_attention_bwd``, CPU: ``blockwise_flash_attention_bwd_ref``)
+returns dq, dk, dv.  Under ``torch.no_grad()`` nothing is saved.
 
-The kernel reads a host-built table of tile kinds (``tile_kinds``: skip,
-full or partial for each ``Q_TILE x K_TILE`` tile of the layout), uploaded
-once per layout and device; inside partial tiles it derives the mask from
-the layout rule, so no bias buffer exists.
+Attention dropout acts on the normalised probabilities (``l`` sums the
+plain ``p``, the value product takes ``p * keep``; ``m`` and ``l`` do not
+depend on it).  The keep mask is a function of the element's coordinates in
+the [B, H, S, S] probabilities: K4's Philox scheme (``ops/dropout.py``) on
+the flat index, under the step ``seed`` and the site ``offset``.  The twin's
+mask is ``keep_mask(B*H*S*S, ...)`` reshaped, bit-equal to the kernels';
+flash training therefore equals dense training, which drops the
+materialised probabilities at the same site, under one seed.
+
+The twins: ``blockwise_flash_attention_ref`` is the JAX package's own jnp
+reference (``pallas_attention.py:388-405``): f32 logits, ``NEG`` for masked
+pairs and padded keys, f32 softmax, P.V in f32, cast at the end;
+``blockwise_flash_attention_bwd_ref`` repeats the backward kernel's
+formulas step by step on [B, H, S, S] tensors.
+
+The kernels read host-built tables of tile kinds (``tile_kinds``: skip,
+full or partial for each ``Q_TILE x K_TILE`` tile of the layout, and of the
+transposed layout for the dK/dV kernel), uploaded once per layout and
+device; inside partial tiles they derive the mask from the layout rule, so
+no bias buffer exists.
 """
 
 from __future__ import annotations
@@ -30,6 +48,7 @@ import numpy as np
 import torch
 
 from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+from wav2vec_s_tpu_torch.ops.dropout import _threshold, keep_mask
 
 NEG = -1e9                 # the TPU kernel's additive mask (not MASK_VALUE)
 Q_TILE = 32                # kRows in csrc/flash_attention.cu
@@ -38,40 +57,108 @@ _MAX_DH = 128              # kMaxDh in csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _bias(key_padding_mask, seq_len, main_context, right_context):
+    """[B, 1, S, S] float32 additive mask: NEG per forbidden pair plus NEG
+    per padded key."""
+    allowed = torch.as_tensor(
+        block_layout(seq_len, main_context, right_context).allowed,
+        device=key_padding_mask.device)
+    return (torch.where(allowed, 0.0, NEG)[None, None]
+            + torch.where(key_padding_mask, NEG, 0.0)[:, None, None, :])
+
+
+def _keep_scale(B, H, S, rate, seed, offset, device):
+    """[B, H, S, S] float32 tensor of 0 or 1/(1 - rate) (the kernels' keep
+    mask), or None when ``rate`` is 0."""
+    if not rate:
+        return None
+    keep = keep_mask(B * H * S * S, rate, seed, offset, device)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
+                         device=device)
+    return torch.where(keep.reshape(B, H, S, S), scale, 0.0)
+
+
+def _split(t, H):
+    B, S, D = t.shape
+    return t.reshape(B, S, H, D // H).transpose(1, 2).float()
+
+
+def _merge(t, dtype):
+    B, H, S, dh = t.shape
+    return t.to(dtype).transpose(1, 2).reshape(B, S, H * dh)
+
+
 def blockwise_flash_attention_ref(q, k, v, key_padding_mask, num_heads: int,
                                   seq_len: int, main_context: int,
-                                  right_context: int):
+                                  right_context: int,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: int = 0,
+                                  dropout_offset: int = 0):
     """Plain PyTorch twin; same arguments as
     ``blockwise_flash_attention_packed``.  Returns ``(out, m, l)``: out
     [B, S, D] in ``q.dtype``, and the row max ``m`` and row sum of
     ``exp(logit - m)`` ``l``, both [B, H, S] float32."""
-    layout = block_layout(seq_len, main_context, right_context)
     B, S, D = q.shape
     H = num_heads
-    dh = D // H
-    allowed = torch.as_tensor(layout.allowed, device=q.device)
-    bias = (torch.where(allowed, 0.0, NEG)[None, None]
-            + torch.where(key_padding_mask, NEG, 0.0)[:, None, None, :])
-
-    def split(t):
-        return t.reshape(B, S, H, dh).transpose(1, 2).float()
-
-    s = torch.einsum("bhqd,bhkd->bhqk", split(q), split(k)) * dh ** -0.5
-    s = s + bias
+    s = torch.einsum("bhqd,bhkd->bhqk", _split(q, H), _split(k, H))
+    s = s * (D // H) ** -0.5 + _bias(key_padding_mask, seq_len, main_context,
+                                     right_context)
     m = s.amax(dim=-1)
     e = torch.exp(s - m[..., None])
     l = e.sum(dim=-1)
-    o = torch.einsum("bhqk,bhkd->bhqd", e / l[..., None], split(v))
-    return o.to(q.dtype).transpose(1, 2).reshape(B, S, D), m, l
+    p = e / l[..., None]
+    keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
+                       q.device)
+    if keep is not None:
+        p = p * keep
+    o = torch.einsum("bhqk,bhkd->bhqd", p, _split(v, H))
+    return _merge(o, q.dtype), m, l
+
+
+def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
+                                      key_padding_mask, num_heads: int,
+                                      seq_len: int, main_context: int,
+                                      right_context: int,
+                                      dropout_rate: float = 0.0,
+                                      dropout_seed: int = 0,
+                                      dropout_offset: int = 0):
+    """Plain PyTorch twin of the backward kernels, formula by formula
+    (``csrc/flash_attention_bwd.cu``): from the forward's inputs, its
+    ``out`` and row stats ``m``, ``l`` and the cotangent ``dout`` to
+    ``(dq, dk, dv)``, [B, S, D] in ``q.dtype``; every sum in float32."""
+    B, S, D = q.shape
+    H = num_heads
+    scale = (D // H) ** -0.5
+    qs, kh, vh = _split(q, H) * scale, _split(k, H), _split(v, H)
+    do = _split(dout, H)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kh) + _bias(
+        key_padding_mask, seq_len, main_context, right_context)
+    p = torch.exp(s - m[..., None]) / l.clamp(min=1e-20)[..., None]
+    keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
+                       q.device)
+    dvec = (do * _split(out, H)).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vh)
+    pt = p
+    if keep is not None:
+        pt, dp = p * keep, dp * keep
+    dv = torch.einsum("bhqk,bhqd->bhkd", pt, do)
+    ds = p * (dp - dvec)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
+    return tuple(_merge(t, q.dtype) for t in (dq, dk, dv))
 
 
 @functools.lru_cache(maxsize=64)
-def tile_kinds(seq_len: int, main_context: int,
-               right_context: int) -> np.ndarray:
+def tile_kinds(seq_len: int, main_context: int, right_context: int,
+               transposed: bool = False) -> np.ndarray:
     """[ceil(S / Q_TILE), ceil(S / K_TILE)] int8 table of the layout's
     tiles: 0 no allowed pair (skipped), 1 every in-range pair allowed (no
-    structural mask), 2 partial.  Pairs past S do not count."""
+    structural mask), 2 partial.  Pairs past S do not count.
+    ``transposed``: the table of the transposed layout, Q_TILE keys by
+    K_TILE queries, that the dK/dV kernel walks."""
     allowed = block_layout(seq_len, main_context, right_context).allowed
+    if transposed:
+        allowed = allowed.T
     S = allowed.shape[0]
     nq, nk = -(-S // Q_TILE), -(-S // K_TILE)
 
@@ -87,29 +174,18 @@ def tile_kinds(seq_len: int, main_context: int,
 
 @functools.lru_cache(maxsize=64)
 def _kinds_on(seq_len: int, main_context: int, right_context: int,
-              device: str) -> torch.Tensor:
-    return torch.from_numpy(
-        tile_kinds(seq_len, main_context, right_context)).to(device)
-
-
-def no_grad_guard(name: str, why: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would need a backward that the kernel lacks:
-    grad mode on and an input that requires grad.  The same on every
-    device, so the CPU twin does not train where the card could not."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{name} has no backward ({why}); call it "
-                                  f"under torch.no_grad()")
+              device: str, transposed: bool = False) -> torch.Tensor:
+    return torch.from_numpy(tile_kinds(
+        seq_len, main_context, right_context, transposed)).to(device)
 
 
 def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-           right_context, dropout_rate):
-    no_grad_guard("blockwise_flash_attention_packed",
-                  "the flash-attention backward K3, wav2vec_s_tpu/ops/"
-                  "pallas_attention.py _flash_attn_bwd, is not ported yet: "
-                  "train with attention_impl='dense'", q, k, v)
-    if dropout_rate:
-        raise NotImplementedError("attention dropout needs the training "
-                                  "kernels; this is the inference forward")
+           right_context, dropout_rate, dropout_seed, dropout_offset):
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout rate {dropout_rate} is not in [0, 1)")
+    if not (0 <= dropout_seed < 1 << 64 and 0 <= dropout_offset < 1 << 64):
+        raise ValueError(f"seed {dropout_seed} and offset {dropout_offset} "
+                         f"must be unsigned 64-bit integers")
     if q.dim() != 3:
         raise ValueError(f"q {tuple(q.shape)} is not [B, S, D]")
     B, S, D = q.shape
@@ -138,45 +214,35 @@ def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
                          "bfloat16")
     if any(t.device != q.device for t in (k, v, key_padding_mask)):
         raise ValueError("all tensors must be on one device")
-
-
-def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
-                                     num_heads: int, seq_len: int,
-                                     main_context: int, right_context: int,
-                                     dropout_rate: float = 0.0,
-                                     return_stats: bool = False):
-    """q, k, v: [B, S, D] packed projections (head h at columns
-    ``h*dh:(h+1)*dh``, q NOT pre-scaled), S = ``block_layout(seq_len,
-    main_context, right_context).total_len``; key_padding_mask: [B, S]
-    bool, True = padded key (the extended mask, rc copies included).
-
-    Returns [B, S, D] in ``q.dtype`` (padded query rows hold anything;
-    callers strip them), or ``(out, m, l)`` with the [B, H, S] float32 row
-    stats when ``return_stats``.  CPU tensors run the plain twin; CUDA
-    tensors launch the kernel (count in
-    ``blockwise_flash_attention_packed.launches``) or raise."""
-    _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-           right_context, dropout_rate)
-    if q.device.type == "cpu":
-        res = blockwise_flash_attention_ref(
-            q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-            right_context)
-        return res if return_stats else res[0]
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
-    if not all(t.is_contiguous() for t in (q, k, v, key_padding_mask)):
-        raise ValueError("the flash-attention kernel takes contiguous "
+
+
+def _contiguous(*tensors):
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the flash-attention kernels take contiguous "
                          "tensors")
+
+
+def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
+    """Twin (CPU) or kernel K2 (CUDA) -> (out, m, l); m and l are None on
+    CUDA unless ``want_stats``.  ``layout`` = (num_heads, seq_len, mc, rc),
+    ``drop`` = (rate, seed, offset)."""
+    if q.device.type == "cpu":
+        return blockwise_flash_attention_ref(q, k, v, key_padding_mask,
+                                             *layout, *drop)
+    _contiguous(q, k, v, key_padding_mask)
     from wav2vec_s_tpu_torch.ops import native
 
     B, S, D = q.shape
-    H = num_heads
+    H, seq_len, mc, rc = layout
+    rate, seed, offset = drop
     with torch.cuda.device(q.device):
         lib = native.library()
-        kinds = _kinds_on(seq_len, main_context, right_context, str(q.device))
+        kinds = _kinds_on(seq_len, mc, rc, str(q.device))
         out = torch.empty_like(q)
         m = l = None
-        if return_stats:
+        if want_stats:
             m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
             l = torch.empty_like(m)
         err = lib.w2vs_flash_attention(
@@ -184,13 +250,127 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
             key_padding_mask.data_ptr(), kinds.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
             None if l is None else l.data_ptr(),
-            B, S, D, H, seq_len, main_context, right_context,
-            _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+            B, S, D, H, seq_len, mc, rc, _DTYPE_CODES[q.dtype], seed, offset,
+            _threshold(rate), 1.0 / (1.0 - rate),
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {err}")
     blockwise_flash_attention_packed.launches += 1
-    return (out, m, l) if return_stats else out
+    return out, m, l
+
+
+def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
+                                  num_heads: int, seq_len: int,
+                                  main_context: int, right_context: int,
+                                  dropout_rate: float = 0.0,
+                                  dropout_seed: int = 0,
+                                  dropout_offset: int = 0):
+    """The backward of ``blockwise_flash_attention_packed``: the forward's
+    inputs, its ``out`` [B, S, D] and row stats ``m``, ``l`` [B, H, S]
+    float32, and the cotangent ``dout`` [B, S, D] -> ``(dq, dk, dv)`` in
+    ``q.dtype``, under the same dropout arguments as the forward.  CPU
+    tensors run ``blockwise_flash_attention_bwd_ref``; CUDA tensors launch
+    the backward kernels K3 (one count in
+    ``blockwise_flash_attention_bwd.launches`` per call) or raise."""
+    _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
+           right_context, dropout_rate, dropout_seed, dropout_offset)
+    B, S, D = q.shape
+    H = num_heads
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("m", m, (B, H, S), torch.float32),
+                                  ("l", l, (B, H, S), torch.float32)):
+        if t.shape != shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(shape)} {dtype} on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+    if q.device.type == "cpu":
+        return blockwise_flash_attention_bwd_ref(
+            q, k, v, out, dout, m, l, key_padding_mask, num_heads, seq_len,
+            main_context, right_context, dropout_rate, dropout_seed,
+            dropout_offset)
+    _contiguous(q, k, v, out, dout, m, l, key_padding_mask)
+    from wav2vec_s_tpu_torch.ops import native
+
+    with torch.cuda.device(q.device):
+        lib = native.library()
+        dev = str(q.device)
+        kinds = _kinds_on(seq_len, main_context, right_context, dev)
+        kinds_t = _kinds_on(seq_len, main_context, right_context, dev, True)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        dvec = torch.empty_like(m)
+        err = lib.w2vs_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), m.data_ptr(), l.data_ptr(),
+            key_padding_mask.data_ptr(), kinds.data_ptr(),
+            kinds_t.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dvec.data_ptr(), B, S, D, H, seq_len, main_context,
+            right_context, _DTYPE_CODES[q.dtype], dropout_seed,
+            dropout_offset, _threshold(dropout_rate),
+            1.0 / (1.0 - dropout_rate),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash-attention backward kernel launch failed: "
+                           f"CUDA error {err}")
+    blockwise_flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+blockwise_flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, layout, drop):
+        out, m, l = _forward(q, k, v, key_padding_mask, layout, drop, True)
+        ctx.save_for_backward(q, k, v, out, m, l, key_padding_mask)
+        ctx.args = layout + drop
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, dout, _dm, _dl):
+        q, k, v, out, m, l, key_padding_mask = ctx.saved_tensors
+        # dout is often a view of the out_proj input's gradient
+        grads = blockwise_flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), m, l, key_padding_mask,
+            *ctx.args)
+        return (*grads, None, None, None)
+
+
+def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
+                                     num_heads: int, seq_len: int,
+                                     main_context: int, right_context: int,
+                                     dropout_rate: float = 0.0,
+                                     return_stats: bool = False,
+                                     dropout_seed: int = 0,
+                                     dropout_offset: int = 0):
+    """q, k, v: [B, S, D] packed projections (head h at columns
+    ``h*dh:(h+1)*dh``, q NOT pre-scaled), S = ``block_layout(seq_len,
+    main_context, right_context).total_len``; key_padding_mask: [B, S]
+    bool, True = padded key (the extended mask, rc copies included).
+    ``dropout_rate`` > 0 drops the normalised probabilities with the mask
+    of ``(dropout_seed, dropout_offset)`` (one site of the step's
+    ``DropoutContext``).
+
+    Returns [B, S, D] in ``q.dtype`` (padded query rows hold anything;
+    callers strip them), or ``(out, m, l)`` with the [B, H, S] float32 row
+    stats when ``return_stats``.  Differentiable in q, k and v.  CPU
+    tensors run the plain twins; CUDA tensors launch the kernels (counts in
+    ``blockwise_flash_attention_packed.launches`` and
+    ``blockwise_flash_attention_bwd.launches``) or raise."""
+    _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
+           right_context, dropout_rate, dropout_seed, dropout_offset)
+    layout = (num_heads, seq_len, main_context, right_context)
+    drop = (float(dropout_rate), int(dropout_seed), int(dropout_offset))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if q.device.type == "cuda":
+            q, k, v = (t.contiguous() for t in (q, k, v))
+        res = _FlashAttention.apply(q, k, v, key_padding_mask, layout, drop)
+    else:
+        res = _forward(q, k, v, key_padding_mask, layout, drop, return_stats)
+    return res if return_stats else res[0]
 
 
 blockwise_flash_attention_packed.launches = 0

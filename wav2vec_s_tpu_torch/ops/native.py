@@ -4,9 +4,10 @@ The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
 per source, all started together, and linked into one shared library with a
 plain C interface, loaded with ``ctypes``.  The build runs at first use, in
 the process that first launches a kernel, into ``wav2vec_s_tpu_torch/_build/``
-(git-ignored); the library's file name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is loaded as it
-is.  Nothing here runs at import time.
+(git-ignored); the library's file name carries a hash of the sources (the
+``*.cuh`` headers they include too) and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def library() -> ctypes.CDLL:
                            f"device is sm_{major}{minor}")
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources:
+    for p in sources + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode() + p.read_bytes())
     target = BUILD_DIR / f"libw2vs_kernels_{h.hexdigest()[:16]}.so"
     if not target.exists():
@@ -96,8 +97,15 @@ def library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    # (seed, offset, threshold, keep scale) of the attention dropout
+    drop = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
+            ctypes.c_double]
     fn = lib.w2vs_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + drop
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.w2vs_flash_attention_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + drop
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.w2vs_dropout

@@ -1,0 +1,365 @@
+"""Training CLI: ``python -m wav2vec_s_tpu_torch.train.cli --config cfg.yaml
+[--device cuda|cpu] [section.key=value ...]``.
+
+Port of ``wav2vec_s_tpu/train/cli.py`` for CAAT fine-tuning on raw audio
+(``run.task=caat``): the fairseq training program's epoch/update loop
+(fairseq/fairseq_cli/train.py:52-488 + trainer.py) with max-tokens batches,
+periodic validation and checkpointing with keep-K/best policies, patience
+early stop, json progress records and resume.  The same yaml and the same
+``section.key=value`` overrides drive both packages.
+
+What differs from the JAX CLI, on purpose:
+- ``--device`` (default ``cuda``) takes the place of ``--platform``; the
+  model, the Adam state and every batch live on that device.
+- Nothing is compiled: "one step function per (mc, rc, ds) bucket" is a
+  dictionary of closures over one model.
+- The randomness of update ``n`` (dropout seed, layerdrop, decoder position
+  offsets, the sampled decision step) is a function of ``(run.seed, n)``,
+  as ``jax.random.fold_in(base_rng, n)`` is there, so a resumed run
+  continues exactly.  The iterator state that is saved is the consumer's
+  position, not the prefetch thread's.
+- Validation runs the loss in eval mode (no dropout, no layerdrop) under
+  ``torch.no_grad()``.
+- A batch that runs out of device memory is skipped as the fairseq trainer
+  does (trainer.py:700-720): gradients freed, the allocator's cache
+  emptied, the skip counted in the next progress record (``oom_skipped``).
+- What the port does not do yet raises at start-up and names the ROADMAP
+  item that will bring it; no configuration key is ignored silently.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import random
+import sys
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+from wav2vec_s_tpu_torch.data.batching import (
+    EpochBatchIterator, batch_by_size, length_buckets)
+from wav2vec_s_tpu_torch.data.dataset import CaatBatcher, to_device
+from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+from wav2vec_s_tpu_torch.data.manifests import read_s2t_manifest
+from wav2vec_s_tpu_torch.data.prefetch import prefetch_batches
+from wav2vec_s_tpu_torch.data.tokenizer import build_tokenizer
+from wav2vec_s_tpu_torch.models import Wav2Vec2Config
+from wav2vec_s_tpu_torch.models.caat import CaatConfig, W2V2CaatModel
+from wav2vec_s_tpu_torch.models.modules import random_init_
+from wav2vec_s_tpu_torch.train.config import TrainConfig, load_config
+from wav2vec_s_tpu_torch.train.optim import build_optimizer
+from wav2vec_s_tpu_torch.train.recipes import (
+    make_caat_loss_fn, make_freeze_mask)
+from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise ``NotImplementedError`` for every configuration the JAX CLI
+    takes and the port does not yet, naming the ROADMAP item."""
+    run, data = cfg.run, cfg.data
+    todo = []
+    if run.task != "caat":
+        item = "10" if run.task == "pretrain" else "12"
+        todo.append(f"run.task={run.task} (ROADMAP Queue 1 item {item}; "
+                    f"only 'caat' is ported)")
+    if data.features != "raw":
+        todo.append(f"data.features={data.features} (item 12: the fbank "
+                    f"and text families)")
+    if run.num_devices > 1 or run.zero or run.fsdp or run.seq > 1:
+        todo.append("run.num_devices > 1 / run.zero / run.fsdp / run.seq > 1 "
+                    "(item 11: parallel)")
+    if run.eval_bleu or run.eval_wer:
+        todo.append("run.eval_bleu / run.eval_wer (item 12: needs "
+                    "eval/generator.py)")
+    if cfg.optim.optimizer != "adam":
+        todo.append(f"optim.optimizer={cfg.optim.optimizer} (item 9: only "
+                    f"adam is ported)")
+    if run.remat != "none":
+        todo.append("run.remat (item 9: a TPU experiment that waits for a "
+                    "measurement on the card)")
+    if run.flat_optimizer:
+        todo.append("run.flat_optimizer (item 9: a TPU experiment that "
+                    "waits for a measurement on the card)")
+    if run.profile_dir:
+        todo.append("run.profile_dir (item 12: utils/debug.py and the "
+                    "profiler hook)")
+    if run.debug_nan:
+        todo.append("run.debug_nan (item 12: utils/debug.py)")
+    if run.w2v2_model_path or run.load_pretrained_model_from:
+        todo.append("run.w2v2_model_path / run.load_pretrained_model_from "
+                    "(item 9: import of fairseq .pt checkpoints)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _config(cls, kwargs: Dict, section: str, **fixed):
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(kwargs) - known)
+    if unknown:
+        raise ValueError(
+            f"{section}.{unknown[0]} is not a field of the port's "
+            f"{cls.__name__} (pre-training and fbank-family fields come "
+            f"with ROADMAP Queue 1 items 10 and 12)")
+    kw = {k: (tuple(map(tuple, v)) if k == "conv_feature_layers"
+              else tuple(v) if isinstance(v, list) else v)
+          for k, v in kwargs.items()}
+    return cls(**kw, **fixed)
+
+
+def build_caat(cfg: TrainConfig):
+    """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run on raw
+    audio (``wav2vec_s_tpu/train/cli.py`` ``build_caat``)."""
+    manifest = read_s2t_manifest(cfg.data.train_manifest, cfg.data.audio_root)
+    tgt_dict = Dictionary.load(cfg.data.vocab)
+    tokenizer = build_tokenizer(cfg.data.tokenizer, cfg.data.spm_model or None,
+                                cfg.data.bpe_dropout)
+    audio_buckets = length_buckets(cfg.data.max_sample_size, multiple=640)
+    batcher = CaatBatcher(manifest, tgt_dict, tokenizer, audio_buckets,
+                          task_type=cfg.data.task_type,
+                          normalize=cfg.data.normalize)
+    model_cfg = _config(Wav2Vec2Config, cfg.model, "model",
+                        main_context=cfg.context.main_context,
+                        right_context=cfg.context.right_context)
+    caat_cfg = _config(CaatConfig, cfg.caat, "caat",
+                       vocab_size=len(tgt_dict))
+    model = random_init_(W2V2CaatModel(model_cfg, caat_cfg),
+                         torch.Generator().manual_seed(cfg.run.seed))
+    if cfg.run.pretrained_encoder_path:
+        from wav2vec_s_tpu_torch.checkpoint.warm_start import (
+            apply_pretrained_encoder)
+        apply_pretrained_encoder(model, cfg.run.pretrained_encoder_path)
+        print(f"encoder initialized from {cfg.run.pretrained_encoder_path}",
+              file=sys.stderr)
+
+    def make_loss(mc, rc, downsample=None, train=True):
+        return make_caat_loss_fn(model, caat_cfg, mc, rc,
+                                 downsample=downsample, train=train)
+
+    return manifest, batcher, model, caat_cfg, make_loss
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="wav2vec_s_tpu_torch trainer")
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (cpu for testing)")
+    parser.add_argument("overrides", nargs="*", default=[])
+    args = parser.parse_args(argv)
+
+    cfg = load_config(args.config, args.overrides)
+    check_supported(cfg)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(give --device cpu to run on the host)")
+    _train(cfg, device)
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The 63-bit seed of update ``step``'s randomness, a function of
+    ``(run.seed, step)`` alone; hashed, because generators seeded with
+    neighbouring integers start out correlated."""
+    digest = hashlib.sha256(f"{seed}:{step}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") >> 1
+
+
+def _train(cfg: TrainConfig, device: torch.device):
+    run = cfg.run
+    manifest, batcher, model, caat_cfg, make_loss = build_caat(cfg)
+    model.to(device)
+    sizes = np.asarray(manifest.n_frames)
+
+    batches = batch_by_size(sizes, cfg.data.max_tokens)
+    if not batches:
+        raise ValueError("the training manifest gives no batch")
+    itr = EpochBatchIterator(batches, seed=cfg.data.seed)
+
+    optimizer = build_optimizer(cfg.optim)
+    state = TrainState.create(model, optimizer)
+
+    mgr = CheckpointManager(run.save_dir, keep_last=run.keep_last,
+                            keep_best=run.keep_best,
+                            async_save=run.async_checkpoints)
+    if run.restore_from or mgr.latest_step() is not None:
+        src = CheckpointManager(run.restore_from) if run.restore_from else mgr
+        restored, meta = src.restore(template=state)
+        if restored is not None:
+            if meta and meta.get("extra", {}).get("iterator"):
+                itr.load_state_dict(meta["extra"]["iterator"])
+            print(f"restored checkpoint at step {state.step}",
+                  file=sys.stderr)
+
+    grad_mask = None
+    if run.freeze_w2v2_enc or run.freeze_finetune_updates:
+        grad_mask = make_freeze_mask(run.freeze_w2v2_enc,
+                                     run.freeze_finetune_updates)
+
+    # one step function per context bucket and decision step
+    steps = {}
+
+    def get_step(mc, rc, ds=None):
+        if (mc, rc, ds) not in steps:
+            steps[(mc, rc, ds)] = make_train_step(
+                make_loss(mc, rc, ds), optimizer,
+                accum_steps=run.update_freq, grad_mask=grad_mask)
+        return steps[(mc, rc, ds)]
+
+    # sampled decision-step training (reference step_mode=random,
+    # rain/layers/attention_transducer.py:800-815): one trained model serves
+    # every DECISION_STEP eval point.  Host-side draw per update.
+    sampled_steps = (caat_cfg.sampled_steps
+                     if caat_cfg.step_mode == "random" else None)
+    mc, rc = cfg.context.main_context, cfg.context.right_context
+
+    # validation: eval-mode loss over the valid manifest (patience early
+    # stop like fairseq_cli/train.py:209-236)
+    valid_setup = None
+    if cfg.data.valid_manifest:
+        vman = read_s2t_manifest(cfg.data.valid_manifest, cfg.data.audio_root)
+        vsizes = np.asarray(vman.n_frames)
+        valid_setup = (_valid_batcher(batcher, vman),
+                       batch_by_size(vsizes, cfg.data.max_tokens), vsizes,
+                       make_loss(mc, rc, train=False))
+
+    @torch.no_grad()
+    def validate() -> float:
+        vbatcher, vbatches, vsz, vloss_fn = valid_setup
+        tot = n = 0.0
+        for bidx in vbatches:
+            hb = vbatcher.collate(bidx, size_hint=int(vsz[bidx].max()))
+            loss, size, _ = vloss_fn(to_device(hb, device), None, 0)
+            tot += float(loss)
+            n += float(size)
+        return tot / max(n, 1.0)
+
+    def collate_train(batch_idx):
+        host_batch = batcher.collate(batch_idx,
+                                     size_hint=int(sizes[batch_idx].max()))
+        if run.update_freq > 1:
+            host_batch = {k: _microbatch(v, run.update_freq)
+                          for k, v in host_batch.items()}
+        return host_batch
+
+    progress = JsonProgress(tensorboard_dir=run.tensorboard_dir or None)
+    speed = TimeMeter()
+    gen = torch.Generator()
+    window: Dict[str, list] = {}
+    best_valid, bad_validations = float("inf"), 0
+    oom_skipped = oom_in_a_row = 0
+    stop = False
+    logs: Optional[Dict[str, torch.Tensor]] = None
+
+    # host-side step mirror: the hot loop keeps the logs as device tensors
+    # and defers every readback to log/valid/save points (the step itself
+    # reads one scalar, the gradient norm, to decide the non-finite skip)
+    host_step = state.step
+    position = itr.state_dict()
+    while host_step < run.max_update and not stop:
+        # the consumer's position in the epoch: what a checkpoint saves (the
+        # prefetch thread runs ahead of it)
+        position = itr.state_dict()
+        for batch_idx, host_batch in prefetch_batches(
+                itr.next_epoch_itr(), collate_train, run.prefetch):
+            if host_step >= run.max_update:
+                break
+            position["batch_offset"] += 1
+            draw = random.Random(_step_seed(run.seed, host_step))
+            ds = (sampled_steps[draw.randrange(len(sampled_steps))]
+                  if sampled_steps else None)
+            gen.manual_seed(_step_seed(run.seed, host_step))
+            try:
+                state, logs = get_step(mc, rc, ds)(
+                    state, to_device(host_batch, device), gen)
+                oom = None
+            except torch.cuda.OutOfMemoryError as e:
+                oom = e
+            if oom is not None:
+                # skip the batch: free what the failed step left behind
+                # (outside the handler, where its traceback pins nothing)
+                oom_in_a_row += 1
+                if oom_in_a_row >= len(batches):
+                    raise oom              # no batch of the epoch fits
+                oom = None
+                for p in model.parameters():
+                    p.grad = None
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                oom_skipped += 1
+                print(f"out of device memory on a batch of "
+                      f"{len(batch_idx)}: skipped", file=sys.stderr)
+                continue
+            oom_in_a_row = 0
+            host_step += 1
+
+            speed.update(1)
+            for k, v in logs.items():
+                window.setdefault(k, []).append(v)   # device tensors: no sync
+            if ds is not None:
+                window.setdefault("decision_step", []).append(float(ds))
+
+            if host_step % run.log_interval == 0:
+                stats = {k: float(np.mean([float(x) for x in v]))
+                         for k, v in window.items()}
+                if "loss_total" in stats and "sample_size" in stats:
+                    stats["loss_per_sample"] = (
+                        stats["loss_total"] / max(stats["sample_size"], 1))
+                stats["ups"] = round(speed.avg, 2)
+                if oom_skipped:
+                    stats["oom_skipped"], oom_skipped = oom_skipped, 0
+                progress.log(stats, host_step)
+                window.clear()
+
+            if valid_setup is not None and run.validate_interval_updates \
+                    and host_step % run.validate_interval_updates == 0:
+                vloss = validate()
+                progress.log({"valid_loss": vloss}, host_step, tag="valid")
+                if vloss < best_valid - 1e-6:
+                    best_valid, bad_validations = vloss, 0
+                else:
+                    bad_validations += 1
+                    if run.patience and bad_validations >= run.patience:
+                        print(f"early stop: no improvement in "
+                              f"{run.patience} validations", file=sys.stderr)
+                        stop = True
+
+            if run.save_interval_updates and \
+                    host_step % run.save_interval_updates == 0:
+                mgr.save(host_step, state, extra={"iterator": dict(position)},
+                         metric=(best_valid if valid_setup is not None else
+                                 float(logs["loss_total"])
+                                 / max(float(logs["sample_size"]), 1)))
+            if stop:
+                break
+        else:
+            position = {"epoch": position["epoch"] + 1, "batch_offset": 0}
+
+    mgr.save(host_step, state, extra={"iterator": dict(position)})
+    mgr.wait()                         # commit any in-flight async write
+    print(f"training done at step {host_step}", file=sys.stderr)
+
+
+def _microbatch(x: np.ndarray, k: int) -> np.ndarray:
+    b = x.shape[0] // k * k
+    return x[:b].reshape((k, b // k) + x.shape[1:])
+
+
+def _valid_batcher(batcher: CaatBatcher, manifest) -> CaatBatcher:
+    """The training batcher over the validation manifest, without BPE
+    dropout (validation segments deterministically)."""
+    new = dataclasses.replace(batcher, manifest=manifest)
+    if getattr(new.tokenizer, "bpe_dropout", 0.0) > 0:
+        import copy
+
+        clean = copy.copy(new.tokenizer)
+        clean.bpe_dropout = 0.0
+        new = dataclasses.replace(new, tokenizer=clean)
+    return new
+
+
+if __name__ == "__main__":
+    main()

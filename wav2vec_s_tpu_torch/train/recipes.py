@@ -23,17 +23,19 @@ from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
 
 def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
                       right_context: Optional[int] = None,
-                      downsample: Optional[int] = None):
+                      downsample: Optional[int] = None, train: bool = True):
     """loss_fn for ``make_train_step`` over ``model`` (a
     ``W2V2CaatModel``): batch {source, targets, [padding_mask]}; each call
     draws the step's dropout seed, layerdrop and position offsets from the
-    host ``generator``."""
+    host ``generator``.  ``train=False`` is the validation loss: no
+    ``DropoutContext`` (every dropout site is the identity, no layer is
+    dropped, no position offset), the generator is not read."""
 
     def loss_fn(batch, generator: torch.Generator, step: int):
         tgt = batch["targets"]
         B = tgt.shape[0]
         prev = torch.cat([tgt.new_full((B, 1), caat_cfg.bos), tgt], dim=1)
-        ctx = DropoutContext(generator)
+        ctx = DropoutContext(generator) if train else None
         joint_h, glens = model(batch["source"], prev,
                                padding_mask=batch.get("padding_mask"),
                                main_context=main_context,
