@@ -5,7 +5,8 @@
 
 Phases, each printed on its own line:
   1. build   — nvcc builds the kernel library from wav2vec_s_tpu_torch/csrc
-               (one nvcc per source, all started together);
+               (one nvcc per source, all started together) and prints each
+               kernel's registers and spills as ptxas reports them;
   2. kernel  — the chunk-attention kernel (K1) against its plain twin at the
                main-path shapes (128 streams, 12 heads of 64, kv_cap 512,
                R 48 and 240, several t0, float32 and bfloat16), then both
@@ -14,13 +15,18 @@ Phases, each printed on its own line:
                plain twin at the one-shot encoder's full-width call (32
                streams, T 488, mc 16, rc 8 -> S 728, 12 heads of 64, float32
                and bfloat16, padded keys; and an rc 0 layout): output on
-               valid rows and the row stats m/l; then both timed per call;
+               valid rows and the row stats m/l; float32 runs the CUDA-core
+               kernel, bfloat16 the tensor-core kernel (each case prints its
+               set); then kernel, twin and library call timed per call;
   3b. flash backward — the flash backward kernels (K3) against their plain
                twin at the training call (8 streams, T 500 -> S 748, mc 16,
                rc 8, 12 heads of 64, padded keys; and an rc 0 layout; float32
                and bfloat16; dropout 0 and 0.1): dQ on valid rows, dK, dV;
                the forward with dropout against its twin; two runs
-               bit-identical; then kernel, twin and the library call timed;
+               bit-identical; float32 on the CUDA-core kernels, bfloat16 on
+               the tensor-core kernels; then kernel, twin and the library
+               call (its backward alone: forward + backward minus forward)
+               timed;
   4. dropout — the counter-based dropout kernel (K4) against its twin:
                bit-equal outputs and masks at the training step's shapes
                ([8*748, 768], [8*748, 3072], the attention probabilities
@@ -53,7 +59,8 @@ Phases, each printed on its own line:
   10. one-shot full — the same model with attention_impl="flash", the
                one-shot corpus decoder on 256 streams of 10 s, encode batch
                32: one warm-up corpus, then CORPORA timed ones; K2's launch
-               count must equal layers x sub-batches x corpora;
+               count must equal layers x sub-batches x corpora, all of them
+               on the tensor-core kernel;
   11. train full — the CAAT fine-tuning step at Base + CAAT base width,
                bfloat16, dense attention, the recipe's dropouts on, B 8 x
                10 s of seeded noise, U 40: one warm step, then two windows
@@ -68,9 +75,9 @@ Phases, each printed on its own line:
                second call resumes from it and takes 2 more updates; then
                the same 12 updates on dense attention through the same entry
                point, beside it.  K2 launches == K3 launches == encoder
-               layers kept by layerdrop, K4/K5/K6 as in phase 11 (the
-               attention sites launch no K4), K1 none; finite losses, no
-               skipped step.
+               layers kept by layerdrop, every one on the tensor-core
+               kernels, K4/K5/K6 as in phase 11 (the attention sites launch
+               no K4), K1 none; finite losses, no skipped step.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -114,13 +121,36 @@ def _counters():
             "transducer_affine_rows": kernels.affine_rows}
 
 
+def _flash_wrappers():
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
+
+    return {"K2": blockwise_flash_attention_packed,
+            "K3": blockwise_flash_attention_bwd}
+
+
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
+    for fn in _flash_wrappers().values():
+        fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
 def _counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _flash_paths():
+    """{K2 | K3: launches of the flash wrapper on each kernel set}."""
+    return {k: dict(fn.path_launches) for k, fn in _flash_wrappers().items()}
+
+
+def _on_tensor_cores(paths, want):
+    """Every flash launch of a bfloat16 full-width path ran on the
+    tensor-core kernels: ``want`` = {K2 | K3: launches}."""
+    for name, n in want.items():
+        assert paths[name] == {"tensor_core": n, "cuda_core": 0}, (
+            name, paths[name], n)
 
 
 def _card() -> str:
@@ -288,7 +318,8 @@ def phase_flash():
     import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.block_mask import block_layout
     from wav2vec_s_tpu_torch.ops.flash_attention import (
-        blockwise_flash_attention_packed, blockwise_flash_attention_ref)
+        TILES, blockwise_flash_attention_packed,
+        blockwise_flash_attention_ref, kernel_path, tile_kinds)
 
     B, T, mc, H, D = ENCODE_BATCH, 488, 16, 12, 768
     dev = torch.device("cuda")
@@ -297,6 +328,14 @@ def phase_flash():
     worst = 0.0
     for rc in (8, 0):
         S = block_layout(T, mc, rc).total_len
+        shares = {}
+        for path, (qt, kt) in TILES.items():
+            kinds = tile_kinds(T, mc, rc, qt, kt)
+            shares[path] = (f"{int((kinds != 0).sum())} of {kinds.size} "
+                            f"tiles of {qt} x {kt}, "
+                            f"{(kinds != 0).sum() * qt * kt / S / S:.3f} of "
+                            f"S x S")
+        print(f"phase flash: S={S} rc={rc}: computed {shares}")
         # non-contiguous key padding of one stream: a frame tail and the
         # last rc copies (tests/test_pallas_attention.py)
         pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
@@ -307,9 +346,14 @@ def phase_flash():
             q, k, v = (torch.randn((B, S, D), generator=g, device=dev)
                        .to(dtype) for _ in range(3))
             args = (q, k, v, pad, H, T, mc, rc)
+            _reset_counts()
             out, m, l = blockwise_flash_attention_packed(*args,
                                                          return_stats=True)
             torch.cuda.synchronize()
+            path = kernel_path(dtype, D // H)
+            assert _flash_paths()["K2"][path] == 1
+            assert path == ("tensor_core" if dtype == torch.bfloat16
+                            else "cuda_core")
             want, m_want, l_want = blockwise_flash_attention_ref(*args)
             err = (out[valid].float() - want[valid].float()).abs().max()
             err = err.item()
@@ -317,8 +361,8 @@ def phase_flash():
             stat_err = max(((a[rows] - b[rows]).abs()
                             / (1.0 + b[rows].abs())).max().item()
                            for a, b in ((m, m_want), (l, l_want)))
-            print(f"phase flash: S={S} rc={rc} {str(dtype)[6:]} "
-                  f"max_abs_err={err:.3g} tol={tol[dtype]:g}; m/l max "
+            print(f"phase flash: S={S} rc={rc} {str(dtype)[6:]} ({path} "
+                  f"kernel) max_abs_err={err:.3g} tol={tol[dtype]:g}; m/l max "
                   f"err/(1+|x|)={stat_err:.3g} tol=1e-4")
             assert err <= tol[dtype], (rc, dtype, err)
             assert stat_err <= 1e-4, (rc, dtype, stat_err)
@@ -331,7 +375,9 @@ def phase_flash():
                .to(torch.bfloat16) for _ in range(3))
     pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
     args = (q, k, v, pad, H, T, mc, 8)
+    _reset_counts()
     ms = _cuda_ms(lambda: blockwise_flash_attention_packed(*args), 20)
+    _on_tensor_cores(_flash_paths(), {"K2": 21})
     plain_ms = _cuda_ms(lambda: blockwise_flash_attention_ref(*args), 5)
     qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, 8)
     library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -341,7 +387,7 @@ def phase_flash():
     bound = _bound(2 * 4 * B * S * D + B * S,
                    4 * B * D * _allowed_pairs(T, mc, 8), "bfloat16")
     print(f"phase flash: B={B} S={S} H={H} dh={D // H} bf16 per call: "
-          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, library "
+          f"tensor-core kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, library "
           f"(scaled_dot_product_attention, boolean mask) {library_ms:.4f} "
           f"ms, bound {bound[0]:.5f} ms by {bound[1]}")
     return _row(worst, ms, plain_ms, bound, library_ms)
@@ -381,6 +427,7 @@ def phase_flash_bwd():
             do = do * valid[:, :, None].to(dtype)   # padded rows: stripped
             for rate in (0.0, 0.1):
                 lay = (pad, H, T, mc, rc)
+                _reset_counts()
                 out, m, l = blockwise_flash_attention_packed(
                     q, k, v, *lay, rate, True, seed, offset)
                 torch.cuda.synchronize()
@@ -396,6 +443,11 @@ def phase_flash_bwd():
                 torch.cuda.synchronize()
                 same = all(torch.equal(a, b) for a, b in zip(got, again))
                 del again
+                path, other = (("tensor_core", "cuda_core")
+                               if dtype == torch.bfloat16
+                               else ("cuda_core", "tensor_core"))
+                assert _flash_paths() == {"K2": {path: 1, other: 0},
+                                          "K3": {path: 2, other: 0}}
                 ref = blockwise_flash_attention_bwd_ref(
                     q, k, v, out, do, m, l, *lay, rate, seed, offset)
                 errs = []
@@ -408,7 +460,8 @@ def phase_flash_bwd():
                     errs.append(((a.float() - b.float()).abs().max()
                                  / b.float().abs().max()).item())
                 print(f"phase flash backward: S={S} rc={rc} "
-                      f"{str(dtype)[6:]} rate={rate}: forward max_abs_err="
+                      f"{str(dtype)[6:]} ({path} kernels) rate={rate}: "
+                      f"forward max_abs_err="
                       f"{err_f:.3g} (tol {tol_fwd[dtype]:g}); dQ, dK, dV max "
                       f"|diff| / max |grad| = "
                       f"{', '.join(f'{e:.3g}' for e in errs)} (tol "
@@ -425,6 +478,7 @@ def phase_flash_bwd():
     pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
     lay, rate = (pad, H, T, mc, 8), 0.1
     times = {}
+    _reset_counts()
     for r in (0.0, rate):
         out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, r, True,
                                                      seed, offset)
@@ -433,10 +487,12 @@ def phase_flash_bwd():
                 q, k, v, *lay, r, True, seed, offset), 20),
             _cuda_ms(lambda: blockwise_flash_attention_bwd(
                 q, k, v, out, do, m, l, *lay, r, seed, offset), 20))
+    _on_tensor_cores(_flash_paths(), {"K2": 2 * 22, "K3": 2 * 21})
     plain_ms = _cuda_ms(lambda: blockwise_flash_attention_bwd_ref(
         q, k, v, out, do, m, l, *lay, rate, seed, offset), 3)
     # the library call: scaled_dot_product_attention forward + backward
-    # (its own dropout of the same rate), and its forward alone
+    # (its own dropout of the same rate) and its forward alone; K3 is a
+    # backward only, so its yardstick is the difference of the two
     qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, 8)
     leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
     doh = do.reshape(B, S, H, D // H).transpose(1, 2)
@@ -446,19 +502,21 @@ def phase_flash_bwd():
                                            dropout_p=rate)
         torch.autograd.grad(o, leaves, doh)
 
-    library_ms = _cuda_ms(library, 20)
+    library_both_ms = _cuda_ms(library, 20)
     library_fwd_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask, dropout_p=rate), 20)
+    library_ms = library_both_ms - library_fwd_ms
     # bound: q, k, v, out, dout, m, l and the padding mask read once, dQ,
     # dK, dV written once; five products over the allowed pairs
     bound = _bound(2 * 8 * B * S * D + 2 * 4 * B * H * S + B * S,
                    10 * B * D * _allowed_pairs(T, mc, 8), "bfloat16")
     print(f"phase flash backward: B={B} S={S} H={H} dh={D // H} bf16 per "
-          f"call: K3 {times[rate][1]:.4f} ms at dropout {rate} "
-          f"({times[0.0][1]:.4f} ms without), plain twin {plain_ms:.4f} ms, "
-          f"library (scaled_dot_product_attention forward + backward, "
-          f"boolean mask, dropout {rate}) {library_ms:.4f} ms (its forward "
-          f"alone {library_fwd_ms:.4f} ms), bound {bound[0]:.5f} ms by "
+          f"call, tensor-core kernels: K3 {times[rate][1]:.4f} ms at "
+          f"dropout {rate} ({times[0.0][1]:.4f} ms without), plain twin "
+          f"{plain_ms:.4f} ms, library (scaled_dot_product_attention, "
+          f"boolean mask, dropout {rate}) backward alone {library_ms:.4f} ms "
+          f"= forward + backward {library_both_ms:.4f} ms - forward "
+          f"{library_fwd_ms:.4f} ms, bound {bound[0]:.5f} ms by "
           f"{bound[1]}; K2 at this call with row stats: "
           f"{times[rate][0]:.4f} ms at dropout {rate}, {times[0.0][0]:.4f} "
           f"ms without")
@@ -890,15 +948,16 @@ def phase_oneshot_full(card):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     times, texts, delays = _timed_corpora(dec, wavs)
-    counts = _counts()
+    counts, flash_paths = _counts(), _flash_paths()
     launches = counts["blockwise_flash_attention_packed"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_sub = ONESHOT_STREAMS // ENCODE_BATCH
     want = w2v.encoder_layers * n_sub * CORPORA
     print(f"phase one-shot full: kernel launches {counts} (K2 expected "
           f"{want} = {w2v.encoder_layers} layers x {n_sub} sub-batches x "
-          f"{CORPORA})")
+          f"{CORPORA}); by kernel set {flash_paths}")
     assert launches == want, (launches, want)
+    _on_tensor_cores(flash_paths, {"K2": want, "K3": 0})
     assert any(texts), "decoder emitted nothing"
     enc = dec._encoder(ONESHOT_STREAMS)
     end_ms = (S + enc.window) / 16.0
@@ -1224,9 +1283,10 @@ def _cli_corpus(root, n_clips, n_samples, vocab_size, n_words):
 
 
 def _run_cli(argv, n_layers, n_dec_layers):
-    """One call of the trainer's entry point with every launch count set
-    to 0 before it -> (counts, progress records with the host time of each,
-    dropout contexts of its steps, peak GB)."""
+    """One call of the trainer's entry point (bfloat16, full width) with
+    every launch count set to 0 before it -> (counts, progress records with
+    the host time of each, dropout contexts of its steps, peak GB).  Every
+    flash launch must have run on the tensor-core kernels."""
     import io
     from unittest import mock
 
@@ -1259,6 +1319,9 @@ def _run_cli(argv, n_layers, n_dec_layers):
         cli.main(argv)
     torch.cuda.synchronize()
     counts = _counts()
+    _on_tensor_cores(_flash_paths(), {
+        "K2": counts["blockwise_flash_attention_packed"],
+        "K3": counts["blockwise_flash_attention_bwd"]})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # 1 + 3 per kept encoder layer + 1 + 4 per LM layer + 4 per jointer
     # layer dropout sites in a step
@@ -1324,8 +1387,10 @@ def phase_cli_full(card):
                 blockwise_flash_attention_packed=flash_calls,
                 blockwise_flash_attention_bwd=flash_calls,
                 hw_dropout=2 * (sum(c.sites for c in ctxs) - flash_calls))
+            on = (", K2 and K3 all on the tensor-core kernels"
+                  if impl == "flash" else "")
             print(f"phase cli full: {impl}: launches {counts} over {total} "
-                  f"updates; expected {want} (encoder layers kept by "
+                  f"updates{on}; expected {want} (encoder layers kept by "
                   f"layerdrop per update {kept})")
             assert counts == want, (counts, want)
             span = recs[-1]["at"] - recs[CLI_WARM - 1]["at"]
@@ -1383,11 +1448,11 @@ def main() -> int:
 
     t = time.perf_counter()
     native.library()
-    ptxas = [ln.strip() for ln in native.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
     print(f"phase build: {time.perf_counter() - t:.1f} s "
           f"(nvcc {native.build_seconds and round(native.build_seconds, 1)} s)"
-          f"; ptxas: {' | '.join(ptxas)}")
+          f"; ptxas (kernel<template arguments>: registers, bytes spilled): "
+          + "; ".join(f"{name}: {regs}, {spilled}" for name, regs, spilled
+                      in native.ptxas_summary(native.build_log)))
 
     k1 = phase_kernel()
     k2 = phase_flash()
@@ -1407,12 +1472,14 @@ def main() -> int:
     src = "wav2vec_s_tpu_torch/csrc/"
     pa = "wav2vec_s_tpu/ops/pallas_attention.py:"
     pk = "wav2vec_s_tpu/ops/transducer/pallas_kernel.py:"
-    # (counter, source, TPU kernel, the path whose run gives `launches`)
+    # (counter, source, TPU kernel, the path whose run gives `launches`);
+    # K2 and K3: the tensor-core kernels, which the full-width paths run and
+    # the rows' times are of
     rows = [("chunk_cache_attention", "chunk_attention.cu",
              "wav2vec_s_tpu/ops/chunk_attention.py:89", "agent", k1),
-            ("blockwise_flash_attention_packed", "flash_attention.cu",
+            ("blockwise_flash_attention_packed", "flash_attention_mma.cu",
              pa + "281", "one_shot", k2),
-            ("blockwise_flash_attention_bwd", "flash_attention_bwd.cu",
+            ("blockwise_flash_attention_bwd", "flash_attention_bwd_mma.cu",
              pa + "324", "cli_flash", k3),
             ("hw_dropout", "dropout.cu", "wav2vec_s_tpu/ops/dropout.py:64",
              "train_dense", k4),

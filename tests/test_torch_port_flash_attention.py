@@ -7,8 +7,16 @@ and the block layout: the port against the JAX package.
   equal the kernel's (``_flash_attn_impl``), atol/rtol 2e-5 on valid rows,
   at the shapes of tests/test_pallas_attention.py (rc 0 included) with
   non-contiguous key padding;
-- the tile-kind table the kernel walks covers the layout, and the layout
-  rule the kernel evaluates in partial tiles equals ``allowed``;
+- the tile-kind tables the kernels walk (32 x 64 tiles for the CUDA-core
+  kernels, 64 x 64 for the tensor-core kernels, plain and transposed) cover
+  the layout, and the layout rule the kernels evaluate in partial tiles
+  (also in its interval form) equals ``allowed``;
+- which kernel set a (dtype, head width) takes: bfloat16 at the models'
+  widths the tensor cores, float32 and the tiny parity models the CUDA
+  cores;
+- a rounding model of the tensor-core kernels (probabilities and dS rounded
+  to bfloat16 between the products) stays within the card's tolerances of
+  the float32 twins, which is why those tolerances are what they are;
 - the wrapper runs the twin on CPU tensors and rejects what the kernel
   does not take;
 - the backward twin ``blockwise_flash_attention_bwd_ref`` (what the CUDA
@@ -43,10 +51,12 @@ from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, keep_mask
 from wav2vec_s_tpu.utils.positional import (
     sinusoidal_positions_from_padding as jax_positions)
 from wav2vec_s_tpu_torch.ops import block_mask as bm
+from wav2vec_s_tpu_torch.ops import flash_attention as fa
+from wav2vec_s_tpu_torch.ops import native
 from wav2vec_s_tpu_torch.ops.flash_attention import (
-    K_TILE, NEG, Q_TILE, blockwise_flash_attention_bwd,
+    CUDA_CORE, NEG, TENSOR_CORE, TILES, blockwise_flash_attention_bwd,
     blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
-    blockwise_flash_attention_ref, tile_kinds)
+    blockwise_flash_attention_ref, kernel_path, tile_kinds)
 from wav2vec_s_tpu_torch.utils.positional import (
     sinusoidal_positions_from_padding)
 
@@ -111,23 +121,48 @@ def test_row_stats_match_jax_kernel(T, mc, rc, B, H, dh):
                                    rtol=2e-5)
 
 
+# (rows per block, columns per tile): the CUDA-core and tensor-core kernels
+TILE_SIZES = [(32, 64), (64, 64)]
+
+
+def test_tile_sizes_are_the_two_kernel_sets():
+    assert sorted(TILES.values()) == TILE_SIZES
+    assert TILES[TENSOR_CORE] == (64, 64) and TILES[CUDA_CORE] == (32, 64)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("q_tile,k_tile", TILE_SIZES)
 @pytest.mark.parametrize("T,mc,rc", LAYOUTS)
-def test_tile_kinds_cover_the_layout(T, mc, rc):
+def test_tile_kinds_cover_the_layout(T, mc, rc, q_tile, k_tile, transposed):
     allowed = bm.block_layout(T, mc, rc).allowed
+    if transposed:
+        allowed = allowed.T
     S = allowed.shape[0]
-    kinds = tile_kinds(T, mc, rc)
-    assert kinds.shape == (-(-S // Q_TILE), -(-S // K_TILE))
+    kinds = tile_kinds(T, mc, rc, q_tile, k_tile, transposed)
+    assert kinds.shape == (-(-S // q_tile), -(-S // k_tile))
+    assert kinds.dtype == np.int8
     for qi, ki in np.ndindex(*kinds.shape):
-        tile = allowed[qi * Q_TILE:(qi + 1) * Q_TILE,
-                       ki * K_TILE:(ki + 1) * K_TILE]
+        tile = allowed[qi * q_tile:(qi + 1) * q_tile,
+                       ki * k_tile:(ki + 1) * k_tile]
         want = 0 if not tile.any() else 1 if tile.all() else 2
         assert kinds[qi, ki] == want, (qi, ki)
-    assert (kinds == 0).any()                 # the kernel skips something
+    if q_tile == 32 or S > 4 * q_tile:        # the kernel skips something
+        assert (kinds == 0).any()
+    if q_tile == k_tile:
+        np.testing.assert_array_equal(
+            kinds, tile_kinds(T, mc, rc, k_tile, q_tile, not transposed).T)
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("q_tile,k_tile", TILE_SIZES)
 @pytest.mark.parametrize("T,mc,rc", LAYOUTS)
-def test_kernel_layout_rule_equals_allowed(T, mc, rc):
-    """The rule csrc/flash_attention.cu evaluates in partial tiles."""
+def test_kernel_layout_rule_equals_allowed(T, mc, rc, q_tile, k_tile,
+                                           transposed):
+    """The rule the kernels evaluate in partial tiles (csrc/flash_common.cuh
+    ``pair_allowed``), its interval form in the tensor-core kernels
+    (csrc/flash_mma.cuh ``key_rule``/``allowed``: one unsigned compare), and
+    what the tile kinds promise about it: no allowed pair in a skipped
+    tile, no forbidden in-range pair in a full one."""
     S = bm.block_layout(T, mc, rc).total_len
     i = np.arange(S)
     blk = np.where((i < T) | (rc == 0), i // mc, (i - T) // max(rc, 1))
@@ -135,16 +170,152 @@ def test_kernel_layout_rule_equals_allowed(T, mc, rc):
     rule = np.where(copy[None, :], blk[:, None] == blk[None, :],
                     blk[:, None] >= blk[None, :])
     np.testing.assert_array_equal(rule, bm.block_layout(T, mc, rc).allowed)
+    span = np.where(copy, 0, 0x7FFFFFFF).astype(np.uint32)
+    diff = (blk[:, None].astype(np.int32)
+            - blk[None, :].astype(np.int32)).astype(np.uint32)
+    np.testing.assert_array_equal(diff <= span[None, :], rule)
+    if transposed:
+        rule = rule.T
+    kinds = tile_kinds(T, mc, rc, q_tile, k_tile, transposed)
+    for qi, ki in np.ndindex(*kinds.shape):
+        tile = rule[qi * q_tile:(qi + 1) * q_tile,
+                    ki * k_tile:(ki + 1) * k_tile]
+        if kinds[qi, ki] == 0:
+            assert not tile.any()
+        elif kinds[qi, ki] == 1:
+            assert tile.all()
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, TENSOR_CORE),      # Base 768 / 12, Large 1024 / 16
+    (torch.bfloat16, 128, TENSOR_CORE),     # the widest head the wrapper takes
+    (torch.bfloat16, 32, TENSOR_CORE),      # a small card test's width
+    (torch.float32, 64, CUDA_CORE), (torch.float32, 128, CUDA_CORE),
+    (torch.float32, 6, CUDA_CORE),          # the tiny parity models: 24 / 4
+    (torch.float32, 8, CUDA_CORE),          # ... and 32 / 4
+    (torch.bfloat16, 6, CUDA_CORE), (torch.bfloat16, 16, CUDA_CORE),
+    (torch.bfloat16, 48, CUDA_CORE), (torch.bfloat16, 96, CUDA_CORE)])
+def test_kernel_path_is_a_function_of_dtype_and_head_width(dtype, head_dim,
+                                                           want):
+    assert kernel_path(dtype, head_dim) == want
+
+
+def test_model_configs_land_on_their_kernel_sets():
+    """Base and Large in bfloat16 take the tensor cores; the tiny models of
+    the parity tests (float32, heads of 6 and 8) the CUDA cores."""
+    from wav2vec_s_tpu_torch.models import (
+        Wav2Vec2Config, wav2vec_s_base_config)
+
+    base = wav2vec_s_base_config(dtype="bfloat16")
+    assert kernel_path(torch.bfloat16, base.encoder_embed_dim
+                       // base.encoder_attention_heads) == TENSOR_CORE
+    assert kernel_path(torch.bfloat16, 1024 // 16) == TENSOR_CORE
+    for dim, heads in ((24, 4), (32, 4)):
+        tiny = Wav2Vec2Config(encoder_embed_dim=dim,
+                              encoder_attention_heads=heads)
+        assert kernel_path(torch.float32, tiny.encoder_embed_dim
+                           // tiny.encoder_attention_heads) == CUDA_CORE
+
+
+def test_tensor_core_path_refuses_misaligned_tensors():
+    """Its 16-byte copies need 16-byte aligned [B, S, D] tensors; the
+    CUDA-core path takes any alignment."""
+    flat = torch.zeros(2 * 8 * 64 + 8, dtype=torch.bfloat16)
+    ok, off = flat[:-8].view(2, 8, 64), flat[1:-7].view(2, 8, 64)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert fa._path_of(ok, 2, ok, ok) == TENSOR_CORE
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa._path_of(ok, 2, ok, off)
+    assert fa._path_of(off.float(), 2, off) == CUDA_CORE
+    assert fa._path_of(off, 4, off) == CUDA_CORE            # heads of 16
+
+
+def _bf16(t):
+    return t.bfloat16().float()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_rounding_model_stays_within_the_card_tolerances(rate):
+    """The tensor-core kernels round the probabilities (forward: exp(s - m)
+    times keep; backward: p keep) and dS to bfloat16, because they are
+    operands of the second products, where the twins keep float32.  A plain
+    model of exactly that rounding, at the training call's length and head
+    width (S 748, dh 64), stays within what the card tests and
+    chip_smoke.py allow bfloat16 against the twins: 2e-2 max abs on the
+    output, 1e-2 of the largest entry on each gradient.  Nearly all of it
+    is the final bfloat16 rounding of the results (one ulp of an entry of
+    size 1-2 is 7.8e-3), which both sides do."""
+    T, mc, rc, B, H, dh = 500, 16, 8, 1, 2, 64
+    q, k, v, key_pad, w = _grad_inputs(T, mc, rc, B, H, dh, seed=5)
+    q, k, v, w = (torch.from_numpy(t).bfloat16() for t in (q, k, v, w))
+    key_pad = torch.from_numpy(key_pad)
+    S, scale = q.shape[1], dh ** -0.5
+    assert S == 748
+    seed, offset = DROP["dropout_seed"], DROP["dropout_offset"]
+    lay = (key_pad, H, T, mc, rc, rate)
+    out, m, l = blockwise_flash_attention_ref(q, k, v, *lay, seed, offset)
+    want = blockwise_flash_attention_bwd_ref(q, k, v, out, w, m, l, *lay,
+                                             seed, offset)
+
+    qh, kh, vh, doh, oh = (fa._split(t, H) for t in (q, k, v, w, out))
+    keep = fa._keep_scale(B, H, S, rate, seed, offset, q.device)
+    keep = 1.0 if keep is None else keep
+    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale + fa._bias(
+        key_pad, T, mc, rc)
+    e = torch.exp(s - m[..., None])
+    o = torch.einsum("bhqk,bhkd->bhqd", _bf16(e * keep), vh) / l[..., None]
+    got_out = fa._merge(o, q.dtype)
+    p = e / l.clamp(min=1e-20)[..., None]
+    dvec = (doh * oh).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", doh, vh)
+    pt, ds = _bf16(p * keep), _bf16(p * (dp * keep - dvec))
+    got = (torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale,
+           torch.einsum("bhqk,bhqd->bhkd", ds, qh) * scale,
+           torch.einsum("bhqk,bhqd->bhkd", pt, doh))
+    got = [fa._merge(t, q.dtype) for t in got]
+
+    valid = ~key_pad
+    err = (got_out[valid].float() - out[valid].float()).abs().max().item()
+    assert err <= 2e-2, err
+    assert (got_out.float() - out.float()).abs().max() > 0    # it does round
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 0:
+            a, b = a[valid], b[valid]
+        rel = ((a.float() - b.float()).abs().max() / b.float().abs().max())
+        assert rel.item() <= 1e-2, (i, rel.item())
+
+
+def test_ptxas_summary_names_kernels_registers_and_spills():
+    log = """
+ptxas info    : Compiling entry function '_ZN59_GLOBAL__N__b061238f_26_flash_attention_bwd_mma_cu_cc73df7520flash_dkv_mma_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN59_GLOBAL__N__b061238f_26_flash_attention_bwd_mma_cu_cc73df7520flash_dkv_mma_kernelILi64ELb1EEEvPK13__nv_bfloat16S3_S3_
+    24 bytes stack frame, 20 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 24 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN38_GLOBAL__N__1f0a_10_dropout_cu_4c5d14dropout_kernelI13__nv_bfloat16EEvPKT_PS2_xy' for 'sm_90a'
+ptxas info    : Function properties for _ZN38_GLOBAL__N__1f0a_10_dropout_cu_4c5d14dropout_kernelI13__nv_bfloat16EEvPKT_PS2_xy
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13alphas_kernelEPKfS1_Pfii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 23 registers
+"""
+    assert native.ptxas_summary(log) == [
+        ("flash_dkv_mma_kernel<64, true>", 168, 56),
+        ("dropout_kernel<bfloat16>", 26, 0), ("alphas_kernel", 23, 0)]
+    assert native.ptxas_summary("nvcc warning : nothing") == []
 
 
 def test_wrapper_runs_the_twin_on_cpu():
     T, mc, rc, B, H, dh = CASES[0]
     q, k, v, key_pad = map(torch.from_numpy, _inputs(T, mc, rc, B, H, dh))
     before = blockwise_flash_attention_packed.launches
+    paths = dict(blockwise_flash_attention_packed.path_launches)
     out = blockwise_flash_attention_packed(q, k, v, key_pad, H, T, mc, rc)
     out2, m, l = blockwise_flash_attention_packed(q, k, v, key_pad, H, T, mc,
                                                   rc, return_stats=True)
     assert blockwise_flash_attention_packed.launches == before
+    assert blockwise_flash_attention_packed.path_launches == paths
+    assert set(paths) == {TENSOR_CORE, CUDA_CORE}
     want = blockwise_flash_attention_ref(q, k, v, key_pad, H, T, mc, rc)
     for got, ref in zip((out, m, l), want):
         assert torch.equal(got, ref)

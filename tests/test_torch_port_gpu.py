@@ -26,8 +26,9 @@ from wav2vec_s_tpu_torch.ops.block_mask import block_layout
 from wav2vec_s_tpu_torch.ops.chunk_attention import (
     chunk_cache_attention, chunk_cache_attention_ref)
 from wav2vec_s_tpu_torch.ops.flash_attention import (
-    blockwise_flash_attention_bwd, blockwise_flash_attention_bwd_ref,
-    blockwise_flash_attention_packed, blockwise_flash_attention_ref)
+    CUDA_CORE, TENSOR_CORE, blockwise_flash_attention_bwd,
+    blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
+    blockwise_flash_attention_ref, kernel_path)
 from wav2vec_s_tpu_torch.stream.batched import (
     CachedFusedGreedyDecoder, OneShotCorpusDecoder)
 from wav2vec_s_tpu_torch.stream.incremental import chunk_layout
@@ -137,16 +138,27 @@ def _flash_inputs(dev, dtype, B, T, mc, rc, D, seed=0):
 @pytest.mark.parametrize("D,H,T,mc,rc", [
     (24, 4, 97, 4, 2), (24, 4, 96, 4, 0),          # dh 6, the tiny dims
     (768, 12, 488, 16, 8), (768, 12, 488, 16, 0),  # dh 64, the full width
-    (256, 2, 200, 16, 8), (256, 2, 64, 8, 0)])     # dh 128, the widest head
+    (256, 2, 200, 16, 8), (256, 2, 64, 8, 0),      # dh 128, the widest head
+    # the edges of the tensor-core kernels (bfloat16): dh 32 at S 145 (S % 64
+    # and S % 4 not 0), dh 64 with a padded stream at S 144, dh 128 at S 145
+    (64, 2, 97, 16, 8), (128, 2, 96, 16, 8), (256, 2, 97, 16, 8)])
 def test_flash_kernel_matches_twin(cuda, dtype, atol, D, H, T, mc, rc):
     """Output on valid rows and the row stats m/l (atol and rtol 1e-4: l is
-    a sum of up to S terms), B = 2 streams, the second padded."""
+    a sum of up to S terms), B = 2 streams, the second padded.  bfloat16
+    with heads of 32, 64 or 128 runs the tensor-core kernel (it rounds the
+    probabilities to bfloat16; the tolerance covers one ulp of an output of
+    size 2-4), everything else the CUDA-core kernel."""
     q, k, v, pad = _flash_inputs(cuda, dtype, 2, T, mc, rc, D)
+    path = kernel_path(dtype, D // H)
+    assert path == (TENSOR_CORE if dtype == torch.bfloat16
+                    and D // H in (32, 64, 128) else CUDA_CORE)
     before = blockwise_flash_attention_packed.launches
+    on_path = blockwise_flash_attention_packed.path_launches[path]
     out, m, l = blockwise_flash_attention_packed(q, k, v, pad, H, T, mc, rc,
                                                  return_stats=True)
     torch.cuda.synchronize()
     assert blockwise_flash_attention_packed.launches == before + 1
+    assert blockwise_flash_attention_packed.path_launches[path] == on_path + 1
     want, m_want, l_want = blockwise_flash_attention_ref(q, k, v, pad, H, T,
                                                          mc, rc)
     assert out.dtype == dtype and out.shape == q.shape
@@ -378,24 +390,33 @@ SEED, OFFSET = 0x1234_5678_9ABC_DEF, 5
 @pytest.mark.parametrize("D,H,T,mc,rc", [
     (24, 4, 97, 4, 2),            # dh 6, S 145: a Philox block per element
     (768, 12, 500, 16, 8),        # dh 64, S 748: the training call
-    (256, 2, 64, 8, 0)])          # dh 128, the widest head, no copies
+    (256, 2, 64, 8, 0),           # dh 128, the widest head, no copies
+    # the edges of the tensor-core kernels (bfloat16): dh 32 at S 145 (a
+    # Philox block per element, ragged last tile), dh 64 with a padded
+    # stream at S 144, dh 128 (row operands reloaded from shared memory)
+    # with copies
+    (64, 2, 97, 16, 8), (128, 2, 96, 16, 8), (256, 2, 200, 16, 8)])
 def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, rate, D, H, T,
                                             mc, rc):
     """K3 against ``blockwise_flash_attention_bwd_ref`` on the forward
     kernel's own out, m, l: dQ on valid rows, dK and dV everywhere, max
     |diff| over the largest gradient entry; the cotangent is zero on padded
-    rows (callers strip them); two runs are bit-identical (no atomics)."""
+    rows (callers strip them); two runs are bit-identical (no atomics).
+    bfloat16 with heads of 32, 64 or 128 runs the tensor-core kernels."""
     q, k, v, pad = _flash_inputs(cuda, dtype, 2, T, mc, rc, D)
     valid = ~pad
     do = torch.randn(q.shape, device=cuda).to(dtype) * valid[:, :, None]
     lay = (pad, H, T, mc, rc, rate)
     out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
                                                  OFFSET)
+    path = kernel_path(dtype, D // H)
     before = blockwise_flash_attention_bwd.launches
+    on_path = blockwise_flash_attention_bwd.path_launches[path]
     got = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay, SEED,
                                         OFFSET)
     torch.cuda.synchronize()
     assert blockwise_flash_attention_bwd.launches == before + 1
+    assert blockwise_flash_attention_bwd.path_launches[path] == on_path + 1
     again = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay, SEED,
                                           OFFSET)
     want = blockwise_flash_attention_bwd_ref(q, k, v, out, do, m, l, *lay,
@@ -410,9 +431,16 @@ def test_flash_backward_kernel_matches_twin(cuda, dtype, tol, rate, D, H, T,
         assert err.item() <= tol, (i, err.item())
 
 
+# float32 with heads of S dims: the CUDA-core kernels; bfloat16 with heads of
+# 64 or 128 dims (the identity padded with zero columns): the tensor-core
+# kernels, whose fragments hold the mask in another arrangement
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, None),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
 @pytest.mark.parametrize("T,mc,rc", [(32, 8, 4), (33, 8, 4)])   # S % 4: 0, 1
 def test_flash_dropout_masks_forward_equals_backward_on_the_card(cuda, T, mc,
-                                                                 rc):
+                                                                 rc, dtype,
+                                                                 dh):
     """The mask read back through the forward kernel (v = identity per
     head) is bit-equal to the twin's and to the one the backward kernels
     regenerate (dV for identity cotangents), with both Philox paths."""
@@ -420,16 +448,25 @@ def test_flash_dropout_masks_forward_equals_backward_on_the_card(cuda, T, mc,
 
     B, H, rate = 2, 3, 0.25
     S = block_layout(T, mc, rc).total_len
-    q = k = torch.zeros((B, S, H * S), device=cuda)
-    v = torch.eye(S, device=cuda).repeat(B, 1, H)
+    dh = dh or S
+    path = kernel_path(dtype, dh)
+    assert path == (CUDA_CORE if dtype == torch.float32 else TENSOR_CORE)
+    q = k = torch.zeros((B, S, H * dh), device=cuda, dtype=dtype)
+    v = torch.eye(S, dh, device=cuda, dtype=dtype).repeat(B, 1, H)
     pad = torch.zeros((B, S), dtype=torch.bool, device=cuda)
     lay = (pad, H, T, mc, rc, rate)
+    counts = (blockwise_flash_attention_packed.path_launches[path],
+              blockwise_flash_attention_bwd.path_launches[path])
     out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
                                                  OFFSET)
     dv = blockwise_flash_attention_bwd(q, k, v, out, v, m, l, *lay, SEED,
                                        OFFSET)[2]
-    fwd = out.reshape(B, S, H, S).transpose(1, 2) != 0        # [B, H, q, k]
-    bwd = dv.reshape(B, S, H, S).transpose(1, 2).transpose(2, 3) != 0
+    assert (blockwise_flash_attention_packed.path_launches[path],
+            blockwise_flash_attention_bwd.path_launches[path]) == (
+                counts[0] + 1, counts[1] + 1)
+    fwd = out.reshape(B, S, H, dh)[..., :S].transpose(1, 2) != 0  # [B,H,q,k]
+    bwd = dv.reshape(B, S, H, dh)[..., :S].transpose(1, 2).transpose(
+        2, 3) != 0
     allowed = torch.as_tensor(block_layout(T, mc, rc).allowed, device=cuda)
     want = keep_mask(B * H * S * S, rate, SEED, OFFSET, cuda).reshape(
         B, H, S, S) & allowed

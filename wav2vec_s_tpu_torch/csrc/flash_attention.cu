@@ -1,5 +1,9 @@
 // Block-sparse flash attention forward under the wav2vec-S block mask, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): the CUDA-core kernel, which float32 inputs and head
+// widths other than 32, 64 and 128 take.  bfloat16 inputs at those widths
+// (every full-size model) take the tensor-core kernel of
+// flash_attention_mma.cu; ops/flash_attention.py chooses by dtype and head
+// width alone.
 //
 // Replaces the forward of the Pallas TPU kernel
 // wav2vec_s_tpu/ops/pallas_attention.py (_flash_attn_impl, _kernel,
@@ -27,26 +31,27 @@
 // A query of (effective) block qb may attend frame key j iff qb >= j / mc,
 // and copy key j iff qb == (j - T) / rc.
 //
-// What bounds it: arithmetic, as long as it runs on the CUDA cores.  At the
-// one-shot encoder's full-width call (B 32, T 488, mc 16, rc 8 -> S 728, 12
-// heads of 64) the allowed pairs are 35.5% of S*S, 18.5 GFLOP for q.k plus
-// p.v, against 143 MB of q/k/v/out in bf16 (K/V re-reads per query tile come
-// from the 50 MB L2): ~0.28 ms at the 67 TFLOP/s f32 peak against ~0.04 ms
-// of device-memory traffic.
+// What bounds it: f32 arithmetic on the CUDA cores.  It exists for exactness
+// (every product and sum in f32, held to 1e-4 against the twin) and for the
+// head widths the tensor-core tiles do not divide (the tiny parity models
+// run heads of 6 and 8), not for speed: at B 32, S 728, 12 heads of 64 the
+// allowed pairs are 35.5% of S*S, 18.5 GFLOP for q.k plus p.v, ~0.28 ms at
+// the 67 TFLOP/s f32 peak against ~0.04 ms of device-memory traffic, and
+// register-blocked FMAs reach about a quarter of that peak.
 //
 // What the design does about it:
 // - tiles the card can skip are skipped: the wrapper builds, once per layout,
 //   a table of the 32-row x 64-key tiles (skip, full or partial; 143 of the
-//   276 tiles at the full-width call are skipped, the computed pairs fall to
-//   ~50% of S*S from the 128x128 TPU tiling's 69%);
+//   276 tiles at that call are skipped, the computed pairs fall to ~50% of
+//   S*S from the 128x128 TPU tiling's 69%);
 // - the packed layout is read directly (head h at column h*dh): no per-head
 //   relayout copies;
 // - in partial tiles the mask comes from the layout rule above (integer
 //   compares on block indices), not from a bias buffer;
-// - the products run on the CUDA cores in f32, register-blocked as in
-//   chunk_attention.cu: each lane scores 2 keys against its warp's 4 rows and
-//   accumulates 4 rows x 2 output dims per (broadcast p, 8-byte v) pair.
-// Tensor cores (mma.sync / wgmma on bf16 tiles, TMA) are later work.
+// - the products are register-blocked as in chunk_attention.cu: each lane
+//   scores 2 keys against its warp's 4 rows and accumulates 4 rows x 2
+//   output dims per (broadcast p, 8-byte v) pair; inputs are widened to f32
+//   in shared memory, so bfloat16 at an odd head width runs here too.
 //
 // Plain C interface (loaded with ctypes): w2vs_flash_attention returns the
 // cudaGetLastError() code of its launch.
@@ -270,11 +275,8 @@ int launch(const void* q, const void* k, const void* v,
   const size_t smem = smem_floats(dh, (dh + 1) & ~1) * sizeof(float);
   auto kernel = drop.threshold ? flash_attention_kernel<T, true>
                                : flash_attention_kernel<T, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
   const dim3 grid((S + kRows - 1) / kRows, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, key_pad, kinds, (T*)out, m_out,
@@ -303,9 +305,7 @@ extern "C" int w2vs_flash_attention(const void* q, const void* k,
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* pad = (const unsigned char*)key_pad;
   const auto* kd = (const signed char*)kinds;
-  const Dropout drop = {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)),
-                        (uint32_t)offset, (uint32_t)(offset >> 32), threshold,
-                        (float)keep_scale};
+  const Dropout drop = make_dropout(seed, offset, threshold, keep_scale);
   if (dtype_code == 1) {
     return launch<__nv_bfloat16>(q, k, v, pad, kd, out, (float*)m_out,
                                  (float*)l_out, B, S, D, H, T_frames, mc, rc,

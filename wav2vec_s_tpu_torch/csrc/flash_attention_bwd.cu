@@ -1,5 +1,9 @@
 // Block-sparse flash attention backward under the wav2vec-S block mask, for
-// Hopper (sm_90a).
+// Hopper (sm_90a): the CUDA-core kernels, which float32 inputs and head
+// widths other than 32, 64 and 128 take.  bfloat16 inputs at those widths
+// (every full-size model) take the tensor-core kernels of
+// flash_attention_bwd_mma.cu; ops/flash_attention.py chooses by dtype and
+// head width alone.
 //
 // Replaces the Pallas TPU kernel wav2vec_s_tpu/ops/pallas_attention.py
 // (_flash_attn_bwd, _bwd_kernel, with _keep_scale).  From the forward's
@@ -33,15 +37,17 @@
 // Each recomputes the logits of its tiles (4 of the 5 products run twice in
 // all: q.k and do.v in both kernels).
 //
-// What bounds it: arithmetic, on the CUDA cores.  At the training call (B 8,
-// T 499, mc 16, rc 8 -> S 748, 12 heads of 64) the allowed pairs are ~35% of
-// S*S: 5 products x 2 x 748^2 x 64 x 96 x 0.355 = 12 GFLOP needed (0.18 ms at
-// the 67 TFLOP/s f32 peak) against 8 packed tensors of 9.2 MB (0.02 ms of
-// device memory); the two kernels compute 7 products over ~50% of S*S.  The
-// products are the forward's register-blocked f32 FMAs (4 rows x 2 columns
-// per lane); tensor cores are later work.  Shared memory per block: 74 KB
-// (dQ) and 98 KB (dK/dV) at dh 64, 140 KB and 180 KB at dh 128, opted in
-// with cudaFuncSetAttribute.
+// What bounds it: f32 arithmetic on the CUDA cores, chosen for exactness
+// (held to 1e-5 of the largest gradient against the twin) and for head
+// widths the tensor-core tiles do not divide, not for speed.  At B 8, S 748,
+// 12 heads of 64 the allowed pairs are ~35% of S*S: 5 products x 2 x 748^2 x
+// 64 x 96 x 0.355 = 12 GFLOP needed (0.18 ms at the 67 TFLOP/s f32 peak)
+// against 8 packed tensors of 9.2 MB (0.02 ms of device memory); the two
+// kernels compute 7 products over ~50% of S*S with the forward's
+// register-blocked FMAs (4 rows x 2 columns per lane).  Operands are widened
+// to f32 in shared memory, transposed and row-major as each product reads
+// them: 74 KB (dQ) and 98 KB (dK/dV) per block at dh 64, 140 KB and 180 KB
+// at dh 128, opted in with cudaFuncSetAttribute, so 2 blocks fit an SM.
 //
 // Plain C interface (loaded with ctypes): w2vs_flash_attention_bwd returns
 // the first CUDA error of its attribute calls and launches, 0 if none.
@@ -324,13 +330,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 template <typename T, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, const float* m, const float* l,
@@ -385,9 +384,7 @@ extern "C" int w2vs_flash_attention_bwd(
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout drop = {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)),
-                        (uint32_t)offset, (uint32_t)(offset >> 32), threshold,
-                        (float)keep_scale};
+  const Dropout drop = make_dropout(seed, offset, threshold, keep_scale);
 #define W2VS_BWD(T, DROP)                                                     \
   launch<T, DROP>(q, k, v, out, dout, (const float*)m, (const float*)l,      \
                   (const unsigned char*)key_pad, (const signed char*)kinds,  \

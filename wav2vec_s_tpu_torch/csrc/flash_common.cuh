@@ -1,11 +1,18 @@
-// Shared pieces of the block-sparse flash-attention kernels (forward in
-// flash_attention.cu, backward in flash_attention_bwd.cu): the tile
-// geometry, the register-blocked products, and the attention-dropout mask.
+// Shared pieces of the block-sparse flash-attention kernels.  Used by both
+// sets of kernels: the block layout rule and the attention-dropout mask
+// (Philox on the element's coordinates).  Used by the CUDA-core set only
+// (forward in flash_attention.cu, backward in flash_attention_bwd.cu): the
+// 32 x 64 tile geometry and the register-blocked f32 products below.  The
+// tensor-core set (flash_attention_mma.cu, flash_attention_bwd_mma.cu) keeps
+// its geometry, fragments and staging in flash_mma.cuh.
 //
-// Geometry.  A block of kWarps warps owns kRows = 32 "rows" (4 per warp) and
-// walks "tiles" of kTile = 64 "columns" (2 per lane).  In the forward and in
-// the dQ kernel rows are queries and columns keys; in the dK/dV kernel rows
-// are keys and columns queries.  Row operands sit in shared memory
+// Geometry of the CUDA-core kernels.  They are bound by f32 FMA throughput
+// and by shared-memory reads, so each value read from shared memory is used
+// 4 or 2 times from registers: a block of kWarps warps owns kRows = 32
+// "rows" (4 per warp) and walks "tiles" of kTile = 64 "columns" (2 per
+// lane).  In the forward and in the dQ kernel rows are queries and columns
+// keys; in the dK/dV kernel rows are keys and columns queries.  Row
+// operands (f32 copies of the inputs, whatever their type) sit in shared memory
 // transposed, [dh][kRows], so that one float4 holds a warp's 4 rows of one
 // dim; a tile sits there transposed, [dh][kKStride] (float2 = a lane's 2
 // columns), and/or row-major, [kTile][dv] (float2 = a lane's 2 dims).
@@ -24,8 +31,9 @@
 // dropout.cu at the same site offset) under one seed.  When S % 4 == 0 a
 // Philox block never straddles a row end, and one block serves 4
 // neighbouring keys of a query: 2 lanes share it in the row-major kernels,
-// one lane's 4 key rows take it whole in the dK/dV kernel.  Otherwise each
-// element draws its own block.
+// one lane's 4 key rows take it whole in the CUDA-core dK/dV kernel, 4 lanes
+// exchange its keep bits in the tensor-core one (flash_mma.cuh).  Otherwise
+// each element draws its own block.
 
 #pragma once
 
@@ -66,6 +74,15 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// dynamic shared memory above 48 KB is opted in per kernel; the CUDA error
+// of the call, 0 if none was needed
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // ---- the block layout rule (wav2vec_s_tpu/ops/block_mask.py:40-80) --------
 
 // effective block of query index r: a copy row counts in its block
@@ -90,6 +107,13 @@ struct Dropout {
   uint32_t threshold;   // ceil(rate * 2^24)
   float scale;          // 1 / (1 - rate)
 };
+
+// the C entry points' dropout arguments (threshold 0: none)
+inline Dropout make_dropout(unsigned long long seed, unsigned long long offset,
+                            unsigned threshold, double keep_scale) {
+  return {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)), (uint32_t)offset,
+          (uint32_t)(offset >> 32), threshold, (float)keep_scale};
+}
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll

@@ -33,11 +33,21 @@ pairs and padded keys, f32 softmax, P.V in f32, cast at the end;
 ``blockwise_flash_attention_bwd_ref`` repeats the backward kernel's
 formulas step by step on [B, H, S, S] tensors.
 
+Two sets of kernels compute the same function, and ``kernel_path`` chooses
+between them from the dtype and the head width alone: bfloat16 inputs with
+heads of 32, 64 or 128 dims run on the tensor cores
+(``csrc/flash_attention_mma.cu``, ``csrc/flash_attention_bwd_mma.cu``:
+``mma.sync`` on bf16 tiles staged by ``cp.async``, 64 x 64 tiles);
+float32 inputs and every other head width run on the CUDA cores
+(``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``: f32 FMAs,
+32 x 64 tiles).  Each wrapper counts its launches in ``.launches`` and, per
+set, in ``.path_launches``.
+
 The kernels read host-built tables of tile kinds (``tile_kinds``: skip,
-full or partial for each ``Q_TILE x K_TILE`` tile of the layout, and of the
-transposed layout for the dK/dV kernel), uploaded once per layout and
-device; inside partial tiles they derive the mask from the layout rule, so
-no bias buffer exists.
+full or partial for each tile of the layout, and of the transposed layout
+for the dK/dV kernel, at the tile sizes of the chosen path), uploaded once
+per layout and device; inside partial tiles they derive the mask from the
+layout rule, so no bias buffer exists.
 """
 
 from __future__ import annotations
@@ -51,10 +61,21 @@ from wav2vec_s_tpu_torch.ops.block_mask import block_layout
 from wav2vec_s_tpu_torch.ops.dropout import _threshold, keep_mask
 
 NEG = -1e9                 # the TPU kernel's additive mask (not MASK_VALUE)
-Q_TILE = 32                # kRows in csrc/flash_attention.cu
-K_TILE = 64                # kTile in csrc/flash_attention.cu
-_MAX_DH = 128              # kMaxDh in csrc/flash_attention.cu
+_MAX_DH = 128              # kMaxDh in csrc/flash_common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+#: (rows per block, columns per tile) of each path's tile-kind table:
+#: kTileRows in csrc/flash_mma.cuh; kRows, kTile in csrc/flash_common.cuh
+TILES = {TENSOR_CORE: (64, 64), CUDA_CORE: (32, 64)}
+_MMA_HEAD_WIDTHS = (32, 64, 128)     # instantiated in csrc/*_mma.cu
+
+
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels a CUDA call runs: the tensor-core set for bfloat16 with
+    a head width it is instantiated for, else the CUDA-core set."""
+    if dtype == torch.bfloat16 and head_dim in _MMA_HEAD_WIDTHS:
+        return TENSOR_CORE
+    return CUDA_CORE
 
 
 def _bias(key_padding_mask, seq_len, main_context, right_context):
@@ -150,22 +171,23 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
 
 @functools.lru_cache(maxsize=64)
 def tile_kinds(seq_len: int, main_context: int, right_context: int,
+               q_tile: int, k_tile: int,
                transposed: bool = False) -> np.ndarray:
-    """[ceil(S / Q_TILE), ceil(S / K_TILE)] int8 table of the layout's
+    """[ceil(S / q_tile), ceil(S / k_tile)] int8 table of the layout's
     tiles: 0 no allowed pair (skipped), 1 every in-range pair allowed (no
     structural mask), 2 partial.  Pairs past S do not count.
-    ``transposed``: the table of the transposed layout, Q_TILE keys by
-    K_TILE queries, that the dK/dV kernel walks."""
+    ``transposed``: the table of the transposed layout, q_tile keys by
+    k_tile queries, that the dK/dV kernel walks."""
     allowed = block_layout(seq_len, main_context, right_context).allowed
     if transposed:
         allowed = allowed.T
     S = allowed.shape[0]
-    nq, nk = -(-S // Q_TILE), -(-S // K_TILE)
+    nq, nk = -(-S // q_tile), -(-S // k_tile)
 
     def tiles(fill):
-        ext = np.full((nq * Q_TILE, nk * K_TILE), fill)
+        ext = np.full((nq * q_tile, nk * k_tile), fill)
         ext[:S, :S] = allowed
-        return ext.reshape(nq, Q_TILE, nk, K_TILE)
+        return ext.reshape(nq, q_tile, nk, k_tile)
 
     some = tiles(False).any(axis=(1, 3))
     every = tiles(True).all(axis=(1, 3))
@@ -174,9 +196,11 @@ def tile_kinds(seq_len: int, main_context: int, right_context: int,
 
 @functools.lru_cache(maxsize=64)
 def _kinds_on(seq_len: int, main_context: int, right_context: int,
-              device: str, transposed: bool = False) -> torch.Tensor:
+              device: str, path: str,
+              transposed: bool = False) -> torch.Tensor:
     return torch.from_numpy(tile_kinds(
-        seq_len, main_context, right_context, transposed)).to(device)
+        seq_len, main_context, right_context, *TILES[path],
+        transposed)).to(device)
 
 
 def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
@@ -224,6 +248,22 @@ def _contiguous(*tensors):
                          "tensors")
 
 
+def _path_of(q, num_heads, *packed):
+    """The kernel set of a CUDA call; the tensor-core kernels copy 16 bytes
+    at a time, so their [B, S, D] tensors must start on a 16-byte
+    boundary."""
+    path = kernel_path(q.dtype, q.shape[2] // num_heads)
+    if path == TENSOR_CORE and any(t.data_ptr() % 16 for t in packed):
+        raise ValueError("the tensor-core flash-attention kernels take "
+                         "16-byte aligned tensors")
+    return path
+
+
+def _count(wrapper, path):
+    wrapper.launches += 1
+    wrapper.path_launches[path] += 1
+
+
 def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
     """Twin (CPU) or kernel K2 (CUDA) -> (out, m, l); m and l are None on
     CUDA unless ``want_stats``.  ``layout`` = (num_heads, seq_len, mc, rc),
@@ -237,15 +277,18 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
     B, S, D = q.shape
     H, seq_len, mc, rc = layout
     rate, seed, offset = drop
+    path = _path_of(q, H, q, k, v)
     with torch.cuda.device(q.device):
         lib = native.library()
-        kinds = _kinds_on(seq_len, mc, rc, str(q.device))
+        kernel = (lib.w2vs_flash_attention_mma if path == TENSOR_CORE
+                  else lib.w2vs_flash_attention)
+        kinds = _kinds_on(seq_len, mc, rc, str(q.device), path)
         out = torch.empty_like(q)
         m = l = None
         if want_stats:
             m = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
             l = torch.empty_like(m)
-        err = lib.w2vs_flash_attention(
+        err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_padding_mask.data_ptr(), kinds.data_ptr(), out.data_ptr(),
             None if m is None else m.data_ptr(),
@@ -256,7 +299,7 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
     if err:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {err}")
-    blockwise_flash_attention_packed.launches += 1
+    _count(blockwise_flash_attention_packed, path)
     return out, m, l
 
 
@@ -272,7 +315,8 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
     ``q.dtype``, under the same dropout arguments as the forward.  CPU
     tensors run ``blockwise_flash_attention_bwd_ref``; CUDA tensors launch
     the backward kernels K3 (one count in
-    ``blockwise_flash_attention_bwd.launches`` per call) or raise."""
+    ``blockwise_flash_attention_bwd.launches`` per call, and in its
+    ``path_launches`` under the kernel set that ran) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate, dropout_seed, dropout_offset)
     B, S, D = q.shape
@@ -293,14 +337,16 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
     _contiguous(q, k, v, out, dout, m, l, key_padding_mask)
     from wav2vec_s_tpu_torch.ops import native
 
+    path = _path_of(q, H, q, k, v, out, dout)
     with torch.cuda.device(q.device):
         lib = native.library()
-        dev = str(q.device)
-        kinds = _kinds_on(seq_len, main_context, right_context, dev)
-        kinds_t = _kinds_on(seq_len, main_context, right_context, dev, True)
+        kernel = (lib.w2vs_flash_attention_bwd_mma if path == TENSOR_CORE
+                  else lib.w2vs_flash_attention_bwd)
+        layout = (seq_len, main_context, right_context, str(q.device), path)
+        kinds, kinds_t = _kinds_on(*layout), _kinds_on(*layout, True)
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         dvec = torch.empty_like(m)
-        err = lib.w2vs_flash_attention_bwd(
+        err = kernel(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), m.data_ptr(), l.data_ptr(),
             key_padding_mask.data_ptr(), kinds.data_ptr(),
@@ -313,11 +359,12 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
     if err:
         raise RuntimeError(f"flash-attention backward kernel launch failed: "
                            f"CUDA error {err}")
-    blockwise_flash_attention_bwd.launches += 1
+    _count(blockwise_flash_attention_bwd, path)
     return dq, dk, dv
 
 
 blockwise_flash_attention_bwd.launches = 0
+blockwise_flash_attention_bwd.path_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -357,9 +404,11 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
     Returns [B, S, D] in ``q.dtype`` (padded query rows hold anything;
     callers strip them), or ``(out, m, l)`` with the [B, H, S] float32 row
     stats when ``return_stats``.  Differentiable in q, k and v.  CPU
-    tensors run the plain twins; CUDA tensors launch the kernels (counts in
+    tensors run the plain twins; CUDA tensors launch the kernels of
+    ``kernel_path(q.dtype, D // num_heads)`` (counts in
     ``blockwise_flash_attention_packed.launches`` and
-    ``blockwise_flash_attention_bwd.launches``) or raise."""
+    ``blockwise_flash_attention_bwd.launches``, per kernel set in their
+    ``path_launches``) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate, dropout_seed, dropout_offset)
     layout = (num_heads, seq_len, main_context, right_context)
@@ -374,3 +423,5 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
 
 
 blockwise_flash_attention_packed.launches = 0
+blockwise_flash_attention_packed.path_launches = {TENSOR_CORE: 0,
+                                                  CUDA_CORE: 0}

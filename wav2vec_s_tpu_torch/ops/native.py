@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +33,48 @@ _lib = None
 #: nvcc printed (ptxas register/spill report)
 build_seconds = None
 build_log = ""
+
+
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(d)|(13__nv_bfloat16)")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template arguments>`` of a mangled ``*_kernel`` entry point
+    (``..19flash_dq_mma_kernelILi64ELb1EEEv..`` -> ``flash_dq_mma_kernel<64,
+    true>``); the mangled name itself where that fails."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for n in range(len("_kernel"), min(end, 99)):
+        name, digits = mangled[end - n:end], str(n)
+        if (mangled[end - n - len(digits):end - n] == digits
+                and re.fullmatch(r"[A-Za-z_]\w*", name)):
+            break
+    else:
+        return mangled
+    args, pos = [], end + 1
+    if mangled[end:pos] == "I":
+        while (m := _TEMPLATE_ARG.match(mangled, pos)):
+            number, flag, f32, f64, bf16 = m.groups()
+            args.append(number or (flag and ("false", "true")[int(flag)])
+                        or (f32 and "float") or (f64 and "double")
+                        or "bfloat16")
+            pos = m.end()
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def ptxas_summary(log: str):
+    """[(kernel, registers, bytes spilled)] from what ``nvcc -Xptxas -v``
+    printed, in the order of the log."""
+    out, name, spilled = [], None, 0
+    for line in log.splitlines():
+        if (m := re.search(r"Compiling entry function '(\w+)'", line)):
+            name, spilled = _kernel_name(m.group(1)), 0
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                             r"loads", line)):
+            spilled = int(m.group(1)) + int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out.append((name, int(m.group(1)), spilled))
+            name = None
+    return out
 
 
 def _nvcc() -> str:
@@ -92,7 +135,12 @@ def library() -> ctypes.CDLL:
     target = BUILD_DIR / f"libw2vs_kernels_{h.hexdigest()[:16]}.so"
     if not target.exists():
         _build(sources, target)
-    lib = ctypes.CDLL(str(target))
+    _lib = _bind(ctypes.CDLL(str(target)))
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of every kernel entry point."""
     fn = lib.w2vs_chunk_attention
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
@@ -100,14 +148,16 @@ def library() -> ctypes.CDLL:
     # (seed, offset, threshold, keep scale) of the attention dropout
     drop = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
             ctypes.c_double]
-    fn = lib.w2vs_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + drop
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.w2vs_flash_attention_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + drop
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    # the CUDA-core and the tensor-core kernels share their signatures
+    for fn in (lib.w2vs_flash_attention, lib.w2vs_flash_attention_mma):
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + drop
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for fn in (lib.w2vs_flash_attention_bwd,
+               lib.w2vs_flash_attention_bwd_mma):
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + drop
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     fn = lib.w2vs_dropout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
@@ -125,5 +175,4 @@ def library() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _lib = lib
     return lib
