@@ -7,10 +7,17 @@ Phases, each printed on its own line:
   1. build   — nvcc builds the kernel library from wav2vec_s_tpu_torch/csrc
                (one nvcc per source, all started together) and prints each
                kernel's registers and spills as ptxas reports them;
-  2. kernel  — the chunk-attention kernel (K1) against its plain twin at the
-               main-path shapes (128 streams, 12 heads of 64, kv_cap 512,
-               R 48 and 240, several t0, float32 and bfloat16), then both
-               timed with CUDA events over the 15 calls of a 10-s ds2 stream;
+  2. kernel  — the chunk-attention kernels (K1) against their plain twin at
+               the main-path shapes (128 streams, 12 heads of 64, kv_cap 512,
+               R 48 and 240, several t0; float32 on the CUDA-core kernel,
+               bfloat16 on the tensor-core kernel, each case prints its set),
+               then the tensor-core kernel at heads of 32 and 128, R 24, one
+               stream, and t0 at the edges of its 64-key tiles (0, 1, 63, 64,
+               65, 480, kv_cap); then kernel, twin and library call timed
+               over the 15 calls of a 10-s ds2 stream at 128 streams and at
+               8: device time under a CUDA graph, the eager time and the
+               wrapper's host time beside it; then the kernel alone at one
+               stream, at R 240 and at t0 0 and 448;
   3. flash   — the block-sparse flash-attention kernel (K2) against its
                plain twin at the one-shot encoder's full-width call (32
                streams, T 488, mc 16, rc 8 -> S 728, 12 heads of 64, float32
@@ -37,7 +44,14 @@ Phases, each printed on its own line:
                rows forward and reverse) against their row-scan twins at
                [8, 8, 41], [16, 32, 65] and [4, 512, 129] with ragged
                lengths, then the delay-transducer loss and d/dacts through
-               the kernels against float64 twins; kernels and twins timed;
+               the kernels against float64 twins; each kernel's device time
+               alone (50 launches in one CUDA graph, inputs and int32 lengths
+               prepared outside), its wrapper's host time, its twin, and its
+               bound: the larger of the byte bound and T + U - 1 dependent
+               steps times one step of the kernels' present design (shared
+               memory + block barrier), measured by the probe kernel
+               wav2vec_s_tpu_torch/tools/lattice_step_probe.cu, which is
+               built here into a library of its own;
   6. parity  — a tiny model decoded on the card equals the same decode on
                the CPU (plain twins), texts and delays;
   7. one-shot parity — the tiny one-shot decode (flash attention) on the
@@ -55,7 +69,8 @@ Phases, each printed on its own line:
                seed, DECISION_STEP=2, max_emit 4, int16 wire: the cached
                agent on 128 streams of 10 s per corpus, one warm-up corpus,
                then CORPORA timed ones; K1's launch count must equal
-               layers x chunks x corpora;
+               layers x chunks x corpora, all of them on the tensor-core
+               kernel;
   10. one-shot full — the same model with attention_impl="flash", the
                one-shot corpus decoder on 256 streams of 10 s, encode batch
                32: one warm-up corpus, then CORPORA timed ones; K2's launch
@@ -81,7 +96,9 @@ Phases, each printed on its own line:
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
-peak rate of their type, whichever is larger) and, where one PyTorch call
+peak rate of their type, whichever is larger; for the lattice recursions
+the latency of their dependent steps where that is larger still) and, where
+one PyTorch call
 computes the same function, that call's time (timed here, used nowhere in
 the package).  Then the card (nvidia-smi name, power
 limit), the kernel summary as JSON, and the result line.  Any failure
@@ -121,18 +138,21 @@ def _counters():
             "transducer_affine_rows": kernels.affine_rows}
 
 
-def _flash_wrappers():
+def _set_wrappers():
+    """The wrappers with two kernel sets (tensor cores, CUDA cores)."""
+    from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
     from wav2vec_s_tpu_torch.ops.flash_attention import (
         blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
 
-    return {"K2": blockwise_flash_attention_packed,
+    return {"K1": chunk_cache_attention,
+            "K2": blockwise_flash_attention_packed,
             "K3": blockwise_flash_attention_bwd}
 
 
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    for fn in _flash_wrappers().values():
+    for fn in _set_wrappers().values():
         fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
@@ -140,14 +160,14 @@ def _counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def _flash_paths():
-    """{K2 | K3: launches of the flash wrapper on each kernel set}."""
-    return {k: dict(fn.path_launches) for k, fn in _flash_wrappers().items()}
+def _set_paths():
+    """{K1 | K2 | K3: launches of the wrapper on each kernel set}."""
+    return {k: dict(fn.path_launches) for k, fn in _set_wrappers().items()}
 
 
 def _on_tensor_cores(paths, want):
-    """Every flash launch of a bfloat16 full-width path ran on the
-    tensor-core kernels: ``want`` = {K2 | K3: launches}."""
+    """Every launch of a bfloat16 full-width path ran on the tensor-core
+    kernels: ``want`` = {K1 | K2 | K3: launches}."""
     for name, n in want.items():
         assert paths[name] == {"tensor_core": n, "cuda_core": 0}, (
             name, paths[name], n)
@@ -188,106 +208,196 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _host_ms(fn, calls, reps=5):
+    """Host time per call of a wrapper: the clock around ``fn`` (``calls``
+    eager calls, nothing read back), the device drained before and after."""
+    import torch
+
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return best * 1e3 / calls
+
+
 def _row(err, ms, plain_ms, bound, library_ms):
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library_ms}
 
 
+K1_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
 def phase_kernel():
-    """Kernel vs twin at main-path shapes -> the kernel's row (max_abs_err,
-    ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    """K1 vs twin at main-path shapes and at the edges of the tensor-core
+    kernel's tiling -> the kernel's row (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by, library_ms)."""
     import torch
     import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.chunk_attention import (
-        chunk_cache_attention, chunk_cache_attention_ref)
+        chunk_cache_attention, chunk_cache_attention_ref, kernel_path)
     from wav2vec_s_tpu_torch.stream.incremental import chunk_layout
+    from wav2vec_s_tpu_torch.tools.timing import graph_ms
 
-    B, H, D, kv_cap = N_STREAMS, 12, 768, 512
+    kv_cap = 512
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
 
     def rand(dtype, *shape):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    def inputs(R, dtype):
+    def inputs(B, R, D, dtype):
         return (rand(dtype, B, R, D) * 0.125, rand(dtype, kv_cap, B, D),
                 rand(dtype, kv_cap, B, D), rand(dtype, B, R, D),
                 rand(dtype, B, R, D))
 
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    def bias_of(blocks):                 # R = 24 (ds1), 48 (ds2), 240 (ds10)
+        return torch.as_tensor(chunk_layout(16, 8, blocks)[1], device=dev)
+
+    # (streams, heads, head width, dtype, blocks per step, t0s): the main
+    # path's widths in both dtypes; then the tensor-core kernel at its other
+    # head widths, at one stream, and at the edges of its 64-key tiles
+    edges = (0, 1, 63, 64, 65, 480, kv_cap)
+    cases = [(N_STREAMS, 12, 64, dtype, blocks, (0, 32, 256, 480))
+             for blocks in (2, 10)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(N_STREAMS, 12, 64, torch.bfloat16, 1, edges),
+              (N_STREAMS, 12, 64, torch.bfloat16, 2, edges),
+              (1, 12, 64, torch.bfloat16, 2, edges),
+              (1, 12, 64, torch.bfloat16, 10, (0, 65, kv_cap)),
+              (16, 8, 32, torch.bfloat16, 2, edges),
+              (16, 8, 128, torch.bfloat16, 2, edges),
+              (16, 8, 128, torch.bfloat16, 10, (0, 65, kv_cap)),
+              (2, 4, 6, torch.float32, 2, (0, 65))]
     worst = 0.0
-    for blocks in (2, 10):                       # R = 48 (ds2), 240 (ds10)
-        _, bias = chunk_layout(16, 8, blocks)
-        R = bias.shape[0]
-        bias = torch.as_tensor(bias, device=dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            args = inputs(R, dtype)
-            for t0 in (0, 32, 256, 480):
-                got = chunk_cache_attention(*args, bias, t0, H)
-                torch.cuda.synchronize()
-                want = chunk_cache_attention_ref(*args, bias, t0, H)
-                err = (got.float() - want.float()).abs().max().item()
-                print(f"phase kernel: R={R} {str(dtype)[6:]} t0={t0} "
-                      f"max_abs_err={err:.3g} tol={tol[dtype]:g}")
-                assert err <= tol[dtype], (R, dtype, t0, err)
-                worst = max(worst, err)
-            del args, got, want
+    for B, H, dh, dtype, blocks, t0s in cases:
+        bias = bias_of(blocks)
+        R, name = bias.shape[0], str(dtype)[6:]
+        path = kernel_path(dtype, dh)
+        assert path == ("tensor_core" if dtype == torch.bfloat16
+                        and dh in (32, 64, 128) else "cuda_core"), path
+        args = inputs(B, R, H * dh, dtype)
+        errs = []
+        for t0 in t0s:
+            _reset_counts()
+            got = chunk_cache_attention(*args, bias, t0, H)
+            torch.cuda.synchronize()
+            sets = _set_paths()["K1"]
+            assert sets[path] == 1 and sum(sets.values()) == 1, sets
+            want = chunk_cache_attention_ref(*args, bias, t0, H)
+            err = (got.float() - want.float()).abs().max().item()
+            assert torch.isfinite(got).all(), (B, H, dh, name, R, t0)
+            assert err <= K1_TOL[name], (B, H, dh, name, R, t0, err)
+            errs.append(err)
+        print(f"phase kernel: B={B} heads={H}x{dh} R={R} {name} ({path} "
+              f"kernel) t0={list(t0s)} max_abs_err="
+              f"{[float(f'{e:.3g}') for e in errs]} tol={K1_TOL[name]:g}")
+        if dh == 64 and B == N_STREAMS:
+            worst = max(worst, *errs)
+        del args, got, want
 
     # timing: the 15 calls of one 10-s ds2 stream (t0 = 32k, the cache view
-    # the decoder passes at that chunk), bfloat16, mean per call
-    _, bias = chunk_layout(16, 8, 2)
-    bias = torch.as_tensor(bias, device=dev)
-    q, kc, vc, kn, vn = inputs(bias.shape[0], torch.bfloat16)
-    calls = [(32 * k, min(-(-(32 * k + (40 if k == 14 else 32)) // 256) * 256,
-                          kv_cap)) for k in range(15)]
-
-    def run(fn):
-        def go():
-            for t0, cap in calls:
-                fn(q, kc[:cap], vc[:cap], kn, vn, bias, t0, H)
-        return go
-
-    ms = _cuda_ms(run(chunk_cache_attention), 10) / len(calls)
-    plain_ms = _cuda_ms(run(chunk_cache_attention_ref), 10) / len(calls)
-
-    # the library call: scaled_dot_product_attention over [visible cache
-    # rows; chunk rows] under the boolean mask of the same layout (q is
-    # pre-scaled, so scale 1); inputs built outside the timed region
+    # the decoder passes at that chunk), bfloat16, mean per call: device
+    # time under a CUDA graph (no host dispatch between the launches), the
+    # wrapper's host time beside it.  At the main path's 128 streams, then at
+    # 8 (96 blocks: less than the card's 132 SMs).
+    H, D = 12, 768
+    bias = bias_of(2)
     R, dh = bias.shape[0], D // H
     intra = bias == 0
-
-    def heads(x):                       # [B, T, D] -> [B, H, T, dh]
-        return x.reshape(B, -1, H, dh).transpose(1, 2)
-
-    sdpa_in = []
-    for t0, _ in calls:
-        k_all = torch.cat([kc[:t0].transpose(0, 1), kn], dim=1)
-        v_all = torch.cat([vc[:t0].transpose(0, 1), vn], dim=1)
-        mask = torch.cat([torch.ones((R, t0), dtype=torch.bool, device=dev),
-                          intra], dim=1)
-        sdpa_in.append((heads(q), heads(k_all), heads(v_all), mask))
-
-    def library():
-        for qh, kh, vh, mask in sdpa_in:
-            F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                           scale=1.0)
-
-    library_ms = _cuda_ms(library, 10) / len(calls)
-    del sdpa_in
-    # bound, mean over the calls: q, the chunk's k and v, the visible cache
-    # rows of k and v and the bias read once, out written once; two
-    # products over the visible pairs
     n_intra = int(intra.sum())
-    n_bytes = sum(2 * (4 * B * R * D + 2 * t0 * B * D) + 4 * R * R
-                  for t0, _ in calls) / len(calls)
-    flops = sum(4 * B * D * (R * t0 + n_intra) for t0, _ in calls) / len(calls)
-    bound = _bound(n_bytes, flops, "bfloat16")
-    print(f"phase kernel: ds2 bf16 mean per call over t0=0..448: "
-          f"kernel {ms:.4f} ms, plain twin {plain_ms:.4f} ms, library "
-          f"(scaled_dot_product_attention, boolean mask) {library_ms:.4f} "
-          f"ms, bound {bound[0]:.5f} ms by {bound[1]}")
-    return _row(worst, ms, plain_ms, bound, library_ms)
+    calls = [(32 * k, min(-(-(32 * k + (40 if k == 14 else 32)) // 256) * 256,
+                          kv_cap)) for k in range(15)]
+    row = None
+    for B in (N_STREAMS, 8):
+        q, kc, vc, kn, vn = inputs(B, R, D, torch.bfloat16)
+
+        def run(fn):
+            def go():
+                for t0, cap in calls:
+                    fn(q, kc[:cap], vc[:cap], kn, vn, bias, t0, H)
+            return go
+
+        _reset_counts()
+        ms = graph_ms(run(chunk_cache_attention), len(calls))
+        # one warm-up pass and one captured pass of the calls
+        assert _set_paths()["K1"] == {"tensor_core": 2 * len(calls),
+                                      "cuda_core": 0}, _set_paths()["K1"]
+        eager_ms = _cuda_ms(run(chunk_cache_attention), 10) / len(calls)
+        host_ms = _host_ms(run(chunk_cache_attention), len(calls))
+        plain_ms = _cuda_ms(run(chunk_cache_attention_ref), 10) / len(calls)
+
+        # the library call: scaled_dot_product_attention over [visible cache
+        # rows; chunk rows] under the boolean mask of the same layout (q is
+        # pre-scaled, so scale 1); inputs built outside the timed region
+        def heads(x):                       # [B, T, D] -> [B, H, T, dh]
+            return x.reshape(B, -1, H, dh).transpose(1, 2)
+
+        sdpa_in = []
+        for t0, _ in calls:
+            k_all = torch.cat([kc[:t0].transpose(0, 1), kn], dim=1)
+            v_all = torch.cat([vc[:t0].transpose(0, 1), vn], dim=1)
+            mask = torch.cat([torch.ones((R, t0), dtype=torch.bool,
+                                         device=dev), intra], dim=1)
+            sdpa_in.append((heads(q), heads(k_all), heads(v_all), mask))
+
+        def library():
+            for qh, kh, vh, mask in sdpa_in:
+                F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                               scale=1.0)
+
+        library_ms = graph_ms(library, len(calls))
+        del sdpa_in
+        # bound, mean over the calls: q, the chunk's k and v, the visible
+        # cache rows of k and v and the bias read once, out written once;
+        # two products over the visible pairs
+        n_bytes = sum(2 * (4 * B * R * D + 2 * t0 * B * D) + 4 * R * R
+                      for t0, _ in calls) / len(calls)
+        flops = sum(4 * B * D * (R * t0 + n_intra)
+                    for t0, _ in calls) / len(calls)
+        bound = _bound(n_bytes, flops, "bfloat16")
+        print(f"phase kernel: ds2 bf16 B={B} mean per call over t0=0..448: "
+              f"kernel {ms:.4f} ms (tensor_core, device time under a CUDA "
+              f"graph; {eager_ms:.4f} ms between CUDA events around eager "
+              f"calls, as the rows of K2-K4 are timed; the wrapper's host "
+              f"time {host_ms:.4f} ms per call), "
+              f"plain twin {plain_ms:.4f} ms, library "
+              f"(scaled_dot_product_attention, boolean mask, under a CUDA "
+              f"graph) {library_ms:.4f} ms, bound {bound[0]:.5f} ms by "
+              f"{bound[1]}")
+        if row is None:
+            row = _row(worst, ms, plain_ms, bound, library_ms)
+        del q, kc, vc, kn, vn
+
+    # the kernel alone (device time under a CUDA graph) where the main path
+    # does not go: one stream, a ds10 chunk (R 240) over the same t0s, and
+    # the two ends of the main-path call's range of t0
+    for B, blocks, t0s in ((1, 2, None), (N_STREAMS, 10, None),
+                           (N_STREAMS, 2, (0,)), (N_STREAMS, 2, (448,))):
+        bias = bias_of(blocks)
+        R = bias.shape[0]
+        q, kc, vc, kn, vn = inputs(B, R, D, torch.bfloat16)
+        some = calls if t0s is None else [(t0, kv_cap) for t0 in t0s] * 10
+
+        def go():
+            for t0, cap in some:
+                chunk_cache_attention(q, kc[:cap], vc[:cap], kn, vn, bias,
+                                      t0, H)
+
+        ms = graph_ms(go, len(some))
+        n_bytes = sum(2 * (4 * B * R * D + 2 * t0 * B * D) + 4 * R * R
+                      for t0, _ in some) / len(some)
+        print(f"phase kernel: bf16 B={B} R={R} t0="
+              f"{'0..448 (mean)' if t0s is None else t0s[0]}: kernel "
+              f"{ms:.4f} ms (tensor_core, device time under a CUDA graph), "
+              f"byte bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms")
+        del q, kc, vc, kn, vn
+    return row
 
 
 def _sdpa_inputs(q, k, v, pad, H, T, mc, rc):
@@ -351,7 +461,7 @@ def phase_flash():
                                                          return_stats=True)
             torch.cuda.synchronize()
             path = kernel_path(dtype, D // H)
-            assert _flash_paths()["K2"][path] == 1
+            assert _set_paths()["K2"][path] == 1
             assert path == ("tensor_core" if dtype == torch.bfloat16
                             else "cuda_core")
             want, m_want, l_want = blockwise_flash_attention_ref(*args)
@@ -377,7 +487,7 @@ def phase_flash():
     args = (q, k, v, pad, H, T, mc, 8)
     _reset_counts()
     ms = _cuda_ms(lambda: blockwise_flash_attention_packed(*args), 20)
-    _on_tensor_cores(_flash_paths(), {"K2": 21})
+    _on_tensor_cores(_set_paths(), {"K2": 21})
     plain_ms = _cuda_ms(lambda: blockwise_flash_attention_ref(*args), 5)
     qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, 8)
     library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -446,8 +556,9 @@ def phase_flash_bwd():
                 path, other = (("tensor_core", "cuda_core")
                                if dtype == torch.bfloat16
                                else ("cuda_core", "tensor_core"))
-                assert _flash_paths() == {"K2": {path: 1, other: 0},
-                                          "K3": {path: 2, other: 0}}
+                sets = _set_paths()
+                assert (sets["K2"], sets["K3"]) == (
+                    {path: 1, other: 0}, {path: 2, other: 0}), sets
                 ref = blockwise_flash_attention_bwd_ref(
                     q, k, v, out, do, m, l, *lay, rate, seed, offset)
                 errs = []
@@ -487,7 +598,7 @@ def phase_flash_bwd():
                 q, k, v, *lay, r, True, seed, offset), 20),
             _cuda_ms(lambda: blockwise_flash_attention_bwd(
                 q, k, v, out, do, m, l, *lay, r, seed, offset), 20))
-    _on_tensor_cores(_flash_paths(), {"K2": 2 * 22, "K3": 2 * 21})
+    _on_tensor_cores(_set_paths(), {"K2": 2 * 22, "K3": 2 * 21})
     plain_ms = _cuda_ms(lambda: blockwise_flash_attention_bwd_ref(
         q, k, v, out, do, m, l, *lay, rate, seed, offset), 3)
     # the library call: scaled_dot_product_attention forward + backward
@@ -612,6 +723,45 @@ def _rel_err(a, b, where=None):
 
 
 LATTICE_SHAPES = ((8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512))
+LAT_LAUNCHES = 50          # launches of a lattice kernel in one CUDA graph
+PROBE_STEPS = 20000        # dependent steps of one probe launch
+
+
+def _step_probe():
+    """The step probe's C function: tools/lattice_step_probe.cu compiled into
+    a shared library of its own (not part of the kernel library) and loaded
+    with ctypes."""
+    import ctypes
+    import tempfile
+
+    from wav2vec_s_tpu_torch.ops import native
+
+    src = native.CSRC.parent / "tools" / "lattice_step_probe.cu"
+    with tempfile.TemporaryDirectory(dir=native.BUILD_DIR) as tmp:
+        so = os.path.join(tmp, "lattice_step_probe.so")
+        nvcc = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-shared",
+                               "-o", so, str(src)], capture_output=True,
+                              text=True)
+        if nvcc.returncode:
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{nvcc.stdout}"
+                               f"{nvcc.stderr}")
+        fn = ctypes.CDLL(so).w2vs_lattice_step_probe    # stays mapped
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _probe(fn, out, B, U, affine):
+    """One launch of the step probe on the current stream (``out``: any
+    float32 tensor of at least B * U elements)."""
+    import torch
+
+    err = fn(out.data_ptr(), B, U, PROBE_STEPS, int(affine), -0.37,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+
+
 # loss total err/(1+|x|), delay err/(1+|x|), grad max|diff|/max|g| of the
 # kernels against float64 twins, and the most the f32 twins' own error may
 # widen them to (the f32 twins showed 1.3e-6, 9.0e-4, 2.9e-3 at T 512)
@@ -627,13 +777,16 @@ def phase_lattice():
     from unittest import mock
 
     import torch
+    from wav2vec_s_tpu_torch.ops import native
     from wav2vec_s_tpu_torch.ops.transducer import analytic, kernels, lattice
+    from wav2vec_s_tpu_torch.tools.timing import graph_ms
 
     dev = torch.device("cuda")
     # f32 throughout; the twins' prefix form loses ~1e-6 relative to the
     # recursion at T 512 (the kernels are the more exact of the two)
     tol = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5}
     out = {}
+    probe = _step_probe()
     for i, (B, T, U, V) in enumerate(LATTICE_SHAPES):
         acts, labels, al, ll, dv, lpb, lpe = _lattice_inputs(dev, B, T, U,
                                                              V, i)
@@ -726,27 +879,72 @@ def phase_lattice():
             print(f"phase lattice: [{B},{T},{U},{V}] loss forward+backward: "
                   f"kernels {ms:.4f} ms, plain twins {plain_ms:.4f} ms")
             coef = [torch.rand((B, T, U), device=dev) for _ in range(3)]
+            # Device time of each kernel alone: its C entry point on inputs
+            # and int32 lengths prepared here, LAT_LAUNCHES launches in one
+            # CUDA graph.  Beside it the wrapper's host time per eager call
+            # (K5b's wrapper also builds the lattice masks) and the twin.
+            lib = native.library()
+            al32, ll32 = al.to(torch.int32), ll.to(torch.int32)
+            res = torch.empty_like(lpb)
+
+            def ptrs(*tensors):
+                return [t.data_ptr() for t in tensors]
+
+            def launches_of(call):          # call(stream) -> CUDA error
+                def go():
+                    stream = torch.cuda.current_stream().cuda_stream
+                    for _ in range(LAT_LAUNCHES):
+                        err = call(stream)
+                        assert err == 0, err
+                return go
+
             per = {
-                "alphas": (lambda: kernels.alphas(lpb, lpe),
+                "alphas": (lambda st: lib.w2vs_transducer_alphas(
+                               *ptrs(lpb, lpe, res), B, T, U, st),
+                           lambda: kernels.alphas(lpb, lpe),
                            lambda: lattice.alphas(lpb, lpe)),
-                "betas": (lambda: kernels.betas(lpb, lpe, al, ll),
+                "betas": (lambda st: lib.w2vs_transducer_betas(
+                              *ptrs(lpb, lpe, al32, ll32, res), B, T, U, st),
+                          lambda: kernels.betas(lpb, lpe, al, ll),
                           lambda: lattice.betas(lpb, lpe, al, ll)),
-                "affine_rows": (lambda: kernels.affine_rows(*coef),
+                "affine_rows": (lambda st: lib.w2vs_transducer_affine_rows(
+                                    *ptrs(*coef, res), B, T, U, 0, st),
+                                lambda: kernels.affine_rows(*coef),
                                 lambda: lattice.affine_rows(*coef))}
-            for name, (kern, twin) in per.items():
-                k_ms, t_ms = _cuda_ms(kern, 20), _cuda_ms(twin, 5)
+            steps = T + U - 1
+            for name, (launch, wrapper, twin) in per.items():
+                k_ms = graph_ms(launches_of(launch), LAT_LAUNCHES)
+                h_ms = _host_ms(wrapper, 1, reps=20)
+                t_ms = _cuda_ms(twin, 5)
+                # bound: the larger of the bytes (every [B, T, U] f32 input
+                # read once, the output written once) or operations (~10 per
+                # cell of the log-space recursions, 4 of the affine one) and
+                # the latency of T + U - 1 dependent steps of the kernels'
+                # present design, one step as the probe kernel measures it
+                # (tools/lattice_step_probe.cu: shared-memory reads, one
+                # log-add-exp or affine update, a write and a block barrier;
+                # B blocks of this launch shape, PROBE_STEPS steps in one
+                # launch, device time / steps).  That is the design's step,
+                # not a floor of the card: a step without the barrier would
+                # be shorter.  No PyTorch call computes these recursions.
+                affine = name == "affine_rows"
+                step_ms = graph_ms(lambda: _probe(probe, res, B, U, affine),
+                                    1, reps=5) / PROBE_STEPS
+                cells = B * T * U
+                n_arrays, ops = (4, 4) if affine else (3, 10)
+                bound = _bound(4 * n_arrays * cells, ops * cells, "float32")
+                if steps * step_ms >= bound[0]:
+                    bound = (steps * step_ms, "latency")
                 print(f"phase lattice: [{B},{T},{U}] {name}: kernel "
-                      f"{k_ms:.4f} ms, plain twin {t_ms:.4f} ms")
+                      f"{k_ms:.5f} ms (device time, {LAT_LAUNCHES} launches "
+                      f"in one CUDA graph), the wrapper's host time "
+                      f"{h_ms:.4f} ms per eager call, plain twin {t_ms:.4f} "
+                      f"ms; bound {bound[0]:.5f} ms by {bound[1]} ({steps} "
+                      f"dependent steps x {step_ms * 1e6:.1f} ns, the step "
+                      f"latency of the present design: shared memory + "
+                      f"barrier)")
                 if i == 0:
-                    # bound: every [B, T, U] f32 input read once, the
-                    # output written once; ~10 operations per cell of the
-                    # log-space recursions, 4 of the affine one.  No
-                    # PyTorch call computes these recursions.
-                    cells = B * T * U
-                    n_arrays, ops = (4, 4) if name == "affine_rows" else (
-                        3, 10)
-                    out[name] = _row(abs_errs[name], k_ms, t_ms, _bound(
-                        4 * n_arrays * cells, ops * cells, "float32"), None)
+                    out[name] = _row(abs_errs[name], k_ms, t_ms, bound, None)
     return out
 
 
@@ -886,13 +1084,15 @@ def phase_full(card):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     times, texts, delays = _timed_corpora(dec, wavs)
-    counts = _counts()
+    counts, sets = _counts(), _set_paths()
     launches = counts["chunk_cache_attention"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = w2v.encoder_layers * n_chunks * CORPORA
     print(f"phase full: kernel launches {counts} (K1 expected {want} = "
-          f"{w2v.encoder_layers} layers x {n_chunks} chunks x {CORPORA})")
+          f"{w2v.encoder_layers} layers x {n_chunks} chunks x {CORPORA}, "
+          f"all on the tensor-core kernel: {sets['K1']})")
     assert launches == want, (launches, want)
+    _on_tensor_cores(sets, {"K1": want})
     assert any(texts), "decoder emitted nothing"
     end_ms = (S + enc.window) / 16.0
     for d in delays:
@@ -948,7 +1148,7 @@ def phase_oneshot_full(card):
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     times, texts, delays = _timed_corpora(dec, wavs)
-    counts, flash_paths = _counts(), _flash_paths()
+    counts, flash_paths = _counts(), _set_paths()
     launches = counts["blockwise_flash_attention_packed"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_sub = ONESHOT_STREAMS // ENCODE_BATCH
@@ -1319,7 +1519,7 @@ def _run_cli(argv, n_layers, n_dec_layers):
         cli.main(argv)
     torch.cuda.synchronize()
     counts = _counts()
-    _on_tensor_cores(_flash_paths(), {
+    _on_tensor_cores(_set_paths(), {
         "K2": counts["blockwise_flash_attention_packed"],
         "K3": counts["blockwise_flash_attention_bwd"]})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1473,9 +1673,9 @@ def main() -> int:
     pa = "wav2vec_s_tpu/ops/pallas_attention.py:"
     pk = "wav2vec_s_tpu/ops/transducer/pallas_kernel.py:"
     # (counter, source, TPU kernel, the path whose run gives `launches`);
-    # K2 and K3: the tensor-core kernels, which the full-width paths run and
-    # the rows' times are of
-    rows = [("chunk_cache_attention", "chunk_attention.cu",
+    # K1, K2 and K3: the tensor-core kernels, which the full-width paths run
+    # and the rows' times are of
+    rows = [("chunk_cache_attention", "chunk_attention_mma.cu",
              "wav2vec_s_tpu/ops/chunk_attention.py:89", "agent", k1),
             ("blockwise_flash_attention_packed", "flash_attention_mma.cu",
              pa + "281", "one_shot", k2),

@@ -22,6 +22,7 @@ checkpoints.
 
 import dataclasses
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,6 +34,8 @@ from wav2vec_s_tpu.data import dataset as jax_dataset
 from wav2vec_s_tpu.data import manifests as jax_manifests
 from wav2vec_s_tpu.data import tokenizer as jax_tokenizer
 from wav2vec_s_tpu.data.dictionary import Dictionary as JaxDictionary
+from wav2vec_s_tpu.models.wav2vec2 import (
+    Wav2Vec2Config as JaxWav2Vec2Config)
 from wav2vec_s_tpu.train import config as jax_config
 from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
 from wav2vec_s_tpu_torch.checkpoint.warm_start import (
@@ -41,6 +44,7 @@ from wav2vec_s_tpu_torch.data import audio, batching, dataset, manifests
 from wav2vec_s_tpu_torch.data import tokenizer
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
 from wav2vec_s_tpu_torch.data.prefetch import prefetch_batches
+from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
 from wav2vec_s_tpu_torch.train import cli, config
 from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
 from wav2vec_s_tpu_torch.train.step import TrainState
@@ -503,6 +507,10 @@ UNSUPPORTED = {
     "profile_dir": ({"run.profile_dir": "/tmp/p"}, "item 12"),
     "debug_nan": ({"run.debug_nan": "true"}, "item 12"),
     "w2v2_model_path": ({"run.w2v2_model_path": "x.pt"}, "item 9"),
+    "pos_type_conv": ({"model.pos_type": "conv"}, "item 10"),
+    "extractor_default": ({"model.extractor_mode": "default"}, "item 10"),
+    "remat_extractor": ({"model.remat_extractor": "True"}, "item 9"),
+    "seq_axis": ({"model.seq_axis": "seq"}, "item 11"),
 }
 
 
@@ -515,11 +523,99 @@ def test_cli_raises_on_what_is_not_ported(corpus, case):
 
 
 def test_cli_rejects_unknown_model_fields_and_a_missing_card(corpus):
-    with pytest.raises(ValueError, match="model.final_dim"):
-        cli.main(_overrides(corpus, "never", **{"model.final_dim": 16}))
+    # a key that neither package knows is refused ...
+    with pytest.raises(ValueError, match="model.no_such_field"):
+        cli.main(_overrides(corpus, "never", **{"model.no_such_field": 16}))
+    assert "no_such_field" not in {
+        f.name for f in dataclasses.fields(JaxWav2Vec2Config)}
+    # ... a pre-training field of the JAX config is accepted and inert
+    tmp, _, _ = corpus
+    plain = config.load_config(None, _overrides(corpus, "a")[2:])
+    extra = config.load_config(None, _overrides(
+        corpus, "b", **{"model.final_dim": 16, "model.mask_prob": 0.5,
+                        "model.dropout_input": 0.3})[2:])
+    models = [cli.build_caat(c)[2] for c in (plain, extra)]
+    assert models[1].w2v_cfg.final_dim == 16
+    a, b = (m.state_dict() for m in models)
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError, match="caat.frontend"):
         cli.main(_overrides(corpus, "never", **{"caat.frontend": "resnet"}))
     if not torch.cuda.is_available():
         args = ["--device", "cuda"] + _overrides(corpus, "never")[2:]
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
+
+
+# ---- one yaml drives both packages ------------------------------------------
+
+def test_wav2vec2_config_has_every_jax_field_with_its_default():
+    """``Wav2Vec2Config(**cfg.model)`` builds from one yaml in both
+    packages: same field names, same defaults, the JAX order."""
+    jax_fields = [(f.name, f.default)
+                  for f in dataclasses.fields(JaxWav2Vec2Config)]
+    port_fields = [(f.name, f.default)
+                   for f in dataclasses.fields(Wav2Vec2Config)]
+    assert port_fields == jax_fields
+
+
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
+CAAT_RECIPES = ("caat_base.yaml", "caat_simulasr_base.yaml",
+                "caat_simulasr_large.yaml", "caat_simulst_large.yaml")
+
+
+def test_the_caat_recipes_are_the_ones_listed():
+    assert sorted(p.name for p in CONFIGS.glob("caat_*.yaml")) == sorted(
+        CAAT_RECIPES)
+
+
+@pytest.mark.parametrize("recipe", CAAT_RECIPES)
+def test_cli_builds_every_caat_recipe(corpus, recipe):
+    """Each CAAT recipe of the repo loads through the port's config path
+    and builds a model once its ``???`` paths, the tokenizer (no
+    sentencepiece model here) and the widths are overridden; the encoder
+    config equals the one the JAX package builds from the same yaml and
+    overrides, field by field."""
+    pytest.importorskip("yaml", reason="PyYAML is not installed")
+    _, tsv, vocab = corpus
+    overrides = [
+        "run.w2v2_model_path=", f"data.train_manifest={tsv}",
+        f"data.vocab={vocab}", "data.tokenizer=word",
+        "data.max_sample_size=3840",
+        "model.conv_feature_layers=((32,10,5),(32,3,2),(32,2,2))",
+        "model.encoder_embed_dim=32", "model.encoder_ffn_embed_dim=64",
+        "model.encoder_attention_heads=4", "model.final_dim=8",
+        "caat.decoder_embed_dim=24", "caat.decoder_ffn_embed_dim=48",
+        "caat.decoder_attention_heads=4", "caat.jointer_embed_dim=24",
+        "caat.jointer_ffn_embed_dim=48", "caat.jointer_attention_heads=4"]
+    cfg = config.load_config(str(CONFIGS / recipe), overrides)
+    cli.check_supported(cfg)
+    _, _, model, caat_cfg, _ = cli.build_caat(cfg)
+
+    jax_cfg = jax_config.load_config(str(CONFIGS / recipe), overrides)
+    want = JaxWav2Vec2Config(**{
+        k: (tuple(map(tuple, v)) if k == "conv_feature_layers" else v)
+        for k, v in jax_cfg.model.items()},
+        main_context=jax_cfg.context.main_context,
+        right_context=jax_cfg.context.right_context)
+    assert dataclasses.asdict(model.w2v_cfg) == dataclasses.asdict(want)
+    assert model.w2v_cfg.pos_type == "sin"
+    assert model.w2v_cfg.extractor_mode == "layer_norm"
+    n_layers = len(model.encoder.w2v2_model.encoder.layers)
+    assert n_layers == cfg.model["encoder_layers"] == want.encoder_layers
+    assert caat_cfg.vocab_size == len(Dictionary.load(str(vocab)))
+
+
+@pytest.mark.parametrize("field, value, item", [
+    ("extractor_mode", "default", "item 10"), ("pos_type", "conv", "item 10"),
+    ("remat_extractor", True, "item 9"), ("seq_axis", "seq", "item 11")])
+def test_model_raises_on_values_that_are_not_ported(field, value, item):
+    """Built directly, not through the CLI: the encoder refuses a value
+    whose forward differs from what the port builds, instead of building
+    the layer-norm, sinusoidal-position model without a word."""
+    cfg = Wav2Vec2Config(
+        conv_feature_layers=((8, 10, 5), (8, 3, 2)), encoder_layers=1,
+        encoder_embed_dim=8, encoder_ffn_embed_dim=16,
+        encoder_attention_heads=2, **{field: value})
+    with pytest.raises(NotImplementedError, match=item):
+        Wav2Vec2Model(cfg)

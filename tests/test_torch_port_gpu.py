@@ -25,6 +25,8 @@ from wav2vec_s_tpu_torch.models.modules import random_init_
 from wav2vec_s_tpu_torch.ops.block_mask import block_layout
 from wav2vec_s_tpu_torch.ops.chunk_attention import (
     chunk_cache_attention, chunk_cache_attention_ref)
+from wav2vec_s_tpu_torch.ops.chunk_attention import (
+    kernel_path as chunk_kernel_path)
 from wav2vec_s_tpu_torch.ops.flash_attention import (
     CUDA_CORE, TENSOR_CORE, blockwise_flash_attention_bwd,
     blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
@@ -56,16 +58,29 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("D,H,layout,t0", [
-    (768, 12, (16, 8, 2), 0), (768, 12, (16, 8, 2), 480),
-    (768, 12, (80, 8, 10), 256), (24, 4, (4, 2, 2), 37),
-    (1024, 8, (4, 2, 1), 100)])
-def test_kernel_matches_twin(cuda, dtype, atol, D, H, layout, t0):
-    """Main-path shapes (Dh 64, R 48 and 240), the tiny dims (Dh 6) and the
-    widest head the kernel takes (Dh 128); B = 4 streams, kv_cap 512."""
-    B, kv_cap = 4, 512
+K1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (B, D, H, layout, t0): main-path shapes (Dh 64, R 48 and 240), the tiny
+# dims (Dh 6) and the widest head the kernels take (Dh 128), in both dtypes
+K1_BOTH = [(4, 768, 12, (16, 8, 2), 0), (4, 768, 12, (16, 8, 2), 480),
+           (4, 768, 12, (80, 8, 10), 256), (4, 24, 4, (4, 2, 2), 37),
+           (4, 1024, 8, (4, 2, 1), 100)]
+# bfloat16 on the tensor-core kernel: heads of 32 and 128, R 24 (ds1), one
+# stream, and t0 at the edges of its 64-key tiles and of the cache
+K1_BF16 = ([(4, 256, 8, (16, 8, 2), t0) for t0 in (0, 1, 65, 512)]
+           + [(4, 512, 4, (16, 8, 2), t0) for t0 in (0, 1, 65, 512)]
+           + [(4, 768, 12, (16, 8, 1), t0) for t0 in (0, 1, 65, 512)]
+           + [(1, 768, 12, (16, 8, 2), t0) for t0 in (0, 1, 63, 64, 65, 512)]
+           + [(1, 512, 4, (80, 8, 10), 65), (3, 768, 12, (80, 8, 10), 512)])
+
+
+@pytest.mark.parametrize("dtype,B,D,H,layout,t0", [
+    (dtype, *case) for dtype in (torch.float32, torch.bfloat16)
+    for case in K1_BOTH] + [(torch.bfloat16, *case) for case in K1_BF16])
+def test_kernel_matches_twin(cuda, dtype, B, D, H, layout, t0):
+    """Each kernel against the twin, kv_cap 512, and the count of the set
+    that ``kernel_path`` names: float32 and odd head widths on the CUDA
+    cores, bfloat16 at heads of 32, 64 or 128 on the tensor cores."""
+    kv_cap = 512
     _, bias = chunk_layout(*layout)
     R = bias.shape[0]
     g = torch.Generator(device=cuda).manual_seed(R + t0)
@@ -75,13 +90,75 @@ def test_kernel_matches_twin(cuda, dtype, atol, D, H, layout, t0):
 
     args = (n(B, R, D) * (D // H) ** -0.5, n(kv_cap, B, D), n(kv_cap, B, D),
             n(B, R, D), n(B, R, D), torch.as_tensor(bias, device=cuda))
+    path = chunk_kernel_path(dtype, D // H)
+    assert path == (TENSOR_CORE if dtype == torch.bfloat16
+                    and D // H in (32, 64, 128) else CUDA_CORE)
     before = chunk_cache_attention.launches
+    before_sets = dict(chunk_cache_attention.path_launches)
     got = chunk_cache_attention(*args, t0, H)
     torch.cuda.synchronize()
     assert chunk_cache_attention.launches == before + 1
+    before_sets[path] += 1
+    assert chunk_cache_attention.path_launches == before_sets
     want = chunk_cache_attention_ref(*args, t0, H)
     assert got.dtype == dtype and got.shape == (B, R, D)
-    assert (got.float() - want.float()).abs().max().item() < atol
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() < K1_ATOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t0", [0, 65, 448])
+def test_kernel_never_reads_cache_rows_past_t0(cuda, dtype, t0):
+    """Uncommitted cache rows may hold anything, NaN included: the output
+    is finite and equals the twin's on clean rows."""
+    B, D, H, kv_cap = 3, 768, 12, 512
+    _, bias = chunk_layout(16, 8, 2)
+    R = bias.shape[0]
+    g = torch.Generator(device=cuda).manual_seed(t0)
+
+    def n(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    q, kc, vc, kn, vn = (n(B, R, D) * 0.125, n(kv_cap, B, D),
+                         n(kv_cap, B, D), n(B, R, D), n(B, R, D))
+    bias = torch.as_tensor(bias, device=cuda)
+    want = chunk_cache_attention_ref(q, kc, vc, kn, vn, bias, t0, H)
+    kc[t0:] = float("nan")
+    vc[t0:] = float("nan")
+    got = chunk_cache_attention(q, kc, vc, kn, vn, bias, t0, H)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() < K1_ATOL[dtype]
+
+
+def test_tensor_core_kernel_refuses_a_misaligned_view(cuda):
+    """A contiguous bfloat16 view that starts 2 bytes off a 16-byte
+    boundary raises before any launch; the same values in float32 (the
+    CUDA-core kernel) run."""
+    B, R, D, H, kv_cap = 2, 48, 768, 12, 64
+    bias = torch.as_tensor(chunk_layout(16, 8, 2)[1], device=cuda)
+
+    def pair(*shape):
+        n = int(np.prod(shape))
+        flat = torch.randn(n + 8, device=cuda).bfloat16()
+        return flat[:n].view(*shape), flat[1:n + 1].view(*shape)
+
+    q, kc, vc, kn, vn = (pair(B, R, D), pair(kv_cap, B, D),
+                         pair(kv_cap, B, D), pair(B, R, D), pair(B, R, D))
+    ok = [t[0] for t in (q, kc, vc, kn, vn)]
+    chunk_cache_attention(*ok, bias, 10, H)
+    before = chunk_cache_attention.launches
+    for i, t in enumerate((q, kc, vc, kn, vn)):
+        bad = list(ok)
+        bad[i] = t[1]
+        assert bad[i].is_contiguous() and bad[i].data_ptr() % 16 == 2
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            chunk_cache_attention(*bad, bias, 10, H)
+    assert chunk_cache_attention.launches == before
+    off = [t[1].float() for t in (q, kc, vc, kn, vn)]
+    got = chunk_cache_attention(*off, bias, 10, H)
+    want = chunk_cache_attention_ref(*off, bias, 10, H)
+    assert (got - want).abs().max().item() < 1e-4
 
 
 def test_kernel_rejects_strided_views(cuda):

@@ -1,8 +1,11 @@
-// Tensor-core pieces of the block-sparse flash-attention kernels for bf16
-// inputs (forward in flash_attention_mma.cu, backward in
-// flash_attention_bwd_mma.cu): the tile geometry, the shared-memory layout,
-// cp.async staging, ldmatrix fragment loads, the mma.sync product and the
-// attention-dropout mask on an accumulator fragment.
+// Tensor-core pieces of the attention kernels for bf16 inputs: the
+// block-sparse flash-attention kernels (forward in flash_attention_mma.cu,
+// backward in flash_attention_bwd_mma.cu) and the incremental-chunk attention
+// over the K/V cache (chunk_attention_mma.cu, which takes the staging, the
+// fragments, the product and the quad reductions, with its own row tiles).
+// Here: the tile geometry, the shared-memory layout, cp.async staging,
+// ldmatrix fragment loads, the mma.sync product and the attention-dropout
+// mask on an accumulator fragment.
 //
 // Geometry.  A block of 4 warps owns 64 "rows" (16 per warp) and walks tiles
 // of 64 "columns".  In the forward and in the dQ kernel rows are queries and
@@ -77,16 +80,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows row0 .. row0+63 of one head (row 0 at src + base, row stride D) -> the
-// swizzled tile dst; rows past S are zero.  Every thread of the block calls.
-template <int DH>
+// rows row0 .. row0+ROWS-1 of one head (row 0 at src + base, row stride D
+// elements) -> the swizzled [ROWS][DH] tile dst; rows past S are zero and are
+// never read.  Every thread of the block (THREADS of them) calls.
+template <int DH, int ROWS = kTileRows, int THREADS = kThreads>
 __device__ __forceinline__ void load_tile_async(bf16* dst,
                                                 const bf16* __restrict__ src,
                                                 long base, int row0, int S,
-                                                int D) {
+                                                long D) {
   constexpr int C = DH / 8;
   const uint32_t d0 = smem_u32(dst);
-  for (int i = threadIdx.x; i < kTileRows * C; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * C; i += THREADS) {
     const int r = i / C, c = i % C;
     const bool in = row0 + r < S;
     const bf16* g = src + base + (long)(in ? row0 + r : 0) * D + c * 8;

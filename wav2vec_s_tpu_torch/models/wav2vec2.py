@@ -42,7 +42,8 @@ from wav2vec_s_tpu_torch.utils.positional import (
 class Wav2Vec2Config:
     # conv front-end
     conv_feature_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
-    extractor_mode: str = "layer_norm"     # only "layer_norm" streams
+    extractor_mode: str = "layer_norm"     # "default" (group norm) is not
+                                           # ported: ``check_ported``
     conv_bias: bool = False
     feature_grad_mult: float = 0.1
     # encoder
@@ -55,13 +56,36 @@ class Wav2Vec2Config:
     attention_dropout: float = 0.1
     activation_dropout: float = 0.0
     encoder_layerdrop: float = 0.05
+    dropout_input: float = 0.1             # pre-training forward only
+    dropout_features: float = 0.1          # pre-training forward only
+    # positions: the blockwise encoder adds sinusoidal ones; "conv" belongs
+    # to the full-context encoder, which is not ported (``check_ported``)
+    pos_type: str = "sin"
+    conv_pos: int = 128
+    conv_pos_groups: int = 16
     # streaming context (wav2vec-S)
     main_context: int = 16
     right_context: int = 8
-    # one-shot encoder
+    context_type: str = "constant"         # the CLI reads context.context_type
+    # quantizer / contrastive head and masking: pre-training only; the
+    # fine-tuning and decoding paths build and read none of it
+    quantize_targets: bool = True
+    final_dim: int = 256
+    latent_vars: int = 320
+    latent_groups: int = 2
+    latent_temp: Tuple[float, float, float] = (2.0, 0.5, 0.999995)
+    logit_temp: float = 0.1
+    n_negatives: int = 100
+    cross_sample_negatives: int = 0
+    mask_prob: float = 0.65
+    mask_length: int = 10
+    # misc
+    normalize: bool = False                # read nowhere: data.normalize is
     required_seq_len_multiple: int = 2
     attention_impl: str = "dense"          # "dense" | "flash" (the
                                            # block-sparse kernel)
+    remat_extractor: bool = False          # TPU memory switch: not ported
+    seq_axis: Optional[str] = None         # TPU mesh axis: not ported
     dtype: str = "float32"
 
     @property
@@ -73,6 +97,30 @@ class Wav2Vec2Config:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+
+def check_ported(cfg: Wav2Vec2Config) -> None:
+    """Raise ``NotImplementedError`` for every value that would change the
+    forward in the JAX package and is not ported, naming the ROADMAP item.
+    The pre-training fields (quantizer, negatives, masking, input and
+    feature dropout) are accepted as they are: no ported path reads them."""
+    todo = []
+    if cfg.extractor_mode != "layer_norm":
+        todo.append(f"extractor_mode={cfg.extractor_mode!r} (ROADMAP Queue 1 "
+                    f"item 10: the group-norm conv front-end; only "
+                    f"'layer_norm' is ported)")
+    if cfg.pos_type != "sin":
+        todo.append(f"pos_type={cfg.pos_type!r} (ROADMAP Queue 1 item 10: "
+                    f"the full-context encoder with conv positions; the "
+                    f"blockwise encoder adds sinusoidal positions)")
+    if cfg.remat_extractor:
+        todo.append("remat_extractor (ROADMAP Queue 1 item 9: a TPU memory "
+                    "switch that waits for a measurement on the card)")
+    if cfg.seq_axis is not None:
+        todo.append(f"seq_axis={cfg.seq_axis!r} (ROADMAP Queue 1 item 11: "
+                    f"context parallelism over a TPU mesh axis)")
+    if todo:
+        raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
 
 def wav2vec_s_base_config(**kw) -> Wav2Vec2Config:
@@ -162,6 +210,7 @@ def downsample_padding_mask(padding_mask: torch.Tensor,
 class Wav2Vec2Model(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
+        check_ported(cfg)
         self.cfg = cfg
         self.feature_extractor = ConvFeatureExtractor(
             cfg.conv_feature_layers, cfg.layer_norm_num, cfg.conv_bias)

@@ -3,15 +3,24 @@
 The incremental blockwise encoder attends a chunk of R new rows against
 (a) the committed time-major K/V cache (rows < t0) and (b) the chunk itself
 under the intra-chunk block bias.  Port of the Pallas kernel
-``wav2vec_s_tpu/ops/chunk_attention.py``; the kernel is
-``csrc/chunk_attention.cu`` (its header says what bounds it and how it is
-laid out), the twin ``chunk_cache_attention_ref`` is the two-part einsum
-softmax of ``wav2vec_s_tpu/stream/incremental.py:231-256``.
+``wav2vec_s_tpu/ops/chunk_attention.py``; the twin
+``chunk_cache_attention_ref`` is the two-part einsum softmax of
+``wav2vec_s_tpu/stream/incremental.py:231-256``.
+
+Two kernels compute the same function, and ``kernel_path`` chooses between
+them from the dtype and the head width alone: bfloat16 inputs with heads of
+32, 64 or 128 dims run on the tensor cores (``csrc/chunk_attention_mma.cu``:
+``mma.sync`` on bf16 tiles of the cache staged by ``cp.async``); float32
+inputs and every other head width run on the CUDA cores
+(``csrc/chunk_attention.cu``: f32 FMAs).  The sources' headers say what
+bounds them and how they are laid out.
 
 ``chunk_cache_attention`` checks its arguments, then runs the twin for CPU
 tensors and launches the kernel for CUDA tensors; a build or launch failure
-raises, it never falls back to the twin.  Inference only, no backward: under
-autograd with inputs that require grad it raises on every device.
+raises, it never falls back to the twin or to the other kernel.  It counts
+its launches in ``.launches`` and, per kernel set, in ``.path_launches``.
+Inference only, no backward: under autograd with inputs that require grad
+it raises on every device.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
+from wav2vec_s_tpu_torch.ops.native import (  # noqa: F401  (kernel_path)
+    CUDA_CORE, TENSOR_CORE, aligned_kernel_path, kernel_path)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DH = 128             # kMaxDh in csrc/chunk_attention.cu
@@ -100,6 +111,13 @@ def _check(q, k_cache, v_cache, k_new, v_new, intra_bias, t0, n_heads):
         raise ValueError("all tensors must be on one device")
 
 
+def _path_of(q, n_heads, tensors):
+    """The kernel of a CUDA call; the tensor-core kernel copies 16 bytes at
+    a time, so its bfloat16 tensors must start on a 16-byte boundary."""
+    return aligned_kernel_path(q.dtype, q.shape[2] // n_heads, tensors,
+                               "chunk-attention")
+
+
 def chunk_cache_attention(q, k_cache, v_cache, k_new, v_new, intra_bias,
                           t0: int, n_heads: int) -> torch.Tensor:
     """q/k_new/v_new: [B, R, D] chunk rows (q pre-scaled by Dh**-0.5);
@@ -107,8 +125,10 @@ def chunk_cache_attention(q, k_cache, v_cache, k_new, v_new, intra_bias,
     intra_bias: [R, R] float32 additive block mask; t0: host int.  Returns
     [B, R, D] in ``q.dtype``.
 
-    CPU tensors run the plain twin; CUDA tensors launch the kernel (count
-    in ``chunk_cache_attention.launches``) or raise."""
+    CPU tensors run the plain twin; CUDA tensors launch the kernel of
+    ``kernel_path(q.dtype, D // n_heads)`` (count in
+    ``chunk_cache_attention.launches`` and, per kernel set, in its
+    ``path_launches``) or raise."""
     t0 = int(t0)
     _check(q, k_cache, v_cache, k_new, v_new, intra_bias, t0, n_heads)
     if q.device.type == "cpu":
@@ -119,22 +139,30 @@ def chunk_cache_attention(q, k_cache, v_cache, k_new, v_new, intra_bias,
     tensors = (q, k_cache, v_cache, k_new, v_new, intra_bias)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the chunk-attention kernel takes contiguous tensors")
+    B, R, D = q.shape
+    path = _path_of(q, n_heads, tensors[:5])
     from wav2vec_s_tpu_torch.ops import native
 
-    B, R, D = q.shape
     with torch.cuda.device(q.device):
         lib = native.library()
         out = torch.empty_like(q)
-        err = lib.w2vs_chunk_attention(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), intra_bias.data_ptr(),
-            out.data_ptr(), B, R, D, n_heads, t0, _DTYPE_CODES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+        pointers = [t.data_ptr() for t in tensors] + [out.data_ptr()]
+        code = _DTYPE_CODES[q.dtype]
+        stream = torch.cuda.current_stream().cuda_stream
+        if path == TENSOR_CORE:
+            err = lib.w2vs_chunk_attention_mma(
+                *pointers, B, R, D, n_heads, t0, k_cache.shape[0], code,
+                stream)
+        else:
+            err = lib.w2vs_chunk_attention(*pointers, B, R, D, n_heads, t0,
+                                           code, stream)
     if err:
         raise RuntimeError(f"chunk-attention kernel launch failed: CUDA "
-                           f"error {err}")
+                           f"error {err} ({path})")
     chunk_cache_attention.launches += 1
+    chunk_cache_attention.path_launches[path] += 1
     return out
 
 
 chunk_cache_attention.launches = 0
+chunk_cache_attention.path_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}

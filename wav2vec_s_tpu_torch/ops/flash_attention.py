@@ -59,23 +59,15 @@ import torch
 
 from wav2vec_s_tpu_torch.ops.block_mask import block_layout
 from wav2vec_s_tpu_torch.ops.dropout import _threshold, keep_mask
+from wav2vec_s_tpu_torch.ops.native import (  # noqa: F401  (kernel_path)
+    CUDA_CORE, TENSOR_CORE, aligned_kernel_path, kernel_path)
 
 NEG = -1e9                 # the TPU kernel's additive mask (not MASK_VALUE)
 _MAX_DH = 128              # kMaxDh in csrc/flash_common.cuh
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 #: (rows per block, columns per tile) of each path's tile-kind table:
 #: kTileRows in csrc/flash_mma.cuh; kRows, kTile in csrc/flash_common.cuh
 TILES = {TENSOR_CORE: (64, 64), CUDA_CORE: (32, 64)}
-_MMA_HEAD_WIDTHS = (32, 64, 128)     # instantiated in csrc/*_mma.cu
-
-
-def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
-    """Which kernels a CUDA call runs: the tensor-core set for bfloat16 with
-    a head width it is instantiated for, else the CUDA-core set."""
-    if dtype == torch.bfloat16 and head_dim in _MMA_HEAD_WIDTHS:
-        return TENSOR_CORE
-    return CUDA_CORE
 
 
 def _bias(key_padding_mask, seq_len, main_context, right_context):
@@ -252,11 +244,8 @@ def _path_of(q, num_heads, *packed):
     """The kernel set of a CUDA call; the tensor-core kernels copy 16 bytes
     at a time, so their [B, S, D] tensors must start on a 16-byte
     boundary."""
-    path = kernel_path(q.dtype, q.shape[2] // num_heads)
-    if path == TENSOR_CORE and any(t.data_ptr() % 16 for t in packed):
-        raise ValueError("the tensor-core flash-attention kernels take "
-                         "16-byte aligned tensors")
-    return path
+    return aligned_kernel_path(q.dtype, q.shape[2] // num_heads, packed,
+                               "flash-attention")
 
 
 def _count(wrapper, path):

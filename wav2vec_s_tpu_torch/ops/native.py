@@ -8,6 +8,10 @@ the process that first launches a kernel, into ``wav2vec_s_tpu_torch/_build/``
 ``*.cuh`` headers they include too) and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
 import time.
+
+The attention families (chunk attention, flash attention) come in two kernel
+sets; ``kernel_path`` is the one rule that chooses between them, and
+``aligned_kernel_path`` adds the tensor-core set's alignment check.
 """
 
 from __future__ import annotations
@@ -22,11 +26,18 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: the two kernel sets of the attention families: ``csrc/*_mma.cu`` (bf16
+#: ``mma.sync`` tiles) and the f32 FMA kernels beside them
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+MMA_HEAD_WIDTHS = (32, 64, 128)      # instantiated in csrc/*_mma.cu
 
 _lib = None
 #: seconds the last build took (None: loaded without building) and what
@@ -36,6 +47,26 @@ build_log = ""
 
 
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(f)|(d)|(13__nv_bfloat16)")
+
+
+def kernel_path(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel set a CUDA call of an attention wrapper runs: the
+    tensor-core set for bfloat16 with a head width it is instantiated for,
+    else the CUDA-core set."""
+    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_WIDTHS:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def aligned_kernel_path(dtype: torch.dtype, head_dim: int, tensors,
+                        family: str) -> str:
+    """``kernel_path``, checked: the tensor-core kernels copy 16 bytes at a
+    time, so the ``tensors`` they stage must start on a 16-byte boundary."""
+    path = kernel_path(dtype, head_dim)
+    if path == TENSOR_CORE and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core {family} kernels take 16-byte "
+                         f"aligned tensors")
+    return path
 
 
 def _kernel_name(mangled: str) -> str:
@@ -122,8 +153,6 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    import torch
-
     major, minor = torch.cuda.get_device_capability()
     if (major, minor) != (9, 0):
         raise RuntimeError(f"the kernels are built for sm_90a (Hopper); this "
@@ -143,6 +172,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of every kernel entry point."""
     fn = lib.w2vs_chunk_attention
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.w2vs_chunk_attention_mma             # ... and kv_cap after t0
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     # (seed, offset, threshold, keep scale) of the attention dropout

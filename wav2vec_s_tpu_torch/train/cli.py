@@ -102,9 +102,9 @@ def _config(cls, kwargs: Dict, section: str, **fixed):
     unknown = sorted(set(kwargs) - known)
     if unknown:
         raise ValueError(
-            f"{section}.{unknown[0]} is not a field of the port's "
-            f"{cls.__name__} (pre-training and fbank-family fields come "
-            f"with ROADMAP Queue 1 items 10 and 12)")
+            f"{section}.{unknown[0]} is not a field of {cls.__name__} "
+            f"(fbank-family fields of the CAAT config come with ROADMAP "
+            f"Queue 1 item 12)")
     kw = {k: (tuple(map(tuple, v)) if k == "conv_feature_layers"
               else tuple(v) if isinstance(v, list) else v)
           for k, v in kwargs.items()}
