@@ -48,8 +48,10 @@ Phases, each printed on its own line:
                alone (50 launches in one CUDA graph, inputs and int32 lengths
                prepared outside), its wrapper's host time, its twin, and its
                bound: the larger of the byte bound and T + U - 1 dependent
-               steps times one step of the kernels' present design (shared
-               memory + block barrier), measured by the probe kernel
+               steps times one step of the recursion with the column heads
+               passed by warp shuffle and no barrier, beside the step of the
+               kernels' present design (shared memory + block barrier), both
+               measured by the probe kernel
                wav2vec_s_tpu_torch/tools/lattice_step_probe.cu, which is
                built here into a library of its own;
   6. parity  — a tiny model decoded on the card equals the same decode on
@@ -57,6 +59,15 @@ Phases, each printed on its own line:
   7. one-shot parity — the tiny one-shot decode (flash attention) on the
                card equals the one on the CPU and the cached decode on the
                card;
+  7b. beam parity — the tiny model under the four batched beam decoders
+               (beam 3, mixed lengths; the incremental encoder for the
+               streaming ones, flash attention for the one-shot ones): each
+               decode on the card equals the same decode on the CPU, texts
+               and delays; the batched decoder equals the host searcher, both
+               on the card; argmax and the stable sorts take the lowest
+               index among equals on the card; and whether the fused
+               one-shot texts equal the fused streaming texts in bfloat16
+               (they do in float32: the encoders differ by rounding);
   8. train parity — tiny CAAT fine-tuning, dropout off: two updates on the
                card (kernels) equal the CPU's (twins): loss, grad norm,
                every parameter; then a 30-step overfit with the recipe's
@@ -76,6 +87,23 @@ Phases, each printed on its own line:
                32: one warm-up corpus, then CORPORA timed ones; K2's launch
                count must equal layers x sub-batches x corpora, all of them
                on the tensor-core kernel;
+  10b. beam full — the beam quality path at the same width: bfloat16,
+               64 streams of 10 s, beam 5, inter_beam 1, max_steps 8, max_len
+               64, eager emission, DECISION_STEP=2, int16 wire, corpus k+1
+               staged before corpus k is waited for.
+               FusedBeamStreamingDecoder (dense model): K1 launches == layers
+               x chunks x corpora, all on the tensor-core kernel, K2 none.
+               FusedOneShotBeamDecoder (attention_impl="flash"): K2 launches
+               == layers x sub-batches x corpora, all on the tensor-core
+               kernel, K1 none.  For each: audio-sec/s per corpus, peak
+               memory, beam iterations run, the reads from the device that
+               one decode of a staged corpus makes with the early-stop read
+               off (counted with torch.cuda.set_sync_debug_mode at two
+               corpus lengths: the count must not grow with the number of
+               chunks), some text emitted; the share of streams whose fused
+               one-shot text equals the fused streaming text; and the
+               streaming decoder timed with the early-stop read off, every
+               iteration and every fourth;
   11. train full — the CAAT fine-tuning step at Base + CAAT base width,
                bfloat16, dense attention, the recipe's dropouts on, B 8 x
                10 s of seeded noise, U 40: one warm step, then two windows
@@ -747,18 +775,20 @@ def _step_probe():
                                f"{nvcc.stderr}")
         fn = ctypes.CDLL(so).w2vs_lattice_step_probe    # stays mapped
     fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _probe(fn, out, B, U, affine):
+def _probe(fn, out, B, U, affine, shuffle):
     """One launch of the step probe on the current stream (``out``: any
-    float32 tensor of at least B * U elements)."""
+    float32 tensor of at least B * U elements): the present design's step
+    (shared memory + block barrier) or, with ``shuffle``, the step that
+    passes the heads by warp shuffle with no barrier."""
     import torch
 
     err = fn(out.data_ptr(), B, U, PROBE_STEPS, int(affine), -0.37,
-             torch.cuda.current_stream().cuda_stream)
+             int(shuffle), torch.cuda.current_stream().cuda_stream)
     assert err == 0, err
 
 
@@ -919,17 +949,21 @@ def phase_lattice():
                 # bound: the larger of the bytes (every [B, T, U] f32 input
                 # read once, the output written once) or operations (~10 per
                 # cell of the log-space recursions, 4 of the affine one) and
-                # the latency of T + U - 1 dependent steps of the kernels'
-                # present design, one step as the probe kernel measures it
-                # (tools/lattice_step_probe.cu: shared-memory reads, one
-                # log-add-exp or affine update, a write and a block barrier;
-                # B blocks of this launch shape, PROBE_STEPS steps in one
-                # launch, device time / steps).  That is the design's step,
-                # not a floor of the card: a step without the barrier would
-                # be shorter.  No PyTorch call computes these recursions.
+                # the latency of T + U - 1 dependent steps, one step as the
+                # probe kernel measures it (tools/lattice_step_probe.cu: B
+                # lattices of this U, PROBE_STEPS steps in one launch,
+                # device time / steps).  The bound takes the step that
+                # passes the column heads by warp shuffle, registers only,
+                # no barrier: what this card needs for one step of the
+                # recursion.  Beside it the step of the kernels' present
+                # design (shared memory + block barrier), which is what the
+                # kernels as written can reach.  No PyTorch call computes
+                # these recursions.
                 affine = name == "affine_rows"
-                step_ms = graph_ms(lambda: _probe(probe, res, B, U, affine),
-                                    1, reps=5) / PROBE_STEPS
+                step_ms, design_step_ms = (
+                    graph_ms(lambda: _probe(probe, res, B, U, affine, shfl),
+                             1, reps=5) / PROBE_STEPS
+                    for shfl in (True, False))
                 cells = B * T * U
                 n_arrays, ops = (4, 4) if affine else (3, 10)
                 bound = _bound(4 * n_arrays * cells, ops * cells, "float32")
@@ -941,8 +975,10 @@ def phase_lattice():
                       f"{h_ms:.4f} ms per eager call, plain twin {t_ms:.4f} "
                       f"ms; bound {bound[0]:.5f} ms by {bound[1]} ({steps} "
                       f"dependent steps x {step_ms * 1e6:.1f} ns, the step "
-                      f"latency of the present design: shared memory + "
-                      f"barrier)")
+                      f"by warp shuffle, no barrier); the present design's "
+                      f"step (shared memory + barrier) "
+                      f"{design_step_ms * 1e6:.1f} ns -> "
+                      f"{steps * design_step_ms:.5f} ms")
                 if i == 0:
                     out[name] = _row(abs_errs[name], k_ms, t_ms, bound, None)
     return out
@@ -962,7 +998,7 @@ def _clips(lengths, seed=0):
     return [rng.standard_normal(n).astype(np.float32) * 0.1 for n in lengths]
 
 
-def _tiny_model(attention_impl="dense"):
+def _tiny_model(attention_impl="dense", dtype="float32"):
     """tests/test_caat.py dims, random weights from seed 0."""
     import torch
     from wav2vec_s_tpu_torch.models import Wav2Vec2Config
@@ -973,9 +1009,9 @@ def _tiny_model(attention_impl="dense"):
         conv_feature_layers=((16, 10, 5), (16, 3, 2), (16, 2, 2)),
         encoder_layers=2, encoder_embed_dim=24, encoder_ffn_embed_dim=48,
         encoder_attention_heads=4, main_context=4, right_context=2,
-        attention_impl=attention_impl)
+        attention_impl=attention_impl, dtype=dtype)
     caat = CaatConfig(
-        vocab_size=30, decoder_layers=2, decoder_embed_dim=24,
+        dtype=dtype, vocab_size=30, decoder_layers=2, decoder_embed_dim=24,
         decoder_ffn_embed_dim=48, decoder_attention_heads=4,
         jointer_layers=2, jointer_embed_dim=24, jointer_ffn_embed_dim=48,
         jointer_attention_heads=4)
@@ -1027,6 +1063,137 @@ def phase_oneshot_parity():
     assert sum(words) > 0
 
 
+BEAM_TINY_KW = dict(beam_size=3, inter_beam=1, max_steps=5, max_len=64,
+                    eager=True, t_cap=64)
+HOST_GEN_BEAM, HOST_CLIPS_SEED = 2.0, 2
+BEAM_DECODERS = ("BatchedBeamStreamingDecoder", "OneShotBeamDecoder",
+                 "FusedBeamStreamingDecoder", "FusedOneShotBeamDecoder")
+
+
+def _grid_clips(w2v, chunks, seed=0):
+    """Seeded noise whose lengths land on the chunk grid of ``w2v``: one
+    clip of ``n * main_context + right_context`` frames per entry."""
+    from wav2vec_s_tpu_torch.models.feature_extractor import (
+        conv_receptive_stride)
+
+    rf, hop = conv_receptive_stride(w2v.conv_feature_layers)
+    return _clips([(n * w2v.main_context + w2v.right_context - 1) * hop + rf
+                   for n in chunks], seed)
+
+
+def _host_search(model, w2v, vocab, wav, beam, max_steps, gen_beam):
+    """The host searcher (stream/searcher.py over stream/engine.py) on the
+    chunk grid -> words."""
+    from wav2vec_s_tpu_torch.models.feature_extractor import (
+        conv_output_length, conv_receptive_stride)
+    from wav2vec_s_tpu_torch.stream.engine import StreamingEngine
+    from wav2vec_s_tpu_torch.stream.searcher import (
+        StreamingTransducerSearcher)
+
+    rf, hop = conv_receptive_stride(w2v.conv_feature_layers)
+    mc, rc = w2v.main_context, w2v.right_context
+    window, stride = (mc + rc - 1) * hop + rf, mc * hop
+    n_chunks = (conv_output_length(len(wav), w2v.conv_feature_layers)
+                - rc) // mc
+    lens = [min(k * stride + window, len(wav)) for k in range(n_chunks)]
+    engine = StreamingEngine(model, main_context=mc, right_context=rc,
+                             audio_buckets=sorted(set(lens)),
+                             token_buckets=[8, 16, 32, 64])
+    searcher = StreamingTransducerSearcher(engine, vocab, eager=True)
+    state, words = searcher.init_state(), []
+    for k, n in enumerate(lens):
+        state, ws = searcher.search(
+            state, wav[:n], k == n_chunks - 1, intra_beam=beam, inter_beam=1,
+            gen_beam=gen_beam, read_step=mc, max_steps=max_steps)
+        words.extend(ws)
+    return words
+
+
+def phase_beam_parity():
+    """Tiny model: the four beam decoders on CUDA == on the CPU; batched ==
+    the host searcher on CUDA; tie order on CUDA.  Returns whether the
+    fused one-shot texts equal the fused streaming texts in bfloat16."""
+    import torch
+    from wav2vec_s_tpu_torch.stream import beam_batched
+
+    dev = torch.device("cuda")
+    # ties: the first maximum, the lowest index among equals
+    for value in (float("-inf"), 0.25):
+        x = torch.full((4, 5, 300), value, device=dev)
+        assert not x.argmax(-1).any()
+        x[..., 130] = x[..., 7] = 1.0
+        assert (x.argmax(-1) == 7).all()
+        flat = x.reshape(20, 300)
+        want = torch.tensor([7, 130, 0, 1, 2], device=dev).expand(20, 5)
+        assert torch.equal(torch.sort(flat, dim=1, descending=True,
+                                      stable=True)[1][:, :5], want)
+        assert torch.equal(torch.argsort(-flat, dim=1, stable=True)[:, :5],
+                           want)
+        # (past a row's last finite value the hierarchical picks are -inf
+        # and their indices carry no meaning)
+        n = 5 if value > 0 else 2
+        i = beam_batched._top_b_per_row(x, 5)[1]
+        assert torch.equal(i[..., :n], want.reshape(4, 5, 5)[..., :n])
+    print("phase beam parity: argmax, stable sort and the hierarchical "
+          "top-B take the lowest index among equals on the card (-inf and "
+          "equal rows)")
+
+    chunks = (6, 4, 6, 3)
+    words = {}
+    for name in BEAM_DECODERS:
+        impl = "flash" if "OneShot" in name else "dense"
+        w2v, caat, model = _tiny_model(impl)
+        vocab, wavs = _vocab(caat.vocab_size), _grid_clips(w2v, chunks)
+        out = {}
+        for d in ("cpu", "cuda"):
+            dec = getattr(beam_batched, name)(model.to(d), vocab, w2v,
+                                              gen_beam=2.0, **BEAM_TINY_KW)
+            dec.transfer_dtype = "int16"
+            out[d] = dec.decode_corpus(wavs)
+        words[name] = [len(x) for x in out["cuda"][1]]
+        print(f"phase beam parity: tiny {name} ({impl}) cuda == cpu: "
+              f"{out['cuda'] == out['cpu']} (words per stream "
+              f"{words[name]})")
+        assert out["cuda"] == out["cpu"], name
+        assert min(words[name]) > 0
+
+    # batched == the host searcher, both on the card: streams of one
+    # length (in a mixed corpus a shorter stream learns of its end one
+    # chunk later than the host searcher is told), at a gen_beam where no
+    # kept row is shorter than a pool survivor (the host searcher then
+    # appends past that row's padding; see
+    # tests/test_torch_port_beam_decoders.py), which holds on these clips
+    w2v, caat, model = _tiny_model()
+    model = model.to(dev)
+    vocab, wavs = _vocab(caat.vocab_size), _grid_clips(w2v, (5, 5, 5),
+                                                        seed=HOST_CLIPS_SEED)
+    dec = beam_batched.BatchedBeamStreamingDecoder(
+        model, vocab, w2v, gen_beam=HOST_GEN_BEAM, **BEAM_TINY_KW)
+    texts, _ = dec.decode_corpus(wavs)
+    for wav, text in zip(wavs, texts):
+        want = _host_search(model, w2v, vocab, wav, BEAM_TINY_KW["beam_size"],
+                            BEAM_TINY_KW["max_steps"], HOST_GEN_BEAM)
+        assert text.split() == want, (text, want)
+    print(f"phase beam parity: batched == host searcher on the card "
+          f"(gen_beam {HOST_GEN_BEAM}): True (words per stream "
+          f"{[len(t.split()) for t in texts]})")
+
+    # bfloat16: do the two fused decoders still agree?  (they run different
+    # encoders: chunk attention per step vs one flash pass)
+    texts = {}
+    for name in BEAM_DECODERS[2:]:
+        impl = "flash" if "OneShot" in name else "dense"
+        w2v, caat, model = _tiny_model(impl, dtype="bfloat16")
+        dec = getattr(beam_batched, name)(
+            model.to(dev), _vocab(caat.vocab_size), w2v, gen_beam=2.0,
+            **BEAM_TINY_KW)
+        texts[name] = dec.decode_corpus(_grid_clips(w2v, chunks))[0]
+    same = texts[BEAM_DECODERS[2]] == texts[BEAM_DECODERS[3]]
+    print(f"phase beam parity: tiny bfloat16 fused one-shot texts == fused "
+          f"streaming texts: {same}")
+    return same
+
+
 def _base_model(dev, attention_impl="dense"):
     from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
     from wav2vec_s_tpu_torch.models.caat import (
@@ -1043,14 +1210,14 @@ def _base_model(dev, attention_impl="dense"):
     return w2v, caat, model
 
 
-def _timed_corpora(dec, wavs):
-    """CORPORA timed decodes, staging corpus k+1 before decoding corpus k
-    (bench.py's pattern); returns (times, last texts, last delays)."""
+def _timed_corpora(dec, wavs, corpora=CORPORA):
+    """``corpora`` timed decodes, staging corpus k+1 before decoding corpus
+    k (bench.py's pattern); returns (times, last texts, last delays)."""
     staged = dec.stage(wavs)
     times = []
-    for i in range(CORPORA):
+    for i in range(corpora):
         t = time.perf_counter()
-        nxt = dec.stage(wavs) if i + 1 < CORPORA else None
+        nxt = dec.stage(wavs) if i + 1 < corpora else None
         texts, delays = dec.decode_corpus(staged)
         times.append(time.perf_counter() - t)
         staged = nxt
@@ -1187,6 +1354,182 @@ def phase_oneshot_full(card):
           f"audio-sec/s (best corpus), peak memory {peak_gb:.3f} GB, words "
           f"in the last corpus {sum(len(d) for d in delays)} [{card}]")
     return counts
+
+
+BEAM_STREAMS, BEAM_CORPORA = 64, 3
+BEAM_KW = dict(beam_size=5, inter_beam=1, max_steps=8, max_len=64,
+               eager=True, blocks_per_step=2)
+
+
+def _device_reads(dec, wavs):
+    """The synchronizing device operations of one ``decode_corpus`` of a
+    staged corpus -> (count, {innermost file:line of this checkout that
+    led to each}), as ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    them."""
+    import traceback
+    import warnings
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root)
+                and os.path.abspath(f.filename) != os.path.abspath(__file__)]
+        f = ours[-1] if ours else None
+        sites.append(f"{os.path.basename(f.filename)}:{f.lineno}" if f
+                     else f"{os.path.basename(filename)}:{lineno}")
+
+    staged = dec.stage(wavs)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        shown, warnings.showwarning = warnings.showwarning, note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            dec.decode_corpus(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            warnings.showwarning = shown
+    return len(sites), sorted(set(sites))
+
+
+def _beam_decoder(name, impl):
+    """Base + CAAT base, bf16, the fused beam decoder ``name`` at the
+    configuration of bench.py's beam legs -> (w2v, caat, decoder, S)."""
+    import torch
+    from wav2vec_s_tpu_torch.stream import beam_batched
+
+    w2v, caat, model = _base_model(torch.device("cuda"), attention_impl=impl)
+    S = int(SECONDS * 16000)
+    frames = (S - 400) // 320 + 1
+    t_cap = -(-(frames + w2v.right_context) // 128) * 128       # 512
+    dec = getattr(beam_batched, name)(model, _vocab(caat.vocab_size), w2v,
+                                      t_cap=t_cap, **BEAM_KW)
+    dec.transfer_dtype = "int16"
+    dec.encode_batch = ENCODE_BATCH
+    return w2v, caat, dec, S
+
+
+def phase_beam_full(card, same_in_bf16):
+    """Base + CAAT base, bf16, intra-beam 5: the fused streaming beam
+    decoder (K1) and the fused one-shot beam decoder (K2, flash) ->
+    {path: launch counts}."""
+    import torch
+
+    paths, texts_of = {}, {}
+    for name, impl, path in (
+            ("FusedBeamStreamingDecoder", "dense", "beam_streaming"),
+            ("FusedOneShotBeamDecoder", "flash", "beam_oneshot")):
+        t = time.perf_counter()
+        w2v, caat, dec, S = _beam_decoder(name, impl)
+        wavs = _clips([S] * BEAM_STREAMS)
+        print(f"phase beam full: {name}: model + decoder ready in "
+              f"{time.perf_counter() - t:.1f} s")
+        dec.decode_corpus(wavs)                                 # warm-up
+        enc = dec._encoder(BEAM_STREAMS)
+        frames = (S - 400) // 320 + 1
+        n_chunks = max((frames - w2v.right_context) // enc.n_main, 1)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        before = dec.iterations_run
+        times, texts, delays = _timed_corpora(dec, wavs, BEAM_CORPORA)
+        counts, sets = _counts(), _set_paths()
+        iterations = dec.iterations_run - before
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if impl == "dense":
+            want = {"K1": w2v.encoder_layers * n_chunks * BEAM_CORPORA,
+                    "K2": 0}
+            said = (f"K1 expected {want['K1']} = {w2v.encoder_layers} layers"
+                    f" x {n_chunks} chunks x {BEAM_CORPORA}, K2 0")
+        else:
+            n_sub = BEAM_STREAMS // ENCODE_BATCH
+            want = {"K1": 0,
+                    "K2": w2v.encoder_layers * n_sub * BEAM_CORPORA}
+            said = (f"K2 expected {want['K2']} = {w2v.encoder_layers} layers"
+                    f" x {n_sub} sub-batches x {BEAM_CORPORA}, K1 0")
+        print(f"phase beam full: {name}: kernel launches {counts} ({said}); "
+              f"by kernel set {sets}")
+        assert counts["chunk_cache_attention"] == want["K1"], counts
+        assert counts["blockwise_flash_attention_packed"] == want["K2"], counts
+        _on_tensor_cores(sets, dict(want, K3=0))
+        assert any(texts), "beam decoder emitted nothing"
+        end_ms = (S + enc.window) / 16.0
+        for text, d in zip(texts, delays):
+            assert len(d) == len(text.split())
+            assert d == sorted(d) and all(0 < x <= end_ms for x in d)
+        texts_of[name] = texts
+        paths[path] = counts
+
+        # reads from the device in one decode of a staged corpus with the
+        # early-stop read off, at two corpus lengths: none may sit in the
+        # chunk loop (one read per chunk would make the counts differ by
+        # the difference in chunks)
+        half = _clips([S // 2] * BEAM_STREAMS)
+        dec.decode_corpus(half)                                 # warm-up
+        every, dec.stop_check_every = dec.stop_check_every, 0
+        reads = {n: _device_reads(dec, w)
+                 for n, w in ((n_chunks, wavs), (n_chunks // 2, half))}
+        dec.stop_check_every = every
+        print(f"phase beam full: {name}: synchronizing device operations in "
+              f"one decode of a staged corpus, early-stop read off: "
+              + ", ".join(f"{c} at {n} chunks" for n, (c, _) in reads.items())
+              + f" (at {reads[n_chunks][1]}: the schedule's three uploads, "
+              f"the block layout's uploads of a one-shot encode, the one "
+              f"read of the best rows)")
+        (c_long, _), (c_short, _) = reads.values()
+        assert abs(c_long - c_short) < n_chunks - n_chunks // 2, reads
+
+        rates = [BEAM_STREAMS * SECONDS / s for s in times]
+        print(f"phase beam full: {name}: {BEAM_STREAMS} streams x "
+              f"{SECONDS:g} s, beam {BEAM_KW['beam_size']}, corpus times "
+              f"{['%.4f' % s for s in times]} s -> {max(rates):.2f} "
+              f"audio-sec/s (best corpus; the others "
+              f"{['%.2f' % r for r in sorted(rates)[:-1]]}), "
+              f"{iterations} beam iterations of the {n_chunks} chunks x "
+              f"{BEAM_KW['max_steps']} x {BEAM_CORPORA} = "
+              f"{n_chunks * BEAM_KW['max_steps'] * BEAM_CORPORA} at most "
+              f"(early-stop read every {dec.stop_check_every or 'never'})"
+              f", peak memory {peak_gb:.3f} GB, words in the last corpus "
+              f"{sum(len(d) for d in delays)} [{card}]")
+
+        if impl == "dense":
+            # the early-stop read: off, every iteration, every fourth; and
+            # under a blank bias that ends every block early (what a read
+            # can win): best of two corpora each, taken in turns
+            stops, every0 = {}, dec.stop_check_every
+            for bias in (0.0, 20.0):
+                dec.bos_bias = bias
+                for every in (0, 1, 4, 0, 1, 4):
+                    dec.stop_check_every = every
+                    before = dec.iterations_run
+                    t_e = _timed_corpora(dec, wavs, 1)[0][0]
+                    it = dec.iterations_run - before
+                    best = stops.get((bias, every), (t_e, it))[0]
+                    stops[bias, every] = (min(best, t_e), it)
+            dec.bos_bias, dec.stop_check_every = 0.0, every0
+            print("phase beam full: early-stop read, best corpus s "
+                  "(iterations per corpus): "
+                  + "; ".join(
+                      f"bos_bias {b:g} read every {e or 'never'}: "
+                      f"{t_:.4f} ({it})"
+                      for (b, e), (t_, it) in sorted(stops.items()))
+                  + f" [{card}]")
+        del dec
+        torch.cuda.empty_cache()
+
+    a, b = (texts_of[n] for n in ("FusedBeamStreamingDecoder",
+                                  "FusedOneShotBeamDecoder"))
+    share = sum(x == y for x, y in zip(a, b)) / len(a)
+    print(f"phase beam full: fused one-shot text == fused streaming text "
+          f"for {share:.3f} of the streams (the tiny bfloat16 case: "
+          f"{same_in_bf16}; the encoders round differently in bfloat16, so "
+          f"near-ties may order differently)")
+    return paths
 
 
 TRAIN_B, TRAIN_U, TRAIN_WINDOW = 8, 40, 5
@@ -1661,9 +2004,11 @@ def main() -> int:
     lat = phase_lattice()
     phase_parity()
     phase_oneshot_parity()
+    same_in_bf16 = phase_beam_parity()
     phase_train_parity()
     phase_train_flash_parity()
     paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
+    paths.update(phase_beam_full(card, same_in_bf16))
     paths["train_dense"], dense_ups, dense_gb = phase_train_full(card)
     paths["cli_flash"] = phase_cli_full(card)
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "

@@ -1,9 +1,10 @@
 """CUDA checks of the torch port: the hand-written kernels (chunk attention,
 block-sparse flash attention forward and backward with its in-kernel
 dropout, dropout, the transducer lattices and affine rows) against their
-plain twins, the tiny cached and one-shot decodes, the tiny training step
-and a tiny run of the training CLI on the card against the same on the CPU.  They skip
-without a CUDA device.  On a card:
+plain twins, the tiny cached and one-shot decodes, the four tiny beam
+decodes, the tiny training step and a tiny run of the training CLI on the
+card against the same on the CPU.  They skip without a CUDA device.  On a
+card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -623,3 +624,73 @@ def test_tiny_cli_run_on_cuda_equals_cpu(cuda, tmp_path):
         assert saved[dev]["step"] == 4 and meta["step"] == 4
     for k, v in saved["cpu"]["model"].items():
         assert (v - saved["cuda"]["model"][k]).abs().max() <= 1e-2 * lr, k
+
+
+# --- the beam quality path (stream/beam_batched.py) ---
+
+from wav2vec_s_tpu_torch.models.feature_extractor import (  # noqa: E402
+    conv_receptive_stride)
+from wav2vec_s_tpu_torch.stream import beam_batched  # noqa: E402
+
+BEAM_KW = dict(beam_size=3, inter_beam=1, max_steps=5, max_len=64,
+               eager=True, t_cap=64)
+
+
+def _grid_wavs(chunks, seed=0):
+    """Seeded noise of ``n * main_context + right_context`` frames each."""
+    rf, hop = conv_receptive_stride(W2V_TINY.conv_feature_layers)
+    mc, rc = W2V_TINY.main_context, W2V_TINY.right_context
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((n * mc + rc - 1) * hop + rf).astype(
+        np.float32) * 0.1 for n in chunks]
+
+
+@pytest.mark.parametrize("blocks", [1, 2])
+@pytest.mark.parametrize("name", [
+    "BatchedBeamStreamingDecoder", "OneShotBeamDecoder",
+    "FusedBeamStreamingDecoder", "FusedOneShotBeamDecoder"])
+def test_tiny_beam_decode_on_cuda_equals_cpu(cuda, name, blocks):
+    """Mixed lengths, int16 wire for the fused decoders; the streaming
+    decoders launch the chunk-attention kernel once per layer and chunk,
+    the one-shot ones the flash kernel once per layer (one sub-batch)."""
+    oneshot = "OneShot" in name
+    w2v = dataclasses.replace(W2V_TINY,
+                              attention_impl="flash" if oneshot else "dense")
+    vocab, model, _ = _tiny(w2v)
+    wavs = _grid_wavs((6, 4, 6, 3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dec = getattr(beam_batched, name)(model.to(dev), vocab, w2v,
+                                          blocks_per_step=blocks, **BEAM_KW)
+        dec.transfer_dtype = "int16"
+        before = (chunk_cache_attention.launches,
+                  blockwise_flash_attention_packed.launches)
+        out[dev] = dec.decode_corpus(wavs)
+        k1 = chunk_cache_attention.launches - before[0]
+        k2 = blockwise_flash_attention_packed.launches - before[1]
+        if dev == "cpu":
+            assert (k1, k2) == (0, 0)
+        elif oneshot:
+            assert (k1, k2) == (0, w2v.encoder_layers)
+        else:
+            assert (k1, k2) == (w2v.encoder_layers * (6 // blocks), 0)
+    assert out["cuda"] == out["cpu"]
+    assert min(len(d) for d in out["cuda"][1]) > 0
+
+
+@pytest.mark.parametrize("value", [float("-inf"), 0.25])
+def test_ties_take_the_lowest_index_on_the_card(cuda, value):
+    x = torch.full((4, 5, 300), value, device=cuda)
+    assert not x.argmax(-1).any()
+    x[..., 130] = x[..., 7] = 1.0
+    assert (x.argmax(-1) == 7).all()
+    flat = x.reshape(20, 300)
+    want = torch.tensor([7, 130, 0, 1, 2], device=cuda).expand(20, 5)
+    assert torch.equal(torch.sort(flat, dim=1, descending=True,
+                                  stable=True)[1][:, :5], want)
+    assert torch.equal(torch.argsort(-flat, dim=1, stable=True)[:, :5], want)
+    # past a row's last finite value the hierarchical picks are -inf and
+    # their indices carry no meaning
+    n = 5 if value > 0 else 2
+    got = beam_batched._top_b_per_row(x, 5)[1]
+    assert torch.equal(got[..., :n], want.reshape(4, 5, 5)[..., :n])

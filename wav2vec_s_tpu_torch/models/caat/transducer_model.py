@@ -13,9 +13,10 @@ Module tree and names follow rain's ``w2v2_caat`` state dict
   same tensor as ``decoder.lm.embed_tokens.weight`` when
   ``share_input_output_embed``.
 
-``encode`` is the one-shot encoder forward the decoders run (no grad);
-``forward`` is the fine-tuning forward to the joint lattice states, and
-``caat_loss`` the delay-transducer + label-smoothed CE loss over them
+``encode`` is the one-shot encoder forward the decoders run (no grad),
+``decode_step`` the recompute-over-cache next-symbol scorer of the host
+beam searcher; ``forward`` is the fine-tuning forward to the joint lattice
+states, and ``caat_loss`` the delay-transducer + label-smoothed CE loss over them
 (rain ``TransducerOut``, attention_transducer.py:289-454).  As in the JAX
 package, the loss walks the batch in chunks whose [b, G, U+1, V] float32
 logits are recomputed in the backward (``torch.utils.checkpoint``, the twin
@@ -132,6 +133,24 @@ class W2V2CaatModel(nn.Module):
         if self.cfg.share_input_output_embed:
             return F.linear(h.float(), proj.weight.float())
         return dense(proj, h).float()
+
+    @torch.no_grad()
+    def decode_step(self, prev_tokens: torch.Tensor,
+                    token_lens: torch.Tensor, enc: torch.Tensor,
+                    enc_pad: torch.Tensor) -> torch.Tensor:
+        """Streaming decode scoring (JAX ``W2V2CaatModel.decode_step``):
+        float32 log-probs [K, V] of the next symbol, the prefix LM
+        recomputed over the padded prefixes (recompute-over-cache; the
+        scorer of the host searcher's engine).
+
+        prev_tokens [K, U_pad] right-padded prefixes (bos first);
+        token_lens [K] true lengths; enc [K, S, D] encoder states revealed
+        so far; enc_pad [K, S] True where a frame is not yet visible."""
+        h_lm = self.decoder.lm(prev_tokens)
+        rows = torch.arange(h_lm.shape[0], device=h_lm.device)
+        h_last = h_lm[rows, token_lens.long() - 1][:, None]     # [K, 1, D]
+        joint = self.decoder.jointer(h_last, enc, enc_pad, downsample=-1)
+        return torch.log_softmax(self.output_logits(joint)[:, 0, 0], dim=-1)
 
 
 def label_smoothed_ce(lprobs: torch.Tensor, targets: torch.Tensor,

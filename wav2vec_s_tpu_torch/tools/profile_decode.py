@@ -1,13 +1,20 @@
 """Where the time of one corpus decode goes on the card.
 
-    python -m wav2vec_s_tpu_torch.tools.profile_decode [--decoder cached|oneshot]
-        [--streams 128] [--seconds 10] [--corpora 3] [--top 25]
+    python -m wav2vec_s_tpu_torch.tools.profile_decode
+        [--decoder cached|oneshot|beam|oneshot-beam] [--streams 128]
+        [--seconds 10] [--corpora 3] [--top 25] [--stop-check 1]
 
 Builds wav2vec-S Base + CAAT base with random weights from a seed (bf16
 compute, a 10000-entry dictionary), and decodes seeded noise with the cached
 greedy agent (``CachedFusedGreedyDecoder``: DECISION_STEP 2, max_emit 4,
 int16 wire) or, with ``--decoder oneshot``, with ``OneShotCorpusDecoder``
 (``attention_impl="flash"``, encode batch 32; give it ``--streams 256``).
+``--decoder beam`` and ``--decoder oneshot-beam`` run the beam quality path
+instead: ``FusedBeamStreamingDecoder`` (dense model) and
+``FusedOneShotBeamDecoder`` (flash) at intra-beam 5, inter_beam 1,
+max_steps 8, max_len 64, eager emission, DECISION_STEP 2, int16 wire (give
+them ``--streams 64``); ``--stop-check n`` makes their beam block read its
+early-stop test from the device every n-th iteration (0: never).
 One warm-up corpus, then ``--corpora`` corpora on the host clock (staging
 included, a synchronize after each), then ONE warm corpus under
 ``torch.profiler``.  Prints the corpus times, the device kernels of the
@@ -33,11 +40,12 @@ from wav2vec_s_tpu_torch.tools.profile_train import _busy_us
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--decoder", default="cached",
-                    choices=("cached", "oneshot"))
+                    choices=("cached", "oneshot", "beam", "oneshot-beam"))
     ap.add_argument("--streams", type=int, default=128)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--corpora", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--stop-check", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -56,9 +64,12 @@ def main(argv=None) -> int:
         blockwise_flash_attention_packed)
     from wav2vec_s_tpu_torch.stream.batched import (
         CachedFusedGreedyDecoder, OneShotCorpusDecoder)
+    from wav2vec_s_tpu_torch.stream.beam_batched import (
+        FusedBeamStreamingDecoder, FusedOneShotBeamDecoder)
 
     dev = torch.device("cuda")
-    oneshot = args.decoder == "oneshot"
+    oneshot = args.decoder.startswith("oneshot")
+    beam = args.decoder.endswith("beam")
     w2v = wav2vec_s_base_config(
         dtype="bfloat16", attention_impl="flash" if oneshot else "dense")
     caat = caat_base_config(dtype="bfloat16")
@@ -71,9 +82,16 @@ def main(argv=None) -> int:
     n_samples = int(args.seconds * 16000)
     frames = (n_samples - 400) // 320 + 1
     t_cap = -(-(frames + w2v.right_context) // 128) * 128
-    cls = OneShotCorpusDecoder if oneshot else CachedFusedGreedyDecoder
-    dec = cls(model, vocab, w2v, max_len=256, max_emit_per_chunk=4,
-              t_cap=t_cap, blocks_per_step=2)
+    if beam:
+        cls = (FusedOneShotBeamDecoder if oneshot
+               else FusedBeamStreamingDecoder)
+        dec = cls(model, vocab, w2v, beam_size=5, inter_beam=1, max_steps=8,
+                  max_len=64, eager=True, t_cap=t_cap, blocks_per_step=2)
+        dec.stop_check_every = args.stop_check
+    else:
+        cls = OneShotCorpusDecoder if oneshot else CachedFusedGreedyDecoder
+        dec = cls(model, vocab, w2v, max_len=256, max_emit_per_chunk=4,
+                  t_cap=t_cap, blocks_per_step=2)
     dec.transfer_dtype = "int16"
     rng = np.random.default_rng(0)
     wavs = [rng.standard_normal(n_samples).astype(np.float32) * 0.1
@@ -115,8 +133,11 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     audio = args.streams * args.seconds
-    print(f"profile_decode: decoder={args.decoder} {args.streams} streams x "
-          f"{args.seconds:g} s, bf16, int16 wire [{card}]")
+    print(f"profile_decode: decoder={args.decoder} ({cls.__name__}) "
+          f"{args.streams} streams x {args.seconds:g} s, bf16, int16 wire"
+          + (f", early-stop read every {args.stop_check or 'never'}, "
+             f"{dec.iterations_run} beam iterations in all" if beam else "")
+          + f" [{card}]")
     print(f"untraced corpus times {['%.4f' % w for w in walls]} s (best "
           f"{audio / min(walls):.2f} audio-sec/s), words in the last corpus "
           f"{sum(len(d) for d in delays)}, peak memory {peak_gb:.3f} GB")
