@@ -41,19 +41,28 @@ Phases, each printed on its own line:
                share within 4 sigma, forward mask == backward mask, new
                seed / offset -> new mask; then both timed per call;
   5. lattice — the transducer kernels (K5a alphas, K5b betas, K6 affine
-               rows forward and reverse) against their row-scan twins at
-               [8, 8, 41], [16, 32, 65] and [4, 512, 129] with ragged
-               lengths, then the delay-transducer loss and d/dacts through
-               the kernels against float64 twins; each kernel's device time
-               alone (50 launches in one CUDA graph, inputs and int32 lengths
-               prepared outside), its wrapper's host time, its twin, and its
-               bound: the larger of the byte bound and T + U - 1 dependent
-               steps times one step of the recursion with the column heads
-               passed by warp shuffle and no barrier, beside the step of the
-               kernels' present design (shared memory + block barrier), both
-               measured by the probe kernel
-               wav2vec_s_tpu_torch/tools/lattice_step_probe.cu, which is
-               built here into a library of its own;
+               rows forward and reverse) and the two fused walks (alphas +
+               expected delay, betas + its backward) against their row-scan
+               twins at [8, 8, 41], [16, 32, 65], [4, 512, 129] (the warp
+               set) and [2, 8, 300], [2, 64, 300] (the block set, past U
+               256) with ragged lengths, every launch on the set that
+               kernels.lattice_path picks; then the delay-transducer loss
+               and d/dacts through the kernels against float64 twins; at the
+               first two shapes each kernel's and walk's device time alone
+               (50 launches in one CUDA graph, inputs and lengths prepared
+               outside) beside the block set's (its C entry points; for a
+               walk the block set's unfused sequence), the wrappers' host
+               times on either set, the twin, and the bound: the larger of
+               the byte bound and T + U - 1 dependent steps times the least
+               step of the recursion that the probe kernel
+               wav2vec_s_tpu_torch/tools/lattice_step_probe.cu measures
+               (built here into a library of its own): column heads in
+               registers passed by warp shuffle at one cell per lane and at
+               the warp set's columns per lane, and the block set's step
+               (shared memory + barrier); it also times one dependent global
+               load, printed beside K6; the loss's forward + backward time
+               and its device kernels (torch.profiler, by name) on either
+               set; and the block set alone at [2, 8, 300];
   6. parity  — a tiny model decoded on the card equals the same decode on
                the CPU (plain twins), texts and delays;
   7. one-shot parity — the tiny one-shot decode (flash attention) on the
@@ -107,9 +116,12 @@ Phases, each printed on its own line:
   11. train full — the CAAT fine-tuning step at Base + CAAT base width,
                bfloat16, dense attention, the recipe's dropouts on, B 8 x
                10 s of seeded noise, U 40: one warm step, then two windows
-               of 5 steps; K4/K5a/K5b/K6 launch counts must equal what the
-               dropout sites and the loss chunks give, K1/K2 none; finite
-               loss and grad norm, no skipped step;
+               of 5 steps; K4 launches must equal the dropout sites, the
+               lattice launches two forward fused walks and one reverse
+               walk per loss chunk on the warp set and no single recursion,
+               K1/K2 none; finite loss and grad norm, no skipped step; then
+               one step on targets of 299 labels (U + 1 = 300, past the
+               warp set), whose loss runs the block set's K5a, K5b and K6;
   12. cli full — the training entry point, wav2vec_s_tpu_torch.train.cli
                main(), at the same width on seeded-noise wavs (16 x 10 s), a
                tsv and a 10000-entry dict written to a temp dir: bfloat16,
@@ -119,8 +131,9 @@ Phases, each printed on its own line:
                the same 12 updates on dense attention through the same entry
                point, beside it.  K2 launches == K3 launches == encoder
                layers kept by layerdrop, every one on the tensor-core
-               kernels, K4/K5/K6 as in phase 11 (the attention sites launch
-               no K4), K1 none; finite losses, no skipped step.
+               kernels, K4 and the fused walks as in phase 11 (the attention
+               sites launch no K4), K1 none; finite losses, no skipped
+               step.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -161,20 +174,26 @@ def _counters():
                 blockwise_flash_attention_packed,
             "blockwise_flash_attention_bwd": blockwise_flash_attention_bwd,
             "hw_dropout": hw_dropout,
+            "transducer_forward_walk": kernels.alphas_and_expected_delay,
+            "transducer_reverse_walk": kernels.betas_and_expected_delay_bwd,
             "transducer_alphas": kernels.alphas,
             "transducer_betas": kernels.betas,
             "transducer_affine_rows": kernels.affine_rows}
 
 
 def _set_wrappers():
-    """The wrappers with two kernel sets (tensor cores, CUDA cores)."""
+    """The wrappers with two kernel sets: tensor cores and CUDA cores (K1,
+    K2, K3), the warp set and the block set (K5a, K5b, K6)."""
     from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
     from wav2vec_s_tpu_torch.ops.flash_attention import (
         blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
+    from wav2vec_s_tpu_torch.ops.transducer import kernels
 
     return {"K1": chunk_cache_attention,
             "K2": blockwise_flash_attention_packed,
-            "K3": blockwise_flash_attention_bwd}
+            "K3": blockwise_flash_attention_bwd,
+            "K5a": kernels.alphas, "K5b": kernels.betas,
+            "K6": kernels.affine_rows}
 
 
 def _reset_counts():
@@ -189,7 +208,8 @@ def _counts():
 
 
 def _set_paths():
-    """{K1 | K2 | K3: launches of the wrapper on each kernel set}."""
+    """{K1 | K2 | K3 | K5a | K5b | K6: launches of the wrapper on each
+    kernel set}."""
     return {k: dict(fn.path_launches) for k, fn in _set_wrappers().items()}
 
 
@@ -750,15 +770,22 @@ def _rel_err(a, b, where=None):
     return (e if where is None else e[where]).max().item()
 
 
-LATTICE_SHAPES = ((8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512))
+# the full-width step's lattice, the bench.py lattice, a deep one, then the
+# lattice of a loss chunk of the long-target training step (phase 11: 299
+# labels, G 8, two rows per chunk) and a deep one past the warp set's U
+LATTICE_SHAPES = ((8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512),
+                  (2, 8, 300, 512), (2, 64, 300, 512))
+LAT_TIMED = (0, 1, 3)      # the shapes timed
+LAT_LOSS = (0, 1, 2, 4)    # the shapes whose loss is held to float64 twins
 LAT_LAUNCHES = 50          # launches of a lattice kernel in one CUDA graph
 PROBE_STEPS = 20000        # dependent steps of one probe launch
+CHAIN_LOADS = 4096         # dependent loads of one load-chain launch
 
 
 def _step_probe():
-    """The step probe's C function: tools/lattice_step_probe.cu compiled into
-    a shared library of its own (not part of the kernel library) and loaded
-    with ctypes."""
+    """The probe's C functions (step, load chain): tools/lattice_step_probe.cu
+    compiled into a shared library of its own (not part of the kernel
+    library) and loaded with ctypes."""
     import ctypes
     import tempfile
 
@@ -773,36 +800,170 @@ def _step_probe():
         if nvcc.returncode:
             raise RuntimeError(f"nvcc failed on {src.name}:\n{nvcc.stdout}"
                                f"{nvcc.stderr}")
-        fn = ctypes.CDLL(so).w2vs_lattice_step_probe    # stays mapped
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        lib = ctypes.CDLL(so)                          # stays mapped
+    step, chain = lib.w2vs_lattice_step_probe, lib.w2vs_load_chain_probe
+    step.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    chain.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 2
+    for fn in (step, chain):
+        fn.restype = ctypes.c_int
+    return step, chain
 
 
-def _probe(fn, out, B, U, affine, shuffle):
-    """One launch of the step probe on the current stream (``out``: any
-    float32 tensor of at least B * U elements): the present design's step
-    (shared memory + block barrier) or, with ``shuffle``, the step that
-    passes the heads by warp shuffle with no barrier."""
+# probe kinds: a log-add-exp step, an affine step, the fused walks' step
+LAE, AFFINE, FUSED = 0, 1, 2
+
+
+def _step_ms(fn, out, B, U, kind, shuffle):
+    """One step of the recursion in ms, from one probe launch under a CUDA
+    graph: the warp set's step (heads in registers, one warp shuffle, no
+    barrier) or, without ``shuffle``, the block set's (shared memory + block
+    barrier); ``out``: any float32 tensor of at least B * U elements."""
     import torch
+    from wav2vec_s_tpu_torch.tools.timing import graph_ms
 
-    err = fn(out.data_ptr(), B, U, PROBE_STEPS, int(affine), -0.37,
-             int(shuffle), torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
+    def go():
+        err = fn(out.data_ptr(), B, U, PROBE_STEPS, kind, -0.37,
+                 int(shuffle), torch.cuda.current_stream().cuda_stream)
+        assert err == 0, err
+
+    return graph_ms(go, 1, reps=5) / PROBE_STEPS
+
+
+def _round_trips(chain):
+    """{where: ns} of one dependent global load: a random cycle through 4
+    MB (held in the L2 cache: one chain replayed from a CUDA graph, warm)
+    and through 512 MB (device memory: each launch starts at another place
+    of the cycle, so no load finds its line in the cache)."""
+    import torch
+    from wav2vec_s_tpu_torch.tools.timing import graph_ms
+
+    out, res = {}, torch.empty(1, dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for where, n in (("L2", 1 << 20), ("device memory", 1 << 27)):
+        order = torch.randperm(n, generator=g, device="cuda")
+        nxt = torch.empty(n, dtype=torch.int32, device="cuda")
+        nxt[order] = order.roll(-1).to(torch.int32)      # one cycle
+        starts = order[::n // 8].tolist()
+        del order
+
+        def go(start=0):
+            err = chain(nxt.data_ptr(), start, CHAIN_LOADS, res.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+            assert err == 0, err
+
+        if where == "L2":
+            out[where] = graph_ms(go, 1, reps=5) / CHAIN_LOADS * 1e6
+        else:
+            go()
+            ms = []
+            for start in starts[1:]:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                go(start)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms.append(ev[0].elapsed_time(ev[1]))
+            out[where] = min(ms) / CHAIN_LOADS * 1e6
+        del nxt
+    return out
+
+
+def _device_kernels(fn):
+    """{name: count} of the device kernels that one call of ``fn``
+    launches, read from torch.profiler traces of two warm calls: the fuller
+    one (a trace may drop events, it never adds any)."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen.append(collections.Counter(
+            e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)))
+    return max(seen, key=lambda c: sum(c.values()))
+
+
+def _kernel_diff(new, old, top=6):
+    """The kernels whose counts differ most between two traces, as
+    'name +n', by short name (the template and the namespaces dropped)."""
+    import collections
+
+    def short(counts):
+        out = collections.Counter()
+        for k, n in counts.items():
+            k = k.replace("(anonymous namespace)::", "")
+            out[k.split("<")[0].split("(")[0].split("::")[-1]
+                .removeprefix("void ").strip()] += n
+        return out
+
+    new, old = short(new), short(old)
+    diff = sorted(((new[k] - old[k], k) for k in set(new) | set(old)
+                   if new[k] != old[k]), key=lambda x: (abs(x[0]), x[1]),
+                  reverse=True)
+    return ", ".join(f"{k} {n:+d}" for n, k in diff[:top])
 
 
 # loss total err/(1+|x|), delay err/(1+|x|), grad max|diff|/max|g| of the
 # kernels against float64 twins, and the most the f32 twins' own error may
 # widen them to (the f32 twins showed 1.3e-6, 9.0e-4, 2.9e-3 at T 512)
 LOSS_TOL, LOSS_TOL_CEILING = (1e-5, 5e-4, 1e-3), (1e-5, 2e-3, 5e-3)
+# err/(1+|x|) of each kernel against its twin, f32 throughout; the twins'
+# prefix form loses ~1e-6 relative to the recursion at T 512 (the kernels
+# are the more exact of the two); betas and bd on the valid cells
+LAT_TOL = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5,
+           "forward_walk alphas": 2e-5, "forward_walk ad": 2e-5,
+           "reverse_walk betas": 5e-5, "reverse_walk bd": 2e-5}
+
+
+def _check_loss(loss_grad, acts, shape):
+    """The loss and d/dacts through the kernels (CUDA, f32) against the
+    twins on the CPU in float64; the f32 twins' own error is printed beside
+    it (their prefix form cancels large partial sums, see PERF.md)."""
+    ref = loss_grad(acts.cpu().double())
+    errs_vs_f64 = {}
+    for name, res in (("kernels", loss_grad(acts)),
+                      ("f32 twins", loss_grad(acts.cpu()))):
+        t, d, g_ = (r.cpu().double() for r in res)
+        errs_vs_f64[name] = (
+            _rel_err(t, ref[0]), _rel_err(d, ref[1]),
+            ((g_ - ref[2]).abs().max() / ref[2].abs().max()).item())
+    print(f"phase lattice: {list(shape)} loss vs float64 twins (total "
+          f"err/(1+|x|), delay err/(1+|x|), grad max|diff|/max|g|): "
+          + "; ".join(f"{k} " + ", ".join(f"{e:.3g}" for e in v)
+                      for k, v in errs_vs_f64.items())
+          + " (kernel tol: 1e-5, 5e-4, 1e-3, or the f32 twins' own error "
+            "where larger, capped at 1e-5, 2e-3, 5e-3)")
+    # f32 bounds the posteriors exp(alpha + beta - ll) to ~|alpha| * eps
+    # relative (|alpha| ~ 2400 at T 512): the kernels must be as exact as
+    # the plain f32 computation, within the fixed bounds where that is
+    # tighter, and never past the ceilings (which the twins must meet too)
+    twin = errs_vs_f64["f32 twins"]
+    bound = [min(c, max(b, t)) for b, t, c in zip(LOSS_TOL, twin,
+                                                  LOSS_TOL_CEILING)]
+    assert all(t <= c for t, c in zip(twin, LOSS_TOL_CEILING)), twin
+    assert all(e <= b for e, b in zip(errs_vs_f64["kernels"], bound)), (
+        errs_vs_f64, bound)
 
 
 def phase_lattice():
-    """K5a, K5b, K6 (forward and reverse) vs their twins, then the loss and
-    its gradient through the kernels (CUDA) against float64 twins (CPU) ->
-    {name: the kernel's row} at the full-width step's lattice (the first
-    shape)."""
+    """K5a, K5b, K6 (forward and reverse) and the two fused walks vs their
+    twins on the kernel set that ``kernels.lattice_path`` picks, then the
+    loss and its gradient through the kernels (CUDA) against float64 twins
+    (CPU); the kernels timed beside the block set's design -> {name: row}:
+    the fused walks at the full-width step's lattice (the first shape), the
+    single recursions on the block set at the long-target step's lattice
+    (the fourth), where the main path runs each."""
     import types
     from unittest import mock
 
@@ -812,11 +973,11 @@ def phase_lattice():
     from wav2vec_s_tpu_torch.tools.timing import graph_ms
 
     dev = torch.device("cuda")
-    # f32 throughout; the twins' prefix form loses ~1e-6 relative to the
-    # recursion at T 512 (the kernels are the more exact of the two)
-    tol = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5}
     out = {}
-    probe = _step_probe()
+    probe, chain = _step_probe()
+    trips = _round_trips(chain)
+    block_set = mock.patch.object(kernels, "lattice_path",
+                                  lambda U: kernels.BLOCK)
     for i, (B, T, U, V) in enumerate(LATTICE_SHAPES):
         acts, labels, al, ll, dv, lpb, lpe = _lattice_inputs(dev, B, T, U,
                                                              V, i)
@@ -824,39 +985,65 @@ def phase_lattice():
                   < al[:, None, None])
                  & (torch.arange(U, device=dev)[None, None, :]
                     <= ll[:, None, None]))
+        path = kernels.lattice_path(U)
+        _reset_counts()
         a_k = kernels.alphas(lpb, lpe)
         a_t = lattice.alphas(lpb, lpe)
-        b_k = kernels.betas(lpb, lpe, al, ll)[0]
+        b_k = kernels.betas(lpb, lpe, al, ll)
         b_t = lattice.betas(lpb, lpe, al, ll)[0]
+        t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
+        down, up = lattice.beta_shifts(b_k, ll)
         ad_k = lattice.expected_delay(lpb, lpe, a_k, dv,
                                       rows=kernels.affine_rows)
         ad_t = lattice.expected_delay(lpb, lpe, a_k, dv)
-        t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
-        down, up = lattice.beta_shifts(b_k, ll)
         bd_k = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
                                           t_valid, emit_ok,
                                           rows=kernels.affine_rows)[0]
         bd_t = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
                                           t_valid, emit_ok)[0]
+        fa, fad = kernels.alphas_and_expected_delay(lpb, lpe, dv)
+        fb, fbd = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+        f_down, f_up = lattice.beta_shifts(fb, ll)
+        fad_t = lattice.expected_delay(lpb, lpe, fa, dv)
+        fbd_t = lattice.expected_delay_bwd(lpb, lpe, fb, f_down, f_up, dv,
+                                           t_valid, emit_ok)[0]
         torch.cuda.synchronize()
+        # every launch on the chosen set: the fused walks on the warp set,
+        # the block set's unfused sequence (alphas, rows, betas, rows) past
+        # its U
+        counts, sets = _counts(), _set_paths()
+        fused = int(path == kernels.WARP)
+        singles = {"K5a": 1 + 1 - fused, "K5b": 1 + 1 - fused,
+                   "K6": 2 + 2 * (1 - fused)}
+        assert counts["transducer_forward_walk"] == fused, counts
+        assert counts["transducer_reverse_walk"] == fused, counts
+        for k, n in singles.items():
+            want = {kernels.WARP: 0, kernels.BLOCK: 0}
+            want[path] = n
+            assert sets[k] == want, (k, sets)
         errs = {"alphas": _rel_err(a_k, a_t),
                 "betas": _rel_err(b_k, b_t, valid),
                 "affine_rows": max(_rel_err(ad_k, ad_t),
-                                   _rel_err(bd_k, bd_t, valid))}
-        print(f"phase lattice: [{B},{T},{U}] err/(1+|x|) vs twin: "
-              + ", ".join(f"{k} {v:.3g} (tol {tol[k]:g})"
-                          for k, v in errs.items()))
+                                   _rel_err(bd_k, bd_t, valid)),
+                "forward_walk alphas": _rel_err(fa, a_t),
+                "forward_walk ad": _rel_err(fad, fad_t),
+                "reverse_walk betas": _rel_err(fb, b_t, valid),
+                "reverse_walk bd": _rel_err(fbd, fbd_t, valid)}
+        print(f"phase lattice: [{B},{T},{U}] {path} set, err/(1+|x|) vs "
+              f"twin: " + ", ".join(f"{k} {v:.3g} (tol {LAT_TOL[k]:g})"
+                                     for k, v in errs.items()))
         for k, v in errs.items():
-            assert v <= tol[k], (B, T, U, k, v)
+            assert v <= LAT_TOL[k], (B, T, U, k, v)
         abs_errs = {
             "alphas": (a_k - a_t).abs().max().item(),
             "betas": (b_k - b_t).abs()[valid].max().item(),
             "affine_rows": max((ad_k - ad_t).abs().max().item(),
-                               (bd_k - bd_t).abs()[valid].max().item())}
+                               (bd_k - bd_t).abs()[valid].max().item()),
+            "forward_walk": max((fa - a_t).abs().max().item(),
+                                (fad - fad_t).abs().max().item()),
+            "reverse_walk": max((fb - b_t).abs()[valid].max().item(),
+                                (fbd - fbd_t).abs()[valid].max().item())}
 
-        # the loss and d/dacts: kernels (CUDA, f32) against the twins on
-        # the CPU in float64; the f32 twins' own error is printed beside
-        # it (their prefix form cancels large partial sums, see PERF.md)
         def loss_grad(a):
             a = a.detach().clone().requires_grad_(True)
             total, prob, delay = analytic.delay_transducer_loss(
@@ -866,121 +1053,164 @@ def phase_lattice():
             (total * w).sum().backward()
             return total.detach(), delay.detach(), a.grad
 
-        ref = loss_grad(acts.cpu().double())
-        errs_vs_f64 = {}
-        for name, res in (("kernels", loss_grad(acts)),
-                          ("f32 twins", loss_grad(acts.cpu()))):
-            t, d, g_ = (r.cpu().double() for r in res)
-            errs_vs_f64[name] = (
-                _rel_err(t, ref[0]), _rel_err(d, ref[1]),
-                ((g_ - ref[2]).abs().max() / ref[2].abs().max()).item())
-        print(f"phase lattice: [{B},{T},{U},{V}] loss vs float64 twins "
-              f"(total err/(1+|x|), delay err/(1+|x|), grad "
-              f"max|diff|/max|g|): "
-              + "; ".join(f"{k} " + ", ".join(f"{e:.3g}" for e in v)
-                          for k, v in errs_vs_f64.items())
-              + " (kernel tol: 1e-5, 5e-4, 1e-3, or the f32 twins' own "
-                "error where larger, capped at 1e-5, 2e-3, 5e-3)")
-        # f32 bounds the posteriors exp(alpha + beta - ll) to ~|alpha| * eps
-        # relative (|alpha| ~ 2400 at T 512): the kernels must be as exact
-        # as the plain f32 computation, within the fixed bounds where that
-        # is tighter, and never past the ceilings (which the twins must
-        # meet too)
-        twin = errs_vs_f64["f32 twins"]
-        bound = [min(c, max(b, t)) for b, t, c in zip(
-            LOSS_TOL, twin, LOSS_TOL_CEILING)]
-        assert all(t <= c for t, c in zip(twin, LOSS_TOL_CEILING)), twin
-        assert all(e <= b for e, b in zip(errs_vs_f64["kernels"], bound)), (
-            errs_vs_f64, bound)
-        del ref
+        if i in LAT_LOSS:
+            _check_loss(loss_grad, acts, (B, T, U, V))
         del acts
+        if i not in LAT_TIMED:
+            continue
 
-        # timing at the full-width step's lattice (the first shape) and the
-        # bench.py lattice (the second)
-        if i < 2:
-            acts = _lattice_inputs(dev, B, T, U, V, i)[0]
-            twins = types.SimpleNamespace(alphas=lattice.alphas,
-                                          betas=lattice.betas,
-                                          affine_rows=lattice.affine_rows)
-            step = lambda: loss_grad(acts)                      # noqa: E731
-            ms = _cuda_ms(step, 10)
-            with mock.patch.object(analytic, "kernels", twins):
-                plain_ms = _cuda_ms(step, 5)
-            print(f"phase lattice: [{B},{T},{U},{V}] loss forward+backward: "
-                  f"kernels {ms:.4f} ms, plain twins {plain_ms:.4f} ms")
-            coef = [torch.rand((B, T, U), device=dev) for _ in range(3)]
-            # Device time of each kernel alone: its C entry point on inputs
-            # and int32 lengths prepared here, LAT_LAUNCHES launches in one
-            # CUDA graph.  Beside it the wrapper's host time per eager call
-            # (K5b's wrapper also builds the lattice masks) and the twin.
-            lib = native.library()
-            al32, ll32 = al.to(torch.int32), ll.to(torch.int32)
-            res = torch.empty_like(lpb)
+        acts = _lattice_inputs(dev, B, T, U, V, i)[0]
+        step = lambda: loss_grad(acts)                          # noqa: E731
+        twins = types.SimpleNamespace(
+            alphas_and_expected_delay=lattice.alphas_and_expected_delay,
+            betas_and_expected_delay_bwd=lattice.betas_and_expected_delay_bwd)
+        ms = _cuda_ms(step, 10)
+        n_kernels = _device_kernels(step)
+        with block_set:
+            block_ms = _cuda_ms(step, 10)
+            block_kernels = _device_kernels(step)
+        with mock.patch.object(analytic, "kernels", twins):
+            plain_ms = _cuda_ms(step, 5)
+        print(f"phase lattice: [{B},{T},{U},{V}] loss forward+backward: "
+              f"kernels {ms:.4f} ms ({path} set; "
+              f"{sum(n_kernels.values())} device kernels), the block set's "
+              f"unfused sequence {block_ms:.4f} ms "
+              f"({sum(block_kernels.values())} device kernels), plain twins "
+              f"{plain_ms:.4f} ms; kernels by name, against the block set: "
+              f"{_kernel_diff(n_kernels, block_kernels) or 'the same'}")
+        # Device time of each kernel alone: its C entry point on inputs and
+        # lengths prepared here, LAT_LAUNCHES launches in one CUDA graph;
+        # beside it the block set's: its C entry point for a single
+        # recursion, for a fused walk the block set's sequence through the
+        # wrapper (kernels, coefficients, rows).  Then the wrapper's host
+        # time per eager call on either set, and the twin.
+        coef = [torch.rand((B, T, U), device=dev) for _ in range(3)]
+        lib = native.library()
+        al32, ll32 = al.to(torch.int32), ll.to(torch.int32)
+        res, res2 = torch.empty_like(lpb), torch.empty_like(lpb)
 
-            def ptrs(*tensors):
-                return [t.data_ptr() for t in tensors]
+        def ptrs(*tensors):
+            return [t.data_ptr() for t in tensors]
 
-            def launches_of(call):          # call(stream) -> CUDA error
-                def go():
-                    stream = torch.cuda.current_stream().cuda_stream
-                    for _ in range(LAT_LAUNCHES):
-                        err = call(stream)
-                        assert err == 0, err
-                return go
+        def launches_of(call):          # call(stream) -> CUDA error
+            def go():
+                stream = torch.cuda.current_stream().cuda_stream
+                for _ in range(LAT_LAUNCHES):
+                    err = call(stream)
+                    assert err == 0, err
+            return go
 
-            per = {
-                "alphas": (lambda st: lib.w2vs_transducer_alphas(
-                               *ptrs(lpb, lpe, res), B, T, U, st),
-                           lambda: kernels.alphas(lpb, lpe),
-                           lambda: lattice.alphas(lpb, lpe)),
-                "betas": (lambda st: lib.w2vs_transducer_betas(
-                              *ptrs(lpb, lpe, al32, ll32, res), B, T, U, st),
-                          lambda: kernels.betas(lpb, lpe, al, ll),
-                          lambda: lattice.betas(lpb, lpe, al, ll)),
-                "affine_rows": (lambda st: lib.w2vs_transducer_affine_rows(
-                                    *ptrs(*coef, res), B, T, U, 0, st),
-                                lambda: kernels.affine_rows(*coef),
-                                lambda: lattice.affine_rows(*coef))}
-            steps = T + U - 1
-            for name, (launch, wrapper, twin) in per.items():
-                k_ms = graph_ms(launches_of(launch), LAT_LAUNCHES)
-                h_ms = _host_ms(wrapper, 1, reps=20)
-                t_ms = _cuda_ms(twin, 5)
-                # bound: the larger of the bytes (every [B, T, U] f32 input
-                # read once, the output written once) or operations (~10 per
-                # cell of the log-space recursions, 4 of the affine one) and
-                # the latency of T + U - 1 dependent steps, one step as the
-                # probe kernel measures it (tools/lattice_step_probe.cu: B
-                # lattices of this U, PROBE_STEPS steps in one launch,
-                # device time / steps).  The bound takes the step that
-                # passes the column heads by warp shuffle, registers only,
-                # no barrier: what this card needs for one step of the
-                # recursion.  Beside it the step of the kernels' present
-                # design (shared memory + block barrier), which is what the
-                # kernels as written can reach.  No PyTorch call computes
-                # these recursions.
-                affine = name == "affine_rows"
-                step_ms, design_step_ms = (
-                    graph_ms(lambda: _probe(probe, res, B, U, affine, shfl),
-                             1, reps=5) / PROBE_STEPS
-                    for shfl in (True, False))
-                cells = B * T * U
-                n_arrays, ops = (4, 4) if affine else (3, 10)
-                bound = _bound(4 * n_arrays * cells, ops * cells, "float32")
-                if steps * step_ms >= bound[0]:
-                    bound = (steps * step_ms, "latency")
-                print(f"phase lattice: [{B},{T},{U}] {name}: kernel "
-                      f"{k_ms:.5f} ms (device time, {LAT_LAUNCHES} launches "
-                      f"in one CUDA graph), the wrapper's host time "
-                      f"{h_ms:.4f} ms per eager call, plain twin {t_ms:.4f} "
-                      f"ms; bound {bound[0]:.5f} ms by {bound[1]} ({steps} "
-                      f"dependent steps x {step_ms * 1e6:.1f} ns, the step "
-                      f"by warp shuffle, no barrier); the present design's "
-                      f"step (shared memory + barrier) "
-                      f"{design_step_ms * 1e6:.1f} ns -> "
-                      f"{steps * design_step_ms:.5f} ms")
-                if i == 0:
-                    out[name] = _row(abs_errs[name], k_ms, t_ms, bound, None)
+        def calls_of(wrapper):
+            def go():
+                for _ in range(LAT_LAUNCHES):
+                    wrapper()
+            return go
+
+        lens = (al32.data_ptr(), 0, ll32.data_ptr(), 0)
+        dvs = (dv.data_ptr(), *dv.stride())
+        warp = {
+            "alphas": lambda st: lib.w2vs_lattice_warp_alphas(
+                *ptrs(lpb, lpe, res), B, T, U, st),
+            "betas": lambda st: lib.w2vs_lattice_warp_betas(
+                *ptrs(lpb, lpe), *lens, res.data_ptr(), B, T, U, st),
+            "affine_rows": lambda st: lib.w2vs_lattice_warp_affine_rows(
+                *ptrs(*coef, res), B, T, U, 0, st),
+            "forward_walk": lambda st: lib.w2vs_lattice_warp_alphas_delay(
+                *ptrs(lpb, lpe), *dvs, *ptrs(res, res2), B, T, U, st),
+            "reverse_walk": lambda st: lib.w2vs_lattice_warp_betas_delay(
+                *ptrs(lpb, lpe), *lens, *dvs, *ptrs(res, res2), B, T, U,
+                st)}
+        block = {
+            "alphas": launches_of(lambda st: lib.w2vs_transducer_alphas(
+                *ptrs(lpb, lpe, res), B, T, U, st)),
+            "betas": launches_of(lambda st: lib.w2vs_transducer_betas(
+                *ptrs(lpb, lpe, al32, ll32, res), B, T, U, st)),
+            "affine_rows": launches_of(
+                lambda st: lib.w2vs_transducer_affine_rows(
+                    *ptrs(*coef, res), B, T, U, 0, st)),
+            "forward_walk": calls_of(
+                lambda: kernels.alphas_and_expected_delay(lpb, lpe, dv)),
+            "reverse_walk": calls_of(
+                lambda: kernels.betas_and_expected_delay_bwd(
+                    lpb, lpe, al, ll, dv))}
+        per = {   # wrapper, twin, probe step kind, [B, T, U] arrays moved
+            "alphas": (lambda: kernels.alphas(lpb, lpe),
+                       lambda: lattice.alphas(lpb, lpe), LAE, 3),
+            "betas": (lambda: kernels.betas(lpb, lpe, al, ll),
+                      lambda: lattice.betas(lpb, lpe, al, ll), LAE, 3),
+            "affine_rows": (lambda: kernels.affine_rows(*coef),
+                            lambda: lattice.affine_rows(*coef), AFFINE, 4),
+            "forward_walk": (
+                lambda: kernels.alphas_and_expected_delay(lpb, lpe, dv),
+                lambda: lattice.alphas_and_expected_delay(lpb, lpe, dv),
+                FUSED, 5),
+            "reverse_walk": (
+                lambda: kernels.betas_and_expected_delay_bwd(
+                    lpb, lpe, al, ll, dv),
+                lambda: lattice.betas_and_expected_delay_bwd(
+                    lpb, lpe, al, ll, dv), FUSED, 5)}
+        if path == kernels.BLOCK:       # the fused walks are warp-set only
+            per = {k: v for k, v in per.items() if not k.endswith("walk")}
+        steps = T + U - 1
+        for name, (wrapper, twin, kind, n_arrays) in per.items():
+            k_ms = (graph_ms(launches_of(warp[name]), LAT_LAUNCHES)
+                    if path == kernels.WARP else None)
+            with block_set:
+                b_ms = graph_ms(block[name], LAT_LAUNCHES)
+            h_ms = _host_ms(wrapper, 1, reps=20)
+            with block_set:
+                hb_ms = _host_ms(wrapper, 1, reps=20)
+            t_ms = _cuda_ms(twin, 5)
+            # bound: the larger of the bytes (every [B, T, U] f32 input read
+            # once, every output written once) or operations (~10 per cell
+            # of a log-space recursion, 4 of an affine one, 24 of the fused
+            # walks) and the latency of T + U - 1 dependent steps, one step
+            # the least of those the probe kernel measures for this
+            # recursion (tools/lattice_step_probe.cu, B lattices,
+            # PROBE_STEPS steps in one launch, the precise expf/log1pf):
+            # heads in registers at one cell per lane (min(U, 32) columns)
+            # and at the warp set's ceil(U / 32) columns per lane (where
+            # the warp set takes U), and the block set's step at this U
+            # (shared memory + block barrier).  More columns per lane can
+            # beat one (the chain crosses a lane once per column group),
+            # and the block set may be the faster at some U: the least of
+            # the designs measured is what the card is known to do.  No
+            # PyTorch call computes these recursions.
+            probed = {"one cell per lane": _step_ms(probe, res, B,
+                                                    min(U, 32), kind, True)}
+            if U <= kernels.WARP_MAX_U:
+                probed[f"the warp set's, {-(-U // 32)} columns per lane"] = (
+                    _step_ms(probe, res, B, U, kind, True))
+            if kind != FUSED:
+                probed["the block set's, shared memory + barrier"] = (
+                    _step_ms(probe, res, B, U, kind, False))
+            step_ms = min(probed.values())
+            cells = B * T * U
+            ops = {LAE: 10, AFFINE: 4, FUSED: 24}[kind]
+            bound = _bound(4 * n_arrays * cells, ops * cells, "float32")
+            if steps * step_ms >= bound[0]:
+                bound = (steps * step_ms, "latency")
+            design = "; ".join(f"{k} {v * 1e6:.1f} ns -> {steps * v:.5f} ms"
+                               for k, v in probed.items())
+            trip = ""
+            if name == "affine_rows":
+                trip = ("; one dependent global load (load chain): "
+                        + ", ".join(f"{k} {v:.1f} ns"
+                                    for k, v in trips.items()))
+            kernel = (f"{k_ms:.5f} ms, the block set's "
+                      if k_ms is not None else "")
+            print(f"phase lattice: [{B},{T},{U}] {name}: kernel {kernel}"
+                  f"{b_ms:.5f} ms (device time per call, {LAT_LAUNCHES} "
+                  f"calls in one CUDA graph), the wrapper's host time "
+                  f"{h_ms:.4f} ms per eager call ({path} set; the block "
+                  f"set {hb_ms:.4f}), plain twin {t_ms:.4f} ms; bound "
+                  f"{bound[0]:.5f} ms by {bound[1]} ({steps} dependent "
+                  f"steps x {step_ms * 1e6:.1f} ns, the least step of: "
+                  f"{design}){trip}")
+            if i == 0 and name.endswith("walk"):
+                out[name] = _row(abs_errs[name], k_ms, t_ms, bound, None)
+            elif path == kernels.BLOCK:
+                out[name] = _row(abs_errs[name], b_ms, t_ms, bound, None)
     return out
 
 
@@ -1533,6 +1763,7 @@ def phase_beam_full(card, same_in_bf16):
 
 
 TRAIN_B, TRAIN_U, TRAIN_WINDOW = 8, 40, 5
+LONG_U = 299               # the long-target step: U + 1 = 300 > 256
 
 
 def _train_batch(B, S, U, vocab, eos, dev, seed=0):
@@ -1616,8 +1847,10 @@ def _two_updates_cpu_vs_cuda(attention_impl):
         assert a["skipped"] == b["skipped"] == 0.0
     assert param_err <= 1e-2 * cfg.lr, param_err
     assert all(v == 0 for v in nc.values()), nc
-    assert ng["transducer_alphas"] > 0 and ng["transducer_betas"] > 0
-    assert ng["transducer_affine_rows"] > 0 and ng["hw_dropout"] == 0
+    assert ng["transducer_forward_walk"] > 0 and ng["hw_dropout"] == 0
+    assert ng["transducer_reverse_walk"] > 0
+    assert ng["transducer_alphas"] == ng["transducer_betas"] == ng[
+        "transducer_affine_rows"] == 0
     line = (f"tiny, {attention_impl} attention, dropout off, 2 updates: cuda "
             f"(kernels) == cpu (twins): loss "
             f"{[x['loss_total'] for x in lg]} vs "
@@ -1765,13 +1998,14 @@ def phase_train_full(card):
     chunk_b = max(1, min(TRAIN_B, caat.tokens_per_step
                          // (G * (TRAIN_U + 1))))
     n_chunks = math.ceil(TRAIN_B / chunk_b)
-    # forward + checkpoint recompute run alphas and the forward rows, the
-    # backward the betas and the reverse rows; each dropout site launches
-    # once forward and once backward
+    # forward + checkpoint recompute run the forward fused walk, the
+    # backward the reverse one, all on the warp set at U 41; each dropout
+    # site launches once forward and once backward
     sites = sum(c.sites for c in contexts)
-    want = {"transducer_alphas": 2 * n_chunks * n_steps,
-            "transducer_betas": n_chunks * n_steps,
-            "transducer_affine_rows": 3 * n_chunks * n_steps,
+    want = {"transducer_forward_walk": 2 * n_chunks * n_steps,
+            "transducer_reverse_walk": n_chunks * n_steps,
+            "transducer_alphas": 0, "transducer_betas": 0,
+            "transducer_affine_rows": 0,
             "hw_dropout": 2 * sites,
             "chunk_cache_attention": 0,
             "blockwise_flash_attention_packed": 0,
@@ -1799,7 +2033,37 @@ def phase_train_full(card):
           f"{peak_gb:.3f} GB, loss "
           f"{vals[0]['loss_total']:.2f} -> {vals[-1]['loss_total']:.2f}, "
           f"grad norm {vals[-1]['grad_norm']:.3f}, skipped 0 [{card}]")
-    return counts, ups, peak_gb
+
+    # one step on targets past the warp set's U (CaatConfig allows 1024):
+    # the loss runs the block set's unfused sequence, alphas and the
+    # forward rows twice per chunk (forward, recompute), the betas and the
+    # reverse rows once
+    long_b = _train_batch(TRAIN_B, S, LONG_U, caat.vocab_size, caat.eos, dev,
+                          seed=1)
+    chunk_b = max(1, min(TRAIN_B, caat.tokens_per_step
+                         // (G * (LONG_U + 1))))
+    n_chunks = math.ceil(TRAIN_B / chunk_b)
+    _reset_counts()
+    state, logs = step(state, long_b, gen)
+    torch.cuda.synchronize()
+    long_counts, sets = _counts(), _set_paths()
+    lattice_counts = {k: v for k, v in long_counts.items()
+                      if k.startswith("transducer")}
+    want = {"transducer_forward_walk": 0, "transducer_reverse_walk": 0,
+            "transducer_alphas": 2 * n_chunks,
+            "transducer_betas": n_chunks,
+            "transducer_affine_rows": 3 * n_chunks}
+    print(f"phase train full: one step on targets of {LONG_U} labels (U+1 "
+          f"{LONG_U + 1}, {n_chunks} chunk(s) of {chunk_b}): lattice "
+          f"launches {lattice_counts}, per kernel set "
+          f"{ {k: sets[k] for k in ('K5a', 'K5b', 'K6')} }; expected "
+          f"{want}, all on the block set; loss "
+          f"{float(logs['loss_total']):.2f}")
+    assert lattice_counts == want, (lattice_counts, want)
+    assert all(sets[k]["warp"] == 0 for k in ("K5a", "K5b", "K6")), sets
+    assert math.isfinite(float(logs["loss_total"]))
+    assert float(logs["skipped"]) == 0.0
+    return counts, long_counts, ups, peak_gb
 
 
 CLI_WARM, CLI_TIMED, CLI_RESUMED, CLI_CLIPS, CLI_WORDS = 2, 10, 2, 16, 39
@@ -1920,10 +2184,12 @@ def phase_cli_full(card):
                 and "oom_skipped" not in r for r in recs), recs
             assert all(r["sample_size"] == TRAIN_B * (CLI_WORDS + 1)
                        for r in recs)
-            # G 8 groups x (U 64 + 1): one chunk of the loss per step
-            want = {"transducer_alphas": 2 * total,
-                    "transducer_betas": total,
-                    "transducer_affine_rows": 3 * total,
+            # G 8 groups x (U 64 + 1): one chunk of the loss per step, its
+            # fused walks on the warp set
+            want = {"transducer_forward_walk": 2 * total,
+                    "transducer_reverse_walk": total,
+                    "transducer_alphas": 0, "transducer_betas": 0,
+                    "transducer_affine_rows": 0,
                     "chunk_cache_attention": 0}
             flash_calls = sum(kept) if impl == "flash" else 0
             want.update(
@@ -2009,7 +2275,8 @@ def main() -> int:
     phase_train_flash_parity()
     paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
     paths.update(phase_beam_full(card, same_in_bf16))
-    paths["train_dense"], dense_ups, dense_gb = phase_train_full(card)
+    (paths["train_dense"], paths["train_long"], dense_ups,
+     dense_gb) = phase_train_full(card)
     paths["cli_flash"] = phase_cli_full(card)
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
@@ -2028,12 +2295,20 @@ def main() -> int:
              pa + "324", "cli_flash", k3),
             ("hw_dropout", "dropout.cu", "wav2vec_s_tpu/ops/dropout.py:64",
              "train_dense", k4),
-            ("transducer_alphas", "transducer.cu", pk + "206", "train_dense",
+            # the fused walks (K5a + K6, K5b + K6) on the warp set run the
+            # loss up to U 256; past it the block set's single recursions
+            ("transducer_forward_walk", "transducer_warp.cu", pk + "206",
+             "train_dense", lat["forward_walk"]),
+            ("transducer_reverse_walk", "transducer_warp.cu", pk + "224",
+             "train_dense", lat["reverse_walk"]),
+            ("transducer_alphas", "transducer.cu", pk + "206", "train_long",
              lat["alphas"]),
-            ("transducer_betas", "transducer.cu", pk + "224", "train_dense",
+            ("transducer_betas", "transducer.cu", pk + "224", "train_long",
              lat["betas"]),
             ("transducer_affine_rows", "transducer.cu", pk + "99",
-             "train_dense", lat["affine_rows"])]
+             "train_long", lat["affine_rows"])]
+    for name, _, _, path, _ in rows:
+        assert paths[path][name] > 0, (name, path, paths[path])
     print(card)
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": src + file,

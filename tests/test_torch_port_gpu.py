@@ -363,7 +363,7 @@ def test_lattice_kernels_match_twins(cuda, B, T, U, V):
          kernels.affine_rows.launches)
     a = kernels.alphas(lpb, lpe)
     assert rel(a, lattice.alphas(lpb, lpe)) <= 2e-5
-    be = kernels.betas(lpb, lpe, al, ll)[0]
+    be = kernels.betas(lpb, lpe, al, ll)
     assert rel(be, lattice.betas(lpb, lpe, al, ll)[0], valid) <= 5e-5
     rows = [lattice.expected_delay(lpb, lpe, a, dv, rows=r)
             for r in (kernels.affine_rows, lattice.affine_rows)]
@@ -412,6 +412,177 @@ def test_loss_and_grad_kernels_match_float64_twins(cuda, B, T, U, V):
     assert all(e <= b for e, b in zip(errs(run(acts)), bound))
 
 
+# the lattice widths at the edges of the warp set's lanes (1, 2, 8
+# columns per lane) and past it, and depths from one row to T 512
+WALK_U = (1, 2, 31, 32, 33, 64, 65, 255, 256, 257)
+WALK_T = (1, 2, 8, 512)
+
+
+def _walk_problem(dev, T, U, seed=0):
+    """Three lattices of [T, U]: full, ragged (one frame fewer, half the
+    labels) and the shortest (one frame, no label); int64 lengths; the
+    delay values of "zero" at T 1 and 8 (a broadcast view, stride 0 along
+    U), else of the training default."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1000 * U + T)
+    lpb = -torch.rand((3, T, U), generator=g, device=dev) * 3
+    lpe = -torch.rand((3, T, U), generator=g, device=dev) * 3
+    al = torch.tensor([T, max(T - 1, 1), 1], device=dev)
+    ll = torch.tensor([U - 1, (U - 1) // 2, 0], device=dev)
+    dv = (lattice.delay_cost_zero if T in (1, 8)
+          else lattice.delay_cost_diag_positive)((3, T, U), al, ll)
+    valid = ((torch.arange(T, device=dev)[None, :, None] < al[:, None, None])
+             & (torch.arange(U, device=dev)[None, None, :]
+                <= ll[:, None, None]))
+    return lpb, lpe, al, ll, dv, valid
+
+
+def _rel(a, b, where=None):
+    e = (a - b).abs() / (1 + b.abs())
+    return (e if where is None else e[where]).max().item()
+
+
+@pytest.mark.parametrize("T", WALK_T)
+@pytest.mark.parametrize("U", WALK_U)
+def test_lattice_walks_match_twins(cuda, T, U):
+    """Every mode on the set ``lattice_path(U)`` picks (warp set up to U
+    256, block set past it) against its twin: alphas and the forward rows
+    everywhere, betas, the reverse rows and the reverse fused walk on the
+    valid cells; err / (1 + |x|) 2e-5, 5e-5 for betas.  The fused walks'
+    expected delays against the twin rows on the walk's own alphas (betas):
+    the twins' alphas differ by rounding that grows with T."""
+    lpb, lpe, al, ll, dv, valid = _walk_problem(cuda, T, U)
+    path = kernels.lattice_path(U)
+    before = {fn: dict(fn.path_launches)
+              for fn in (kernels.alphas, kernels.betas, kernels.affine_rows)}
+    walks = (kernels.alphas_and_expected_delay.launches,
+             kernels.betas_and_expected_delay_bwd.launches)
+    a_t = lattice.alphas(lpb, lpe)
+    b_t, _, t_valid, emit_ok = lattice.betas(lpb, lpe, al, ll)
+    assert _rel(kernels.alphas(lpb, lpe), a_t) <= 2e-5
+    be = kernels.betas(lpb, lpe, al, ll)
+    assert _rel(be, b_t, valid) <= 5e-5
+    c = [torch.rand((3, T, U), device=cuda) for _ in range(3)]
+    for rev in (False, True):
+        assert _rel(kernels.affine_rows(*c, reverse=rev),
+                    lattice.affine_rows(*c, reverse=rev)) <= 2e-5
+    a, ad = kernels.alphas_and_expected_delay(lpb, lpe, dv)
+    assert _rel(a, a_t) <= 2e-5
+    assert _rel(ad, lattice.expected_delay(lpb, lpe, a, dv)) <= 2e-5
+    be, bd = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    assert _rel(be, b_t, valid) <= 5e-5
+    down, up = lattice.beta_shifts(be, ll)
+    want = lattice.expected_delay_bwd(lpb, lpe, be, down, up, dv, t_valid,
+                                      emit_ok)[0]
+    assert _rel(bd, want, valid) <= 2e-5
+    torch.cuda.synchronize()
+    fused = int(path == kernels.WARP)
+    assert (kernels.alphas_and_expected_delay.launches,
+            kernels.betas_and_expected_delay_bwd.launches) == (
+                walks[0] + fused, walks[1] + fused)
+    for fn, n in ((kernels.alphas, 2 - fused), (kernels.betas, 2 - fused),
+                  (kernels.affine_rows, 4 - 2 * fused)):
+        want = dict(before[fn])
+        want[path] += n
+        assert fn.path_launches == want, (fn.__name__, fn.path_launches)
+
+
+@pytest.mark.parametrize("T", WALK_T)
+@pytest.mark.parametrize("U", [u for u in WALK_U if u <= 256])
+def test_warp_set_equals_block_set(cuda, T, U):
+    """Through the C entry points: the warp set's alphas and betas equal
+    the block set's bit for bit (the same precise expf/log1pf in the same
+    order), the affine rows to the last place (the multiply-adds may
+    contract otherwise); int32 and int64 lengths read the same."""
+    from wav2vec_s_tpu_torch.ops import native
+
+    lib = native.library()
+    lpb, lpe, al, ll, _, _ = _walk_problem(cuda, T, U, seed=1)
+    st = torch.cuda.current_stream().cuda_stream
+    al32, ll32 = al.to(torch.int32), ll.to(torch.int32)
+
+    def run(fn, *ins, tail=()):
+        """fn(*ins, out, B, T, U, *tail, stream) -> out, every cell
+        written (none left NaN)."""
+        out = torch.full_like(lpb, float("nan"))
+        assert fn(*ins, out.data_ptr(), 3, T, U, *tail, st) == 0
+        torch.cuda.synchronize()
+        assert not torch.isnan(out).any()
+        return out
+
+    p = (lpb.data_ptr(), lpe.data_ptr())
+    assert torch.equal(run(lib.w2vs_lattice_warp_alphas, *p),
+                       run(lib.w2vs_transducer_alphas, *p))
+    block = run(lib.w2vs_transducer_betas, *p, al32.data_ptr(),
+                ll32.data_ptr())
+    for lens in ((al32, ll32), (al, ll)):
+        args = [x for n in lens for x in (n.data_ptr(),
+                                          int(n.dtype == torch.int64))]
+        assert torch.equal(run(lib.w2vs_lattice_warp_betas, *p, *args),
+                           block)
+    coef = [torch.rand((3, T, U), device=cuda) for _ in range(3)]
+    c = [x.data_ptr() for x in coef]
+    for rev in (0, 1):
+        assert _rel(run(lib.w2vs_lattice_warp_affine_rows, *c, tail=(rev,)),
+                    run(lib.w2vs_transducer_affine_rows, *c,
+                        tail=(rev,))) <= 1e-6
+
+
+@pytest.mark.parametrize("U", [33, 257])
+def test_beta_rows_past_act_len(cuda, U):
+    """The rows t >= T_b of beta are the virtual row passed down (0 at
+    u = U_b, BLOCK-sized elsewhere), as the twin has them; at t = T_b - 1
+    the gradient reads row T_b through beta_down, and the blank posterior
+    exp(min(beta_down + blank - beta, 0)) it gives matches the twin's."""
+    T = 8
+    lpb, lpe, al, ll, dv, valid = _walk_problem(cuda, T, U, seed=2)
+    be, _ = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    b_t, lp_b_eff, t_valid, _ = lattice.betas(lpb, lpe, al, ll)
+    for b in range(3):
+        Tb, Ub = int(al[b]), int(ll[b])
+        for t in range(Tb, T):
+            assert be[b, t, Ub] == 0
+            assert (be[b, t, :Ub] < -1e8).all()
+    down = lattice.beta_shifts(be, ll)[0]
+    down_t = lattice.beta_shifts(b_t, ll)[0]
+    pb, pb_t = (torch.exp(torch.clamp(d + lp_b_eff - x, max=0.0))
+                for d, x in ((down, be), (down_t, b_t)))
+    assert _rel(pb, pb_t, valid) <= 5e-5
+
+
+def test_loss_and_grad_on_the_block_set_match_float64_twins(cuda):
+    """Past the warp set's U the loss runs the block set's unfused sequence:
+    loss and d/dacts against the float64 twins with the bounds of the warp
+    set's test above.  (At T 8 the f32 twins themselves miss those bounds
+    at U 300: 299 labels in 8 frames leave a few paths of |alpha| ~ 2000.)"""
+    B, T, U, V = 2, 64, 300, 64
+    acts, labels, al, ll, dv = _lattice_problem(cuda, B, T, U, V, seed=3)
+    assert kernels.lattice_path(U) == kernels.BLOCK
+    n = kernels.alphas.path_launches[kernels.BLOCK]
+
+    def run(a):
+        a = a.detach().clone().requires_grad_(True)
+        total, _, delay = analytic.delay_transducer_loss(
+            a, labels.to(a.device), al.to(a.device), ll.to(a.device),
+            dv.to(a.device))
+        total.sum().backward()
+        return [x.detach().cpu().double() for x in (total, delay, a.grad)]
+
+    want = run(acts.cpu().double())
+
+    def errs(got):
+        return [((got[0] - want[0]).abs() / (1 + want[0].abs())).max(),
+                ((got[1] - want[1]).abs() / (1 + want[1].abs())).max(),
+                (got[2] - want[2]).abs().max() / want[2].abs().max()]
+
+    ceiling = (1e-5, 2e-3, 5e-3)
+    twin = errs(run(acts.cpu()))
+    assert all(t <= c for t, c in zip(twin, ceiling))
+    bound = [min(c, max(b, t)) for b, t, c in zip((1e-5, 5e-4, 1e-3), twin,
+                                                  ceiling)]
+    assert all(e <= b for e, b in zip(errs(run(acts)), bound))
+    assert kernels.alphas.path_launches[kernels.BLOCK] == n + 1
+
+
 def test_training_kernels_reject(cuda):
     lp = torch.zeros((2, 5, 4), device=cuda)
     with pytest.raises(ValueError):
@@ -420,6 +591,13 @@ def test_training_kernels_reject(cuda):
         kernels.alphas(lp.transpose(1, 2).contiguous().transpose(1, 2), lp)
     with pytest.raises(ValueError):
         hw_dropout(lp, 1.0, 0, 0)
+    lens = torch.tensor([5, 4], device=cuda)
+    with pytest.raises(ValueError):      # lengths on the host
+        kernels.betas_and_expected_delay_bwd(lp, lp, lens.cpu(), lens, lp)
+    with pytest.raises(ValueError):      # float lengths
+        kernels.betas(lp, lp, lens.float(), lens)
+    with pytest.raises(ValueError):      # float64 delay values
+        kernels.alphas_and_expected_delay(lp, lp, lp.double())
 
 
 def test_tiny_train_step_on_cuda_equals_cpu(cuda):

@@ -10,8 +10,12 @@
   ``delay_transducer_loss_vjp`` for the three delay functions,
   temperature 1 and 0.5, ragged lengths, once with the JAX lattice on its
   Pallas kernels; a float64 ``torch.autograd.gradcheck``;
+- the twins of the fused walks (``lattice.alphas_and_expected_delay``,
+  ``lattice.betas_and_expected_delay_bwd``) against the JAX pieces in
+  sequence, the XLA scans and the Pallas kernels in interpret mode, for the
+  three delay functions and lengths down to T_b = 1, U_b = 0;
 - the kernel wrappers (``kernels.py``) run their twins on CPU tensors and
-  launch nothing.
+  launch nothing; ``kernels.lattice_path`` picks the kernel set by U.
 
 Tolerances, float32: lattices rtol 2e-5 (atol 2e-4 on values of order
 100), the losses rtol 1e-5, gradients rtol 1e-4 atol 1e-5.  The beta
@@ -269,9 +273,8 @@ def test_kernel_wrappers_run_twins_on_cpu():
     for fn in (kernels.alphas, kernels.betas, kernels.affine_rows):
         fn.launches = 0
     assert torch.equal(kernels.alphas(lpb, lpe), lattice.alphas(lpb, lpe))
-    got = kernels.betas(lpb, lpe, al, ll)
-    want = lattice.betas(lpb, lpe, al, ll)
-    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert torch.equal(kernels.betas(lpb, lpe, al, ll),
+                       lattice.betas(lpb, lpe, al, ll)[0])
     c = [torch.rand(lpb.shape) for _ in range(3)]
     for rev in (False, True):
         assert torch.equal(kernels.affine_rows(*c, reverse=rev),
@@ -280,3 +283,120 @@ def test_kernel_wrappers_run_twins_on_cpu():
             kernels.affine_rows.launches) == (0, 0, 0)
     with pytest.raises(ValueError):
         kernels.alphas(lpb, lpe[:, :-1])
+
+
+# --- the fused walks' twins and the kernel-set chooser ---
+
+def ragged(seed=0):
+    """The torch and JAX lattices of ``problem`` with the shortest lengths
+    a batch can hold: one frame, then no label."""
+    acts, labels, _, _ = problem(seed=seed)
+    B, T, U, _ = acts.shape
+    al = np.array([T, 1, 5], np.int32)
+    ll = np.array([U - 1, 2, 0], np.int32)
+    lpb, lpe, _ = lattice.lattice_log_probs_lse(
+        torch.from_numpy(acts), torch.from_numpy(labels), 0)
+    jb, je, _ = jnp_impl._lattice_log_probs_lse(
+        jnp.asarray(acts), jnp.asarray(labels), 0)
+    return ((lpb, lpe, torch.from_numpy(al), torch.from_numpy(ll)),
+            (jb, je, jnp.asarray(al), jnp.asarray(ll)))
+
+
+def _jax_delay_bwd(jb, je, jal, jll, jdv, pallas):
+    """(betas, bd) of the JAX package: pallas_betas +
+    pallas_expected_delay_bwd in interpret mode, or the XLA scans."""
+    _, _, t_valid, emit_ok = jax_analytic._betas(jb, je, jal, jll)
+    if pallas:
+        jbe = pallas_kernel.pallas_betas(jb, je, jal, jll, interpret=True)
+    else:
+        jbe = jax_analytic._betas(jb, je, jal, jll)[0]
+    down, up = jax_analytic._beta_shifts(jbe, jll)
+    if pallas:
+        jbd = pallas_kernel.pallas_expected_delay_bwd(
+            jb, je, jbe, down, up, jdv, t_valid, emit_ok, interpret=True)[0]
+    else:
+        jbd = jax_analytic._expected_delay_bwd(jb, je, jbe, down, up, jdv,
+                                               t_valid, emit_ok)[0]
+    return jbe, jbd
+
+
+@pytest.mark.parametrize("pallas", [False, True], ids=["xla", "pallas"])
+@pytest.mark.parametrize("delay_func", ["zero", "diagonal", "diag_positive"])
+@pytest.mark.parametrize("short", [False, True], ids=["ragged", "shortest"])
+def test_fused_walk_twins_match_jax(delay_func, pallas, short):
+    """The twins of the forward and the reverse fused walk against the JAX
+    package's alphas + expected delay and betas + expected delay backward,
+    on the XLA scans or on the Pallas kernels in interpret mode; beta and
+    bd on the valid cells."""
+    if short:
+        (lpb, lpe, al, ll), (jb, je, jal, jll) = ragged()
+    else:
+        lpb, lpe, al, ll = torch_lattice()
+        jb, je, jal, jll = jax_lattice()
+    B, T, U = lpb.shape
+    valid = valid_cells(al, ll, T, U)
+    dv = lattice.DELAY_FUNCS[delay_func](lpb.shape, al, ll)
+    jdv = JAX_DELAY[delay_func](jb.shape, jal, jll)
+    close(dv, jdv, atol=1e-6)
+    a, ad = lattice.alphas_and_expected_delay(lpb, lpe, dv)
+    if pallas:
+        ja = pallas_kernel.pallas_alphas(jb, je, interpret=True)
+        jad = pallas_kernel.pallas_expected_delay(jb, je, ja, jdv,
+                                                  interpret=True)
+    else:
+        ja = jnp_impl._alphas(jb, je)
+        jad = jnp_impl._expected_delay(jb, je, ja, jdv)
+    close(a, ja)
+    close(ad, jad, atol=1e-5)
+    be, bd = lattice.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    jbe, jbd = _jax_delay_bwd(jb, je, jal, jll, jdv, pallas)
+    close(be, jbe, where=valid)
+    close(bd, jbd, atol=1e-5, where=valid)
+
+
+@pytest.mark.parametrize("U,want", [(1, kernels.WARP), (32, kernels.WARP),
+                                    (33, kernels.WARP), (256, kernels.WARP),
+                                    (257, kernels.BLOCK),
+                                    (1025, kernels.BLOCK)])
+def test_lattice_path_follows_u_alone(U, want):
+    """The warp set up to 256 label cells (32 lanes x 8 columns), the block
+    set beyond; CaatConfig.max_target_positions 1024 gives U up to 1025."""
+    assert kernels.lattice_path(U) == want
+
+
+def test_fused_wrappers_run_twins_on_cpu():
+    lpb, lpe, al, ll = torch_lattice()
+    dv = lattice.delay_cost_diag_positive(lpb.shape, al, ll)
+    counted = (kernels.alphas_and_expected_delay, kernels.betas_and_expected_delay_bwd,
+               kernels.alphas, kernels.betas, kernels.affine_rows)
+    before = [fn.launches for fn in counted]
+    sets = [dict(fn.path_launches) for fn in counted[2:]]
+    got = kernels.alphas_and_expected_delay(lpb, lpe, dv)
+    want = lattice.alphas_and_expected_delay(lpb, lpe, dv)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    got = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    want = lattice.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert [fn.launches for fn in counted] == before
+    assert [fn.path_launches for fn in counted[2:]] == sets
+    with pytest.raises(ValueError):
+        kernels.alphas_and_expected_delay(lpb, lpe, dv[:, :-1])
+    with pytest.raises(ValueError):
+        kernels.betas_and_expected_delay_bwd(lpb, lpe[:, :, :-1], al, ll, dv)
+
+
+def test_fused_twins_are_the_pieces_in_sequence():
+    """The fused twins return what the single recursions give in sequence
+    (the block set's path): the same alphas, betas, ad and bd, bit for
+    bit."""
+    (lpb, lpe, al, ll), _ = ragged(seed=1)
+    dv = lattice.delay_cost_diagonal(lpb.shape, al, ll)
+    a, ad = lattice.alphas_and_expected_delay(lpb, lpe, dv)
+    assert torch.equal(a, lattice.alphas(lpb, lpe))
+    assert torch.equal(ad, lattice.expected_delay(lpb, lpe, a, dv))
+    be, bd = lattice.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    be2, _, t_valid, emit_ok = lattice.betas(lpb, lpe, al, ll)
+    down, up = lattice.beta_shifts(be2, ll)
+    assert torch.equal(be, be2)
+    assert torch.equal(bd, lattice.expected_delay_bwd(
+        lpb, lpe, be2, down, up, dv, t_valid, emit_ok)[0])

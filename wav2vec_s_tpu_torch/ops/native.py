@@ -11,7 +11,9 @@ import time.
 
 The attention families (chunk attention, flash attention) come in two kernel
 sets; ``kernel_path`` is the one rule that chooses between them, and
-``aligned_kernel_path`` adds the tensor-core set's alignment check.
+``aligned_kernel_path`` adds the tensor-core set's alignment check.  The
+transducer lattices come in two sets too, chosen by
+``ops/transducer/kernels.lattice_path``.
 """
 
 from __future__ import annotations
@@ -208,4 +210,22 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    # the warp set of the lattice kernels (csrc/transducer_warp.cu); a
+    # length tensor comes as (pointer, 1 if int64 else 0), the delay values
+    # as (pointer, three element strides)
+    lens = [ctypes.c_void_p, ctypes.c_int] * 2
+    dv = [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+    shape = [ctypes.c_int] * 3
+    for name, args in (
+            ("alphas", [ctypes.c_void_p] * 3 + shape),
+            ("betas", [ctypes.c_void_p] * 2 + lens + [ctypes.c_void_p]
+             + shape),
+            ("affine_rows", [ctypes.c_void_p] * 4 + shape + [ctypes.c_int]),
+            ("alphas_delay", [ctypes.c_void_p] * 2 + dv
+             + [ctypes.c_void_p] * 2 + shape),
+            ("betas_delay", [ctypes.c_void_p] * 2 + lens + dv
+             + [ctypes.c_void_p] * 2 + shape)):
+        fn = getattr(lib, f"w2vs_lattice_warp_{name}")
+        fn.argtypes = args + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib

@@ -3,10 +3,12 @@
 Port of ``wav2vec_s_tpu/ops/transducer/analytic.py``
 (``delay_transducer_loss_vjp``): a ``torch.autograd.Function`` whose
 
-- forward runs the alphas (K5a) and the expected-delay rows (K6, forward)
-  and returns (total, prob, delay) per utterance;
-- backward runs the betas (K5b) and the expected-delay rows in reverse
-  (K6), then the closed-form gradient w.r.t. ``acts``
+- forward runs the alphas and the expected delay in one forward fused walk
+  (K5a + K6, ``kernels.alphas_and_expected_delay``) and returns (total,
+  prob, delay) per utterance;
+- backward runs the betas and the expected remaining delay in one reverse
+  fused walk (K5b + K6, ``kernels.betas_and_expected_delay_bwd``), then
+  the closed-form gradient w.r.t. ``acts``
 
     dP/da(t,u,v) = occ p_v - [v==blank] e_b - [v==y_u] e_y           (P=-ll)
     dE/da(t,u,v) = [v==blank] e_b c0 + [v==y_u] e_y c1
@@ -19,8 +21,9 @@ Port of ``wav2vec_s_tpu/ops/transducer/analytic.py``
 
 The lattice recursions go through ``kernels.py``: their twins for CPU
 tensors, the CUDA kernels for CUDA tensors (a build or launch failure
-raises).  On the card the kernels are the path; the TPU package's
-``set_lattice_impl`` switch is not ported.
+raises; ``kernels.lattice_path`` picks the kernel set by U).  On the card
+the kernels are the path; the TPU package's ``set_lattice_impl`` switch is
+not ported.  The gradient assembly is plain torch.
 
 ``temperature`` != 1 is the reference's gradient smoothing
 (compute_grad_withdelay_smooth_kernel): the probability part's posteriors
@@ -34,8 +37,7 @@ import torch.nn.functional as F
 
 from wav2vec_s_tpu_torch.ops.transducer import kernels
 from wav2vec_s_tpu_torch.ops.transducer.lattice import (
-    BLOCK, beta_shifts, expected_delay, expected_delay_bwd, gather_final,
-    lattice_log_probs_lse)
+    BLOCK, beta_shifts, gather_final, lattice_log_probs_lse, lattice_masks)
 
 
 class DelayTransducerLoss(torch.autograd.Function):
@@ -48,9 +50,8 @@ class DelayTransducerLoss(torch.autograd.Function):
                 delay_scale: float = 1.0, blank: int = 0,
                 temperature: float = 1.0):
         lp_blank, lp_emit, lse = lattice_log_probs_lse(acts, labels, blank)
-        alphas = kernels.alphas(lp_blank.contiguous(), lp_emit)
-        ad = expected_delay(lp_blank, lp_emit, alphas, delay_values,
-                            rows=kernels.affine_rows)
+        alphas, ad = kernels.alphas_and_expected_delay(
+            lp_blank.contiguous(), lp_emit, delay_values)
         ll = (gather_final(alphas, act_lens, label_lens)
               + gather_final(lp_blank, act_lens, label_lens))
         prob = -ll
@@ -69,12 +70,13 @@ class DelayTransducerLoss(torch.autograd.Function):
         delay_scale, blank, temperature = ctx.args
         B, T, U, V = acts.shape
 
-        betas, lp_b_eff, t_valid, emit_ok = kernels.betas(
-            lp_blank.contiguous(), lp_emit, act_lens, label_lens)
+        betas, bd = kernels.betas_and_expected_delay_bwd(
+            lp_blank.contiguous(), lp_emit, act_lens, label_lens,
+            delay_values)
+        t_valid, emit_ok = lattice_masks((B, T, U), act_lens, label_lens)
+        lp_b_eff = torch.where(t_valid[:, :, None], lp_blank, 0.0)
         beta_down, beta_up = beta_shifts(betas, label_lens)
-        bd, dv_edge = expected_delay_bwd(
-            lp_blank, lp_emit, betas, beta_down, beta_up, delay_values,
-            t_valid, emit_ok, rows=kernels.affine_rows)
+        dv_edge = F.pad(delay_values[:, :, 1:].to(betas.dtype), (0, 1))
 
         E = delay[:, None, None]
         llb = ll[:, None, None]

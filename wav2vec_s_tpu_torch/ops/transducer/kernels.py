@@ -1,4 +1,5 @@
-"""Transducer lattice kernels: the CUDA wrappers of ``csrc/transducer.cu``.
+"""Transducer lattice kernels: the CUDA wrappers of ``csrc/transducer_warp.cu``
+(the warp set) and ``csrc/transducer.cu`` (the block set).
 
 - ``alphas`` (K5a, replaces ``pallas_kernel.pallas_alphas``): the forward
   lattice;
@@ -6,12 +7,23 @@
   lattice on the virtually extended lattice, ragged lengths;
 - ``affine_rows`` (K6, replaces ``pallas_kernel.pallas_affine_rows``): the
   probability-space row recursion of the expected delay, forward or
-  reverse.
+  reverse;
+- ``alphas_and_expected_delay`` (the forward fused walk: K5a and the
+  forward K6 in one kernel) and ``betas_and_expected_delay_bwd`` (the
+  reverse fused walk: K5b and the reverse K6), which the loss runs.
 
-Each runs its twin in ``lattice.py`` for CPU tensors and launches its
-kernel for CUDA tensors (count in ``<fn>.launches``); a build or launch
-failure raises, there is no fallback.  The kernels take contiguous float32
-[B, T, U] lattices and int32 lengths.
+``lattice_path(U)`` chooses the kernel set from the label cells alone: the
+warp set (one warp per lattice, heads in registers) up to ``WARP_MAX_U``,
+the block set (one block per lattice, heads in shared memory) beyond, where
+the fused wrappers run the block set's unfused sequence (``alphas``, the
+coefficients, ``affine_rows``).  Each wrapper runs its twin in
+``lattice.py`` for CPU tensors and launches its kernel for CUDA tensors
+(count in ``<fn>.launches``; the three single-recursion wrappers count per
+kernel set in ``<fn>.path_launches`` too).  Before a launch a wrapper checks
+its arguments and nothing else; a failed check, build or launch raises,
+there is no fallback.  The kernels take contiguous float32 [B, T, U]
+lattices, delay values at any strides, and lengths on the lattice's device
+(int32 or int64; the block set copies them to int32).
 """
 
 from __future__ import annotations
@@ -19,6 +31,16 @@ from __future__ import annotations
 import torch
 
 from wav2vec_s_tpu_torch.ops.transducer import lattice
+
+#: the two kernel sets: ``csrc/transducer_warp.cu``, ``csrc/transducer.cu``
+WARP, BLOCK = "warp", "block"
+WARP_MAX_U = 256          # 32 lanes x 8 columns (transducer_warp.cu kMaxU)
+
+
+def lattice_path(U: int) -> str:
+    """Which kernel set a CUDA call of the lattice wrappers runs for a
+    lattice of ``U`` label cells."""
+    return WARP if U <= WARP_MAX_U else BLOCK
 
 
 def _check(*lats: torch.Tensor) -> None:
@@ -42,9 +64,35 @@ def _cuda_args(*lats: torch.Tensor):
     return native.library(), torch.cuda.current_stream().cuda_stream
 
 
+def _lens(x: torch.Tensor, *lens: torch.Tensor):
+    """(pointer, 1 if int64 else 0) of each [B] length tensor."""
+    out = []
+    for n in lens:
+        if (n.shape != x.shape[:1] or n.device != x.device
+                or n.dtype not in (torch.int32, torch.int64)
+                or not n.is_contiguous()):
+            raise ValueError(f"lengths {tuple(n.shape)} {n.dtype} on "
+                             f"{n.device} are not [{x.shape[0]}] int32 or "
+                             f"int64 on {x.device}")
+        out += [n.data_ptr(), int(n.dtype == torch.int64)]
+    return out
+
+
+def _delay(dv: torch.Tensor):
+    """(pointer, element strides) of the delay values."""
+    if dv.dtype != torch.float32:
+        raise ValueError(f"delay values {dv.dtype} are not float32")
+    return [dv.data_ptr(), *dv.stride()]
+
+
 def _done(err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _launched(fn, path: str) -> None:
+    fn.launches += 1
+    fn.path_launches[path] += 1
 
 
 def alphas(lp_blank: torch.Tensor, lp_emit: torch.Tensor) -> torch.Tensor:
@@ -57,37 +105,43 @@ def alphas(lp_blank: torch.Tensor, lp_emit: torch.Tensor) -> torch.Tensor:
         lib, stream = _cuda_args(lp_blank, lp_emit)
         out = torch.empty_like(lp_blank)
         if out.numel():
-            _done(lib.w2vs_transducer_alphas(
-                lp_blank.data_ptr(), lp_emit.data_ptr(), out.data_ptr(),
-                B, T, U, stream), "alphas")
-            alphas.launches += 1
+            path = lattice_path(U)
+            fn = (lib.w2vs_lattice_warp_alphas if path == WARP
+                  else lib.w2vs_transducer_alphas)
+            _done(fn(lp_blank.data_ptr(), lp_emit.data_ptr(), out.data_ptr(),
+                     B, T, U, stream), "alphas")
+            _launched(alphas, path)
     return out
 
 
-def betas(lp_blank, lp_emit, act_lens, label_lens):
-    """Backward lattice scores (``lattice.betas``): returns (betas,
-    lp_b_eff, t_valid, emit_ok)."""
+def betas(lp_blank, lp_emit, act_lens, label_lens) -> torch.Tensor:
+    """Backward lattice scores [B, T, U] (``lattice.betas``' first
+    output)."""
     _check(lp_blank, lp_emit)
     if lp_blank.device.type == "cpu":
-        return lattice.betas(lp_blank, lp_emit, act_lens, label_lens)
+        return lattice.betas(lp_blank, lp_emit, act_lens, label_lens)[0]
     B, T, U = lp_blank.shape
-    t_valid, emit_ok = lattice.lattice_masks((B, T, U), act_lens,
-                                             label_lens)
-    lp_b_eff = torch.where(t_valid[:, :, None], lp_blank, 0.0)
     with torch.cuda.device(lp_blank.device):
         lib, stream = _cuda_args(lp_blank, lp_emit)
-        al = act_lens.to(lp_blank.device, torch.int32).contiguous()
-        ll = label_lens.to(lp_blank.device, torch.int32).contiguous()
-        if al.shape != (B,) or ll.shape != (B,):
-            raise ValueError(f"lengths {tuple(al.shape)}, "
-                             f"{tuple(ll.shape)} are not [{B}]")
         out = torch.empty_like(lp_blank)
+        path = lattice_path(U)
+        if path == BLOCK:       # the block set reads int32 lengths
+            act_lens, label_lens = (n.to(lp_blank.device, torch.int32)
+                                    .contiguous()
+                                    for n in (act_lens, label_lens))
+        lens = _lens(lp_blank, act_lens, label_lens)
         if out.numel():
-            _done(lib.w2vs_transducer_betas(
-                lp_blank.data_ptr(), lp_emit.data_ptr(), al.data_ptr(),
-                ll.data_ptr(), out.data_ptr(), B, T, U, stream), "betas")
-            betas.launches += 1
-    return out, lp_b_eff, t_valid, emit_ok
+            if path == WARP:
+                err = lib.w2vs_lattice_warp_betas(
+                    lp_blank.data_ptr(), lp_emit.data_ptr(), *lens,
+                    out.data_ptr(), B, T, U, stream)
+            else:
+                err = lib.w2vs_transducer_betas(
+                    lp_blank.data_ptr(), lp_emit.data_ptr(), lens[0],
+                    lens[2], out.data_ptr(), B, T, U, stream)
+            _done(err, "betas")
+            _launched(betas, path)
+    return out
 
 
 def affine_rows(a: torch.Tensor, pb: torch.Tensor, c: torch.Tensor,
@@ -102,13 +156,76 @@ def affine_rows(a: torch.Tensor, pb: torch.Tensor, c: torch.Tensor,
         lib, stream = _cuda_args(a, pb, c)
         out = torch.empty_like(a)
         if out.numel():
-            _done(lib.w2vs_transducer_affine_rows(
-                a.data_ptr(), pb.data_ptr(), c.data_ptr(), out.data_ptr(),
-                B, T, U, int(reverse), stream), "affine_rows")
-            affine_rows.launches += 1
+            path = lattice_path(U)
+            fn = (lib.w2vs_lattice_warp_affine_rows if path == WARP
+                  else lib.w2vs_transducer_affine_rows)
+            _done(fn(a.data_ptr(), pb.data_ptr(), c.data_ptr(),
+                     out.data_ptr(), B, T, U, int(reverse), stream),
+                  "affine_rows")
+            _launched(affine_rows, path)
     return out
 
 
-alphas.launches = 0
-betas.launches = 0
-affine_rows.launches = 0
+def alphas_and_expected_delay(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
+                              delay_values: torch.Tensor):
+    """(alphas, ad), each [B, T, U] (``lattice.alphas_and_expected_delay``):
+    one forward fused walk on the warp set."""
+    _check(lp_blank, lp_emit, delay_values)
+    if lp_blank.device.type == "cpu":
+        return lattice.alphas_and_expected_delay(lp_blank, lp_emit,
+                                                 delay_values)
+    B, T, U = lp_blank.shape
+    if lattice_path(U) == BLOCK:
+        a = alphas(lp_blank, lp_emit)
+        return a, lattice.expected_delay(lp_blank, lp_emit, a, delay_values,
+                                         rows=affine_rows)
+    with torch.cuda.device(lp_blank.device):
+        lib, stream = _cuda_args(lp_blank, lp_emit)
+        dv = _delay(delay_values)
+        a, ad = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
+        if a.numel():
+            _done(lib.w2vs_lattice_warp_alphas_delay(
+                lp_blank.data_ptr(), lp_emit.data_ptr(), *dv, a.data_ptr(),
+                ad.data_ptr(), B, T, U, stream), "alphas_and_expected_delay")
+            alphas_and_expected_delay.launches += 1
+    return a, ad
+
+
+def betas_and_expected_delay_bwd(lp_blank, lp_emit, act_lens, label_lens,
+                                 delay_values):
+    """(betas, bd), each [B, T, U]
+    (``lattice.betas_and_expected_delay_bwd``): one reverse fused walk on
+    the warp set."""
+    _check(lp_blank, lp_emit, delay_values)
+    if lp_blank.device.type == "cpu":
+        return lattice.betas_and_expected_delay_bwd(
+            lp_blank, lp_emit, act_lens, label_lens, delay_values)
+    B, T, U = lp_blank.shape
+    if lattice_path(U) == BLOCK:
+        be = betas(lp_blank, lp_emit, act_lens, label_lens)
+        t_valid, emit_ok = lattice.lattice_masks((B, T, U), act_lens,
+                                                 label_lens)
+        down, up = lattice.beta_shifts(be, label_lens)
+        return be, lattice.expected_delay_bwd(
+            lp_blank, lp_emit, be, down, up, delay_values, t_valid, emit_ok,
+            rows=affine_rows)[0]
+    with torch.cuda.device(lp_blank.device):
+        lib, stream = _cuda_args(lp_blank, lp_emit)
+        lens = _lens(lp_blank, act_lens, label_lens)
+        dv = _delay(delay_values)
+        be, bd = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
+        if be.numel():
+            _done(lib.w2vs_lattice_warp_betas_delay(
+                lp_blank.data_ptr(), lp_emit.data_ptr(), *lens, *dv,
+                be.data_ptr(), bd.data_ptr(), B, T, U, stream),
+                "betas_and_expected_delay_bwd")
+            betas_and_expected_delay_bwd.launches += 1
+    return be, bd
+
+
+alphas.launches = betas.launches = affine_rows.launches = 0
+alphas.path_launches = {WARP: 0, BLOCK: 0}
+betas.path_launches = {WARP: 0, BLOCK: 0}
+affine_rows.path_launches = {WARP: 0, BLOCK: 0}
+alphas_and_expected_delay.launches = 0
+betas_and_expected_delay_bwd.launches = 0

@@ -11,12 +11,15 @@ blank is free.
   and the delay costs are plain torch on every device (XLA ran them on the
   TPU).
 - ``alphas``, ``betas`` and ``affine_rows`` are the twins of the kernels in
-  ``kernels.py`` (``csrc/transducer.cu``): the JAX package's row scans, one
-  Python step per source row with a prefix log-sum-exp
-  (``torch.logcumsumexp``) or a Hillis-Steele affine prefix along U.
-  ``expected_delay`` and ``expected_delay_bwd`` build the transition
-  probabilities elementwise and run a row recursion given as ``rows``
-  (the twin by default, the kernel in ``analytic.py``).
+  ``kernels.py`` (``csrc/transducer_warp.cu``, ``csrc/transducer.cu``): the
+  JAX package's row scans, one Python step per source row with a prefix
+  log-sum-exp (``torch.logcumsumexp``) or a Hillis-Steele affine prefix
+  along U.  ``expected_delay`` and ``expected_delay_bwd`` build the
+  transition probabilities elementwise and run a row recursion given as
+  ``rows`` (the twin by default, the block set's kernel beyond the warp
+  set's U in ``kernels.py``).
+- ``alphas_and_expected_delay`` and ``betas_and_expected_delay_bwd``, the
+  twins of the fused walks, are those pieces in sequence.
 
 Every function keeps float64 inputs in float64 (the gradient check) and
 computes everything else in float32.
@@ -237,3 +240,21 @@ def expected_delay_bwd(lp_blank, lp_emit, betas_, beta_down, beta_up,
     bd = rows(pe.contiguous(), pb.contiguous(), (pe * dv_edge).contiguous(),
               reverse=True)
     return bd, dv_edge
+
+
+def alphas_and_expected_delay(lp_blank, lp_emit, delay_values):
+    """(alphas, ad): ``alphas`` then ``expected_delay`` (twin of the
+    forward fused walk)."""
+    a = alphas(lp_blank, lp_emit)
+    return a, expected_delay(lp_blank, lp_emit, a, delay_values)
+
+
+def betas_and_expected_delay_bwd(lp_blank, lp_emit, act_lens, label_lens,
+                                 delay_values):
+    """(betas, bd): ``betas``, ``beta_shifts``, then ``expected_delay_bwd``
+    (twin of the reverse fused walk)."""
+    be, _, t_valid, emit_ok = betas(lp_blank, lp_emit, act_lens, label_lens)
+    down, up = beta_shifts(be, label_lens)
+    bd, _ = expected_delay_bwd(lp_blank, lp_emit, be, down, up, delay_values,
+                               t_valid, emit_ok)
+    return be, bd
