@@ -77,6 +77,10 @@ Phases, each printed on its own line:
                index among equals on the card; and whether the fused
                one-shot texts equal the fused streaming texts in bfloat16
                (they do in float32: the encoders differ by rounding);
+  7c. serving parity — the tiny model, float32: ServingSession (4 streams
+               on 2 slots: staggered joins, a stall, recycling, a compaction)
+               on the card equals it on the CPU and the cached decoder on
+               the card run alone on each stream, texts and delays exactly;
   8. train parity — tiny CAAT fine-tuning, dropout off: two updates on the
                card (kernels) equal the CPU's (twins): loss, grad norm,
                every parameter; then a 30-step overfit with the recipe's
@@ -134,6 +138,25 @@ Phases, each printed on its own line:
                kernels, K4 and the fused walks as in phase 11 (the attention
                sites launch no K4), K1 none; finite losses, no skipped
                step.
+  13. eval cli — the eval entry point, wav2vec_s_tpu_torch.eval.cli main(),
+               at the same width (bf16, random weights from seed 0 saved once
+               through checkpoint/io.py) with dot-overrides alone, on 64
+               seeded-noise wavs of 10 s: batch-decode --decoder cached
+               (batches of 32: K1 == layers x chunks x batches), oneshot
+               under flash (K2 == layers x sub-batches), stream-beam (K1 ==
+               layers x chunks), sweep --steps 2,4; every launch on the
+               tensor-core kernels, the CLI's texts and delays equal to the
+               decoder's decode_corpus on the same batches; simul on 2 wavs
+               of 4 s under flash (K2 in every prefix encode); score on the
+               cached run's texts;
+  14. serving full — ServingSession at the same width, bf16: 16 slots,
+               t_cap 1024, 48 streams of seeded lengths between 2 and 10 s
+               admitted as slots free up, 640 ms pushed per stream per step,
+               a seeded quarter stalling one step in four: every stream
+               finishes, delays rise and stay within the stream plus one
+               window, compaction runs; steps, compactions, the share of
+               streams equal to the cached decoder's, wall per step p50/p99,
+               audio-sec/s, device kernels of one step, peak memory.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -2239,6 +2262,409 @@ def phase_cli_full(card):
     return fc
 
 
+# -- serving and the eval CLI ------------------------------------------------
+
+SERVING_TINY = (("s0", 900), ("s1", 700), ("s2", 500), ("s3", 800))
+SERVING_TINY_KW = dict(blocks_per_step=1, max_len=24, max_emit_per_chunk=4)
+
+
+def _tiny_serving_model(dev):
+    """The tiny model with unit-norm embedding rows and the blank row at
+    0.75 (tests/test_torch_port_serving.py's recipe): streams emit
+    different texts from different chunks on."""
+    import torch
+
+    w2v, caat, model = _tiny_model()
+    with torch.no_grad():
+        e = model.decoder.lm.embed_tokens.weight
+        e /= e.norm(dim=1, keepdim=True)
+        e[caat.bos] *= 0.75
+    return w2v, caat, model.to(dev)
+
+
+def _serve_tiny(sess, wavs):
+    """Staggered joins, a stall and recycling on 2 slots: s0 joins with all
+    its audio, s1 with its first chunk only and the rest 4 steps later, s2
+    and s3 take the slots that free up."""
+    assert sess.add_stream("s0")
+    sess.push("s0", wavs["s0"], is_end=True)
+    assert sess.add_stream("s1")
+    sess.push("s1", wavs["s1"][:200])
+    waiting = ["s2", "s3"]
+    for it in range(200):
+        sess.step()
+        if it == 3:
+            sess.push("s1", wavs["s1"][200:], is_end=True)
+        while waiting and sess.add_stream(waiting[0]):
+            sess.push(waiting[0], wavs[waiting[0]], is_end=True)
+            waiting.pop(0)
+        if len(sess._results) == len(wavs):
+            break
+    return {sid: sess.result(sid) for sid in wavs}
+
+
+def phase_serving_parity():
+    """Tiny model, float32: ServingSession on the card == on the CPU == the
+    cached decoder on the card run alone on each stream; staggered joins, a
+    stall, recycling, a compaction."""
+    import torch
+    from wav2vec_s_tpu_torch.stream.batched import CachedFusedGreedyDecoder
+    from wav2vec_s_tpu_torch.stream.serving import ServingSession
+
+    rng = np.random.default_rng(7)
+    wavs = {sid: rng.standard_normal(n).astype(np.float32) * 0.3
+            for sid, n in SERVING_TINY}
+    out, compactions = {}, {}
+    for d in ("cpu", "cuda"):
+        w2v, caat, model = _tiny_serving_model(d)
+        vocab = _vocab(caat.vocab_size)
+        sess = ServingSession(model, vocab, w2v, n_slots=2, t_cap=96,
+                              **SERVING_TINY_KW)
+        out[d] = _serve_tiny(sess, wavs)
+        compactions[d] = sess.compactions
+    dec = CachedFusedGreedyDecoder(model, vocab, w2v, t_cap=128,
+                                   **SERVING_TINY_KW)
+    solo = {}
+    for sid, wav in wavs.items():
+        texts, delays = dec.decode_corpus([wav])
+        solo[sid] = (texts[0], delays[0])
+    words = {sid: len(d) for sid, (_, d) in out["cuda"].items()}
+    same_cpu, same_solo = out["cuda"] == out["cpu"], out["cuda"] == solo
+    print(f"phase serving parity: tiny float32, 4 streams on 2 slots "
+          f"(staggered joins, a stall, recycling; compactions {compactions}):"
+          f" cuda == cpu: {same_cpu}, == the cached decoder alone on each "
+          f"stream: {same_solo} (words per stream {words})")
+    assert same_cpu and same_solo
+    assert all(c > 0 for c in compactions.values()), compactions
+    texts = [t for t, _ in solo.values()]
+    assert sum(map(bool, texts)) >= 2 and len(set(texts)) >= 3, texts
+    torch.cuda.empty_cache()
+
+
+EVAL_STREAMS, EVAL_BATCH, SIMUL_SECONDS = 64, 32, 4.0
+
+
+def _eval_corpus(root, vocab_size):
+    """The eval phase's files under ``root``: 64 seeded-noise 10-s wavs
+    (dev.tsv), 2 of 4 s (simul.tsv), a dict of ``vocab_size`` entries."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(vocab_size - Dictionary().nspecial)]
+    (root / "dict.txt").write_text("".join(f"{w} 1\n" for w in words))
+    for name, n, seconds in (("dev", EVAL_STREAMS, SECONDS),
+                             ("simul", 2, SIMUL_SECONDS)):
+        lines = ["id\taudio\tn_frames\ttgt_text"]
+        S = int(seconds * 16000)
+        for i in range(n):
+            path = root / f"{name}{i}.wav"
+            write_wav(path, rng.standard_normal(S).astype(np.float32) * 0.1)
+            text = " ".join(words[j] for j in rng.integers(0, len(words), 20))
+            lines.append(f"{name}{i}\t{path}\t{S}\t{text}")
+        (root / f"{name}.tsv").write_text("\n".join(lines) + "\n")
+
+
+def _eval_cli(label, argv, card):
+    """One call of ``eval.cli.main`` with every launch count set to 0 just
+    before it -> (JSON lines it printed, counts, kernel sets, the decoder
+    it built and its (batch, texts, delays) per ``decode_corpus``), each
+    JSON line printed with the card."""
+    import contextlib
+    import io
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.eval import cli
+
+    made = []
+    real = cli.make_decoder
+
+    def recording(*a, **kw):
+        dec = real(*a, **kw)
+        decode, calls = dec.decode_corpus, []
+
+        def recorded(wavs):
+            out = decode(wavs)
+            calls.append((wavs, out))
+            return out
+
+        dec.decode_corpus = recorded
+        made.append((dec, decode, calls))
+        return dec
+
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    _reset_counts()
+    with mock.patch.object(cli, "make_decoder", recording), \
+            contextlib.redirect_stdout(stdout):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    counts, sets = _counts(), _set_paths()
+    lines = [json.loads(ln) for ln in stdout.getvalue().splitlines()
+             if ln.startswith("{")]
+    for ln in lines:
+        print(f"phase eval cli: {label}: {json.dumps(ln)} [{card}]")
+    return lines, counts, sets, made
+
+
+def _same_as_direct(made):
+    """The CLI's texts and delays == the same decoder's ``decode_corpus``
+    called again on the same batches -> number of streams checked."""
+    n = 0
+    for _, decode, calls in made:
+        for wavs, out in calls:
+            assert decode(wavs) == out, "CLI decode != direct decode"
+            n += len(wavs)
+    return n
+
+
+def phase_eval_cli_full(card):
+    """The eval entry point at Base + CAAT base width, bf16, random weights
+    from seed 0 saved once through checkpoint/io.py: batch-decode (cached,
+    one-shot under flash, stream-beam), sweep, simul (flash) and score ->
+    {path: launch counts}."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.eval.bleu import corpus_bleu
+    from wav2vec_s_tpu_torch.eval.wer import corpus_wer
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.step import TrainState
+
+    paths = {}
+    S = int(SECONDS * 16000)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        w2v, caat, model = _base_model(torch.device("cuda"))
+        mgr = CheckpointManager(root / "ckpt", keep_last=1)
+        mgr.save(0, TrainState.create(model, build_optimizer(OptimConfig())))
+        del model
+        torch.cuda.empty_cache()
+        _eval_corpus(root, caat.vocab_size)
+        print(f"phase eval cli: checkpoint of Base + CAAT base (seed 0) and "
+              f"{EVAL_STREAMS} wavs of {SECONDS:g} s + 2 of "
+              f"{SIMUL_SECONDS:g} s written in {time.perf_counter() - t:.1f} "
+              f"s")
+        common = ["--ckpt-dir", str(root / "ckpt"), "--device", "cuda"]
+        ov = [f"data.vocab={root}/dict.txt", "model.dtype=bfloat16",
+              "caat.dtype=bfloat16"]
+        dev_tsv = ["--manifest", str(root / "dev.tsv")]
+        frames = (S - 400) // 320 + 1
+        n_chunks = {srb: (frames - w2v.right_context)
+                    // (w2v.main_context * srb) for srb in (2, 4)}
+        L = w2v.encoder_layers
+
+        runs = (
+            ("eval_cli_cached", ["batch-decode", *dev_tsv, "--decoder",
+                                 "cached", "--batch-size", str(EVAL_BATCH)],
+             [], {"K1": L * n_chunks[2] * (EVAL_STREAMS // EVAL_BATCH),
+                  "K2": 0}),
+            ("eval_cli_oneshot", ["batch-decode", *dev_tsv, "--decoder",
+                                  "oneshot"], ["model.attention_impl=flash"],
+             {"K1": 0, "K2": L * EVAL_STREAMS // ENCODE_BATCH}),
+            ("eval_cli_stream_beam", ["batch-decode", *dev_tsv, "--decoder",
+                                      "stream-beam"], [],
+             {"K1": L * n_chunks[2], "K2": 0}),
+            ("eval_cli_sweep", ["sweep", *dev_tsv, "--decoder", "cached",
+                                "--steps", "2,4"], [],
+             {"K1": L * (n_chunks[2] + n_chunks[4]), "K2": 0}))
+        hyps = None
+        for path, argv, extra, want in runs:
+            t = time.perf_counter()
+            lines, counts, sets, made = _eval_cli(
+                path, [argv[0], *common, *argv[1:], *ov, *extra], card)
+            wall = time.perf_counter() - t
+            _check_launches(path, counts, sets, want)
+            n_same = _same_as_direct(made)
+            assert len(lines) == (2 if path == "eval_cli_sweep" else 1)
+            for ln in lines:
+                assert set(ln) == {"BLEU", "AL", "audio_sec_per_sec", "n",
+                                   "step_read_blocks"}, ln
+                assert ln["n"] == EVAL_STREAMS and np.isfinite(ln["AL"])
+            print(f"phase eval cli: {path}: launches {counts}, expected "
+                  f"{want}, by kernel set {sets}; texts and delays == the "
+                  f"decoder's decode_corpus on the same {n_same} streams; "
+                  f"the whole call {wall:.1f} s")
+            paths[path] = counts
+            if path == "eval_cli_cached":
+                hyps = [t_ for _, _, calls in made for _, (texts, _) in calls
+                        for t_ in texts]
+            torch.cuda.empty_cache()
+
+        # simul: the agent over the host searcher, its prefix encode on K2
+        t = time.perf_counter()
+        lines, counts, sets, _ = _eval_cli(
+            "eval_cli_simul", ["simul", *common, "--manifest", str(root / "simul.tsv"),
+             "--max-instances", "2", *ov, "model.attention_impl=flash"],
+            card)
+        (scores,) = lines
+        k2 = counts["blockwise_flash_attention_packed"]
+        _check_launches("eval_cli_simul", counts, sets, {"K1": 0, "K2": None},
+                        k2_per_call=w2v.encoder_layers)
+        assert scores["num_instances"] == 2 and all(
+            np.isfinite(scores[k]) for k in ("AL", "AP", "DAL", "BLEU"))
+        print(f"phase eval cli: simul: 2 instances of {SIMUL_SECONDS:g} s, "
+              f"K2 {k2} launches ({k2 // w2v.encoder_layers} prefix "
+              f"encodes), the whole call {time.perf_counter() - t:.1f} s")
+        paths["eval_cli_simul"] = counts
+
+        # score: the cached run's texts against the manifest's
+        refs = [ln.split("\t")[3] for ln in
+                (root / "dev.tsv").read_text().splitlines()[1:]]
+        # the batches ran longest first; every clip has one length, so the
+        # sort kept the manifest's order
+        (root / "hyp.txt").write_text("\n".join(hyps) + "\n")
+        (root / "ref.txt").write_text("\n".join(refs) + "\n")
+        (got,), _, _, _ = _eval_cli(
+            "score", ["score", "-s", str(root / "hyp.txt"), "-r",
+             str(root / "ref.txt"), "--metric", "both"], card)
+        want = {"n": EVAL_STREAMS, "BLEU": round(corpus_bleu(hyps, refs), 2),
+                "WER": round(corpus_wer(hyps, refs), 4)}
+        assert got == want, (got, want)
+        print(f"phase eval cli: score == corpus_bleu / corpus_wer of the "
+              f"cached run's texts: {got}")
+    return paths
+
+
+SERVE_SLOTS, SERVE_T_CAP, SERVE_STREAMS = 16, 1024, 48
+SERVE_PUSH = 10240            # 640 ms per stream per step: one ds2 chunk
+
+
+def phase_serving_full(card):
+    """Base + CAAT base, bf16: a ServingSession of 16 slots and t_cap 1024
+    serving 48 streams of seeded lengths between 2 and 10 s, admitted as
+    slots free up, 640 ms of audio pushed per stream per step (the last
+    push: the rest, with the end), a seeded quarter of the streams stalling
+    one step in four -> launch counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from wav2vec_s_tpu_torch.stream.batched import CachedFusedGreedyDecoder
+    from wav2vec_s_tpu_torch.stream.serving import ServingSession
+
+    dev = torch.device("cuda")
+    t = time.perf_counter()
+    w2v, caat, model = _base_model(dev)
+    vocab = _vocab(caat.vocab_size)
+    kw = dict(blocks_per_step=2, max_len=256, max_emit_per_chunk=4)
+    sess = ServingSession(model, vocab, w2v, n_slots=SERVE_SLOTS,
+                          t_cap=SERVE_T_CAP, **kw)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(2 * 16000, 10 * 16000 + 1, SERVE_STREAMS)
+    wavs = {f"u{i}": (rng.standard_normal(n) * 0.1).astype(np.float32)
+            for i, n in enumerate(lengths)}
+    stalls = set(rng.choice(sorted(wavs), SERVE_STREAMS // 4, replace=False))
+    print(f"phase serving full: model + session ready in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    def run(ids, profile_step=None):
+        """Serve ``ids`` to the end -> (step walls, kernels of the profiled
+        step)."""
+        waiting, sent, walls, kernels = list(ids), {}, [], None
+        for it in range(10000):
+            while waiting and sess.add_stream(waiting[0]):
+                sent[waiting.pop(0)] = 0
+            for sid in list(sent):
+                n = len(wavs[sid])
+                if sent[sid] >= n or (sid in stalls and it % 4 == 3):
+                    continue
+                # the last push carries the rest (640 ms to 1.28 s) with the
+                # end mark: the end must come with the last chunk's audio
+                end = (sent[sid] + SERVE_PUSH
+                       if n - sent[sid] > 2 * SERVE_PUSH else n)
+                sess.push(sid, wavs[sid][sent[sid]:end], is_end=end == n)
+                sent[sid] = end
+            sent = {s: v for s, v in sent.items()
+                    if s not in sess._results}
+            if it == profile_step:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    sess.step()
+                    torch.cuda.synchronize()
+                kernels = sum(
+                    1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+            else:
+                t_ = time.perf_counter()
+                sess.step()
+                walls.append(time.perf_counter() - t_)
+            if not waiting and all(s in sess._results for s in ids):
+                return walls, kernels
+        raise AssertionError("the session did not finish its streams")
+
+    # warm-up on the first 16 streams, one of its steps under the profiler
+    _, kernels = run(sorted(wavs)[:SERVE_SLOTS], profile_step=12)
+    assert kernels is not None, "the warm-up ended before its profiled step"
+    sess._results.clear()
+    steps0, comp0 = sess.steps, sess.compactions
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    walls, _ = run(sorted(wavs))
+    wall = time.perf_counter() - t
+    counts = _counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps, compactions = sess.steps - steps0, sess.compactions - comp0
+    assert sorted(sess._results) == sorted(wavs)
+    assert compactions > 0, "no compaction ran"
+    window_ms = sess.window / 16.0
+    for sid, (text, delays) in sess._results.items():
+        assert delays == sorted(delays), sid
+        assert all(0 < d <= len(wavs[sid]) / 16.0 + window_ms
+                   for d in delays), (sid, delays)
+    # the cached decoder on the same streams, grouped by chunk count (a
+    # batch of streams with one chunk count decodes each as it would alone)
+    dec = CachedFusedGreedyDecoder(model, vocab, w2v, t_cap=512, **kw)
+    enc = dec._encoder(1)
+    groups = {}
+    for sid, wav in wavs.items():
+        frames = (len(wav) - enc.rf) // enc.hop + 1
+        groups.setdefault(max((frames - enc.rc) // enc.n_main, 1),
+                          []).append(sid)
+    same = 0
+    for ids in groups.values():
+        texts, delays = dec.decode_corpus([wavs[s] for s in ids])
+        same += sum(sess._results[s] == (t_, d)
+                    for s, t_, d in zip(ids, texts, delays))
+    words = sum(len(d) for _, d in sess._results.values())
+    audio_s = float(lengths.sum()) / 16000.0
+    p50, p99 = (float(np.percentile(walls, q)) * 1e3 for q in (50, 99))
+    print(f"phase serving full: {SERVE_STREAMS} streams of 2-10 s on "
+          f"{SERVE_SLOTS} slots, t_cap {SERVE_T_CAP}, {len(stalls)} of them "
+          f"stalling one step in four: {steps} steps, {compactions} "
+          f"compactions, launches {counts}; text and delays == the cached "
+          f"decoder's for {same / SERVE_STREAMS:.3f} of the streams; wall "
+          f"per step p50 {p50:.2f} ms, p99 {p99:.2f} ms; {audio_s:.1f} "
+          f"audio-s in {wall:.2f} s -> {audio_s / wall:.2f} audio-sec/s "
+          f"(steps {sum(walls):.2f} s of it); {kernels} device kernels in "
+          f"one step of the warm-up (torch.profiler); peak "
+          f"memory {peak_gb:.3f} GB; words {words} [{card}]")
+    assert words > 0, "the session emitted nothing"
+    del sess, dec
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_launches(path, counts, sets, want, k2_per_call=None):
+    """K1 and K2 launches of a path == ``want``, all on the tensor-core
+    kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
+    it instead (a count that depends on the run)."""
+    if k2_per_call:
+        k2 = counts["blockwise_flash_attention_packed"]
+        assert k2 > 0 and k2 % k2_per_call == 0, (path, counts)
+        want = dict(want, K2=k2)
+    assert counts["chunk_cache_attention"] == want["K1"], (path, counts)
+    assert counts["blockwise_flash_attention_packed"] == want["K2"], (
+        path, counts)
+    _on_tensor_cores(sets, dict(want, K3=0))
+
+
 def main() -> int:
     import torch
 
@@ -2271,6 +2697,7 @@ def main() -> int:
     phase_parity()
     phase_oneshot_parity()
     same_in_bf16 = phase_beam_parity()
+    phase_serving_parity()
     phase_train_parity()
     phase_train_flash_parity()
     paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
@@ -2278,6 +2705,8 @@ def main() -> int:
     (paths["train_dense"], paths["train_long"], dense_ups,
      dense_gb) = phase_train_full(card)
     paths["cli_flash"] = phase_cli_full(card)
+    paths.update(phase_eval_cli_full(card))
+    paths["serving"] = phase_serving_full(card)
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 

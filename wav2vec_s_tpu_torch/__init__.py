@@ -8,9 +8,14 @@ Ported so far: the cached streaming greedy agent (wav2vec-S encoder + CAAT
 decoder/jointer), ``stream.batched.CachedFusedGreedyDecoder``, its
 corpus-evaluation twin ``stream.batched.OneShotCorpusDecoder`` (one
 blockwise encode per utterance, the same greedy loop replayed), and the
-CAAT fine-tuning step on dense attention (``W2V2CaatModel.forward``,
+CAAT fine-tuning step on dense or flash attention (``W2V2CaatModel.forward``,
 ``caat_loss``, ``train.recipes.make_caat_loss_fn`` +
-``train.step.make_train_step`` + ``train.optim.build_optimizer``).  Their
+``train.step.make_train_step`` + ``train.optim.build_optimizer``, driven by
+``train.cli``), the four batched beam decoders (``stream.beam_batched``),
+the evaluation entry point ``eval.cli`` (batch decode, DECISION_STEP sweep,
+SimulEval-style ``simul``, ``interactive``, ``score``, ``average``,
+``eval-lm``) and the continuous-batching ``stream.serving.ServingSession``
+with the SimulEval agent, server and client.  Their
 hand-written kernels are the incremental chunk attention
 (``ops/chunk_attention.py`` + ``csrc/chunk_attention.cu``), the
 block-sparse flash-attention forward (``ops/flash_attention.py`` +
@@ -27,10 +32,14 @@ Subpackages
 - ``models``     : parameter containers named like the fairseq/rain state
                    dicts (wav2vec-S encoder, CAAT decoder/jointer).
 - ``stream``     : incremental encoder, cached CAAT decode steps, the
-                   batched greedy decoders.
-- ``data``       : the fairseq-format dictionary.
-- ``train``      : the fine-tuning step: optimizer, LR schedules, recipe.
-- ``checkpoint`` : JAX parameter tree -> port state dict.
+                   batched greedy and beam decoders, the serving session,
+                   the SimulEval agent, server and client, latency metrics.
+- ``eval``       : WER, BLEU and the evaluation CLI.
+- ``data``       : dictionary, manifests, audio, tokenizers, batching.
+- ``train``      : the fine-tuning step, optimizer, LR schedules, recipe,
+                   the training CLI.
+- ``checkpoint`` : JAX parameter tree -> port state dict; save, restore and
+                   averaging of the port's checkpoints.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,10 @@ ignore.
 ``async_save``: ``save`` copies the tensors to host memory (one device
 synchronisation), then a background thread writes the file while training
 goes on; at most one write is in flight, ``wait`` commits it.
+
+For evaluation: ``load_params`` reads the model state dict of the latest
+step, or ``average_last_checkpoints`` averages the last K (fairseq
+scripts/average_checkpoints.py, JAX ``orbax_io.py:127-149``).
 """
 
 from __future__ import annotations
@@ -174,3 +178,53 @@ class CheckpointManager:
     def best_step(self) -> Optional[int]:
         scored = self._scored()
         return scored[0][0] if scored else None
+
+
+# -- averaging and reading for evaluation ----------------------------------
+
+def _reader(directory) -> CheckpointManager:
+    """A manager over an existing ``directory``: reading never creates it
+    (the manager's constructor would)."""
+    if not Path(directory).is_dir():
+        raise FileNotFoundError(f"no checkpoint directory {directory}")
+    return CheckpointManager(directory, keep_last=0)
+
+
+def average_params(state_dicts: List[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    """Uniform parameter averaging (fairseq
+    scripts/average_checkpoints.py; JAX ``orbax_io.average_params``): each
+    tensor summed in float64 over the state dicts, divided by their count
+    and cast back to its own dtype."""
+    n = len(state_dicts)
+    if n == 0:
+        raise ValueError("nothing to average")
+    out = {}
+    for key, first in state_dicts[0].items():
+        acc = torch.zeros(first.shape, dtype=torch.float64)
+        for sd in state_dicts:
+            acc += sd[key].to("cpu", torch.float64)
+        out[key] = (acc / n).to(first.dtype)
+    return out
+
+
+def average_last_checkpoints(directory, k: int) -> Dict[str, torch.Tensor]:
+    """The average of the model state dicts of the last ``k`` committed
+    steps in ``directory`` (JAX ``orbax_io.average_last_checkpoints``)."""
+    mgr = _reader(directory)
+    steps = mgr.all_steps()[-k:]
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints in {directory}")
+    return average_params([mgr.restore(s)[0]["model"] for s in steps])
+
+
+def load_params(ckpt_dir, average_k: int = 0) -> Dict[str, torch.Tensor]:
+    """The model state dict to evaluate (JAX ``eval/cli.py``
+    ``_load_params``): the latest step of ``ckpt_dir``, or the average of
+    its last ``average_k`` steps when ``average_k > 1``."""
+    if average_k > 1:
+        return average_last_checkpoints(ckpt_dir, average_k)
+    payload, _ = _reader(ckpt_dir).restore()
+    if payload is None:
+        raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    return payload["model"]

@@ -135,6 +135,16 @@ class W2V2CaatModel(nn.Module):
         return dense(proj, h).float()
 
     @torch.no_grad()
+    def lm_log_probs(self, prev_tokens: torch.Tensor) -> torch.Tensor:
+        """Language-model view of the decoupled decoder (JAX
+        ``W2V2CaatModel.lm_log_probs``): float32 next-token log-probs
+        [B, U, V] of the IsolatedDecoder in eval mode under the (shared)
+        output embedding, the teacher-forcing LM of the training forward.
+        The measurement behind ``eval.cli eval-lm``."""
+        h_lm = self.decoder.lm(prev_tokens)
+        return torch.log_softmax(self.output_logits(h_lm), dim=-1)
+
+    @torch.no_grad()
     def decode_step(self, prev_tokens: torch.Tensor,
                     token_lens: torch.Tensor, enc: torch.Tensor,
                     enc_pad: torch.Tensor) -> torch.Tensor:

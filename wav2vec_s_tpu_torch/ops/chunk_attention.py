@@ -48,15 +48,27 @@ def chunk_cache_attention_ref(q, k_cache, v_cache, k_new, v_new, intra_bias,
     Logits in f32 against all ``kv_cap`` cache rows (rows >= t0 masked with
     ``MASK_VALUE``) and against the chunk rows plus ``intra_bias``; one
     shared max; probabilities cast to the input dtype before P.V."""
+    bias_c = torch.where(torch.arange(k_cache.shape[0], device=q.device)
+                         < t0, 0.0, MASK_VALUE)          # [T]
+    return two_part_attention(q, k_cache, v_cache, k_new, v_new, bias_c,
+                              intra_bias, n_heads)
+
+
+def two_part_attention(q, k_cache, v_cache, k_new, v_new, cache_bias,
+                       intra_bias, n_heads: int) -> torch.Tensor:
+    """The two-part softmax of the incremental encoder step: R rows over
+    the time-major cache rows under an additive ``cache_bias`` that
+    broadcasts against the [B, H, R, T] logits (a [T] row bound for the
+    twin, a [B, 1, 1, T] per-stream plane for the serving step) and over
+    the chunk's own K/V under ``intra_bias`` [R, R]."""
     B, R, D = q.shape
     T = k_cache.shape[0]
     H, Dh = n_heads, D // n_heads
     qh = _split(q, H).float()                            # [B, H, R, Dh]
     kc = k_cache.reshape(T, B, H, Dh)
     vc = v_cache.reshape(T, B, H, Dh)
-    bias_c = torch.where(torch.arange(T, device=q.device) < t0, 0.0,
-                         MASK_VALUE)                     # [T]
-    lg_cache = torch.einsum("bhqd,tbhd->bhqt", qh, kc.float()) + bias_c
+    lg_cache = (torch.einsum("bhqd,tbhd->bhqt", qh, kc.float())
+                + cache_bias)
     lg_intra = (torch.einsum("bhqd,bhkd->bhqk", qh, _split(k_new, H).float())
                 + intra_bias)
     m = torch.maximum(lg_cache.amax(-1, keepdim=True),

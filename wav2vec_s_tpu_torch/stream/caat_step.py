@@ -199,7 +199,9 @@ def jointer_step(model, cfg, h_last: torch.Tensor, jk, jv,
     """Next-symbol log-probs [N, V] (f32) from cached jointer K/V.
 
     h_last: [N, D] LM state; jk/jv: per-layer time-major [T, N, D];
-    visible: [N] number of revealed encoder frames."""
+    visible: [N] number of revealed encoder frames, or a [N, T_cap]
+    boolean plane (True = revealed) for the continuous-batching serving
+    path, whose slots hold scattered global rows (``stream/serving.py``)."""
     c = cfg
     D = c.jointer_embed_dim
     H = c.jointer_attention_heads
@@ -207,9 +209,12 @@ def jointer_step(model, cfg, h_last: torch.Tensor, jk, jv,
     t_cap = jk[0].shape[0]
     N = h_last.shape[0]
     dtype = h_last.dtype
-    bias = torch.where(
-        torch.arange(t_cap, device=h_last.device)[None] < visible[:, None],
-        0.0, MASK_VALUE)                                         # [N, T]
+    if visible.dim() == 2:
+        bias = torch.where(visible[:, :t_cap], 0.0, MASK_VALUE)  # [N, T]
+    else:
+        bias = torch.where(
+            torch.arange(t_cap, device=h_last.device)[None]
+            < visible[:, None], 0.0, MASK_VALUE)                 # [N, T]
     x = h_last
     pre = c.decoder_normalize_before
     for i, layer in enumerate(model.decoder.jointer.layers):

@@ -8,6 +8,10 @@ cache rows (< t0) and the chunk itself under the intra-chunk block mask —
 CUDA tensors — and the main frames' K/V append to fixed-capacity cache
 buffers (look-ahead K/V are never committed, except at the final flush).
 
+``make_serving_step`` is the continuous-batching variant that
+``stream/serving.py`` runs: per-slot positions and a per-slot visibility
+plane over the cache rows, its attention plain torch as in the JAX package.
+
 Layout, as in the JAX package: per-layer TIME-MAJOR ``[T_cap, N, D]``
 buffers, one tensor per layer.  Appends write the buffers IN PLACE, so a
 step returns the same state object, advanced.  ``t_main`` is a host int
@@ -28,7 +32,8 @@ from wav2vec_s_tpu_torch.models.modules import (
     attn_input, dense, gelu, layer_tail, ln)
 from wav2vec_s_tpu_torch.models.wav2vec2 import Wav2Vec2Config, Wav2Vec2Model
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
-from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
+from wav2vec_s_tpu_torch.ops.chunk_attention import (
+    chunk_cache_attention, two_part_attention)
 from wav2vec_s_tpu_torch.utils.positional import POS_OFFSET, sinusoidal_table
 
 
@@ -132,8 +137,75 @@ class IncrementalBlockwiseEncoder:
         look-ahead frames (end of stream)."""
         return self._step(state, window, flush, self.t_cap)
 
-    @torch.no_grad()
     def _step(self, state, window, flush, kv_cap):
+        n_frames = self.n_main + self.rc
+        t0 = state.t_main
+        if (t0 + (n_frames if flush else self.n_main) > self.t_cap
+                or t0 + POS_OFFSET + n_frames > self._table.shape[0]):
+            raise ValueError(f"a step at t0={t0} does not fit "
+                             f"t_cap={self.t_cap}")
+        H = self.cfg.encoder_attention_heads
+
+        def attend(q, k_cache, v_cache, k_new, v_new):
+            return chunk_cache_attention(
+                q, k_cache[:kv_cap], v_cache[:kv_cap], k_new, v_new,
+                self._intra_bias, t0, H)
+
+        # positions: global frame index + fairseq offset
+        pos = self._table[t0 + POS_OFFSET:t0 + POS_OFFSET + n_frames]
+        return self._encode(state, window, pos, attend, flush)
+
+    # -- serving step ----------------------------------------------------
+    def make_serving_step(self):
+        """Step variant for continuous batching (``stream/serving.py``):
+        slots at different stream positions share lockstep global cache
+        rows (JAX ``make_serving_step``, incremental.py:308-466).
+
+        Differences from the corpus step:
+        - positions come from each slot's frame count (``frames_done``
+          [N]), not the global write offset, so a slot's positions run
+          from its own 0 wherever its rows sit in the cache;
+        - cached-key visibility is a per-slot boolean plane (``vis`` [N,
+          t_cap], True = the row belongs to this slot's stream), not the
+          shared ``row < t0`` bound;
+        - every step commits ``n_main + rc`` rows (the flush layout): the
+          caller marks the rc tail visible only for slots that end their
+          stream this step.
+
+        The attention is plain torch: the JAX serving step computes it
+        with einsums, not in the chunk-attention kernel (K1 reads rows <
+        t0 for every stream alike).  Returns ``step(state, window,
+        frames_done, vis)``, which advances ``state`` in place by ``n_main
+        + rc`` rows and returns it; the plane is the caller's."""
+        return self._serving_step
+
+    def _serving_step(self, state, window, frames_done, vis):
+        n_frames = self.n_main + self.rc
+        t0 = state.t_main
+        if t0 + n_frames > self.t_cap:
+            raise ValueError(f"a step at t0={t0} does not fit "
+                             f"t_cap={self.t_cap}")
+        H = self.cfg.encoder_attention_heads
+        bias_c = torch.where(vis, 0.0, MASK_VALUE)[:, None, None, :]
+
+        def attend(q, k_cache, v_cache, k_new, v_new):
+            return two_part_attention(q, k_cache, v_cache, k_new, v_new,
+                                      bias_c, self._intra_bias, H)
+
+        # per-slot positions: slot-local frame index + fairseq offset
+        # (clamped to the table like the JAX gather)
+        pos = self._table[(frames_done[:, None]
+                           + torch.arange(n_frames, device=self.device)[None]
+                           + POS_OFFSET).clamp(max=self._table.shape[0] - 1)]
+        return self._encode(state, window, pos, attend, True)
+
+    @torch.no_grad()
+    def _encode(self, state, window, pos, attend, flush):
+        """The body both steps share: features + ``pos`` (the position
+        rows, [n_frames, D] or per slot [N, n_frames, D]), the layer stack
+        with ``attend(q, k_cache, v_cache, k_new, v_new)`` as each layer's
+        attention, and the commit of the main rows (+ the last block's
+        look-ahead when ``flush``) at ``t_main``."""
         c = self.cfg
         m = self.model
         n_main, rc = self.n_main, self.rc
@@ -141,37 +213,29 @@ class IncrementalBlockwiseEncoder:
         n_rows = n_main + self.blocks * rc
         n_keep = n_main + rc if flush else n_main
         t0 = state.t_main
-        if (t0 + n_keep > self.t_cap
-                or t0 + POS_OFFSET + n_frames > self._table.shape[0]):
-            raise ValueError(f"a step at t0={t0} does not fit "
-                             f"t_cap={self.t_cap}")
 
         window = torch.as_tensor(window, device=self.device)
         feats = m.feature_extractor(window, self.dtype)[:, :n_frames]
         feats = ln(m.layer_norm, feats)
         if m.post_extract_proj is not None:
             feats = dense(m.post_extract_proj, feats)
-        # positions: global frame index + fairseq offset
-        feats = feats + self._table[t0 + POS_OFFSET:t0 + POS_OFFSET + n_frames]
+        feats = feats + pos
         if not c.layer_norm_first:
             feats = ln(m.encoder.layer_norm, feats)
         # chunk rows: main frames + per-block look-ahead copies
         x = torch.cat([feats[:, :n_main], feats[:, self._copy_src]], dim=1)
 
-        H = c.encoder_attention_heads
-        scale = (c.encoder_embed_dim // H) ** -0.5
+        scale = (c.encoder_embed_dim // c.encoder_attention_heads) ** -0.5
         for i, layer in enumerate(m.encoder.layers):
             att = layer.self_attn
             h_in = attn_input(layer, x, c.layer_norm_first)
             q = dense(att.q_proj, h_in) * scale
             k_new = dense(att.k_proj, h_in)
             v_new = dense(att.v_proj, h_in)
-            o = chunk_cache_attention(
-                q, state.k_cache[i][:kv_cap], state.v_cache[i][:kv_cap],
-                k_new, v_new, self._intra_bias, t0, H)
+            o = attend(q, state.k_cache[i], state.v_cache[i], k_new, v_new)
             h = dense(att.out_proj, o)
-            # cache the main frames' K/V (+ final look-ahead at flush):
-            # written in place, after this layer's attention read the cache
+            # cache the main frames' K/V (+ look-ahead at flush): written
+            # in place, after this layer's attention read the cache
             for cache, new in ((state.k_cache[i], k_new),
                                (state.v_cache[i], v_new)):
                 cache[t0:t0 + n_keep] = self._keep(new, n_rows, flush)

@@ -1,0 +1,327 @@
+"""Continuous-batching streaming serving over N device slots (torch).
+
+Port of ``wav2vec_s_tpu/stream/serving.py``.  The corpus decoders
+(``stream/batched.py``) are wave-synchronous: every stream of a batch
+starts and ends together.  Live serving is not: streams join, stall (audio
+arrives slower than the card decodes) and finish on their own.  This module
+multiplexes live streams onto a fixed number of SLOTS that advance in
+lockstep:
+
+- **Global cache rows, per-slot visibility.**  Every step appends the
+  chunk's encoder K/V, outputs and jointer K/V at the same global row offset
+  for all N slots.  A slot's stream sees only the rows written while it was
+  active, tracked by a boolean plane ``vis [N, t_cap]``; rows written during
+  someone else's turn stay masked out of its attention.  Absent or stalled
+  slots compute values that are never marked visible.
+- **Per-slot positions.**  Sinusoidal positions come from each slot's own
+  frame count, so a stream that joined at global row 400 still sees
+  positions 0, 1, 2, ...: the same math as decoding it alone.
+- **Slot recycling.**  A finished slot is reset by a mask: its prefix
+  becomes [bos], its visibility row clears, and one masked LM step on bos
+  rebuilds its ``h_last`` (writing bos K/V at row 0 changes nothing for the
+  other streams: those values depend on the position and the weights only).
+- **Compaction.**  Global rows grow monotonically; when the capacity runs
+  out, the caches roll down by the least first-visible row of the active
+  slots, the serving analogue of freeing KV-cache pages.
+
+What differs from the JAX session: the JAX emission ``while_loop`` ends
+once every row is blocked; here the step runs ``max_emit_per_chunk`` masked
+iterations and reads nothing back inside it, as ``CachedFusedGreedyDecoder``
+does.  Blocked rows do not change, so the results are the same.  The global
+write offset ``t_main`` is a host int; a step reads ``lens`` and
+``prefixes`` back once, as the JAX host API does.  The reset's LM step runs
+only in steps that reset a slot (``reset`` is a host array): in the others
+it would change nothing.  Emission semantics (greedy blank -> advance,
+delay bookkeeping) equal ``CachedFusedGreedyDecoder``'s per stream
+(``tests/test_torch_port_serving.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from wav2vec_s_tpu_torch.models.modules import compute_copy
+from wav2vec_s_tpu_torch.stream import caat_step
+from wav2vec_s_tpu_torch.stream.incremental import IncrementalBlockwiseEncoder
+
+
+@dataclasses.dataclass
+class _Slot:
+    stream_id: Optional[str] = None
+    buf: Optional[np.ndarray] = None        # received samples
+    n_buf: int = 0
+    ended: bool = False
+    chunk_idx: int = 0
+    n_chunks: int = -1                      # known once ended
+    first_row: int = 0                      # earliest visible global row
+    pieces: List[str] = dataclasses.field(default_factory=list)
+    delays_ms: List[float] = dataclasses.field(default_factory=list)
+    emitted: int = 1                        # prefix rows consumed (bos)
+    fresh: bool = True                      # needs the in-step reset
+
+
+class ServingSession:
+    """Continuous-batching greedy transducer serving.
+
+    API:
+      add_stream(sid) -> bool      claim a free slot (False = all busy)
+      push(sid, samples, is_end)   feed audio (float32 @ 16 kHz); the end
+                               must come with the last chunk's audio
+      step() -> {sid: [words...]}  advance every ready slot by one chunk
+      drain()                      step until every admitted stream ended
+      result(sid) -> (text, delays_ms)   after the stream finished
+
+    Arguments are those of the JAX session except ``params``: the
+    ``W2V2CaatModel`` carries its parameters and its device; the session
+    works on a copy whose matmul weights are cast to the compute dtype.
+    ``steps`` and ``compactions`` count the device steps and the cache
+    compactions run so far.
+    """
+
+    def __init__(self, model, vocab, w2v_cfg, n_slots: int = 16,
+                 t_cap: int = 1024, blocks_per_step: int = 2,
+                 max_len: int = 256, max_emit_per_chunk: int = 4):
+        self.model = compute_copy(model, model.cfg.compute_dtype)
+        self.device = model.decoder.lm.embed_tokens.weight.device
+        self.vocab = vocab
+        self.n = n_slots
+        self.t_cap = t_cap
+        self.max_len = max_len
+        self.max_emit = max_emit_per_chunk
+        self.enc = IncrementalBlockwiseEncoder(
+            w2v_cfg, self.model.encoder.w2v2_model, n_slots, t_cap=t_cap,
+            blocks_per_step=blocks_per_step,
+            proj=self.model.encoder.encoder_proj)
+        self.rc = self.enc.rc
+        self.n_main = self.enc.n_main
+        self.stride = self.enc.n_main * self.enc.hop
+        self.window = self.enc.window
+        self._rows_per_step = self.n_main + self.rc
+        self._enc_step = self.enc.make_serving_step()
+
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self._by_id: Dict[str, int] = {}
+        self._results: Dict[str, tuple] = {}
+        self.steps = 0
+        self.compactions = 0
+
+        caat = self.model.cfg
+        N, dev = n_slots, self.device
+        self._estate = self.enc.init()
+        cdtype = self._estate.out_cache.dtype
+        self._vis = torch.zeros((N, t_cap), dtype=torch.bool, device=dev)
+        self._jk = [torch.zeros((t_cap, N, caat.jointer_embed_dim),
+                                dtype=cdtype, device=dev)
+                    for _ in range(caat.jointer_layers)]
+        self._jv = [torch.zeros_like(k) for k in self._jk]
+        self._prefixes = torch.full((N, max_len + 1), vocab.pad(),
+                                    dtype=torch.long, device=dev)
+        self._prefixes[:, 0] = vocab.bos()
+        self._lens = torch.ones(N, dtype=torch.long, device=dev)
+        self._frames = torch.zeros(N, dtype=torch.long, device=dev)
+        self._lm = caat_step.lm_init(self.model, caat, N, max_len + 1)
+        self._rows = torch.arange(N, device=dev)
+        self._row_is_main = (torch.arange(self._rows_per_step, device=dev)
+                             < self.n_main)
+
+    # -- device step -----------------------------------------------------
+    @torch.no_grad()
+    def _device_step(self, window, ready, flush, reset, any_reset: bool):
+        model, caat = self.model, self.model.cfg
+        blank, pad = self.vocab.bos(), self.vocab.pad()
+        N, n_new = self.n, self._rows_per_step
+        prefixes, lens, frames, lm = (self._prefixes, self._lens,
+                                      self._frames, self._lm)
+
+        if any_reset:                                # recycled slots
+            fresh_row = torch.full_like(prefixes[0], pad)
+            fresh_row[0] = blank
+            prefixes = torch.where(reset[:, None], fresh_row[None], prefixes)
+            lens = torch.where(reset, 1, lens)
+            frames = torch.where(reset, 0, frames)
+            self._vis &= ~reset[:, None]
+            lm = caat_step.lm_step(
+                model, caat, lm, torch.full_like(lens, blank),
+                torch.zeros_like(lens), reset)
+
+        t0 = self._estate.t_main
+        self._estate = self._enc_step(self._estate, window, frames,
+                                      self._vis)
+
+        # visibility: main rows where ready; the rc tail where flushing
+        new_plane = ready[:, None] & (self._row_is_main[None]
+                                      | flush[:, None])      # [N, n_new]
+        self._vis[:, t0:t0 + n_new] |= new_plane
+
+        k_new, v_new = caat_step.jointer_kv(
+            model, caat, self._estate.out_cache[t0:t0 + n_new])
+        caat_step.jointer_kv_append(self._jk, self._jv, k_new, v_new, t0)
+
+        # greedy emission loop (CachedFusedGreedyDecoder's), masked by
+        # `ready` and driven by the visibility plane
+        rows = self._rows
+        blocked = ~ready
+        for _ in range(self.max_emit):
+            lp = caat_step.jointer_step(model, caat, lm.h_last, self._jk,
+                                        self._jv, self._vis)
+            lp[:, pad] = -float("inf")
+            tok = torch.argmax(lp, dim=-1)         # first maximum, as jnp
+            emit = ~blocked & (tok != blank) & (lens < self.max_len)
+            prefixes[rows, lens] = torch.where(emit, tok,
+                                               prefixes[rows, lens])
+            lm = caat_step.lm_step(model, caat, lm, tok, lens, emit)
+            lens = lens + emit
+            blocked = blocked | ~emit
+        self._frames = frames + torch.where(ready, self.n_main, 0)
+        self._prefixes, self._lens, self._lm = prefixes, lens, lm
+
+    def _compact(self):
+        active_rows = [s.first_row for s in self.slots
+                       if s.stream_id is not None and not s.fresh]
+        t_main = self._estate.t_main
+        shift = min(active_rows) if active_rows else t_main
+        if shift <= 0:
+            return
+        st = self._estate
+
+        def roll_t(buf):
+            return torch.roll(buf, -shift, dims=0)
+
+        keep = (torch.arange(self.t_cap, device=self.device)[None]
+                < t_main - shift)                            # [1, t_cap]
+        self._vis = torch.roll(self._vis, -shift, dims=1) & keep
+        st.k_cache = [roll_t(b) for b in st.k_cache]
+        st.v_cache = [roll_t(b) for b in st.v_cache]
+        st.out_cache = roll_t(st.out_cache)
+        st.t_main = t_main - shift
+        self._jk = [roll_t(b) for b in self._jk]
+        self._jv = [roll_t(b) for b in self._jv]
+        for s in self.slots:
+            if s.stream_id is not None:
+                s.first_row -= shift
+        self.compactions += 1
+
+    # -- host API ----------------------------------------------------------
+    def add_stream(self, stream_id: str) -> bool:
+        if stream_id in self._by_id:
+            raise ValueError(f"stream {stream_id} already active")
+        for i, s in enumerate(self.slots):
+            if s.stream_id is None:
+                self.slots[i] = _Slot(stream_id=stream_id,
+                                      buf=np.zeros(0, np.float32),
+                                      fresh=True)
+                self._by_id[stream_id] = i
+                return True
+        return False
+
+    def push(self, stream_id: str, samples, is_end: bool = False):
+        s = self.slots[self._by_id[stream_id]]
+        samples = np.asarray(samples, np.float32)
+        if len(samples):
+            s.buf = np.concatenate([s.buf, samples])
+        s.n_buf = len(s.buf)
+        if is_end:
+            s.ended = True
+            total_frames = max((s.n_buf - self.enc.rf) // self.enc.hop + 1,
+                               1)
+            s.n_chunks = max((total_frames - self.rc) // self.n_main, 1)
+            if s.chunk_idx >= s.n_chunks:
+                # its last chunk already ran without the end's look-ahead
+                # flush: the JAX session would wait for it forever
+                raise RuntimeError(
+                    f"stream {stream_id}: the end came after its last chunk "
+                    f"ran ({s.chunk_idx} of {s.n_chunks}); push the end with "
+                    f"the last chunk's audio")
+
+    def _ready(self, s: _Slot) -> bool:
+        if s.stream_id is None:
+            return False
+        need = s.chunk_idx * self.stride + self.window
+        return s.n_buf >= need or (s.ended and s.chunk_idx < s.n_chunks)
+
+    def step(self) -> Dict[str, List[str]]:
+        """Advance every ready slot by one chunk; returns new words."""
+        N, W = self.n, self.window
+        if self._estate.t_main + self._rows_per_step > self.t_cap:
+            self._compact()
+            if self._estate.t_main + self._rows_per_step > self.t_cap:
+                raise RuntimeError(
+                    f"t_cap={self.t_cap} exhausted: the longest active "
+                    "stream exceeds the session's cache capacity")
+        t_main = self._estate.t_main
+
+        window = np.zeros((N, W), np.float32)
+        ready = np.zeros(N, bool)
+        flush = np.zeros(N, bool)
+        reset = np.zeros(N, bool)
+        fired = []
+        for i, s in enumerate(self.slots):
+            if s.stream_id is None:
+                continue
+            if s.fresh:
+                reset[i] = True
+                s.fresh = False
+                s.first_row = t_main
+            if self._ready(s):
+                ready[i] = True
+                start = s.chunk_idx * self.stride
+                chunk = s.buf[start:start + W]
+                window[i, :len(chunk)] = chunk
+                flush[i] = s.ended and s.chunk_idx == s.n_chunks - 1
+                fired.append(i)
+
+        if not fired and not reset.any():
+            return {}
+
+        dev = self.device
+        self._device_step(torch.from_numpy(window).to(dev),
+                          torch.from_numpy(ready).to(dev),
+                          torch.from_numpy(flush).to(dev),
+                          torch.from_numpy(reset).to(dev),
+                          bool(reset.any()))
+        self.steps += 1
+
+        lens = self._lens.cpu().numpy()
+        pfx = self._prefixes.cpu().numpy()
+        out: Dict[str, List[str]] = {}
+        for i in fired:
+            s = self.slots[i]
+            ms = (s.chunk_idx * self.stride + W) / 16.0
+            new_words = []
+            for u in range(s.emitted, int(lens[i])):
+                tok = int(pfx[i, u])
+                if tok >= self.vocab.nspecial:
+                    s.pieces.append(self.vocab[tok])
+                s.delays_ms.append(ms)
+                new_words.append(self.vocab[tok]
+                                 if tok >= self.vocab.nspecial else "")
+            s.emitted = int(lens[i])
+            s.chunk_idx += 1
+            if new_words:
+                out[s.stream_id] = [w for w in new_words if w]
+            if s.ended and s.chunk_idx >= s.n_chunks:
+                text = ("".join(s.pieces).replace("▁", " ").strip()
+                        if s.pieces else "")
+                self._results[s.stream_id] = (text, list(s.delays_ms))
+                del self._by_id[s.stream_id]
+                self.slots[i] = _Slot()
+        return out
+
+    def drain(self) -> None:
+        """Run steps until every admitted stream has finished (requires all
+        of them to have been end-pushed)."""
+        while self._by_id:
+            if not any(self._ready(s) for s in self.slots):
+                stuck = [s.stream_id for s in self.slots
+                         if s.stream_id is not None]
+                raise RuntimeError(
+                    f"streams {stuck} are stalled (not ended and no "
+                    "buffered audio)")
+            self.step()
+
+    def result(self, stream_id: str):
+        return self._results[stream_id]

@@ -111,6 +111,16 @@ def _config(cls, kwargs: Dict, section: str, **fixed):
     return cls(**kw, **fixed)
 
 
+def caat_configs(cfg: TrainConfig, vocab_size: int):
+    """(Wav2Vec2Config, CaatConfig) of the configuration's ``model``,
+    ``caat`` and ``context`` sections."""
+    model_cfg = _config(Wav2Vec2Config, cfg.model, "model",
+                        main_context=cfg.context.main_context,
+                        right_context=cfg.context.right_context)
+    caat_cfg = _config(CaatConfig, cfg.caat, "caat", vocab_size=vocab_size)
+    return model_cfg, caat_cfg
+
+
 def build_caat(cfg: TrainConfig):
     """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run on raw
     audio (``wav2vec_s_tpu/train/cli.py`` ``build_caat``)."""
@@ -122,11 +132,7 @@ def build_caat(cfg: TrainConfig):
     batcher = CaatBatcher(manifest, tgt_dict, tokenizer, audio_buckets,
                           task_type=cfg.data.task_type,
                           normalize=cfg.data.normalize)
-    model_cfg = _config(Wav2Vec2Config, cfg.model, "model",
-                        main_context=cfg.context.main_context,
-                        right_context=cfg.context.right_context)
-    caat_cfg = _config(CaatConfig, cfg.caat, "caat",
-                       vocab_size=len(tgt_dict))
+    model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
     model = random_init_(W2V2CaatModel(model_cfg, caat_cfg),
                          torch.Generator().manual_seed(cfg.run.seed))
     if cfg.run.pretrained_encoder_path:
