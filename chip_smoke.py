@@ -34,10 +34,21 @@ Phases, each printed on its own line:
                the tensor-core kernels; then kernel, twin and the library
                call (its backward alone: forward + backward minus forward)
                timed;
+  3c. flash pretrain — K2, then K3 at dropout 0 and 0.1, against their
+               twins at the pre-training call (B 5, T 628: a 200960-sample
+               crop; 12 heads of 64, padded keys) under each of the 7
+               context buckets (8,4) .. (32,16) (S 876-940), bfloat16 on
+               the tensor-core kernels, float32 on the CUDA-core kernels;
+               then per bucket K2 and K3 (bf16, dropout 0.1) timed beside
+               their bounds and library calls;
   4. dropout — the counter-based dropout kernel (K4) against its twin:
-               bit-equal outputs and masks at the training step's shapes
-               ([8*748, 768], [8*748, 3072], the attention probabilities
-               [8*12*748, 748]), float32 and bfloat16, p 0.1 and 0.3; keep
+               bit-equal outputs and masks at the CAAT training step's
+               shapes ([8*748, 768], [8*748, 3072], the attention
+               probabilities [8*12*748, 748]) and the pre-training step's
+               (dropout_input [5*627, 768], dropout_features [5*627, 512],
+               the FFN rows [5*628, 3072], the dense attention
+               probabilities [5*12*940, 940]), float32 and bfloat16,
+               p 0.1 and 0.3; keep
                share within 4 sigma, forward mask == backward mask, new
                seed / offset -> new mask; then both timed per call;
   5. lattice — the transducer kernels (K5a alphas, K5b betas, K6 affine
@@ -89,6 +100,12 @@ Phases, each printed on its own line:
                attention_impl="flash" (K2 with row stats and K3 in every
                layer) on the card equal the CPU's; then, with the recipe's
                dropouts on, flash equals dense on the card under one seed;
+  8c. pretrain parity — tiny wav2vec-S pre-training (hop 20, 2 layers 32
+               wide), float32, dropout off: two updates on the card equal the
+               CPU's (loss, grad norm, every parameter), dense and flash,
+               every draw (negatives, Gumbel uniforms) from one CPU
+               generator per update; then, the recipe's dropouts on, flash
+               equals dense on the card under one seed;
   9. full    — wav2vec-S Base + CAAT base, bfloat16, random weights from a
                seed, DECISION_STEP=2, max_emit 4, int16 wire: the cached
                agent on 128 streams of 10 s per corpus, one warm-up corpus,
@@ -157,6 +174,23 @@ Phases, each printed on its own line:
                window, compaction runs; steps, compactions, the share of
                streams equal to the cached decoder's, wall per step p50/p99,
                audio-sec/s, device kernels of one step, peak memory.
+  15. pretrain full — wav2vec-S streaming pre-training through the
+               training entry point with configs/pretrain_base.yaml and
+               dot-overrides (Base width, bf16, sampled contexts, the
+               recipe's dropouts and layerdrop) on 20 seeded-noise wavs of
+               250000 samples (B 5 in the 200960-sample bucket): 2 warm +
+               10 timed updates, dense then attention_impl=flash; K4 ==
+               twice the dropout sites (less the attention sites under
+               flash), K2 == K3 == encoder layers kept, all on the
+               tensor-core kernels, K1 none; at least 3 distinct (mc, rc)
+               buckets; finite losses, no skipped update; updates/s, peak
+               memory, the buckets, the host ms of each update's draws, the
+               tile-table rebuilds.  Then the chain: the flash run's
+               checkpoint -> convert_cli export to a fairseq .pt -> the
+               port's import (equal to the saved state dict key for key) ->
+               a CAAT train.cli call with run.w2v2_model_path whose encoder
+               equals the pre-trained one before its first update, and
+               which takes one update.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -713,8 +747,8 @@ def _keep_share(keep, p):
 
 
 def phase_dropout():
-    """K4 vs its twin: bit-equal outputs and masks at the training step's
-    dropout shapes -> the kernel's row."""
+    """K4 vs its twin: bit-equal outputs and masks at the dropout shapes of
+    the CAAT step and of the pre-training step -> the kernel's row."""
     import torch
     import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.dropout import (
@@ -723,7 +757,13 @@ def phase_dropout():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
     N = 8 * 748                       # encoder rows of the full-width step
-    shapes = [(N, 768), (N, 3072), (8 * 12 * 748, 748)]
+    # pre-training (phase 15): dropout_input on the 768-wide projected
+    # features, dropout_features on the 512-wide conv features (627 frames
+    # of a 200960-sample crop), the encoder's FFN rows at T 628 and, under
+    # dense attention, the probabilities at the widest packed length S 940
+    P, PF = PRETRAIN_B * PRETRAIN_T, PRETRAIN_B * (PRETRAIN_T - 1)
+    shapes = [(N, 768), (N, 3072), (8 * 12 * 748, 748),
+              (PF, 768), (PF, 512), (P, 3072), (PRETRAIN_B * 12 * 940, 940)]
     seed, offset = 0x1234_5678_9ABC_DEF, 17
     worst = 0.0
     for shape in shapes:
@@ -2651,6 +2691,486 @@ def phase_serving_full(card):
     return counts
 
 
+# -- pre-training ------------------------------------------------------------
+
+PRETRAIN_T = 628     # 627 frames of a 200960-sample crop, padded to 628
+PRETRAIN_B = 5       # 1.4M max_tokens over 250000-sample wavs
+PRETRAIN_BUCKETS = ((8, 4), (12, 6), (16, 8), (20, 8), (24, 12), (28, 12),
+                    (32, 16))
+
+
+def phase_flash_pretrain():
+    """K2, then K3 at dropout 0 and 0.1, against their twins at the
+    pre-training call (B 5, T 628, 12 heads of 64, padded keys) under each
+    of the 7 context buckets, bfloat16 on the tensor-core kernels and
+    float32 on the CUDA-core kernels; then, per bucket, the bfloat16 kernels
+    timed at dropout 0.1 beside their bounds and library calls -> {(mc,
+    rc): (K2 ms, K2 bound, K2 library ms, K3 ms, K3 bound, K3 library ms)}.
+    """
+    import torch
+    import torch.nn.functional as F
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        blockwise_flash_attention_bwd, blockwise_flash_attention_bwd_ref,
+        blockwise_flash_attention_packed, blockwise_flash_attention_ref)
+
+    B, T, H, D = PRETRAIN_B, PRETRAIN_T, 12, 768
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    seed, offset = 0x0F1E_2D3C_4B5A_6978, 3
+    tol_fwd = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    tol_bwd = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    out_rows = {}
+    for mc, rc in PRETRAIN_BUCKETS:
+        S = block_layout(T, mc, rc).total_len
+        pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        pad[1, T - 10:T] = True
+        pad[1, S - 3:] = True
+        valid = ~pad
+        lay = (pad, H, T, mc, rc)
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
+                           .to(dtype) for _ in range(4))
+            do = do * valid[:, :, None].to(dtype)
+            path, other = (("tensor_core", "cuda_core")
+                           if dtype == torch.bfloat16
+                           else ("cuda_core", "tensor_core"))
+            for rate in (0.0, 0.1):
+                _reset_counts()
+                out, m, l = blockwise_flash_attention_packed(
+                    q, k, v, *lay, rate, True, seed, offset)
+                got = blockwise_flash_attention_bwd(
+                    q, k, v, out, do, m, l, *lay, rate, seed, offset)
+                torch.cuda.synchronize()
+                sets = _set_paths()
+                assert (sets["K2"], sets["K3"]) == (
+                    {path: 1, other: 0}, {path: 1, other: 0}), sets
+                want = blockwise_flash_attention_ref(q, k, v, *lay, rate,
+                                                     seed, offset)[0]
+                err_f = (out[valid].float() - want[valid].float()).abs(
+                ).max().item()
+                del want
+                ref = blockwise_flash_attention_bwd_ref(
+                    q, k, v, out, do, m, l, *lay, rate, seed, offset)
+                err_b = []
+                for i, (a, b) in enumerate(zip(got, ref)):
+                    if i == 0:
+                        a, b = a[valid], b[valid]
+                    assert torch.isfinite(a).all()
+                    err_b.append(((a.float() - b.float()).abs().max()
+                                  / b.float().abs().max()).item())
+                assert err_f <= tol_fwd[dtype], (mc, rc, dtype, rate, err_f)
+                assert max(err_b) <= tol_bwd[dtype], (mc, rc, dtype, rate,
+                                                      err_b)
+                errs.append(f"{str(dtype)[6:]} p={rate}: {err_f:.3g} / "
+                            f"{max(err_b):.3g}")
+                del got, ref, out, m, l
+        print(f"phase flash pretrain: ({mc}, {rc}) S={S}: K2 forward max "
+              f"abs err / K3 max |diff| / max |grad| vs twins (tol bf16 "
+              f"2e-2 / 1e-2, f32 1e-4 / 1e-5; bf16 on the tensor-core "
+              f"kernels, f32 on the CUDA-core kernels): {'; '.join(errs)}")
+
+        # timing: bfloat16, dropout 0.1, mean per call
+        q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
+        pad[:, T - 1] = True                 # the seq-multiple pad frame
+        lay = (pad, H, T, mc, rc, 0.1)
+        _reset_counts()
+        k2 = _cuda_ms(lambda: blockwise_flash_attention_packed(
+            q, k, v, *lay, True, seed, offset), 20)
+        out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True,
+                                                     seed, offset)
+        k3 = _cuda_ms(lambda: blockwise_flash_attention_bwd(
+            q, k, v, out, do, m, l, *lay, seed, offset), 20)
+        _on_tensor_cores(_set_paths(), {"K2": 22, "K3": 21})
+        qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, H, T, mc, rc)
+        lib_fwd = _cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, dropout_p=0.1), 20)
+        leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+        doh = do.reshape(B, S, H, D // H).transpose(1, 2)
+
+        def library():
+            o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                               dropout_p=0.1)
+            torch.autograd.grad(o, leaves, doh)
+
+        lib_bwd = _cuda_ms(library, 20) - lib_fwd
+        pairs = _allowed_pairs(T, mc, rc)
+        b2 = _bound(2 * 4 * B * S * D + B * S, 4 * B * D * pairs, "bfloat16")
+        b3 = _bound(2 * 8 * B * S * D + 2 * 4 * B * H * S + B * S,
+                    10 * B * D * pairs, "bfloat16")
+        print(f"phase flash pretrain: ({mc}, {rc}) S={S} B={B} bf16 p=0.1 "
+              f"per call: K2 {k2:.4f} ms (bound {b2[0]:.5f} by {b2[1]}, "
+              f"library {lib_fwd:.4f}); K3 {k3:.4f} ms (bound {b3[0]:.5f} "
+              f"by {b3[1]}, library backward alone {lib_bwd:.4f})")
+        out_rows[f"{mc},{rc}"] = {
+            "S": S, "K2_ms": k2, "K2_bound_ms": b2[0],
+            "K2_library_ms": lib_fwd, "K3_ms": k3, "K3_bound_ms": b3[0],
+            "K3_library_ms": lib_bwd}
+        del q, k, v, do, out, m, l, qh, kh, vh, mask, leaves, doh
+    torch.cuda.empty_cache()
+    return out_rows
+
+
+def _tiny_pretrain_model(dev, attention_impl, dropout: bool):
+    """The tiny pre-training model (conv hop 20, 2 layers 32 wide, dh 8),
+    float32, random weights from seed 0; the recipe's dropouts or none."""
+    import dataclasses
+
+    import torch
+    from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+
+    w2v = Wav2Vec2Config(
+        conv_feature_layers=((16, 10, 5), (16, 3, 2), (16, 2, 2)),
+        encoder_layers=2, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+        encoder_attention_heads=4, final_dim=16, latent_vars=8,
+        n_negatives=10, attention_impl=attention_impl)
+    if not dropout:
+        w2v = dataclasses.replace(
+            w2v, dropout=0.0, attention_dropout=0.0, activation_dropout=0.0,
+            encoder_layerdrop=0.0, dropout_input=0.0, dropout_features=0.0)
+    model = random_init_(Wav2Vec2Model(w2v, pretraining=True),
+                         torch.Generator().manual_seed(0))
+    return model.to(dev)
+
+
+def _tiny_pretrain_batch(seed=0):
+    """3 rows of 2400 samples (119 frames), 56 masked positions per row
+    from the batcher's masker."""
+    import torch
+    from wav2vec_s_tpu_torch.utils.masking import (
+        compute_span_mask_np, expected_mask_count)
+
+    rng = np.random.default_rng(seed)
+    src = (rng.standard_normal((3, 2400)) * 0.3).astype(np.float32)
+    M = expected_mask_count(119)
+    mask = compute_span_mask_np((3, 119), None, 0.65, 10, rng,
+                                exact_count=M)
+    pos = np.stack([np.flatnonzero(r)[:M] for r in mask])
+    return {"source": torch.from_numpy(src),
+            "mask_positions": torch.from_numpy(pos).long()}
+
+
+def phase_pretrain_parity():
+    """Tiny wav2vec-S pre-training, float32, dropout off: two updates on
+    the card (kernels) equal the CPU's (twins), dense and flash, every draw
+    of both runs from one CPU generator per update; then, with the
+    recipe's dropouts on, flash equals dense on the card under one seed."""
+    import torch
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_pretrain_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = OptimConfig(lr=1e-3, lr_scheduler="inverse_sqrt", warmup_updates=2)
+    for impl in ("dense", "flash"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = _tiny_pretrain_model(dev, impl, dropout=False)
+            opt = build_optimizer(cfg)
+            state = TrainState.create(model, opt)
+            step = make_train_step(make_pretrain_loss_fn(model, 8, 4), opt)
+            _reset_counts()
+            logs = []
+            for i in range(2):
+                b = {k: v.to(dev) for k, v in _tiny_pretrain_batch(i).items()}
+                state, out = step(state, b, torch.Generator().manual_seed(i))
+                logs.append({k: float(out[k]) for k in
+                             ("loss_total", "grad_norm", "skipped",
+                              "correct", "prob_perplexity")})
+            runs[dev] = (logs, {k: v.detach().cpu() for k, v in
+                                model.state_dict().items()}, _counts())
+        (lc, pc, nc), (lg, pg, ng) = runs["cpu"], runs["cuda"]
+        err = max((pc[k] - pg[k]).abs().max().item() for k in pc)
+        for a, b in zip(lc, lg):
+            assert abs(a["loss_total"] - b["loss_total"]) <= 1e-5 * abs(
+                a["loss_total"]), (a, b)
+            assert abs(a["grad_norm"] - b["grad_norm"]) <= 1e-4 * a[
+                "grad_norm"], (a, b)
+            assert a["skipped"] == b["skipped"] == 0.0
+            assert a["correct"] == b["correct"], (a, b)
+        assert err <= 1e-2 * cfg.lr, err
+        assert all(v == 0 for v in nc.values()), nc
+        flash = 2 * 2 if impl == "flash" else 0
+        assert ng["blockwise_flash_attention_packed"] == flash, ng
+        assert ng["blockwise_flash_attention_bwd"] == flash, ng
+        assert ng["hw_dropout"] == ng["chunk_cache_attention"] == 0, ng
+        print(f"phase pretrain parity: tiny, {impl} attention, float32, "
+              f"dropout off, 2 updates: cuda (kernels) == cpu (twins): loss "
+              f"{[x['loss_total'] for x in lg]} vs "
+              f"{[x['loss_total'] for x in lc]} (rtol 1e-5), grad norm "
+              f"{[x['grad_norm'] for x in lg]} vs "
+              f"{[x['grad_norm'] for x in lc]} (rtol 1e-4), correct "
+              f"{[x['correct'] for x in lg]}, params max abs diff "
+              f"{err:.3g} (tol {1e-2 * cfg.lr:g}); cuda launches {ng}")
+
+    runs = {}
+    for impl in ("flash", "dense"):
+        model = _tiny_pretrain_model("cuda", impl, dropout=True)
+        b = {k: v.cuda() for k, v in _tiny_pretrain_batch().items()}
+        _reset_counts()
+        loss, _, _ = make_pretrain_loss_fn(model, 12, 6)(
+            b, torch.Generator().manual_seed(11), 0)
+        loss.backward()
+        runs[impl] = (loss.item(), {k: p.grad for k, p in
+                                    model.named_parameters()}, _counts())
+    (lf, gf, nf), (ld, gd, nd) = runs["flash"], runs["dense"]
+    top = max(g.abs().max().item() for g in gd.values() if g is not None)
+    err = max((gf[k] - g).abs().max().item() for k, g in gd.items()
+              if g is not None)
+    assert all((gf[k] is None) == (g is None) for k, g in gd.items())
+    kept = nf["blockwise_flash_attention_packed"]
+    print(f"phase pretrain parity: tiny, the recipe's dropouts on, one seed: "
+          f"flash loss {lf:.6f} vs dense {ld:.6f} (rtol 1e-5), gradients max "
+          f"|diff| / max |grad| {err / top:.3g} (tol 1e-4); flash launches "
+          f"{nf}, dense launches {nd}")
+    assert abs(lf - ld) <= 1e-5 * abs(ld), (lf, ld)
+    assert err <= 1e-4 * top, (err, top)
+    assert kept == nf["blockwise_flash_attention_bwd"] > 0
+    assert nd["blockwise_flash_attention_packed"] == 0
+    assert nd["hw_dropout"] - nf["hw_dropout"] == 2 * kept, (nf, nd)
+
+
+PRETRAIN_WAVS, PRETRAIN_SAMPLES = 20, 250000
+PRETRAIN_WARM, PRETRAIN_TIMED = 2, 10
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+
+def _pretrain_corpus(root):
+    """20 seeded-noise wavs of 250000 samples and a pre-training manifest
+    (root line, ``path\\tnum_samples`` rows) under ``root``."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(1)
+    rows = [str(root)]
+    for i in range(PRETRAIN_WAVS):
+        write_wav(root / f"p{i}.wav", rng.standard_normal(
+            PRETRAIN_SAMPLES).astype(np.float32) * 0.1)
+        rows.append(f"p{i}.wav\t{PRETRAIN_SAMPLES}")
+    (root / "pretrain.tsv").write_text("\n".join(rows) + "\n")
+    return root / "pretrain.tsv"
+
+
+def _run_pretrain_cli(argv):
+    """One call of the trainer's entry point with every launch count set to
+    0 before it -> (counts, progress records with the host time of each,
+    dropout contexts of its updates, host ms of their draws, tile-table
+    rebuilds, peak GB)."""
+    import io
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.ops import flash_attention
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.train import cli, recipes
+    from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
+
+    contexts, records = [], []
+
+    class Recorded(DropoutContext):
+        """Times the host draws of an update (negatives, Gumbel noise)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.draw_s = 0.0
+            contexts.append(self)
+
+        def randint(self, *a, **kw):
+            t = time.perf_counter()
+            out = super().randint(*a, **kw)
+            self.draw_s += time.perf_counter() - t
+            return out
+
+        def uniform(self, *a, **kw):
+            t = time.perf_counter()
+            out = super().uniform(*a, **kw)
+            self.draw_s += time.perf_counter() - t
+            return out
+
+    class Timed(JsonProgress):
+        def __init__(self, **kw):
+            super().__init__(stream=io.StringIO(), **kw)
+
+        def log(self, stats, step, tag="train"):
+            torch.cuda.synchronize()
+            records.append(dict(stats, step=step, tag=tag,
+                                at=time.perf_counter()))
+
+    # tables built from nothing: the rebuilds are the first draws' builds
+    flash_attention.tile_kinds.cache_clear()
+    flash_attention._kinds_on.cache_clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+            mock.patch.object(cli, "JsonProgress", Timed):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    rebuilds = (flash_attention.tile_kinds.cache_info().misses
+                + flash_attention._kinds_on.cache_info().misses)
+    counts = _counts()
+    _on_tensor_cores(_set_paths(), {
+        "K2": counts["blockwise_flash_attention_packed"],
+        "K3": counts["blockwise_flash_attention_bwd"]})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    draw_ms = [c.draw_s * 1e3 for c in contexts]
+    return counts, records, contexts, draw_ms, rebuilds, peak_gb
+
+
+def phase_pretrain_full(card):
+    """wav2vec-S streaming pre-training through the trainer's entry point
+    at Base width (configs/pretrain_base.yaml: bf16, sampled contexts, the
+    recipe's dropouts and layerdrop) on 20 seeded-noise wavs of 250000
+    samples (B 5 in the 200960-sample bucket): 2 warm + 10 timed updates,
+    dense then flash; then the chain save -> convert_cli export -> import
+    -> CAAT warm start -> one CAAT update.  -> {path: launch counts}."""
+    import math
+    import pathlib
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint import convert_cli
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.checkpoint.torch_import import (
+        load_torch_checkpoint)
+    from wav2vec_s_tpu_torch.train import cli
+
+    total = PRETRAIN_WARM + PRETRAIN_TIMED
+    n_layers = 12
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        manifest = _pretrain_corpus(root)
+        print(f"phase pretrain full: {PRETRAIN_WAVS} wavs of "
+              f"{PRETRAIN_SAMPLES} samples and a manifest written in "
+              f"{time.perf_counter() - t:.1f} s")
+
+        def argv(impl):
+            return ["--config", os.path.join(CONFIGS, "pretrain_base.yaml"),
+                    "--device", "cuda", f"run.save_dir={root}/pre_{impl}",
+                    f"run.max_update={total}", "run.log_interval=1",
+                    "run.save_interval_updates=0", "run.keep_last=1",
+                    "run.validate_interval_updates=0",
+                    f"data.train_manifest={manifest}",
+                    f"model.attention_impl={impl}"]
+
+        for impl in ("dense", "flash"):
+            t = time.perf_counter()
+            counts, recs, ctxs, draw_ms, rebuilds, peak_gb = (
+                _run_pretrain_cli(argv(impl)))
+            wall = time.perf_counter() - t
+            assert [r["step"] for r in recs] == list(range(1, total + 1))
+            assert all(math.isfinite(r["loss_total"]) and math.isfinite(
+                r["grad_norm"]) and r["skipped"] == 0.0
+                and "oom_skipped" not in r for r in recs), recs
+            buckets = [(int(r["main_context"]), int(r["right_context"]))
+                       for r in recs]
+            assert len(set(buckets)) >= 3, buckets
+            # one build per table at a bucket's first draw, none after
+            per_bucket = 4 if impl == "flash" else 0
+            assert rebuilds == per_bucket * len(set(buckets)), (
+                rebuilds, buckets)
+            # sites of an update: dropout_input, dropout_features, the
+            # encoder input, 3 per kept layer (attention probabilities,
+            # after the attention, after the FFN)
+            kept = [(c.sites - 3) // 3 for c in ctxs]
+            assert all(0 <= k <= n_layers and 3 + 3 * k == c.sites
+                       for k, c in zip(kept, ctxs)), [c.sites for c in ctxs]
+            flash_calls = sum(kept) if impl == "flash" else 0
+            want = {"blockwise_flash_attention_packed": flash_calls,
+                    "blockwise_flash_attention_bwd": flash_calls,
+                    "hw_dropout": 2 * (sum(c.sites for c in ctxs)
+                                       - flash_calls),
+                    "chunk_cache_attention": 0,
+                    "transducer_forward_walk": 0,
+                    "transducer_reverse_walk": 0, "transducer_alphas": 0,
+                    "transducer_betas": 0, "transducer_affine_rows": 0}
+            on = (", K2 and K3 all on the tensor-core kernels"
+                  if impl == "flash" else "")
+            print(f"phase pretrain full: {impl}: launches {counts} over "
+                  f"{total} updates{on}; expected {want} (encoder layers "
+                  f"kept by layerdrop per update {kept})")
+            assert counts == want, (counts, want)
+            span = recs[-1]["at"] - recs[PRETRAIN_WARM - 1]["at"]
+            ups = PRETRAIN_TIMED / span
+            out[impl] = (counts, ups, peak_gb)
+            r0 = recs[0]
+            print(f"phase pretrain full: {impl}: B {PRETRAIN_B} x 200960 "
+                  f"samples (T {PRETRAIN_T}), M {int(r0['count']) // PRETRAIN_B}"
+                  f" masked frames per row, {PRETRAIN_WARM} warm + "
+                  f"{PRETRAIN_TIMED} timed updates in {span:.4f} s -> "
+                  f"{ups:.3f} updates/s ({PRETRAIN_B * 200960 / 16000 * ups:.2f}"
+                  f" audio-sec/s), peak memory {peak_gb:.3f} GB; buckets "
+                  f"drawn {buckets}; host draws (negatives + Gumbel "
+                  f"uniforms) {np.mean(draw_ms):.3f} ms per update (min "
+                  f"{min(draw_ms):.3f}, max {max(draw_ms):.3f}); tile-table "
+                  f"rebuilds {rebuilds} for {len(set(buckets))} distinct buckets; "
+                  f"loss {recs[0]['loss_total']:.2f} -> "
+                  f"{recs[-1]['loss_total']:.2f}, accuracy "
+                  f"{recs[-1]['correct'] / recs[-1]['count']:.4f}, prob "
+                  f"perplexity {recs[-1]['prob_perplexity']:.1f}, temp "
+                  f"{recs[-1]['temp']}, skipped 0; the whole call {wall:.1f} "
+                  f"s [{card}]")
+            torch.cuda.empty_cache()
+
+        # the chain: the flash run's checkpoint -> a fairseq .pt -> the
+        # port's import -> a CAAT warm start that takes one update
+        t = time.perf_counter()
+        saved, _ = CheckpointManager(root / "pre_flash",
+                                     keep_last=0).restore()
+        assert saved["step"] == total
+        convert_cli.main(["--export-from", str(root / "pre_flash"),
+                          "--out", str(root / "pre.pt")])
+        back = load_torch_checkpoint(root / "pre.pt")["model"]
+        assert sorted(back) == sorted(saved["model"])
+        assert all(torch.equal(back[k], v) for k, v in saved["model"].items())
+        S = int(SECONDS * 16000)
+        tsv, vocab = _cli_corpus(root, TRAIN_B, S, 10000, CLI_WORDS)
+        snap = {}
+        real_create = cli.TrainState.create
+
+        def create(model, optimizer):
+            snap.update({k: v.detach().cpu().clone() for k, v in
+                         model.encoder.w2v2_model.state_dict().items()})
+            return real_create(model, optimizer)
+
+        caat_argv = ["--device", "cuda", "run.task=caat",
+                     f"run.save_dir={root}/caat", "run.max_update=1",
+                     "run.log_interval=1", "run.save_interval_updates=0",
+                     f"run.w2v2_model_path={root}/pre.pt",
+                     f"data.train_manifest={tsv}", f"data.vocab={vocab}",
+                     f"data.max_tokens={TRAIN_B * S}",
+                     f"data.max_sample_size={S}", "optim.lr=1e-4",
+                     "optim.warmup_updates=100", "model.dtype=bfloat16",
+                     "model.attention_impl=flash", "caat.dtype=bfloat16",
+                     "caat.step_mode=constant"]
+        with mock.patch.object(cli.TrainState, "create", create):
+            counts, recs, _, _, _ = _run_cli(caat_argv, n_layers, 12)
+        heads = ("quantizer.", "project_q.", "final_proj.")
+        enc = {k: v for k, v in saved["model"].items()
+               if not k.startswith(heads)}
+        assert sorted(snap) == sorted(enc)
+        assert all(torch.equal(snap[k], v) for k, v in enc.items())
+        assert [r["step"] for r in recs] == [1]
+        assert math.isfinite(recs[0]["loss_total"])
+        assert recs[0]["skipped"] == 0.0
+        print(f"phase pretrain full: chain: step {total} checkpoint -> "
+              f"convert_cli export ({len(back)} tensors) == the saved state "
+              f"dict key for key -> CAAT train.cli with run.w2v2_model_path: "
+              f"its encoder before the first update == the pre-trained one "
+              f"({len(enc)} tensors, heads dropped); one update, loss "
+              f"{recs[0]['loss_total']:.2f}, launches {counts}; "
+              f"{time.perf_counter() - t:.1f} s")
+    (dc, du, dg), (fc, fu, fg) = out["dense"], out["flash"]
+    print(f"phase pretrain full: dense {du:.3f} updates/s, {dg:.3f} GB peak; "
+          f"flash {fu:.3f} updates/s, {fg:.3f} GB peak [{card}]")
+    return {"pretrain_dense": dc, "pretrain_flash": fc}
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -2692,6 +3212,7 @@ def main() -> int:
     k1 = phase_kernel()
     k2 = phase_flash()
     k3 = phase_flash_bwd()
+    pretrain_calls = phase_flash_pretrain()
     k4 = phase_dropout()
     lat = phase_lattice()
     phase_parity()
@@ -2700,6 +3221,7 @@ def main() -> int:
     phase_serving_parity()
     phase_train_parity()
     phase_train_flash_parity()
+    phase_pretrain_parity()
     paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
     paths.update(phase_beam_full(card, same_in_bf16))
     (paths["train_dense"], paths["train_long"], dense_ups,
@@ -2707,6 +3229,7 @@ def main() -> int:
     paths["cli_flash"] = phase_cli_full(card)
     paths.update(phase_eval_cli_full(card))
     paths["serving"] = phase_serving_full(card)
+    paths.update(phase_pretrain_full(card))
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 
@@ -2738,6 +3261,14 @@ def main() -> int:
              "train_long", lat["affine_rows"])]
     for name, _, _, path, _ in rows:
         assert paths[path][name] > 0, (name, path, paths[path])
+    # K2 and K3 at the pre-training call, per context bucket (phase 3c)
+    for name, key in (("blockwise_flash_attention_packed", "K2"),
+                      ("blockwise_flash_attention_bwd", "K3")):
+        row = next(r for n, _, _, _, r in rows if n == name)
+        row["pretrain_call"] = {
+            b: {"ms": t[f"{key}_ms"], "bound_ms": t[f"{key}_bound_ms"],
+                "library_ms": t[f"{key}_library_ms"], "S": t["S"]}
+            for b, t in pretrain_calls.items()}
     print(card)
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": src + file,

@@ -3,8 +3,9 @@ block-sparse flash attention forward and backward with its in-kernel
 dropout, dropout, the transducer lattices and affine rows) against their
 plain twins, the tiny cached and one-shot decodes, the four tiny beam
 decodes, the tiny training step and a tiny run of the training CLI on the
-card against the same on the CPU.  They skip without a CUDA device.  On a
-card:
+card against the same on the CPU, the flash kernels at the pre-training
+call under each context bucket and two tiny pre-training updates on the
+card against the CPU.  They skip without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -872,3 +873,83 @@ def test_ties_take_the_lowest_index_on_the_card(cuda, value):
     n = 5 if value > 0 else 2
     got = beam_batched._top_b_per_row(x, 5)[1]
     assert torch.equal(got[..., :n], want.reshape(4, 5, 5)[..., :n])
+
+
+# the pre-training call: 628 frames (a 200960-sample crop, padded to the
+# seq multiple) under each (mc, rc) bucket of the sampled-context schedule
+PRETRAIN_BUCKETS = ((8, 4), (12, 6), (16, 8), (20, 8), (24, 12), (28, 12),
+                    (32, 16))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("mc,rc", PRETRAIN_BUCKETS)
+def test_flash_kernels_at_the_pretraining_buckets(cuda, mc, rc, rate):
+    """K2 and K3 on the tensor-core kernels (bfloat16, 12 heads of 64) at
+    the pre-training length under every context bucket (S 876-940, partial
+    tiles everywhere, padded keys) against their twins: forward on valid
+    rows atol 2e-2, dQ / dK / dV max |diff| over the largest entry 1e-2."""
+    T = 628
+    q, k, v, pad = _flash_inputs(cuda, torch.bfloat16, 2, T, mc, rc, 768)
+    valid = ~pad
+    do = torch.randn(q.shape, device=cuda).to(q.dtype) * valid[:, :, None]
+    lay = (pad, 12, T, mc, rc, rate)
+    before = dict(blockwise_flash_attention_bwd.path_launches)
+    out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
+                                                 OFFSET)
+    got = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay, SEED,
+                                        OFFSET)
+    torch.cuda.synchronize()
+    assert blockwise_flash_attention_bwd.path_launches[TENSOR_CORE] == (
+        before[TENSOR_CORE] + 1)
+    want, _, _ = blockwise_flash_attention_ref(q, k, v, *lay, SEED, OFFSET)
+    err = (out[valid].float() - want[valid].float()).abs().max().item()
+    assert err <= 2e-2, err
+    ref = blockwise_flash_attention_bwd_ref(q, k, v, out, do, m, l, *lay,
+                                            SEED, OFFSET)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i == 0:
+            a, b = a[valid], b[valid]
+        assert torch.isfinite(a).all()
+        e = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert e.item() <= 1e-2, (i, e.item())
+
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+def test_tiny_pretrain_two_updates_on_cuda_equal_cpu(cuda, impl):
+    """Tiny wav2vec-S pre-training, float32, dropout off: two updates on
+    the card equal the CPU's (loss rtol 1e-5, grad norm rtol 1e-4, params
+    atol 1e-2 lr); the draws (negatives, Gumbel uniforms) come from one CPU
+    generator in both runs."""
+    from wav2vec_s_tpu_torch.models import Wav2Vec2Model
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_pretrain_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    w2v = dataclasses.replace(
+        W2V_TINY, encoder_embed_dim=32, encoder_ffn_embed_dim=64,
+        attention_impl=impl, dropout=0.0, attention_dropout=0.0,
+        encoder_layerdrop=0.0, dropout_input=0.0, dropout_features=0.0,
+        final_dim=16, latent_vars=8, n_negatives=10)
+    cfg = OptimConfig(lr=1e-3, lr_scheduler="inverse_sqrt", warmup_updates=2)
+    g = torch.Generator().manual_seed(0)
+    src = torch.randn((3, 2400), generator=g)
+    pos = torch.stack([torch.randperm(119, generator=g)[:56].sort().values
+                       for _ in range(3)])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = random_init_(Wav2Vec2Model(w2v, pretraining=True),
+                             torch.Generator().manual_seed(0)).to(dev)
+        opt = build_optimizer(cfg)
+        state = TrainState.create(model, opt)
+        step = make_train_step(make_pretrain_loss_fn(model, 8, 4), opt)
+        logs = [step(state, {"source": src.to(dev),
+                             "mask_positions": pos.to(dev)},
+                     torch.Generator().manual_seed(i))[1] for i in range(2)]
+        out[dev] = ([(float(x["loss_total"]), float(x["grad_norm"]))
+                     for x in logs],
+                    {k: v.cpu() for k, v in model.state_dict().items()})
+    for (lc, gc), (lg, gg) in zip(out["cpu"][0], out["cuda"][0]):
+        assert abs(lc - lg) <= 1e-5 * abs(lc)
+        assert abs(gc - gg) <= 1e-4 * gc
+    for k, v in out["cpu"][1].items():
+        assert (v - out["cuda"][1][k]).abs().max() <= 1e-2 * cfg.lr, k

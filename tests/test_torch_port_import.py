@@ -71,10 +71,14 @@ def port_caat(params, w2v=W2V_TINY, caat=CAAT_TINY) -> W2V2CaatModel:
     return model
 
 
-#: modules of the eval CLI and the serving runtime, imported by name too
+#: modules of the eval CLI and the serving runtime, of pre-training and of
+#: checkpoint import/export, imported by name too
 SERVING_MODULES = ("eval", "eval.bleu", "eval.cli", "eval.wer",
                    "stream.agent", "stream.client", "stream.latency",
-                   "stream.server", "stream.serving")
+                   "stream.server", "stream.serving",
+                   "utils.masking", "models.quantizer", "train.criterion",
+                   "checkpoint.torch_import", "checkpoint.torch_export",
+                   "checkpoint.convert_cli")
 
 
 def test_import_leaves_jax_out():

@@ -14,8 +14,13 @@ CAAT fine-tuning step on dense or flash attention (``W2V2CaatModel.forward``,
 ``train.cli``), the four batched beam decoders (``stream.beam_batched``),
 the evaluation entry point ``eval.cli`` (batch decode, DECISION_STEP sweep,
 SimulEval-style ``simul``, ``interactive``, ``score``, ``average``,
-``eval-lm``) and the continuous-batching ``stream.serving.ServingSession``
-with the SimulEval agent, server and client.  Their
+``eval-lm``), the continuous-batching ``stream.serving.ServingSession``
+with the SimulEval agent, server and client, wav2vec-S streaming
+pre-training (``Wav2Vec2Model(cfg, pretraining=True)``: span masking, the
+Gumbel quantizer, the contrastive head, sampled block contexts;
+``train.cli`` with ``run.task=pretrain``) and fairseq ``.pt`` import and
+export (``checkpoint.torch_import``, ``torch_export``, ``convert_cli``).
+Their
 hand-written kernels are the incremental chunk attention
 (``ops/chunk_attention.py`` + ``csrc/chunk_attention.cu``), the
 block-sparse flash-attention forward (``ops/flash_attention.py`` +
@@ -30,16 +35,20 @@ Subpackages
 - ``ops``        : the kernel wrappers and their plain twins, the block
                    layout, the delay-transducer loss, the nvcc build.
 - ``models``     : parameter containers named like the fairseq/rain state
-                   dicts (wav2vec-S encoder, CAAT decoder/jointer).
+                   dicts (wav2vec-S encoder and pre-training heads, CAAT
+                   decoder/jointer).
 - ``stream``     : incremental encoder, cached CAAT decode steps, the
                    batched greedy and beam decoders, the serving session,
                    the SimulEval agent, server and client, latency metrics.
 - ``eval``       : WER, BLEU and the evaluation CLI.
 - ``data``       : dictionary, manifests, audio, tokenizers, batching.
-- ``train``      : the fine-tuning step, optimizer, LR schedules, recipe,
-                   the training CLI.
+- ``train``      : the train step, Adam and adafactor, LR schedules, the
+                   pre-training and fine-tuning recipes, the wav2vec
+                   criterion, the training CLI.
 - ``checkpoint`` : JAX parameter tree -> port state dict; save, restore and
-                   averaging of the port's checkpoints.
+                   averaging of the port's checkpoints; fairseq ``.pt``
+                   import, export and the converter.
+- ``utils``      : the span masker, positions, progress records.
 """
 
 __version__ = "0.1.0"

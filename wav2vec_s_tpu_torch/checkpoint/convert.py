@@ -1,8 +1,12 @@
-"""JAX ``W2V2CaatModel`` parameter tree -> the port's state dict.
+"""JAX parameter trees -> the port's state dicts.
 
-Follows ``wav2vec_s_tpu/checkpoint/torch_export.export_caat_params``
-exactly (the port must not import the JAX package, so the mapping is
-repeated here), producing rain ``w2v2_caat`` names:
+``caat_state_dict_from_jax`` (a ``W2V2CaatModel``) and
+``wav2vec2_state_dict_from_jax`` (the standalone pre-training
+``Wav2Vec2Model``, quantizer and projections included) follow
+``wav2vec_s_tpu/checkpoint/torch_export.export_caat_params`` /
+``export_wav2vec2_params`` exactly (the port must not import the JAX
+package, so the mapping is repeated here), producing rain ``w2v2_caat`` and
+fairseq wav2vec2 names:
 
 - dense ``kernel [in, out]``       -> ``weight [out, in]``
 - conv ``kernel [k, in, out]``     -> ``weight [out, in, k]``
@@ -68,6 +72,27 @@ def _wav2vec2(out, p, prefix):
         _layer(out, f"{prefix}encoder.layers.{int(name.split('_')[1])}", layer)
 
 
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in out.items()}
+
+
+def wav2vec2_state_dict_from_jax(params: Dict[str, Any]
+                                 ) -> Dict[str, torch.Tensor]:
+    """The JAX pre-training ``Wav2Vec2Model`` tree -> the state dict of
+    ``Wav2Vec2Model(cfg, pretraining=True)``."""
+    out: Dict[str, np.ndarray] = {}
+    _wav2vec2(out, params, "")
+    if "quantizer" in params:
+        out["quantizer.vars"] = _a(params["quantizer"]["vars"])
+        _linear(out, "quantizer.weight_proj",
+                params["quantizer"]["weight_proj"])
+    for name in ("project_q", "final_proj"):
+        if name in params:
+            _linear(out, name, params[name])
+    return _tensors(out)
+
+
 def caat_state_dict_from_jax(params: Dict[str, Any]
                              ) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
@@ -89,5 +114,4 @@ def caat_state_dict_from_jax(params: Dict[str, Any]
         _a(params["out_proj"]["kernel"]).T if "out_proj" in params
         else out["decoder.lm.embed_tokens.weight"])
     out["decoder.lm.version"] = np.asarray([3.0], np.float32)
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
-            for k, v in out.items()}
+    return _tensors(out)

@@ -5,8 +5,8 @@
 fairseq's policies (fairseq/fairseq/checkpoint_utils.py:31-163):
 every-N-updates, keep-K pruning, best metric, full resume of optimizer and
 iterator state.  On disk: ``<dir>/step_<N>/state.pt`` (model state dict,
-Adam moments and update count, the step) plus ``meta.json`` (step, metric,
-iterator state).  ``meta.json`` doubles as the commit marker: both files
+the optimizer's moments (Adam or adafactor) and update count, the step)
+plus ``meta.json`` (step, metric, iterator state).  ``meta.json`` doubles as the commit marker: both files
 are written to a temp name and renamed, ``meta.json`` last, so an
 interrupted save leaves a step directory that ``all_steps`` / ``restore``
 ignore.
@@ -22,6 +22,7 @@ scripts/average_checkpoints.py, JAX ``orbax_io.py:127-149``).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -34,17 +35,25 @@ import torch
 from wav2vec_s_tpu_torch.train.step import TrainState
 
 
+def _moment_fields(opt_state) -> List[str]:
+    """The tensor-list fields of an optimizer state (Adam: mu, nu;
+    adafactor: v_row, v_col, v)."""
+    return [f.name for f in dataclasses.fields(opt_state) if f.name != "count"]
+
+
 def state_to_host(state: TrainState) -> Dict[str, Any]:
     """The checkpoint payload of a train state: CPU copies of the model's
-    state dict and the Adam moments, the update count and the step."""
+    state dict and the optimizer's moments, the update count and the
+    step."""
     def cpu(t):
         return t.detach().to("cpu", copy=True)
 
+    opt = {"count": state.opt_state.count}
+    for name in _moment_fields(state.opt_state):
+        opt[name] = [cpu(t) for t in getattr(state.opt_state, name)]
     return {"step": state.step,
             "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
-            "opt": {"count": state.opt_state.count,
-                    "mu": [cpu(t) for t in state.opt_state.mu],
-                    "nu": [cpu(t) for t in state.opt_state.nu]}}
+            "opt": opt}
 
 
 def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
@@ -52,13 +61,23 @@ def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     every parameter and moment must be present and shape-matched)."""
     state.model.load_state_dict(payload["model"], strict=True)
     opt = payload["opt"]
-    for name in ("mu", "nu"):
+    if opt is None:
+        raise ValueError("the checkpoint holds no optimizer state (a "
+                         "converted model: warm-start from it instead)")
+    for name in _moment_fields(state.opt_state):
+        if name not in opt:
+            raise ValueError(f"the checkpoint holds no optimizer {name!r} "
+                             f"(saved by another optimizer?)")
         dst, src = getattr(state.opt_state, name), opt[name]
         if len(dst) != len(src):
-            raise ValueError(f"checkpoint holds {len(src)} Adam {name} "
+            raise ValueError(f"checkpoint holds {len(src)} optimizer {name} "
                              f"tensors, the model has {len(dst)}")
         with torch.no_grad():
             for d, s in zip(dst, src):
+                if d.shape != s.shape:
+                    raise ValueError(f"optimizer {name} tensor of shape "
+                                     f"{tuple(s.shape)} for "
+                                     f"{tuple(d.shape)}")
                 d.copy_(s)
     state.opt_state.count = int(opt["count"])
     state.step = int(payload["step"])
@@ -94,9 +113,15 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState,
              extra: Optional[Dict[str, Any]] = None,
              metric: Optional[float] = None) -> None:
+        self.save_payload(step, state_to_host(state), extra, metric)
+
+    def save_payload(self, step: int, payload: Dict[str, Any],
+                     extra: Optional[Dict[str, Any]] = None,
+                     metric: Optional[float] = None) -> None:
+        """Save a payload of ``state_to_host``'s shape; a converted model
+        has ``opt`` None (``convert_cli``)."""
         # at most one write in flight: commit the previous one first
         self.wait()
-        payload = state_to_host(state)
         meta = {"step": step, "metric": metric, "extra": extra or {}}
         if self.async_save:
             self._writer = threading.Thread(

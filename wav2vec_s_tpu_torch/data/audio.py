@@ -149,6 +149,16 @@ def read_audio(path, expected_rate: int | None = 16000) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.float32)
 
 
+def read_audio_batch(paths, expected_rate: int | None = 16000) -> list:
+    """Decode a batch of audio files: a list of float32 arrays.  The JAX
+    package reads plain ``.wav`` files through its native thread pool and
+    the rest per file; here every file takes ``read_audio`` (same
+    values).  Kept under the JAX name so that the batchers of both
+    packages read the same way and a faster batched reader can take its
+    place without touching them."""
+    return [read_audio(p, expected_rate) for p in paths]
+
+
 def write_wav(path, data: np.ndarray, rate: int = 16000) -> None:
     """Write float32 [-1, 1] mono as 16-bit PCM (test fixtures, demos)."""
     pcm = np.clip(data, -1.0, 1.0)

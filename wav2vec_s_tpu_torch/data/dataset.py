@@ -1,27 +1,89 @@
-"""Batch assembly for CAAT fine-tuning (host-side, numpy; port of
-``CaatBatcher`` of ``wav2vec_s_tpu/data/dataset.py``, raw-waveform features).
+"""Batch assembly for the two training recipes (host-side, numpy; port of
+``wav2vec_s_tpu/data/dataset.py``, raw-waveform features).
 
-Twin of ``SpeechToTextDataset.collater``
-(rain/data/st_raw_audio_triple_dataset.py:298-387): pad waveforms to the
-audio bucket, tokenize and pad targets to the text bucket; emits
-source / padding_mask / targets as numpy arrays, identical to the JAX
-package's on the same manifest.  ``to_device`` moves a batch to the card in
-one pinned, non-blocking copy per array.
+- ``PretrainBatcher`` ~ ``RawAudioDataset.collater``
+  (raw_audio_dataset.py:116-226): random-crop every utterance to the
+  length bucket at or below the batch's shortest, plus the host-side span
+  mask with one count of masked frames per row (``mask_positions``).
+  Unlike the JAX batcher, whose one generator advances in the prefetch
+  thread, each batch draws its crops and masks from a generator keyed on
+  ``(seed, epoch, batch offset)``: a resumed run collates exactly the
+  batches an uninterrupted one does (same distribution as the JAX one).
+- ``CaatBatcher`` ~ ``SpeechToTextDataset.collater``
+  (rain/data/st_raw_audio_triple_dataset.py:298-387): pad waveforms to the
+  audio bucket, tokenize and pad targets to the text bucket; emits
+  source / padding_mask / targets, identical to the JAX package's on the
+  same manifest.
+
+``to_device`` moves a batch to the card in one pinned, non-blocking copy
+per array.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from wav2vec_s_tpu_torch.data.audio import instance_normalize, read_audio
+from wav2vec_s_tpu_torch.data.audio import (
+    instance_normalize, read_audio, read_audio_batch)
 from wav2vec_s_tpu_torch.data.batching import bucket_for
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
-from wav2vec_s_tpu_torch.data.manifests import S2TManifest
+from wav2vec_s_tpu_torch.data.manifests import AudioManifest, S2TManifest
 from wav2vec_s_tpu_torch.data.tokenizer import Tokenizer
+from wav2vec_s_tpu_torch.models.feature_extractor import (
+    DEFAULT_CONV_LAYERS, conv_output_length)
+from wav2vec_s_tpu_torch.utils.masking import (
+    compute_span_mask_np, expected_mask_count)
+
+
+@dataclasses.dataclass
+class PretrainBatcher:
+    manifest: AudioManifest
+    buckets: Sequence[int]
+    mask_prob: float = 0.65
+    mask_length: int = 10
+    normalize: bool = False
+    seed: int = 1
+    conv_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
+
+    def collate(self, indices: np.ndarray, size_hint: Optional[int] = None,
+                key: Tuple[int, int] = (0, 0)) -> Dict[str, np.ndarray]:
+        """``size_hint``: the batch's shortest sample size according to the
+        manifest (clipped to the largest bucket); ``key``: (epoch, batch
+        offset) of the batch, which with ``seed`` keys its generator.
+        -> {source [B, T] float32, mask_positions [B, M] int32}."""
+        rng = np.random.default_rng((self.seed, *key))
+        wavs = read_audio_batch(
+            [self.manifest.full_path(i) for i in indices])
+        if self.normalize:
+            wavs = [instance_normalize(w) for w in wavs]
+        shortest = min(len(w) for w in wavs)
+        if size_hint is not None:
+            shortest = min(shortest, size_hint)
+        # crop to the bucket at/below the batch's shortest (no padding in
+        # pre-training: crop-only, like pad_audio=False in the reference)
+        usable = [b for b in self.buckets if b <= shortest]
+        T = usable[-1] if usable else self.buckets[0]
+        out = np.zeros((len(wavs), T), np.float32)
+        for r, w in enumerate(wavs):
+            if len(w) > T:
+                start = rng.integers(0, len(w) - T + 1)
+                out[r] = w[start:start + T]
+            else:
+                out[r, :len(w)] = w
+
+        frames = conv_output_length(T, self.conv_layers)
+        M = expected_mask_count(frames, self.mask_prob, self.mask_length)
+        mask = compute_span_mask_np(
+            (len(wavs), frames), None, self.mask_prob, self.mask_length,
+            rng, exact_count=M)
+        positions = np.zeros((len(wavs), M), np.int32)
+        for r in range(len(wavs)):
+            positions[r] = np.flatnonzero(mask[r])[:M]
+        return {"source": out, "mask_positions": positions}
 
 
 @dataclasses.dataclass

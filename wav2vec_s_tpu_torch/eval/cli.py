@@ -220,7 +220,9 @@ def _decode_report(args, cfg, model, tgt_dict, model_cfg, wavs, refs):
     print(json.dumps({
         args.metric.upper(): quality,
         "AL": float(np.mean(al)) if al else 0.0,
-        "audio_sec_per_sec": round(audio_sec / dt, 1),
+        # four significant digits: a slow decode of a short corpus (a CPU
+        # run) still reads above 0
+        "audio_sec_per_sec": float(f"{audio_sec / dt:.4g}"),
         "n": n,
         "step_read_blocks": args.step_read_blocks,
     }))

@@ -212,8 +212,10 @@ def encoder_layer(layer: TransformerEncoderLayer, x: torch.Tensor,
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Refill every parameter from ``generator`` with the JAX package's
     initialisers: linear weights lecun-normal and zero bias, conv weights
-    he-normal, norms one/zero, embeddings normal(dim ** -0.5).  Returns
-    ``module``."""
+    he-normal, norms one/zero, embeddings normal(dim ** -0.5); a module
+    with parameters of its own (the quantizer's codebook, the pre-training
+    mask embedding) fills them in its ``random_init_(generator)``.
+    Returns ``module``."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             fan_in = m.weight[0].numel()
@@ -226,6 +228,8 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             _normal_(m.weight, m.weight.shape[1] ** -0.5, generator)
+        elif hasattr(m, "random_init_"):
+            m.random_init_(generator)      # a module's own parameters
     return module
 
 

@@ -1,26 +1,43 @@
-"""wav2vec-S encoder: configuration, parameters and one-shot forward (torch).
+"""wav2vec-S models: configuration, parameters, the one-shot feature
+forward and the pre-training forward (torch).
 
-Port of the parts of ``wav2vec_s_tpu/models/wav2vec2.py`` that the
-streaming and corpus decoders read: ``Wav2Vec2Config`` (streaming and
-encoder fields), a ``Wav2Vec2Model`` holding the fairseq-named parameters
-of the conv front-end, the feature norm/projection and the encoder layers,
-and the full-utterance forward ``Wav2Vec2Model.extract_features`` through
-the blockwise encoder (``TransformerEncoder.forward``, the JAX
-``BlockwiseTransformerEncoder``).  The quantizer and the pre-training head
-are not part of this container; ``mask_emb`` is, because fine-tuned
-checkpoints carry it.  The incremental step lives in
-``stream/incremental.py``.
+Port of ``wav2vec_s_tpu/models/wav2vec2.py`` on the blockwise encoder:
+``Wav2Vec2Config`` (every field of the JAX one, same defaults), a
+``Wav2Vec2Model`` holding the fairseq-named parameters of the conv
+front-end, the feature norm/projection, ``mask_emb`` and the encoder
+layers, and two forwards:
 
-``extract_features`` follows the ambient grad mode: the fine-tuning
-forward passes a ``DropoutContext`` (dropout, layerdrop) and back-propagates
-through it, the decoders reach it through ``W2V2CaatModel.encode`` under
-``torch.no_grad()``.
+- ``extract_features``: the full-utterance downstream path through the
+  blockwise encoder (``TransformerEncoder.forward``, the JAX
+  ``BlockwiseTransformerEncoder``), no masking; the CAAT model's encoder;
+- ``forward``: wav2vec-S pre-training (``Wav2Vec2Model.__call__``, the
+  reference's Wav2Vec2Model.forward, wav2vec2.py:557-698): the conv
+  features and their L2 penalty, ``dropout_input`` / ``dropout_features``,
+  the ``mask_emb`` blend at the host-sampled ``mask_positions``, the
+  encoder at the given (mc, rc), the Gumbel quantizer on the unmasked rows,
+  ``project_q`` / ``final_proj`` and the InfoNCE logits against
+  ``n_negatives`` same-utterance distractors.  Only a model built with
+  ``pretraining=True`` carries the quantizer and the two projections; the
+  CAAT encoder has none (nor does its checkpoint).
+
+The contrastive head is a plain gather of N scalars per row out of the
+``[B, M, M]`` cosine table (the JAX package selects them by one-hot
+matmuls, a TPU workaround); a distractor equal to the positive is masked to
+``-inf`` by comparing the quantizer's code indices (PARITY.md, "Known
+semantic deviations"), or the vectors themselves without a quantizer.
+Every draw of a training forward (dropout seed, layerdrop, negatives,
+Gumbel noise) comes from its ``DropoutContext``'s host generator; in eval
+mode (``ctx=None``) the negatives come from a generator of fixed seed.
+
+The full-context encoder with conv positions (``pos_type="conv"``) and the
+group-norm front-end (``extractor_mode="default"``) come with the ASR
+family (ROADMAP Queue 1 item 12) and raise until then.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -30,6 +47,8 @@ from wav2vec_s_tpu_torch.models.feature_extractor import (
 from wav2vec_s_tpu_torch.models.modules import (
     Dropouts, FlashSpec, GradMultiply, TransformerEncoderLayer, dense,
     encoder_layer, gelu, ln)
+from wav2vec_s_tpu_torch.models.quantizer import (
+    GumbelVectorQuantizer, gumbel_temperature)
 from wav2vec_s_tpu_torch.ops.block_mask import (
     append_right_context, block_attn_bias, block_layout, extend_padding_mask,
     strip_right_context)
@@ -59,7 +78,8 @@ class Wav2Vec2Config:
     dropout_input: float = 0.1             # pre-training forward only
     dropout_features: float = 0.1          # pre-training forward only
     # positions: the blockwise encoder adds sinusoidal ones; "conv" belongs
-    # to the full-context encoder, which is not ported (``check_ported``)
+    # to the full-context encoder, which comes with item 12
+    # (``check_ported``)
     pos_type: str = "sin"
     conv_pos: int = 128
     conv_pos_groups: int = 16
@@ -67,8 +87,10 @@ class Wav2Vec2Config:
     main_context: int = 16
     right_context: int = 8
     context_type: str = "constant"         # the CLI reads context.context_type
-    # quantizer / contrastive head and masking: pre-training only; the
-    # fine-tuning and decoding paths build and read none of it
+    # quantizer / contrastive head: the pre-training forward only (the
+    # fine-tuning and decoding paths build and read none of it); as in the
+    # JAX package, cross_sample_negatives is read nowhere and the batcher
+    # masks with its own mask_prob / mask_length (0.65, 10)
     quantize_targets: bool = True
     final_dim: int = 256
     latent_vars: int = 320
@@ -101,16 +123,14 @@ class Wav2Vec2Config:
 
 def check_ported(cfg: Wav2Vec2Config) -> None:
     """Raise ``NotImplementedError`` for every value that would change the
-    forward in the JAX package and is not ported, naming the ROADMAP item.
-    The pre-training fields (quantizer, negatives, masking, input and
-    feature dropout) are accepted as they are: no ported path reads them."""
+    forward in the JAX package and is not ported, naming the ROADMAP item."""
     todo = []
     if cfg.extractor_mode != "layer_norm":
         todo.append(f"extractor_mode={cfg.extractor_mode!r} (ROADMAP Queue 1 "
-                    f"item 10: the group-norm conv front-end; only "
-                    f"'layer_norm' is ported)")
+                    f"item 12: the group-norm conv front-end of the ASR "
+                    f"family; only 'layer_norm' is ported)")
     if cfg.pos_type != "sin":
-        todo.append(f"pos_type={cfg.pos_type!r} (ROADMAP Queue 1 item 10: "
+        todo.append(f"pos_type={cfg.pos_type!r} (ROADMAP Queue 1 item 12: "
                     f"the full-context encoder with conv positions; the "
                     f"blockwise encoder adds sinusoidal positions)")
     if cfg.remat_extractor:
@@ -207,8 +227,62 @@ def downsample_padding_mask(padding_mask: torch.Tensor,
     return padding_mask.reshape(B, t_out, -1).all(dim=-1)
 
 
+#: seed of the eval-mode negatives (validation has no step generator)
+EVAL_NEGATIVES_SEED = 0
+
+
+def _unit_rows(t: torch.Tensor) -> torch.Tensor:
+    """Rows over their norm clamped at 1e-8 (torch cosine_similarity)."""
+    return t / torch.clamp(torch.linalg.vector_norm(t, dim=-1, keepdim=True),
+                           min=1e-8)
+
+
+def contrastive_logits(x: torch.Tensor, y_q: torch.Tensor,
+                       codes: torch.Tensor, idxs: torch.Tensor,
+                       logit_temp: float) -> torch.Tensor:
+    """InfoNCE cosine logits against quantized targets (JAX
+    ``_contrastive_logits_matmul``).  x (the predictions), y_q: [B, M, D];
+    codes: [B, M, G] the quantizer's selected codes; idxs: [B, M, N] the
+    distractors' rows -> [B, M, 1 + N] float32, positive first.  The
+    pairwise table [B, M, M] is one batched product of the unit rows; each
+    row's N distractors are gathered from it.  A distractor whose codes all
+    equal the positive's (so its quantized vector is the positive) is
+    ``-inf``."""
+    xn, yn = _unit_rows(x.float()), _unit_rows(y_q.float())
+    cos_all = torch.einsum("bmd,bnd->bmn", xn, yn)                # [B, M, M]
+    pos = (xn * yn).sum(dim=-1)                                   # diagonal
+    neg = torch.gather(cos_all, 2, idxs)
+    rows = torch.arange(idxs.shape[0], device=idxs.device)[:, None, None]
+    neg_is_pos = (codes[rows, idxs] == codes[:, :, None, :]).all(dim=-1)
+    neg = torch.where(neg_is_pos, float("-inf"), neg / logit_temp)
+    return torch.cat([pos[:, :, None] / logit_temp, neg], dim=-1)
+
+
+def vector_logits(x: torch.Tensor, y: torch.Tensor, idxs: torch.Tensor,
+                  logit_temp: float) -> torch.Tensor:
+    """InfoNCE cosine logits against unquantized targets (JAX
+    ``_sample_negatives`` + ``_compute_logits``, wav2vec2.py:529-542):
+    the distractor vectors are gathered, compared with the positive and
+    ``-inf`` where equal to it.  x, y: [B, M, D] -> [B, M, 1 + N]."""
+    rows = torch.arange(idxs.shape[0], device=idxs.device)[:, None, None]
+    negs = y[rows, idxs]                                      # [B, M, N, D]
+    targets = torch.cat([y[:, :, None, :], negs], dim=2).float()
+    x32 = x.float()[:, :, None, :]
+    cos = (x32 * targets).sum(dim=-1) / (
+        torch.linalg.vector_norm(x32, dim=-1)
+        * torch.linalg.vector_norm(targets, dim=-1) + 1e-8)
+    logits = cos / logit_temp
+    neg_is_pos = (negs == y[:, :, None, :]).all(dim=-1)
+    return torch.cat([logits[:, :, :1], torch.where(
+        neg_is_pos, float("-inf"), logits[:, :, 1:])], dim=-1)
+
+
 class Wav2Vec2Model(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    """The wav2vec-S model on the blockwise encoder; ``pretraining=True``
+    adds the quantizer (``quantize_targets``), ``project_q`` and
+    ``final_proj`` that the pre-training ``forward`` needs."""
+
+    def __init__(self, cfg: Wav2Vec2Config, pretraining: bool = False):
         super().__init__()
         check_ported(cfg)
         self.cfg = cfg
@@ -220,6 +294,24 @@ class Wav2Vec2Model(nn.Module):
                                   if embed != cfg.encoder_embed_dim else None)
         self.mask_emb = nn.Parameter(torch.zeros(cfg.encoder_embed_dim))
         self.encoder = TransformerEncoder(cfg)
+        self.pretraining = pretraining
+        self.quantizer = self.project_q = self.final_proj = None
+        if pretraining:
+            if cfg.quantize_targets:
+                self.quantizer = GumbelVectorQuantizer(
+                    embed, cfg.latent_vars, cfg.latent_groups, cfg.final_dim)
+            self.project_q = nn.Linear(
+                cfg.final_dim if cfg.quantize_targets else embed,
+                cfg.final_dim)
+            self.final_proj = nn.Linear(cfg.encoder_embed_dim, cfg.final_dim)
+
+    @torch.no_grad()
+    def random_init_(self, generator: torch.Generator) -> None:
+        """The pre-training model's mask embedding: uniform in [0, 1) (the
+        JAX initialiser).  The CAAT encoder's stays 0 and draws nothing, so
+        its seeded weights do not move."""
+        if self.pretraining:
+            self.mask_emb.uniform_(0.0, 1.0, generator=generator)
 
     def forward_features(self, source: torch.Tensor) -> torch.Tensor:
         """[B, S] samples -> [B, T, C] conv features in the compute dtype,
@@ -247,3 +339,78 @@ class Wav2Vec2Model(nn.Module):
         x = self.encoder(feats, padding_mask, main_context, right_context,
                          ctx)
         return x, padding_mask
+
+    def _negative_indices(self, B: int, M: int,
+                          ctx: Optional[DropoutContext]) -> torch.Tensor:
+        """[B, M, n_negatives] uniform same-utterance distractor rows, never
+        the row's own (JAX ``_negative_indices``: ``randint(0, M - 1)``
+        shifted past the own position), drawn on the host: from the step's
+        generator in training, from a fixed seed in eval mode."""
+        shape = (B, M, self.cfg.n_negatives)
+        if ctx is not None:
+            idxs = ctx.randint(M - 1, shape)
+        else:
+            idxs = torch.randint(0, M - 1, shape, generator=torch.Generator(
+            ).manual_seed(EVAL_NEGATIVES_SEED))
+        own = torch.arange(M)[None, :, None]
+        return idxs + (idxs >= own)
+
+    def forward(self, source: torch.Tensor, mask_positions: torch.Tensor,
+                num_updates: int, padding_mask: Optional[torch.Tensor] = None,
+                main_context: Optional[int] = None,
+                right_context: Optional[int] = None,
+                ctx: Optional[DropoutContext] = None) -> Dict[str, object]:
+        """Pre-training forward.  source: [B, S] waveform; mask_positions:
+        [B, M] masked frame indices (equal count per row); num_updates: the
+        update count that anneals the Gumbel temperature; ``ctx`` None is
+        eval mode (no dropout, hard codes).  Returns the JAX dict: InfoNCE
+        ``logits [B, M, 1 + N]`` (positive first), ``features_pen``,
+        ``prob_perplexity``, ``code_perplexity``, ``num_vars``, ``temp``,
+        ``mask_positions``, ``padding_mask``."""
+        if not self.pretraining:
+            raise RuntimeError("this Wav2Vec2Model was built without the "
+                               "pre-training heads (pretraining=False)")
+        c = self.cfg
+        feats = self.forward_features(source)
+        features_pen = feats.float().square().mean()
+        feats = ln(self.layer_norm, feats)
+        unmasked = feats
+        if padding_mask is not None:
+            padding_mask = downsample_padding_mask(padding_mask,
+                                                   feats.shape[1])
+        if self.post_extract_proj is not None:
+            feats = dense(self.post_extract_proj, feats)
+        feats = drop(ctx, feats, c.dropout_input)
+        unmasked = drop(ctx, unmasked, c.dropout_features)
+
+        B, T, _ = feats.shape
+        pos = mask_positions.to(feats.device, torch.long)
+        M = pos.shape[1]
+        masked = torch.zeros((B, T), dtype=torch.bool,
+                             device=feats.device).scatter_(1, pos, True)
+        x = torch.where(masked[:, :, None], self.mask_emb.to(feats.dtype),
+                        feats)
+        x = self.encoder(x, padding_mask, main_context, right_context, ctx)
+
+        rows = torch.arange(B, device=x.device)[:, None]
+        y, x_masked = unmasked[rows, pos], x[rows, pos]           # [B, M, .]
+        if self.quantizer is not None:
+            temp = gumbel_temperature(num_updates, *c.latent_temp)
+            q = self.quantizer(y, temp, ctx)
+            y_q = dense(self.project_q, q["x"])
+        else:
+            q = {"prob_perplexity": None, "code_perplexity": None,
+                 "num_vars": 0, "temp": torch.tensor(0.0)}
+            y_q = dense(self.project_q, y)
+        preds = dense(self.final_proj, x_masked)
+        idxs = self._negative_indices(B, M, ctx).to(x.device)
+        if self.quantizer is not None:
+            logits = contrastive_logits(preds, y_q, q["sel_codes"], idxs,
+                                        c.logit_temp)
+        else:
+            logits = vector_logits(preds, y_q, idxs, c.logit_temp)
+        return {"logits": logits, "mask_positions": mask_positions,
+                "padding_mask": padding_mask, "features_pen": features_pen,
+                "prob_perplexity": q["prob_perplexity"],
+                "code_perplexity": q["code_perplexity"],
+                "num_vars": q["num_vars"], "temp": q["temp"]}

@@ -169,11 +169,13 @@ class DropoutContext:
 
     ``seed``: the step's 63-bit base seed, drawn once from ``generator``;
     each dropout site (``ctx(x, rate)``) takes the next ``offset`` (the
-    count of sites so far, in ``sites``).  ``layer_dropped`` and
-    ``randint`` draw layerdrop decisions and decoder position offsets on
-    the host from the same generator.  Give it a CPU generator: the draws
-    then need no device-to-host sync.  A context always means training:
-    inference passes ``ctx=None`` (see ``drop``)."""
+    count of sites so far, in ``sites``).  ``layer_dropped``, ``randint``
+    and ``uniform`` draw layerdrop decisions, decoder position offsets,
+    contrastive negatives and Gumbel noise on the host from the same
+    generator.  Give it a CPU generator: the draws then need no
+    device-to-host sync, and a card run draws what a CPU run does.  A
+    context always means training: inference passes ``ctx=None`` (see
+    ``drop``)."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -200,6 +202,11 @@ class DropoutContext:
     def randint(self, high: int, shape) -> torch.Tensor:
         """CPU int64 tensor of draws in [0, high)."""
         return torch.randint(0, high, shape, generator=self.generator)
+
+    def uniform(self, shape) -> torch.Tensor:
+        """CPU float32 tensor of draws in [1e-10, 1) (the JAX quantizer's
+        ``uniform(minval=1e-10, maxval=1.0)``)."""
+        return torch.rand(shape, generator=self.generator).clamp_(min=1e-10)
 
 
 def drop(ctx: Optional[DropoutContext], x: torch.Tensor,

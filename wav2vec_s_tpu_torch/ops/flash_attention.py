@@ -161,7 +161,12 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
     return tuple(_merge(t, q.dtype) for t in (dq, dk, dv))
 
 
-@functools.lru_cache(maxsize=64)
+#: tile tables kept: pre-training meets 9 length buckets x 7 context
+#: buckets x (forward, transposed) tables per kernel set
+TABLE_CACHE = 512
+
+
+@functools.lru_cache(maxsize=TABLE_CACHE)
 def tile_kinds(seq_len: int, main_context: int, right_context: int,
                q_tile: int, k_tile: int,
                transposed: bool = False) -> np.ndarray:
@@ -186,7 +191,7 @@ def tile_kinds(seq_len: int, main_context: int, right_context: int,
     return np.where(every, 1, np.where(some, 2, 0)).astype(np.int8)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=TABLE_CACHE)
 def _kinds_on(seq_len: int, main_context: int, right_context: int,
               device: str, path: str,
               transposed: bool = False) -> torch.Tensor:

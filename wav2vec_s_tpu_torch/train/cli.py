@@ -1,24 +1,33 @@
 """Training CLI: ``python -m wav2vec_s_tpu_torch.train.cli --config cfg.yaml
 [--device cuda|cpu] [section.key=value ...]``.
 
-Port of ``wav2vec_s_tpu/train/cli.py`` for CAAT fine-tuning on raw audio
+Port of ``wav2vec_s_tpu/train/cli.py`` for wav2vec-S streaming pre-training
+(``run.task=pretrain``: span masking, the Gumbel quantizer, the contrastive
+head, a block context sampled per update under
+``context.context_type=sampling``) and CAAT fine-tuning on raw audio
 (``run.task=caat``): the fairseq training program's epoch/update loop
 (fairseq/fairseq_cli/train.py:52-488 + trainer.py) with max-tokens batches,
 periodic validation and checkpointing with keep-K/best policies, patience
 early stop, json progress records and resume.  The same yaml and the same
-``section.key=value`` overrides drive both packages.
+``section.key=value`` overrides drive both packages; fairseq ``.pt`` warm
+starts (``run.load_pretrained_model_from``, ``run.w2v2_model_path``, a
+``.pt`` ``run.pretrained_encoder_path``) go through
+``checkpoint/torch_import.py``.
 
 What differs from the JAX CLI, on purpose:
 - ``--device`` (default ``cuda``) takes the place of ``--platform``; the
-  model, the Adam state and every batch live on that device.
+  model, the optimizer state and every batch live on that device.
 - Nothing is compiled: "one step function per (mc, rc, ds) bucket" is a
   dictionary of closures over one model.
 - The randomness of update ``n`` (dropout seed, layerdrop, decoder position
-  offsets, the sampled decision step) is a function of ``(run.seed, n)``,
-  as ``jax.random.fold_in(base_rng, n)`` is there, so a resumed run
-  continues exactly.  The iterator state that is saved is the consumer's
-  position, not the prefetch thread's.
-- Validation runs the loss in eval mode (no dropout, no layerdrop) under
+  offsets, negatives, Gumbel noise, the sampled decision step, the sampled
+  (mc, rc)) is a function of ``(run.seed, n)``, as
+  ``jax.random.fold_in(base_rng, n)`` is there, and a pre-training batch's
+  crops and masks are a function of ``(data.seed, epoch, batch offset)``,
+  so a resumed run continues exactly.  The iterator state that is saved is
+  the consumer's position, not the prefetch thread's.
+- Validation runs the loss in eval mode (no dropout, no layerdrop; in
+  pre-training hard codes and negatives of a fixed seed) under
   ``torch.no_grad()``.
 - A batch that runs out of device memory is skipped as the fairseq trainer
   does (trainer.py:700-720): gradients freed, the allocator's cache
@@ -42,18 +51,21 @@ import torch
 from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
 from wav2vec_s_tpu_torch.data.batching import (
     EpochBatchIterator, batch_by_size, length_buckets)
-from wav2vec_s_tpu_torch.data.dataset import CaatBatcher, to_device
+from wav2vec_s_tpu_torch.data.dataset import (
+    CaatBatcher, PretrainBatcher, to_device)
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
-from wav2vec_s_tpu_torch.data.manifests import read_s2t_manifest
+from wav2vec_s_tpu_torch.data.manifests import (
+    read_audio_manifest, read_s2t_manifest)
 from wav2vec_s_tpu_torch.data.prefetch import prefetch_batches
 from wav2vec_s_tpu_torch.data.tokenizer import build_tokenizer
-from wav2vec_s_tpu_torch.models import Wav2Vec2Config
+from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
 from wav2vec_s_tpu_torch.models.caat import CaatConfig, W2V2CaatModel
 from wav2vec_s_tpu_torch.models.modules import random_init_
 from wav2vec_s_tpu_torch.train.config import TrainConfig, load_config
 from wav2vec_s_tpu_torch.train.optim import build_optimizer
 from wav2vec_s_tpu_torch.train.recipes import (
-    make_caat_loss_fn, make_freeze_mask)
+    make_caat_loss_fn, make_freeze_mask, make_pretrain_loss_fn,
+    sample_context_bucket)
 from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
 from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
 
@@ -63,10 +75,9 @@ def check_supported(cfg: TrainConfig) -> None:
     takes and the port does not yet, naming the ROADMAP item."""
     run, data = cfg.run, cfg.data
     todo = []
-    if run.task != "caat":
-        item = "10" if run.task == "pretrain" else "12"
-        todo.append(f"run.task={run.task} (ROADMAP Queue 1 item {item}; "
-                    f"only 'caat' is ported)")
+    if run.task not in ("pretrain", "caat"):
+        todo.append(f"run.task={run.task} (ROADMAP Queue 1 item 12; "
+                    f"'pretrain' and 'caat' are ported)")
     if data.features != "raw":
         todo.append(f"data.features={data.features} (item 12: the fbank "
                     f"and text families)")
@@ -76,9 +87,6 @@ def check_supported(cfg: TrainConfig) -> None:
     if run.eval_bleu or run.eval_wer:
         todo.append("run.eval_bleu / run.eval_wer (item 12: needs "
                     "eval/generator.py)")
-    if cfg.optim.optimizer != "adam":
-        todo.append(f"optim.optimizer={cfg.optim.optimizer} (item 9: only "
-                    f"adam is ported)")
     if run.remat != "none":
         todo.append("run.remat (item 9: a TPU experiment that waits for a "
                     "measurement on the card)")
@@ -90,9 +98,6 @@ def check_supported(cfg: TrainConfig) -> None:
                     "profiler hook)")
     if run.debug_nan:
         todo.append("run.debug_nan (item 12: utils/debug.py)")
-    if run.w2v2_model_path or run.load_pretrained_model_from:
-        todo.append("run.w2v2_model_path / run.load_pretrained_model_from "
-                    "(item 9: import of fairseq .pt checkpoints)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -135,6 +140,15 @@ def build_caat(cfg: TrainConfig):
     model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
     model = random_init_(W2V2CaatModel(model_cfg, caat_cfg),
                          torch.Generator().manual_seed(cfg.run.seed))
+    if cfg.run.w2v2_model_path:
+        # the pre-trained wav2vec2 weights over the fresh encoder; the
+        # fine-tuned encoder below, when given, wins (the reference order)
+        from wav2vec_s_tpu_torch.checkpoint.torch_import import (
+            load_torch_checkpoint, load_wav2vec2_)
+        load_wav2vec2_(model.encoder.w2v2_model, load_torch_checkpoint(
+            cfg.run.w2v2_model_path)["model"])
+        print(f"wav2vec2 encoder initialized from {cfg.run.w2v2_model_path}",
+              file=sys.stderr)
     if cfg.run.pretrained_encoder_path:
         from wav2vec_s_tpu_torch.checkpoint.warm_start import (
             apply_pretrained_encoder)
@@ -147,6 +161,45 @@ def build_caat(cfg: TrainConfig):
                                  downsample=downsample, train=train)
 
     return manifest, batcher, model, caat_cfg, make_loss
+
+
+def pretrain_config(cfg: TrainConfig) -> Wav2Vec2Config:
+    """The pre-training model's config: the ``model`` section with the
+    ``context`` section's type and (mc, rc) (JAX ``build_pretrain``)."""
+    return _config(Wav2Vec2Config, cfg.model, "model",
+                   context_type=cfg.context.context_type,
+                   main_context=cfg.context.main_context,
+                   right_context=cfg.context.right_context)
+
+
+def build_pretrain(cfg: TrainConfig):
+    """(manifest, batcher, model, make_loss) of a wav2vec-S pre-training
+    run (``wav2vec_s_tpu/train/cli.py`` ``build_pretrain``).  As there, the
+    batcher masks with its own defaults (mask_prob 0.65, mask_length 10),
+    not the model section's; it counts frames with the model's conv stack
+    (the JAX batcher always takes the default one)."""
+    manifest = read_audio_manifest(cfg.data.train_manifest,
+                                   cfg.data.min_sample_size)
+    buckets = length_buckets(cfg.data.max_sample_size,
+                             min_len=cfg.data.min_sample_size, multiple=640)
+    model_cfg = pretrain_config(cfg)
+    batcher = PretrainBatcher(manifest, buckets, normalize=cfg.data.normalize,
+                              seed=cfg.data.seed,
+                              conv_layers=model_cfg.conv_feature_layers)
+    model = random_init_(Wav2Vec2Model(model_cfg, pretraining=True),
+                         torch.Generator().manual_seed(cfg.run.seed))
+    if cfg.run.load_pretrained_model_from:
+        from wav2vec_s_tpu_torch.checkpoint.torch_import import (
+            load_torch_checkpoint, load_wav2vec2_)
+        load_wav2vec2_(model, load_torch_checkpoint(
+            cfg.run.load_pretrained_model_from)["model"])
+        print(f"model initialized from "
+              f"{cfg.run.load_pretrained_model_from}", file=sys.stderr)
+
+    def make_loss(mc, rc, downsample=None, train=True):
+        return make_pretrain_loss_fn(model, mc, rc, train=train)
+
+    return manifest, batcher, model, make_loss
 
 
 def main(argv=None):
@@ -174,11 +227,34 @@ def _step_seed(seed: int, step: int) -> int:
     return int.from_bytes(digest[:8], "little") >> 1
 
 
+def _keyed(epoch_itr, epoch: int, start: int):
+    """The epoch's batches from offset ``start`` on, as ``((epoch, batch
+    offset), indices)``: the key of each batch's collation draws."""
+    for offset, batch_idx in enumerate(epoch_itr, start):
+        yield (epoch, offset), batch_idx
+
+
 def _train(cfg: TrainConfig, device: torch.device):
     run = cfg.run
-    manifest, batcher, model, caat_cfg, make_loss = build_caat(cfg)
+    pretrain = run.task == "pretrain"
+    if pretrain:
+        manifest, batcher, model, make_loss = build_pretrain(cfg)
+        # crop-only batches: sizes clipped to the largest bucket, the crop
+        # bucket hinted by the batch's shortest wav
+        sizes = np.minimum(np.asarray(manifest.sizes),
+                           cfg.data.max_sample_size)
+        hint = np.min
+        sampled_steps = None
+    else:
+        manifest, batcher, model, caat_cfg, make_loss = build_caat(cfg)
+        sizes = np.asarray(manifest.n_frames)
+        hint = np.max
+        # sampled decision-step training (reference step_mode=random,
+        # rain/layers/attention_transducer.py:800-815): one trained model
+        # serves every DECISION_STEP eval point.  Host-side draw per update.
+        sampled_steps = (caat_cfg.sampled_steps
+                         if caat_cfg.step_mode == "random" else None)
     model.to(device)
-    sizes = np.asarray(manifest.n_frames)
 
     batches = batch_by_size(sizes, cfg.data.max_tokens)
     if not batches:
@@ -215,37 +291,47 @@ def _train(cfg: TrainConfig, device: torch.device):
                 accum_steps=run.update_freq, grad_mask=grad_mask)
         return steps[(mc, rc, ds)]
 
-    # sampled decision-step training (reference step_mode=random,
-    # rain/layers/attention_transducer.py:800-815): one trained model serves
-    # every DECISION_STEP eval point.  Host-side draw per update.
-    sampled_steps = (caat_cfg.sampled_steps
-                     if caat_cfg.step_mode == "random" else None)
-    mc, rc = cfg.context.main_context, cfg.context.right_context
+    # sampled block contexts (pre-training, context_type=sampling): one
+    # (mc, rc) bucket drawn per update, one step function per bucket
+    sampled_contexts = pretrain and cfg.context.context_type == "sampling"
+    mc0, rc0 = cfg.context.main_context, cfg.context.right_context
 
     # validation: eval-mode loss over the valid manifest (patience early
     # stop like fairseq_cli/train.py:209-236)
     valid_setup = None
     if cfg.data.valid_manifest:
-        vman = read_s2t_manifest(cfg.data.valid_manifest, cfg.data.audio_root)
-        vsizes = np.asarray(vman.n_frames)
-        valid_setup = (_valid_batcher(batcher, vman),
-                       batch_by_size(vsizes, cfg.data.max_tokens), vsizes,
-                       make_loss(mc, rc, train=False))
+        if pretrain:
+            vman = read_audio_manifest(cfg.data.valid_manifest,
+                                       cfg.data.min_sample_size)
+            vsizes = np.minimum(np.asarray(vman.sizes),
+                                cfg.data.max_sample_size)
+            vbatcher = dataclasses.replace(batcher, manifest=vman)
+        else:
+            vman = read_s2t_manifest(cfg.data.valid_manifest,
+                                     cfg.data.audio_root)
+            vsizes = np.asarray(vman.n_frames)
+            vbatcher = _valid_batcher(batcher, vman)
+        valid_setup = (vbatcher, batch_by_size(vsizes, cfg.data.max_tokens),
+                       vsizes, make_loss(mc0, rc0, train=False))
 
     @torch.no_grad()
     def validate() -> float:
         vbatcher, vbatches, vsz, vloss_fn = valid_setup
         tot = n = 0.0
-        for bidx in vbatches:
-            hb = vbatcher.collate(bidx, size_hint=int(vsz[bidx].max()))
+        for i, bidx in enumerate(vbatches):
+            keyed = {"key": (0, i)} if pretrain else {}
+            hb = vbatcher.collate(bidx, size_hint=int(hint(vsz[bidx])),
+                                  **keyed)
             loss, size, _ = vloss_fn(to_device(hb, device), None, 0)
             tot += float(loss)
             n += float(size)
         return tot / max(n, 1.0)
 
-    def collate_train(batch_idx):
-        host_batch = batcher.collate(batch_idx,
-                                     size_hint=int(sizes[batch_idx].max()))
+    def collate_train(item):
+        key, batch_idx = item
+        keyed = {"key": key} if pretrain else {}
+        host_batch = batcher.collate(
+            batch_idx, size_hint=int(hint(sizes[batch_idx])), **keyed)
         if run.update_freq > 1:
             host_batch = {k: _microbatch(v, run.update_freq)
                           for k, v in host_batch.items()}
@@ -269,12 +355,16 @@ def _train(cfg: TrainConfig, device: torch.device):
         # the consumer's position in the epoch: what a checkpoint saves (the
         # prefetch thread runs ahead of it)
         position = itr.state_dict()
-        for batch_idx, host_batch in prefetch_batches(
-                itr.next_epoch_itr(), collate_train, run.prefetch):
+        for (_, batch_idx), host_batch in prefetch_batches(
+                _keyed(itr.next_epoch_itr(), position["epoch"],
+                       position["batch_offset"]), collate_train,
+                run.prefetch):
             if host_step >= run.max_update:
                 break
             position["batch_offset"] += 1
             draw = random.Random(_step_seed(run.seed, host_step))
+            mc, rc = (sample_context_bucket(draw, cfg.context.buckets)
+                      if sampled_contexts else (mc0, rc0))
             ds = (sampled_steps[draw.randrange(len(sampled_steps))]
                   if sampled_steps else None)
             gen.manual_seed(_step_seed(run.seed, host_step))
@@ -307,6 +397,9 @@ def _train(cfg: TrainConfig, device: torch.device):
                 window.setdefault(k, []).append(v)   # device tensors: no sync
             if ds is not None:
                 window.setdefault("decision_step", []).append(float(ds))
+            if sampled_contexts:
+                window.setdefault("main_context", []).append(float(mc))
+                window.setdefault("right_context", []).append(float(rc))
 
             if host_step % run.log_interval == 0:
                 stats = {k: float(np.mean([float(x) for x in v]))

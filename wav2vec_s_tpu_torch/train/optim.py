@@ -1,10 +1,11 @@
-"""Optimizer with fairseq-equivalent semantics (port of
+"""Optimizers with fairseq-equivalent semantics (port of
 ``wav2vec_s_tpu/train/optim.py``).
 
-The JAX package chains optax transforms: ``clip_by_global_norm`` (when
-``clip_norm > 0``), ``scale_by_adam`` (eps outside the square root),
-``add_decayed_weights`` on EVERY parameter, then the learning-rate
-schedule.  ``Adam.update`` reproduces that chain by hand, in place:
+``optimizer="adam"``: the JAX package chains optax transforms:
+``clip_by_global_norm`` (when ``clip_norm > 0``), ``scale_by_adam`` (eps
+outside the square root), ``add_decayed_weights`` on EVERY parameter, then
+the learning-rate schedule.  ``Adam.update`` reproduces that chain by hand,
+in place:
 
     g      <- g * min(1, clip / |g|)
     m      <- b1 m + (1 - b1) g ;   v <- b2 v + (1 - b2) g^2
@@ -13,17 +14,27 @@ schedule.  ``Adam.update`` reproduces that chain by hand, in place:
 
 with ``n`` the optimizer's own update count after the increment.  optax
 evaluates the schedule at ITS count, which starts at 0, so the first update
-uses ``sched(0)`` (0 under ``polynomial_decay`` warmup).  A step skipped for
-a non-finite gradient never reaches ``update``: the count, the moments and
-the parameters stay as they were (``train/step.py``).  Only adam is ported;
-``optimizer="adafactor"`` raises.
+uses ``sched(0)`` (0 under ``polynomial_decay`` warmup).
+
+``optimizer="adafactor"``: ``optax.adafactor(learning_rate=sched)`` with
+optax's defaults (0.2.6), ``Adafactor.update``: factored second moments
+for parameters with two dims of at least 128, decay ``1 - (n + 1) ** -0.8``,
+each update clipped by its block RMS at 1, times the schedule, times the
+parameter's RMS (at least 1e-3), eps 1e-30.  The JAX builder returns the
+adafactor chain early, so ``clip_norm`` and ``weight_decay`` do not apply
+to it; the port ignores them the same way.
+
+A step skipped for a non-finite gradient never reaches ``update``: the
+count, the moments and the parameters stay as they were
+(``train/step.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -113,8 +124,96 @@ class Adam:
         torch._foreach_add_(params, upd, alpha=-lr)
 
 
-def build_optimizer(cfg: OptimConfig) -> Adam:
-    if cfg.optimizer != "adam":
-        raise NotImplementedError(f"optimizer {cfg.optimizer!r}: only adam "
-                                  f"is ported")
-    return Adam(cfg)
+@dataclasses.dataclass
+class AdafactorState:
+    count: int                       # updates applied (skips excluded)
+    v_row: List[torch.Tensor]        # factored: row means; else [1] zeros
+    v_col: List[torch.Tensor]        # factored: column means; else [1]
+    v: List[torch.Tensor]            # unfactored: the full moment; else [1]
+
+
+def factored_dims(shape, min_dim_size_to_factor: int = 128
+                  ) -> Optional[Tuple[int, int]]:
+    """(second largest, largest) axis of ``shape`` when the second largest
+    is at least ``min_dim_size_to_factor``, else None (optax
+    ``_factored_dims``: ``np.argsort`` of the shape, ties in its order)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """``optax.adafactor(learning_rate=sched)`` with its defaults, over a
+    list of parameters, in place.  The factored moments are symmetric in
+    rows and columns, so a torch ``[out, in]`` weight and the JAX
+    ``[in, out]`` kernel take the same update."""
+
+    decay_rate = 0.8
+    min_dim_size_to_factor = 128
+    clipping_threshold = 1.0
+    min_param_scale = 1e-3
+    eps = 1e-30
+
+    def __init__(self, cfg: OptimConfig):
+        self.cfg = cfg
+        self.schedule = build_schedule(cfg)
+
+    def init(self, params: List[torch.Tensor]) -> AdafactorState:
+        state = AdafactorState(0, [], [], [])
+        for p in params:
+            dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+            one = p.new_zeros((1,))
+            if dims is None:
+                state.v_row.append(one)
+                state.v_col.append(one.clone())
+                state.v.append(torch.zeros_like(p))
+            else:
+                d1, d0 = dims
+                shape = list(p.shape)
+                state.v_row.append(p.new_zeros(shape[:d0] + shape[d0 + 1:]))
+                state.v_col.append(p.new_zeros(shape[:d1] + shape[d1 + 1:]))
+                state.v.append(one.clone())
+        return state
+
+    @torch.no_grad()
+    def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
+               state: AdafactorState, grad_norm: torch.Tensor) -> None:
+        """One update of ``params`` and ``state`` in place; ``grad_norm``
+        is not read (adafactor clips per block)."""
+        del grad_norm
+        f32 = np.float32
+        decay = float(f32(1.0) - f32(state.count + 1) ** f32(-self.decay_rate))
+        lr = self.schedule(state.count)
+        state.count += 1
+        for i, (p, g) in enumerate(zip(params, grads)):
+            sq = g * g + self.eps
+            dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+            if dims is None:
+                v = state.v[i].mul_(decay).add_(sq, alpha=1.0 - decay)
+                u = g * v.rsqrt()
+            else:
+                d1, d0 = dims
+                vr = state.v_row[i].mul_(decay).add_(
+                    sq.mean(dim=d0), alpha=1.0 - decay)
+                vc = state.v_col[i].mul_(decay).add_(
+                    sq.mean(dim=d1), alpha=1.0 - decay)
+                r1 = d1 - 1 if d1 > d0 else d1
+                row = (vr / vr.mean(dim=r1, keepdim=True)).rsqrt()
+                u = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
+            rms = u.square().mean().sqrt()
+            u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
+            p_rms = p.square().mean().sqrt()
+            scale = torch.where(p_rms <= self.min_param_scale,
+                                self.min_param_scale, p_rms)
+            p.sub_(u * lr * scale)
+
+
+def build_optimizer(cfg: OptimConfig):
+    if cfg.optimizer == "adam":
+        return Adam(cfg)
+    if cfg.optimizer == "adafactor":
+        return Adafactor(cfg)
+    raise ValueError(cfg.optimizer)

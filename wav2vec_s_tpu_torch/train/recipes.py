@@ -1,6 +1,8 @@
-"""The CAAT fine-tuning recipe bound to the generic train step (port of the
-CAAT parts of ``wav2vec_s_tpu/train/recipes.py``).
+"""The two training recipes bound to the generic train step (port of the
+pre-training and CAAT parts of ``wav2vec_s_tpu/train/recipes.py``).
 
+- ``make_pretrain_loss_fn``: wav2vec-S streaming pre-training, InfoNCE +
+  diversity + features_pen at one (mc, rc) context bucket;
 - ``make_caat_loss_fn``: delay-transducer + label-smoothed CE through the
   joint lattice, prev tokens ``[bos; targets]`` built per call;
 - ``sample_context_bucket`` / ``DEFAULT_CONTEXT_BUCKETS``: the host-side
@@ -19,6 +21,33 @@ import torch
 
 from wav2vec_s_tpu_torch.models.caat.transducer_model import caat_loss
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+from wav2vec_s_tpu_torch.train.criterion import wav2vec_loss
+
+
+def make_pretrain_loss_fn(model, main_context: Optional[int] = None,
+                          right_context: Optional[int] = None,
+                          train: bool = True):
+    """loss_fn for ``make_train_step`` over ``model`` (a ``Wav2Vec2Model``
+    built with ``pretraining=True``): batch {source, mask_positions,
+    [padding_mask]}.  Every draw of the update (dropout seed, layerdrop,
+    negatives, Gumbel uniforms) comes from the host ``generator`` through
+    one ``DropoutContext``, so an update is a function of the generator's
+    seed on any device.  ``train=False`` is the validation loss: no
+    dropout, hard codes, negatives of a fixed seed; the generator is not
+    read.  The step number anneals the Gumbel temperature."""
+
+    def loss_fn(batch, generator: torch.Generator, step: int):
+        ctx = DropoutContext(generator) if train else None
+        out = model(batch["source"], batch["mask_positions"], step,
+                    padding_mask=batch.get("padding_mask"),
+                    main_context=main_context, right_context=right_context,
+                    ctx=ctx)
+        loss, n, logs = wav2vec_loss(out)
+        return loss, n, {k: torch.as_tensor(v).float()
+                         for k, v in logs.items()
+                         if v is not None and k != "sample_size"}
+
+    return loss_fn
 
 
 def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,

@@ -20,12 +20,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 from torch import nn
 
-from wav2vec_s_tpu_torch.train.optim import Adam, AdamState
+from wav2vec_s_tpu_torch.train.optim import (
+    Adafactor, AdafactorState, Adam, AdamState)
+
+Optimizer = Union[Adam, Adafactor]
 
 #: (batch, generator, step) -> (summed loss, sample count, summed logs)
 LossFn = Callable[..., tuple]
@@ -37,14 +40,15 @@ GradMask = Callable[[Dict[str, torch.Tensor], int], None]
 class TrainState:
     step: int                        # advances on every call, skips too
     model: nn.Module
-    opt_state: AdamState
+    opt_state: Union[AdamState, AdafactorState]
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: Adam) -> "TrainState":
+    def create(cls, model: nn.Module, optimizer: Optimizer) -> "TrainState":
         return cls(0, model, optimizer.init(list(model.parameters())))
 
 
-def make_train_step(loss_fn: LossFn, optimizer: Adam, accum_steps: int = 1,
+def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
+                    accum_steps: int = 1,
                     skip_nonfinite: bool = True,
                     grad_mask: Optional[GradMask] = None):
     """Build ``train_step(state, batch, generator) -> (state, logs)``.
