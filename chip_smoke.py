@@ -30,7 +30,9 @@ Phases, each printed on its own line:
                rc 8, 12 heads of 64, padded keys; and an rc 0 layout; float32
                and bfloat16; dropout 0 and 0.1): dQ on valid rows, dK, dV;
                the forward with dropout against its twin; two runs
-               bit-identical; float32 on the CUDA-core kernels, bfloat16 on
+               bit-identical; a data-parallel shard (rows 3: of 8 with
+               dropout_row0 3) equal to the whole batch's rows bit for bit;
+               float32 on the CUDA-core kernels, bfloat16 on
                the tensor-core kernels; then kernel, twin and the library
                call (its backward alone: forward + backward minus forward)
                timed;
@@ -50,19 +52,29 @@ Phases, each printed on its own line:
                probabilities [5*12*940, 940]), float32 and bfloat16,
                p 0.1 and 0.3; keep
                share within 4 sigma, forward mask == backward mask, new
-               seed / offset -> new mask; then both timed per call;
+               seed / offset -> new mask; shards (a data-parallel rank's
+               rows, a context-parallel rank's time block: a non-zero index
+               base and unequal spans, and both) bit-equal to the twin
+               under the same index map and to the matching part of the
+               whole tensor's mask; then both timed per call;
   5. lattice — the transducer kernels (K5a alphas, K5b betas, K6 affine
                rows forward and reverse) and the two fused walks (alphas +
                expected delay, betas + its backward) against their row-scan
                twins at [8, 8, 41], [16, 32, 65], [4, 512, 129] (the warp
                set) and [2, 8, 300], [2, 64, 300] (the block set, past U
                256) with ragged lengths, every launch on the set that
-               kernels.lattice_path picks; then the delay-transducer loss
+               kernels.lattice_path picks; each kernel alone against a
+               float64 run of its twin beside the f32 twin's own error, and
+               the block set's unfused sequence (alphas, coefficients from
+               the stored alpha, rows: what the loss ran past U 256 before
+               the block set had fused walks) beside its fused walks; then
+               the delay-transducer loss
                and d/dacts through the kernels against float64 twins; at the
-               first two shapes each kernel's and walk's device time alone
+               first two shapes and at [2, 8, 300] each kernel's and walk's
+               device time alone
                (50 launches in one CUDA graph, inputs and lengths prepared
-               outside) beside the block set's (its C entry points; for a
-               walk the block set's unfused sequence), the wrappers' host
+               outside) beside the block set's (its C entry points), the
+               wrappers' host
                times on either set, the twin, and the bound: the larger of
                the byte bound and T + U - 1 dependent steps times the least
                step of the recursion that the probe kernel
@@ -73,7 +85,7 @@ Phases, each printed on its own line:
                (shared memory + barrier); it also times one dependent global
                load, printed beside K6; the loss's forward + backward time
                and its device kernels (torch.profiler, by name) on either
-               set; and the block set alone at [2, 8, 300];
+               set;
   6. parity  — a tiny model decoded on the card equals the same decode on
                the CPU (plain twins), texts and delays;
   7. one-shot parity — the tiny one-shot decode (flash attention) on the
@@ -142,7 +154,7 @@ Phases, each printed on its own line:
                walk per loss chunk on the warp set and no single recursion,
                K1/K2 none; finite loss and grad norm, no skipped step; then
                one step on targets of 299 labels (U + 1 = 300, past the
-               warp set), whose loss runs the block set's K5a, K5b and K6;
+               warp set), whose loss runs the block set's fused walks;
   12. cli full — the training entry point, wav2vec_s_tpu_torch.train.cli
                main(), at the same width on seeded-noise wavs (16 x 10 s), a
                tsv and a 10000-entry dict written to a temp dir: bfloat16,
@@ -191,6 +203,25 @@ Phases, each printed on its own line:
                a CAAT train.cli call with run.w2v2_model_path whose encoder
                equals the pre-trained one before its first update, and
                which takes one update.
+  16. parallel — (a) two ranks on the one card over gloo (2 processes on
+               cuda:0, each with 4 of the 8 rows), the port's data-parallel
+               step at Base + CAAT base width, flash attention, every
+               dropout on: two updates against one process over the 8
+               rows (float32, bfloat16, bfloat16 under ZeRO-1): loss and
+               grad norm within DDP_TOL; against one process that runs the
+               same split of rows (0-3, then 4-7, gradients summed) within
+               DDP_SPLIT_TOL; Adam's first moments and the parameters no
+               further from the one over 8 rows than that process is (twice
+               it, plus DDP_FLOOR); K2, K3, K4 and the lattice walks
+               launched on each rank; the plan's all-reduce of one update's
+               gradients timed; ZeRO-1's optimizer moments per rank (about
+               half).  (b) the training entry point under
+               python -m torch.distributed.run with one rank on nccl, data
+               parallel, then run.zero=true, then run.fsdp=true, on
+               configs/pretrain_base.yaml at phase 15's shapes, 3 updates,
+               each against the same call without a process group: the same
+               updates and skips, losses rtol 1e-5, grad norms rtol 1e-4,
+               parameters within 1e-2 x lr.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -253,15 +284,26 @@ def _set_wrappers():
             "K6": kernels.affine_rows}
 
 
+# the fused lattice walks, counted per kernel set: "<name>" on the warp
+# set (csrc/transducer_warp.cu), "<name>_block" on the block set
+# (csrc/transducer.cu)
+WALKS = ("transducer_forward_walk", "transducer_reverse_walk")
+
+
 def _reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    for fn in _set_wrappers().values():
-        fn.path_launches = dict.fromkeys(fn.path_launches, 0)
+        if hasattr(fn, "path_launches"):
+            fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    counters = _counters()
+    out = {name: fn.launches for name, fn in counters.items()}
+    for name in WALKS:
+        out[name] = counters[name].path_launches["warp"]
+        out[name + "_block"] = counters[name].path_launches["block"]
+    return out
 
 
 def _set_paths():
@@ -611,6 +653,52 @@ def phase_flash():
 TRAIN_T = 500        # 499 frames of 10 s, padded to the seq multiple of 2
 
 
+def _flash_shard(q, k, v, do, lay, rate, seed, offset, out, grads):
+    """K2 and K3 on the rows 3: of the batch with ``dropout_row0`` 3 (a
+    data-parallel shard): equal to the whole batch's rows, bit for bit, and
+    to the twins under the same row base."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        _keep_scale, blockwise_flash_attention_bwd,
+        blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
+        blockwise_flash_attention_ref)
+
+    r0 = 3
+    part = [t[r0:].contiguous() for t in (q, k, v, do)]
+    lay_p = (lay[0][r0:].contiguous(),) + lay[1:]
+    o, m, l = blockwise_flash_attention_packed(
+        *part[:3], *lay_p, rate, True, seed, offset, dropout_row0=r0)
+    dq, dk, dv = blockwise_flash_attention_bwd(
+        *part[:3], o, part[3], m, l, *lay_p, rate, seed, offset, r0)
+    torch.cuda.synchronize()
+    assert torch.equal(o, out[r0:])
+    for a, b in zip((dq, dk, dv), grads):
+        assert torch.equal(a, b[r0:])
+    want = blockwise_flash_attention_ref(*part[:3], *lay_p, rate, seed,
+                                         offset, r0)[0]
+    ref = blockwise_flash_attention_bwd_ref(*part[:3], o, part[3], m, l,
+                                            *lay_p, rate, seed, offset, r0)
+    # the twins' masks: the shard's are the whole batch's rows
+    B, S, H = q.shape[0], q.shape[1], lay[1]
+    assert torch.equal(_keep_scale(B - r0, H, S, rate, seed, offset,
+                                   q.device, r0),
+                       _keep_scale(B, H, S, rate, seed, offset,
+                                   q.device)[r0:])
+    valid = ~lay_p[0]
+    tol = 1e-4 if q.dtype == torch.float32 else 2e-2
+    assert (o[valid].float() - want[valid].float()).abs().max() <= tol
+    for i, (a, b) in enumerate(zip((dq, dk, dv), ref)):
+        if i == 0:
+            a, b = a[valid], b[valid]
+        assert ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()) <= (1e-5 if q.dtype == torch.float32
+                                             else 1e-2)
+    print(f"phase flash backward: rows {r0}: of {q.shape[0]} with "
+          f"dropout_row0 {r0}: K2 output and K3 grads == the whole batch's "
+          f"rows bit for bit; twins under the row base == the whole twin's "
+          f"rows")
+
+
 def phase_flash_bwd():
     """K3 (and K2 with dropout) vs their twins at the training call -> the
     kernel's row."""
@@ -675,6 +763,9 @@ def phase_flash_bwd():
                                 .item())
                     errs.append(((a.float() - b.float()).abs().max()
                                  / b.float().abs().max()).item())
+                if rate:
+                    _flash_shard(q, k, v, do, lay, rate, seed, offset, out,
+                                 got)
                 print(f"phase flash backward: S={S} rc={rc} "
                       f"{str(dtype)[6:]} ({path} kernels) rate={rate}: "
                       f"forward max_abs_err="
@@ -796,6 +887,7 @@ def phase_dropout():
                       f"new offset change the mask")
                 del got, want, ones, mask, twin_mask, xg
             del x
+    _dropout_shards(dev, seed, offset)
     # timing: the attention-probability call, bf16, p 0.1
     x = torch.randn(shapes[2], generator=g, device=dev).to(torch.bfloat16)
     ms = _cuda_ms(lambda: hw_dropout(x, 0.1, seed, offset), 20)
@@ -809,6 +901,51 @@ def phase_dropout():
           f"library (F.dropout) {library_ms:.4f} ms, bound {bound[0]:.5f} "
           f"ms by {bound[1]}")
     return _row(worst, ms, plain_ms, bound, library_ms)
+
+
+def _dropout_shards(dev, seed, offset):
+    """K4 on shards: a data-parallel rank's rows, a context-parallel rank's
+    time block (unequal spans) and both, of [8, 748, 768] (the CAAT step's
+    encoder rows) and [8, 12, 748, 748] (its attention probabilities, time
+    on axis 2), and of [8, 37, 77] (no aligned group of 4: every element
+    draws its own Philox block): bit-equal to the twin under the same index
+    map, and to the matching part of the whole tensor's mask."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.dropout import (
+        DropoutContext, dropout_ref, hw_dropout)
+    from wav2vec_s_tpu_torch.parallel.mesh import Shard
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    ctx = DropoutContext(torch.Generator())
+    for shape, axis in (((8, 748, 768), 1), ((8, 12, 748, 748), 2),
+                        ((8, 37, 77), 1)):
+        x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        whole = hw_dropout(x, 0.1, seed, offset)
+        T = shape[axis]
+        t0, t1 = T // 3 + 1, T - T // 4        # not multiples of 4
+        for rows in ((4, 8), (0, 8), (3, 5)):
+            for seq in (None, (t0, t1)):
+                ctx.shard = (None if rows == (0, 8)
+                             else Shard(rows[0], rows[1], 8))
+                part = x[rows[0]:rows[1]]
+                split = None
+                if seq is not None:
+                    part = part.narrow(axis, seq[0], seq[1] - seq[0])
+                    split = (axis, seq[0], T)
+                part = part.contiguous()
+                index = ctx.index(tuple(part.shape), split)
+                got = hw_dropout(part, 0.1, seed, offset, index)
+                torch.cuda.synchronize()
+                want = whole[rows[0]:rows[1]]
+                if seq is not None:
+                    want = want.narrow(axis, seq[0], seq[1] - seq[0])
+                assert torch.equal(got, dropout_ref(part, 0.1, seed, offset,
+                                                   index)), (shape, rows, seq)
+                assert torch.equal(got, want), (shape, rows, seq)
+        del x, whole
+        print(f"phase dropout: {shape} bf16 p=0.1 shards (rows 4:8, 3:5; "
+              f"axis {axis} {T // 3 + 1}:{T - T // 4}; both): kernel == "
+              f"twin under the index map == the whole tensor's mask")
 
 
 def _lattice_inputs(dev, B, T, U, V, seed):
@@ -839,10 +976,74 @@ def _rel_err(a, b, where=None):
 LATTICE_SHAPES = ((8, 8, 41, 10000), (16, 32, 65, 512), (4, 512, 129, 512),
                   (2, 8, 300, 512), (2, 64, 300, 512))
 LAT_TIMED = (0, 1, 3)      # the shapes timed
-LAT_LOSS = (0, 1, 2, 4)    # the shapes whose loss is held to float64 twins
+LAT_LOSS = (0, 1, 2, 3, 4)  # the shapes whose loss is held to float64 twins
 LAT_LAUNCHES = 50          # launches of a lattice kernel in one CUDA graph
 PROBE_STEPS = 20000        # dependent steps of one probe launch
 CHAIN_LOADS = 4096         # dependent loads of one load-chain launch
+
+
+def _lattice_f64(lpb, lpe, al, ll, dv, valid, kernel_out):
+    """err/(1+|x|) against float64 twins (on the CPU) of each lattice
+    kernel alone, of the block set's unfused sequence and of the fused
+    walks, each beside the f32 twins' own; printed on one line.
+    ``kernel_out``: {alphas, betas (single kernels), ad, bd (the unfused
+    sequence: coefficients from the stored alpha / beta, then K6), walk a,
+    walk ad, walk b, walk bd}.  K6 alone runs on the float64 coefficients
+    rounded to f32, its reference the float64 rows on those same
+    coefficients.  Returns {name: err} and {name: float64 reference}."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.transducer import kernels, lattice
+
+    def cpu(t, dtype=torch.float64):
+        return t.detach().cpu().to(dtype)
+
+    al, ll, valid = al.cpu(), ll.cpu(), valid.cpu()
+    shape = tuple(lpb.shape)
+    t_valid, emit_ok = lattice.lattice_masks(shape, al, ll)
+    coef = {}
+
+    def grab(a, pb, c, reverse=False):
+        coef[reverse] = (a, pb, c)
+        return lattice.affine_rows(a, pb, c, reverse)
+
+    ref, twin = {}, {}
+    for dtype, into in ((torch.float64, ref), (torch.float32, twin)):
+        b_, e_, d_ = (cpu(t, dtype) for t in (lpb, lpe, dv))
+        into["alphas"] = lattice.alphas(b_, e_)
+        into["betas"] = lattice.betas(b_, e_, al, ll)[0]
+        into["ad"] = lattice.expected_delay(
+            b_, e_, into["alphas"], d_,
+            rows=grab if dtype == torch.float64 else lattice.affine_rows)
+        down, up = lattice.beta_shifts(into["betas"], ll)
+        into["bd"] = lattice.expected_delay_bwd(
+            b_, e_, into["betas"], down, up, d_, t_valid, emit_ok,
+            rows=grab if dtype == torch.float64 else lattice.affine_rows)[0]
+    where = {"betas": valid, "bd": valid, "walk b": valid, "walk bd": valid}
+    errs = {}
+    of = {"walk a": "alphas", "walk b": "betas", "walk ad": "ad",
+          "walk bd": "bd"}
+    for name, got in kernel_out.items():
+        errs[name] = _rel_err(cpu(got), ref[of.get(name, name)],
+                              where.get(name))
+        if not name.startswith("walk"):
+            errs[f"f32 twin {name}"] = _rel_err(twin[name], ref[name],
+                                                where.get(name))
+    for rev, (a, pb, c) in coef.items():
+        r32 = [x.float() for x in (a, pb, c)]
+        want = lattice.affine_rows(*(x.double() for x in r32), reverse=rev)
+        got = kernels.affine_rows(*(x.to(lpb.device) for x in r32),
+                                  reverse=rev)
+        name = "affine_rows " + ("reverse" if rev else "forward")
+        w = valid if rev else None
+        errs[name] = _rel_err(cpu(got), want, w)
+        errs[f"f32 twin {name}"] = _rel_err(
+            lattice.affine_rows(*r32, reverse=rev), want, w)
+    print(f"phase lattice: {list(shape)} {kernels.lattice_path(shape[2])} "
+          f"set, err/(1+|x|) vs float64 twins: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + " (ad, bd: the unfused sequence; walk ad, walk bd: the fused "
+            "walks)")
+    return errs, ref
 
 
 def _step_probe():
@@ -987,6 +1188,10 @@ LOSS_TOL, LOSS_TOL_CEILING = (1e-5, 5e-4, 1e-3), (1e-5, 2e-3, 5e-3)
 LAT_TOL = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5,
            "forward_walk alphas": 2e-5, "forward_walk ad": 2e-5,
            "reverse_walk betas": 5e-5, "reverse_walk bd": 2e-5}
+# err/(1+|x|) of the block set's fused walks' ad and bd against float64
+# twins: they read 4.6e-7 to 8.7e-7 at U 300 (T 8 and 64), where the
+# unfused sequence they replace read 5.0e-4 to 1.1e-3
+BLOCK_WALK_F64_TOL = 1e-5
 
 
 def _check_loss(loss_grad, acts, shape):
@@ -1012,6 +1217,16 @@ def _check_loss(loss_grad, acts, shape):
     # the plain f32 computation, within the fixed bounds where that is
     # tighter, and never past the ceilings (which the twins must meet too)
     twin = errs_vs_f64["f32 twins"]
+    kern = errs_vs_f64["kernels"]
+    if shape[2] > 256:
+        # the block set's fused walks: delay and gradient within twice the
+        # f32 twins' own error
+        assert kern[1] <= 2 * twin[1] and kern[2] <= 2 * twin[2], (
+            errs_vs_f64)
+        if shape[1] == 8:
+            # 299 labels in 8 frames: the f32 twins themselves miss the
+            # fixed bounds (a few paths of |alpha| ~ 2000)
+            return
     bound = [min(c, max(b, t)) for b, t, c in zip(LOSS_TOL, twin,
                                                   LOSS_TOL_CEILING)]
     assert all(t <= c for t, c in zip(twin, LOSS_TOL_CEILING)), twin
@@ -1024,9 +1239,9 @@ def phase_lattice():
     twins on the kernel set that ``kernels.lattice_path`` picks, then the
     loss and its gradient through the kernels (CUDA) against float64 twins
     (CPU); the kernels timed beside the block set's design -> {name: row}:
-    the fused walks at the full-width step's lattice (the first shape), the
-    single recursions on the block set at the long-target step's lattice
-    (the fourth), where the main path runs each."""
+    the warp set's fused walks at the full-width step's lattice (the first
+    shape), the block set's at the long-target step's lattice (the
+    fourth), where the main path runs each."""
     import types
     from unittest import mock
 
@@ -1071,19 +1286,21 @@ def phase_lattice():
         fbd_t = lattice.expected_delay_bwd(lpb, lpe, fb, f_down, f_up, dv,
                                            t_valid, emit_ok)[0]
         torch.cuda.synchronize()
-        # every launch on the chosen set: the fused walks on the warp set,
-        # the block set's unfused sequence (alphas, rows, betas, rows) past
-        # its U
+        # every launch on the chosen set: the single recursions called
+        # above and each fused walk once
         counts, sets = _counts(), _set_paths()
-        fused = int(path == kernels.WARP)
-        singles = {"K5a": 1 + 1 - fused, "K5b": 1 + 1 - fused,
-                   "K6": 2 + 2 * (1 - fused)}
-        assert counts["transducer_forward_walk"] == fused, counts
-        assert counts["transducer_reverse_walk"] == fused, counts
+        singles = {"K5a": 1, "K5b": 1, "K6": 2}
+        on = "" if path == kernels.WARP else "_block"
+        for name in WALKS:
+            assert counts[name + on] == 1, counts
         for k, n in singles.items():
             want = {kernels.WARP: 0, kernels.BLOCK: 0}
             want[path] = n
             assert sets[k] == want, (k, sets)
+        f64, ref = _lattice_f64(
+            lpb, lpe, al, ll, dv, valid,
+            {"alphas": a_k, "betas": b_k, "ad": ad_k, "bd": bd_k,
+             "walk a": fa, "walk ad": fad, "walk b": fb, "walk bd": fbd})
         errs = {"alphas": _rel_err(a_k, a_t),
                 "betas": _rel_err(b_k, b_t, valid),
                 "affine_rows": max(_rel_err(ad_k, ad_t),
@@ -1092,6 +1309,18 @@ def phase_lattice():
                 "forward_walk ad": _rel_err(fad, fad_t),
                 "reverse_walk betas": _rel_err(fb, b_t, valid),
                 "reverse_walk bd": _rel_err(fbd, fbd_t, valid)}
+        if path == kernels.BLOCK:
+            # the block set's walks normalise each cell's transition
+            # probabilities (csrc/transducer.cu), the twin rows take them
+            # from the stored alpha: held to float64 instead, at a fixed
+            # bound and within twice the f32 twins' own error
+            del errs["forward_walk ad"], errs["reverse_walk bd"]
+            for k in ("ad", "bd"):
+                walk, twin = f64[f"walk {k}"], f64[f"f32 twin {k}"]
+                assert walk <= BLOCK_WALK_F64_TOL, (B, T, U, k, f64)
+                assert walk <= max(2 * twin, 1e-6), (B, T, U, k, f64)
+            fad_t, fbd_t = (ref[k].to(dev, torch.float32) for k in ("ad",
+                                                                   "bd"))
         print(f"phase lattice: [{B},{T},{U}] {path} set, err/(1+|x|) vs "
               f"twin: " + ", ".join(f"{k} {v:.3g} (tol {LAT_TOL[k]:g})"
                                      for k, v in errs.items()))
@@ -1136,16 +1365,14 @@ def phase_lattice():
             plain_ms = _cuda_ms(step, 5)
         print(f"phase lattice: [{B},{T},{U},{V}] loss forward+backward: "
               f"kernels {ms:.4f} ms ({path} set; "
-              f"{sum(n_kernels.values())} device kernels), the block set's "
-              f"unfused sequence {block_ms:.4f} ms "
+              f"{sum(n_kernels.values())} device kernels), the block set "
+              f"{block_ms:.4f} ms "
               f"({sum(block_kernels.values())} device kernels), plain twins "
               f"{plain_ms:.4f} ms; kernels by name, against the block set: "
               f"{_kernel_diff(n_kernels, block_kernels) or 'the same'}")
         # Device time of each kernel alone: its C entry point on inputs and
         # lengths prepared here, LAT_LAUNCHES launches in one CUDA graph;
-        # beside it the block set's: its C entry point for a single
-        # recursion, for a fused walk the block set's sequence through the
-        # wrapper (kernels, coefficients, rows).  Then the wrapper's host
+        # beside it the block set's C entry point.  Then the wrapper's host
         # time per eager call on either set, and the twin.
         coef = [torch.rand((B, T, U), device=dev) for _ in range(3)]
         lib = native.library()
@@ -1161,12 +1388,6 @@ def phase_lattice():
                 for _ in range(LAT_LAUNCHES):
                     err = call(stream)
                     assert err == 0, err
-            return go
-
-        def calls_of(wrapper):
-            def go():
-                for _ in range(LAT_LAUNCHES):
-                    wrapper()
             return go
 
         lens = (al32.data_ptr(), 0, ll32.data_ptr(), 0)
@@ -1191,11 +1412,13 @@ def phase_lattice():
             "affine_rows": launches_of(
                 lambda st: lib.w2vs_transducer_affine_rows(
                     *ptrs(*coef, res), B, T, U, 0, st)),
-            "forward_walk": calls_of(
-                lambda: kernels.alphas_and_expected_delay(lpb, lpe, dv)),
-            "reverse_walk": calls_of(
-                lambda: kernels.betas_and_expected_delay_bwd(
-                    lpb, lpe, al, ll, dv))}
+            "forward_walk": launches_of(
+                lambda st: lib.w2vs_transducer_alphas_delay(
+                    *ptrs(lpb, lpe), *dvs, *ptrs(res, res2), B, T, U, st)),
+            "reverse_walk": launches_of(
+                lambda st: lib.w2vs_transducer_betas_delay(
+                    *ptrs(lpb, lpe), *lens, *dvs, *ptrs(res, res2), B, T, U,
+                    st))}
         per = {   # wrapper, twin, probe step kind, [B, T, U] arrays moved
             "alphas": (lambda: kernels.alphas(lpb, lpe),
                        lambda: lattice.alphas(lpb, lpe), LAE, 3),
@@ -1212,8 +1435,6 @@ def phase_lattice():
                     lpb, lpe, al, ll, dv),
                 lambda: lattice.betas_and_expected_delay_bwd(
                     lpb, lpe, al, ll, dv), FUSED, 5)}
-        if path == kernels.BLOCK:       # the fused walks are warp-set only
-            per = {k: v for k, v in per.items() if not k.endswith("walk")}
         steps = T + U - 1
         for name, (wrapper, twin, kind, n_arrays) in per.items():
             k_ms = (graph_ms(launches_of(warp[name]), LAT_LAUNCHES)
@@ -1244,9 +1465,9 @@ def phase_lattice():
             if U <= kernels.WARP_MAX_U:
                 probed[f"the warp set's, {-(-U // 32)} columns per lane"] = (
                     _step_ms(probe, res, B, U, kind, True))
-            if kind != FUSED:
-                probed["the block set's, shared memory + barrier"] = (
-                    _step_ms(probe, res, B, U, kind, False))
+            probed["the block set's, shared memory + barrier"] = (
+                _step_ms(probe, res, B, U, AFFINE if kind == FUSED else kind,
+                         False))
             step_ms = min(probed.values())
             cells = B * T * U
             ops = {LAE: 10, AFFINE: 4, FUSED: 24}[kind]
@@ -1270,10 +1491,10 @@ def phase_lattice():
                   f"{bound[0]:.5f} ms by {bound[1]} ({steps} dependent "
                   f"steps x {step_ms * 1e6:.1f} ns, the least step of: "
                   f"{design}){trip}")
-            if i == 0 and name.endswith("walk"):
-                out[name] = _row(abs_errs[name], k_ms, t_ms, bound, None)
-            elif path == kernels.BLOCK:
-                out[name] = _row(abs_errs[name], b_ms, t_ms, bound, None)
+            if name.endswith("walk") and i in (0, 3):
+                out[name + ("_block" if i else "")] = _row(
+                    abs_errs[name], k_ms if i == 0 else b_ms, t_ms, bound,
+                    None)
     return out
 
 
@@ -2067,6 +2288,8 @@ def phase_train_full(card):
     sites = sum(c.sites for c in contexts)
     want = {"transducer_forward_walk": 2 * n_chunks * n_steps,
             "transducer_reverse_walk": n_chunks * n_steps,
+            "transducer_forward_walk_block": 0,
+            "transducer_reverse_walk_block": 0,
             "transducer_alphas": 0, "transducer_betas": 0,
             "transducer_affine_rows": 0,
             "hw_dropout": 2 * sites,
@@ -2098,9 +2321,8 @@ def phase_train_full(card):
           f"grad norm {vals[-1]['grad_norm']:.3f}, skipped 0 [{card}]")
 
     # one step on targets past the warp set's U (CaatConfig allows 1024):
-    # the loss runs the block set's unfused sequence, alphas and the
-    # forward rows twice per chunk (forward, recompute), the betas and the
-    # reverse rows once
+    # the loss runs the block set's fused walks, the forward one twice per
+    # chunk (forward, recompute), the reverse one once
     long_b = _train_batch(TRAIN_B, S, LONG_U, caat.vocab_size, caat.eos, dev,
                           seed=1)
     chunk_b = max(1, min(TRAIN_B, caat.tokens_per_step
@@ -2113,17 +2335,15 @@ def phase_train_full(card):
     lattice_counts = {k: v for k, v in long_counts.items()
                       if k.startswith("transducer")}
     want = {"transducer_forward_walk": 0, "transducer_reverse_walk": 0,
-            "transducer_alphas": 2 * n_chunks,
-            "transducer_betas": n_chunks,
-            "transducer_affine_rows": 3 * n_chunks}
+            "transducer_forward_walk_block": 2 * n_chunks,
+            "transducer_reverse_walk_block": n_chunks,
+            "transducer_alphas": 0, "transducer_betas": 0,
+            "transducer_affine_rows": 0}
     print(f"phase train full: one step on targets of {LONG_U} labels (U+1 "
           f"{LONG_U + 1}, {n_chunks} chunk(s) of {chunk_b}): lattice "
-          f"launches {lattice_counts}, per kernel set "
-          f"{ {k: sets[k] for k in ('K5a', 'K5b', 'K6')} }; expected "
-          f"{want}, all on the block set; loss "
-          f"{float(logs['loss_total']):.2f}")
+          f"launches {lattice_counts}; expected {want}, all on the block "
+          f"set; loss {float(logs['loss_total']):.2f}")
     assert lattice_counts == want, (lattice_counts, want)
-    assert all(sets[k]["warp"] == 0 for k in ("K5a", "K5b", "K6")), sets
     assert math.isfinite(float(logs["loss_total"]))
     assert float(logs["skipped"]) == 0.0
     return counts, long_counts, ups, peak_gb
@@ -2251,6 +2471,8 @@ def phase_cli_full(card):
             # fused walks on the warp set
             want = {"transducer_forward_walk": 2 * total,
                     "transducer_reverse_walk": total,
+                    "transducer_forward_walk_block": 0,
+                    "transducer_reverse_walk_block": 0,
                     "transducer_alphas": 0, "transducer_betas": 0,
                     "transducer_affine_rows": 0,
                     "chunk_cache_attention": 0}
@@ -3087,7 +3309,10 @@ def phase_pretrain_full(card):
                                        - flash_calls),
                     "chunk_cache_attention": 0,
                     "transducer_forward_walk": 0,
-                    "transducer_reverse_walk": 0, "transducer_alphas": 0,
+                    "transducer_reverse_walk": 0,
+                    "transducer_forward_walk_block": 0,
+                    "transducer_reverse_walk_block": 0,
+                    "transducer_alphas": 0,
                     "transducer_betas": 0, "transducer_affine_rows": 0}
             on = (", K2 and K3 all on the tensor-core kernels"
                   if impl == "flash" else "")
@@ -3133,10 +3358,10 @@ def phase_pretrain_full(card):
         snap = {}
         real_create = cli.TrainState.create
 
-        def create(model, optimizer):
+        def create(model, optimizer, plan=None):
             snap.update({k: v.detach().cpu().clone() for k, v in
                          model.encoder.w2v2_model.state_dict().items()})
-            return real_create(model, optimizer)
+            return real_create(model, optimizer, plan)
 
         caat_argv = ["--device", "cuda", "run.task=caat",
                      f"run.save_dir={root}/caat", "run.max_update=1",
@@ -3169,6 +3394,383 @@ def phase_pretrain_full(card):
     print(f"phase pretrain full: dense {du:.3f} updates/s, {dg:.3f} GB peak; "
           f"flash {fu:.3f} updates/s, {fg:.3f} GB peak [{card}]")
     return {"pretrain_dense": dc, "pretrain_flash": fc}
+
+
+# phase 16: data parallelism, ZeRO-1 and FSDP on the card
+DDP_WORLD = 2
+DDP_LR = 1e-4
+# The 2 ranks against one process over the 8 rows, after two updates: the
+# loss and the grad norm within the bounds below.  The ranks' kernels see 4
+# rows where one process sees 8 and round otherwise (the loss's chunks of
+# rows, the GEMMs' reductions), and a gradient that is a small difference
+# of large sums (the shared 10000-row embedding) keeps little of its f32
+# precision; Adam then divides each gradient by its own size.  So the
+# gradients (through Adam's first moments, linear in them: |diff| /
+# (rtol |mu| + atol max |mu|)) and the parameters (max and mean |diff|)
+# are held to what one process running the same split (rows 0-3, then
+# 4-7, each with its rows' masks, gradients summed) shows against the one
+# over 8 rows: the ranks may differ from that process by at most twice as
+# much, plus the floors below.  Against that process the ranks must agree
+# within DDP_SPLIT_TOL (_two_updates_cpu_vs_cuda's bounds, tighter): the
+# parallel step itself adds nothing but the order of one sum.
+DDP_SPLIT_TOL = {"loss_rtol": 1e-6, "grad_norm_rtol": 1e-5, "mu": 1.0,
+                 "param_over_lr": 1e-2}
+DDP_TOL = {"float32": {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
+                       "mu_rtol": 1e-4, "mu_atol": 1e-6},
+           "bfloat16": {"loss_rtol": 5e-3, "grad_norm_rtol": 5e-2,
+                        "mu_rtol": 5e-2, "mu_atol": 1e-3}}
+DDP_FLOOR = {"mu": 1.0, "param_over_lr": 1e-2}
+
+
+class _SplitRows:
+    """The ``shard`` of a parallel plan for one process that runs the 2
+    ranks' rows one after the other (``_ddp_updates(split=True)``)."""
+
+    part = 0
+
+    def shard(self, rows):
+        from wav2vec_s_tpu_torch.parallel.mesh import Shard
+
+        return Shard(self.part * rows, (self.part + 1) * rows,
+                     DDP_WORLD * rows)
+DDP_JOBS = {"f32 dp": ("float32", "dp"), "bf16 dp": ("bfloat16", "dp"),
+            "bf16 zero": ("bfloat16", "zero")}
+
+
+def _ddp_updates(dtype, plan=None, rows=slice(None), split=False):
+    """Two flash CAAT updates at Base + CAAT base width, every dropout on
+    (the recipe's), random weights from seed 0, on the rows ``rows`` of the
+    B 8 x 10 s batches (seeds 0 and 1) -> (logs, CPU state dict, Adam's
+    first moments in the single-process layout, state).  ``split``: one
+    process runs the ranks' row blocks as microbatches, each with the
+    update's generator and its rows' masks, and sums their gradients."""
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint.io import state_to_host
+    from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
+    from wav2vec_s_tpu_torch.models.caat import (
+        W2V2CaatModel, caat_base_config)
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    w2v = wav2vec_s_base_config(dtype=dtype, attention_impl="flash")
+    caat = caat_base_config(dtype=dtype)
+    with dev:
+        model = W2V2CaatModel(w2v, caat)
+    random_init_(model, torch.Generator(device=dev).manual_seed(0))
+    if plan is not None:
+        plan.prepare(model)
+    opt = build_optimizer(OptimConfig(
+        lr=DDP_LR, clip_norm=2.0, weight_decay=0.01,
+        lr_scheduler="inverse_sqrt", warmup_updates=2))
+    state = TrainState.create(model, opt, plan)
+    split_rows = _SplitRows() if split else None
+    loss_fn = make_caat_loss_fn(model, caat, 16, 8,
+                                plan=split_rows if split else plan)
+    seed = [0]
+
+    def split_loss(mb, generator, step_no):
+        generator.manual_seed(seed[0])
+        out = loss_fn(mb, generator, step_no)
+        split_rows.part += 1
+        return out
+
+    step = make_train_step(split_loss if split else loss_fn, opt,
+                           accum_steps=DDP_WORLD if split else 1)
+    S = int(SECONDS * 16000)
+    logs = []
+    for i in range(2):
+        batch = _train_batch(TRAIN_B, S, TRAIN_U, caat.vocab_size, caat.eos,
+                             dev, seed=i)
+        batch = {k: v[rows] for k, v in batch.items()}
+        if split:
+            batch = {k: v.reshape((DDP_WORLD, -1) + v.shape[1:])
+                     for k, v in batch.items()}
+            split_rows.part, seed[0] = 0, i
+        state, out = step(state, batch, torch.Generator().manual_seed(i))
+        logs.append({k: float(out[k]) for k in ("loss_total", "sample_size",
+                                                "grad_norm", "skipped")})
+    payload = state_to_host(state)
+    params = {k: v.float() for k, v in payload["model"].items()}
+    mu = dict(zip((n for n, _ in model.named_parameters()),
+                  payload["opt"]["mu"]))
+    return logs, params, mu, state
+
+
+def _ddp_rank(rank, world, store, out):
+    """One rank of phase 16a: cuda:0, gloo; each job's two updates on this
+    rank's rows, its launches, the plan's all-reduce of one update's
+    gradients timed, the moments' bytes."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from wav2vec_s_tpu_torch.parallel.mesh import (
+        make_mesh, process_local_rows)
+    from wav2vec_s_tpu_torch.parallel.sharding import ParallelPlan
+
+    torch.cuda.set_device(0)
+    # float32 references in full precision, as in main()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(world, 1, "cuda", "gloo")
+        res = {}
+        for name, (dtype, mode) in DDP_JOBS.items():
+            plan = ParallelPlan(mesh, mode)
+            rows = process_local_rows(TRAIN_B, mesh)
+            _reset_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs, params, mu, state = _ddp_updates(dtype, plan, rows)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            counts = _counts()
+            grads = [torch.zeros_like(p) for p in state.model.parameters()]
+            count = torch.ones((), device="cuda")
+            reduce_ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                plan.reduce(grads, count)
+                torch.cuda.synchronize()
+                reduce_ms.append((time.perf_counter() - t) * 1e3)
+            moments = sum(t.numel() * t.element_size()
+                          for f in dataclasses.fields(state.opt_state)
+                          if f.name != "count"
+                          for t in getattr(state.opt_state, f.name))
+            every = [torch.zeros(1, dtype=torch.int64, device="cuda")
+                     for _ in range(world)]
+            dist.all_gather(every, torch.tensor([moments], device="cuda"))
+            res[name] = {"logs": logs, "params": params, "mu": mu,
+                         "counts": counts,
+                         "reduce_ms": reduce_ms, "wall_s": wall,
+                         "moment_bytes": [int(b) for b in every],
+                         "n_params": sum(p.numel()
+                                         for p in state.model.parameters())}
+            del state, grads
+            torch.cuda.empty_cache()
+        if rank == 0:
+            torch.save(res, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp(card):
+    """16a: two ranks on cuda:0 over gloo, each with 4 of the 8 rows, the
+    port's data-parallel step (summed gradients all-reduced, divided by the
+    global count), flash attention and every dropout on, against one
+    process over the 8 rows: float32 (they differ only in the order of the
+    gradient sums), then bfloat16, then bfloat16 under ZeRO-1.  ->
+    {job: launch counts of rank 0}."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    one, split = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for into, kw in ((one, {}), (split, {"split": True})):
+            t = time.perf_counter()
+            logs, params, mu, state = _ddp_updates(dtype, **kw)
+            torch.cuda.synchronize()
+            into[dtype] = {"logs": logs, "params": params, "mu": mu,
+                           "wall_s": time.perf_counter() - t}
+            del state
+            torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ranks.pt")
+        ctx = mp.start_processes(
+            _ddp_rank, args=(DDP_WORLD, os.path.join(tmp, "store"), out),
+            nprocs=DDP_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + 900
+        try:
+            while not ctx.join(timeout=30):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 16a: the ranks did not finish")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+        ranks = torch.load(out, weights_only=False)
+    counts = {}
+    for name, (dtype, mode) in DDP_JOBS.items():
+        r = ranks[name]
+        c = r["counts"]
+        tol = DDP_TOL[dtype]
+        d = _run_diff(r, one[dtype], tol)
+        ds = _run_diff(split[dtype], one[dtype], tol)
+        dr = _run_diff(r, split[dtype], tol)
+        print(f"phase ddp: {name}, 2 ranks on one card over gloo (B 4 + 4 "
+              f"x {SECONDS:g} s, flash, the recipe's dropouts): loss "
+              f"{[x['loss_total'] for x in r['logs']]}, grad norm "
+              f"{[x['grad_norm'] for x in r['logs']]}; against one process "
+              f"over the 8 rows {_diff_text(d)}; one process running the "
+              f"same split against the one over 8 rows {_diff_text(ds)}; "
+              f"the ranks against the split {_diff_text(dr)} (lr "
+              f"{DDP_LR:g}, tolerances {tol}, floors {DDP_FLOOR}); sample "
+              f"size {[x['sample_size'] for x in r['logs']]}; rank 0 "
+              f"launches K2 {c['blockwise_flash_attention_packed']} K3 "
+              f"{c['blockwise_flash_attention_bwd']} K4 {c['hw_dropout']} "
+              f"walks {c['transducer_forward_walk']} / "
+              f"{c['transducer_reverse_walk']}; two updates {r['wall_s']:.2f}"
+              f" s (one process {one[dtype]['wall_s']:.2f} s, model build "
+              f"included); the plan's all-reduce of one update's "
+              f"{r['n_params']} float32 gradients "
+              f"{min(r['reduce_ms']):.1f} ms (best of "
+              f"{['%.1f' % x for x in r['reduce_ms']]}); optimizer moments "
+              f"per rank {r['moment_bytes']} bytes [{card}]")
+        logs = one[dtype]["logs"]
+        assert all(x["skipped"] == 0.0 for x in r["logs"] + logs)
+        assert all(a["sample_size"] == b["sample_size"]
+                   for a, b in zip(r["logs"], logs))
+        assert c["blockwise_flash_attention_packed"] > 0 and c[
+            "blockwise_flash_attention_bwd"] > 0 and c["hw_dropout"] > 0
+        assert c["transducer_forward_walk"] > 0 and c[
+            "transducer_reverse_walk"] > 0
+        assert dr["loss"] <= DDP_SPLIT_TOL["loss_rtol"], dr
+        assert dr["gnorm"] <= DDP_SPLIT_TOL["grad_norm_rtol"], dr
+        assert dr["mu"] <= DDP_SPLIT_TOL["mu"], dr
+        assert dr["pmax"] <= DDP_SPLIT_TOL["param_over_lr"] * DDP_LR, dr
+        assert d["loss"] <= tol["loss_rtol"], d
+        assert d["gnorm"] <= tol["grad_norm_rtol"], d
+        assert d["mu"] <= 2 * ds["mu"] + DDP_FLOOR["mu"], (d, ds)
+        floor = DDP_FLOOR["param_over_lr"] * DDP_LR
+        assert d["pmax"] <= 2 * ds["pmax"] + floor, (d, ds)
+        assert d["pmean"] <= 2 * ds["pmean"] + floor, (d, ds)
+        if mode == "zero":
+            whole = ranks["bf16 dp"]["moment_bytes"][0]
+            assert all(0.45 * whole <= b <= 0.55 * whole
+                       for b in r["moment_bytes"]), (r["moment_bytes"],
+                                                      whole)
+        counts[name] = c
+    return counts
+
+
+def _diff_text(d):
+    return (f"(loss max rel diff {d['loss']:.3g}, grad norm {d['gnorm']:.3g}"
+            f", Adam's first moments {d['mu']:.3g} of the tolerance in "
+            f"{d['mu_worst']}, params max |diff| {d['pmax']:.3g} mean "
+            f"{d['pmean']:.3g}, largest in {d['worst']})")
+
+
+def _run_diff(run, ref, tol):
+    """{loss, gnorm: max relative difference over the updates; mu: the
+    largest |diff| of Adam's first moments over rtol |mu| + atol max |mu|
+    (mu_worst: that parameter); pmax, pmean: max and mean |diff| of the
+    parameters; worst: the 3 parameters of the largest} of a run against
+    a reference run."""
+    import torch
+
+    per = {k: (run["params"][k] - v).abs() for k, v in ref["params"].items()}
+    diffs = torch.cat([t.flatten() for t in per.values()])
+    scale = max(m.abs().max().item() for m in ref["mu"].values())
+    ratios = {k: ((run["mu"][k].float() - b.float()).abs()
+                  / (tol["mu_rtol"] * b.float().abs()
+                     + tol["mu_atol"] * scale)).max().item()
+              for k, b in ref["mu"].items()}
+    worst_mu = max(ratios, key=ratios.get)
+    return {"loss": max(abs(a["loss_total"] - b["loss_total"])
+                        / abs(b["loss_total"])
+                        for a, b in zip(run["logs"], ref["logs"])),
+            "gnorm": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                         for a, b in zip(run["logs"], ref["logs"])),
+            "mu": ratios[worst_mu], "mu_worst": worst_mu,
+            "pmax": diffs.max().item(), "pmean": diffs.mean().item(),
+            "worst": sorted(per, key=lambda k: -per[k].max().item())[:3]}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_cli_parallel(card):
+    """16b: the training entry point under torch.distributed.run with one
+    rank (nccl): data parallelism, then run.zero=true, then run.fsdp=true,
+    each against the same call with no process group, on
+    configs/pretrain_base.yaml at phase 15's shapes (B 5 x 200960 samples,
+    flash, the recipe's dropouts, sampled contexts), 3 updates: the same
+    updates and skips, the losses within rtol 1e-5 and the grad norms
+    within 1e-4, the final parameters within 1e-2 x lr."""
+    import json
+    import pathlib
+    import tempfile
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.train.config import load_config
+
+    torch.cuda.empty_cache()
+    config = os.path.join(CONFIGS, "pretrain_base.yaml")
+    lr = load_config(config, []).optim.lr
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        manifest = _pretrain_corpus(root)
+        runs = {}
+        for name, extra in (("no group", []), ("dp", []),
+                            ("zero", ["run.zero=true"]),
+                            ("fsdp", ["run.fsdp=true"])):
+            tag = name.replace(" ", "_")
+            argv = ["--config", config, "--device", "cuda",
+                    f"run.save_dir={root}/{tag}", "run.max_update=3",
+                    "run.log_interval=1", "run.save_interval_updates=0",
+                    "run.keep_last=1", "run.validate_interval_updates=0",
+                    f"data.train_manifest={manifest}",
+                    "model.attention_impl=flash", *extra]
+            launch = ([] if name == "no group" else
+                      ["-m", "torch.distributed.run", "--nnodes", "1",
+                       "--nproc-per-node", "1", "--master-addr", "localhost",
+                       "--master-port", str(_free_port())])
+            cmd = [sys.executable, *launch, "-m",
+                   "wav2vec_s_tpu_torch.train.cli", *argv]
+            t = time.perf_counter()
+            done = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=600, env=env, cwd=repo)
+            wall = time.perf_counter() - t
+            if done.returncode:
+                raise RuntimeError(f"phase cli parallel: {name} failed:\n"
+                                   f"{done.stdout[-3000:]}\n"
+                                   f"{done.stderr[-3000:]}")
+            recs = [json.loads(x) for x in done.stdout.splitlines()
+                    if x.startswith("{")]
+            payload = CheckpointManager(root / tag, keep_last=0).restore()[0]
+            runs[name] = (recs, payload, wall)
+    want, ref, _ = runs["no group"]
+    assert [r["step"] for r in want] == [1, 2, 3], want
+    for name in ("dp", "zero", "fsdp"):
+        recs, payload, wall = runs[name]
+        assert [r["step"] for r in recs] == [1, 2, 3], recs
+        assert [r["skipped"] for r in recs] == [r["skipped"] for r in want]
+        loss = max(abs(a["loss_total"] - b["loss_total"]) / abs(b["loss_total"])
+                   for a, b in zip(recs, want))
+        gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                    for a, b in zip(recs, want))
+        pmax = max((payload["model"][k].float() - v.float()).abs().max()
+                   .item() for k, v in ref["model"].items())
+        print(f"phase cli parallel: torch.distributed.run, 1 rank, nccl, "
+              f"{name} vs no process group, pretrain_base.yaml (B "
+              f"{PRETRAIN_B} x 200960, flash), 3 updates: loss "
+              f"{[r['loss_total'] for r in recs]} (max rel diff {loss:.3g}),"
+              f" grad norm max rel diff {gnorm:.3g}, params max |diff| "
+              f"{pmax:.3g} (lr {lr:g}), the same "
+              f"{int(sum(r['skipped'] for r in recs))} skips; call "
+              f"{wall:.1f} s (no group {runs['no group'][2]:.1f} s) [{card}]")
+        assert loss <= 1e-5 and gnorm <= 1e-4, (name, loss, gnorm)
+        assert pmax <= 1e-2 * lr, (name, pmax)
+        assert payload["step"] == ref["step"] == 3
 
 
 def _check_launches(path, counts, sets, want, k2_per_call=None):
@@ -3230,6 +3832,9 @@ def main() -> int:
     paths.update(phase_eval_cli_full(card))
     paths["serving"] = phase_serving_full(card)
     paths.update(phase_pretrain_full(card))
+    for name, counts in phase_ddp(card).items():
+        paths["ddp " + name] = counts
+    phase_cli_parallel(card)
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 
@@ -3247,18 +3852,21 @@ def main() -> int:
              pa + "324", "cli_flash", k3),
             ("hw_dropout", "dropout.cu", "wav2vec_s_tpu/ops/dropout.py:64",
              "train_dense", k4),
-            # the fused walks (K5a + K6, K5b + K6) on the warp set run the
-            # loss up to U 256; past it the block set's single recursions
-            ("transducer_forward_walk", "transducer_warp.cu", pk + "206",
+            # the fused walks (K5a + K6, K5b + K6) run the loss: the warp
+            # set's up to U 256, the block set's past it; each replaces
+            # its recursion's TPU kernel and K6's (the affine rows)
+            ("transducer_forward_walk", "transducer_warp.cu",
+             pk + "206 + " + pk + "99",
              "train_dense", lat["forward_walk"]),
-            ("transducer_reverse_walk", "transducer_warp.cu", pk + "224",
+            ("transducer_reverse_walk", "transducer_warp.cu",
+             pk + "224 + " + pk + "99",
              "train_dense", lat["reverse_walk"]),
-            ("transducer_alphas", "transducer.cu", pk + "206", "train_long",
-             lat["alphas"]),
-            ("transducer_betas", "transducer.cu", pk + "224", "train_long",
-             lat["betas"]),
-            ("transducer_affine_rows", "transducer.cu", pk + "99",
-             "train_long", lat["affine_rows"])]
+            ("transducer_forward_walk_block", "transducer.cu",
+             pk + "206 + " + pk + "99",
+             "train_long", lat["forward_walk_block"]),
+            ("transducer_reverse_walk_block", "transducer.cu",
+             pk + "224 + " + pk + "99",
+             "train_long", lat["reverse_walk_block"])]
     for name, _, _, path, _ in rows:
         assert paths[path][name] > 0, (name, path, paths[path])
     # K2 and K3 at the pre-training call, per context bucket (phase 3c)

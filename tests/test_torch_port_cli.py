@@ -494,10 +494,7 @@ UNSUPPORTED = {
     "ctc": ({"run.task": "ctc"}, "item 12"),
     "fbank": ({"data.features": "fbank"}, "item 12"),
     "text": ({"data.features": "text"}, "item 12"),
-    "num_devices": ({"run.num_devices": 2}, "item 11"),
-    "zero": ({"run.zero": "true"}, "item 11"),
-    "fsdp": ({"run.fsdp": "true"}, "item 11"),
-    "seq": ({"run.seq": 2}, "item 11"),
+    "seq_zero": ({"run.seq": 2, "run.zero": "true"}, "item 11b"),
     "eval_bleu": ({"run.eval_bleu": "true"}, "item 12"),
     "eval_wer": ({"run.eval_wer": "true"}, "item 12"),
     "remat": ({"run.remat": "dots"}, "item 9"),
@@ -507,7 +504,6 @@ UNSUPPORTED = {
     "pos_type_conv": ({"model.pos_type": "conv"}, "item 12"),
     "extractor_default": ({"model.extractor_mode": "default"}, "item 12"),
     "remat_extractor": ({"model.remat_extractor": "True"}, "item 9"),
-    "seq_axis": ({"model.seq_axis": "seq"}, "item 11"),
 }
 
 
@@ -605,7 +601,7 @@ def test_cli_builds_every_caat_recipe(corpus, recipe):
 
 @pytest.mark.parametrize("field, value, item", [
     ("extractor_mode", "default", "item 12"), ("pos_type", "conv", "item 12"),
-    ("remat_extractor", True, "item 9"), ("seq_axis", "seq", "item 11")])
+    ("remat_extractor", True, "item 9")])
 def test_model_raises_on_values_that_are_not_ported(field, value, item):
     """Built directly, not through the CLI: the encoder refuses a value
     whose forward differs from what the port builds, instead of building
@@ -616,3 +612,27 @@ def test_model_raises_on_values_that_are_not_ported(field, value, item):
         encoder_attention_heads=2, **{field: value})
     with pytest.raises(NotImplementedError, match=item):
         Wav2Vec2Model(cfg)
+
+
+@pytest.mark.parametrize("case", [{"run.num_devices": 2},
+                                  {"run.zero": "true"},
+                                  {"run.fsdp": "true"}, {"run.seq": 2}])
+def test_cli_parallel_settings_need_a_launched_group(corpus, case):
+    """Data, ZeRO-1, FSDP and context parallelism run under a process group
+    (tests/test_torch_port_parallel*.py run them); without one launched
+    the CLI says how to launch, before it builds anything."""
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        cli.main(_overrides(corpus, "never", **case))
+    assert not (corpus[0] / "never").exists()
+
+
+def test_seq_axis_without_a_seq_group_raises():
+    """A config that names a seq axis builds, and its forward refuses to
+    run the whole sequence on one rank without the group it names."""
+    cfg = Wav2Vec2Config(
+        conv_feature_layers=((8, 10, 5), (8, 3, 2)), encoder_layers=1,
+        encoder_embed_dim=8, encoder_ffn_embed_dim=16,
+        encoder_attention_heads=2, seq_axis="seq")
+    model = Wav2Vec2Model(cfg)
+    with pytest.raises(RuntimeError, match="process group"):
+        model.extract_features(torch.zeros((1, 400)))

@@ -1,0 +1,98 @@
+"""The training entry point under a process group: ``train.cli.main`` in
+two spawned CPU ranks over gloo (``tests/_torch_parallel_worker.py``)
+against the same call in one process, with the recipe's dropouts and
+flash attention on (the flash twins drop at their rows' place in the
+whole batch).
+
+- CAAT fine-tuning with ``run.fsdp=true`` and pre-training with
+  ``run.zero=true`` (sampled block contexts): every batch of the corpora
+  holds 2 rows, so one process and 2 data ranks see the same batches;
+  rank 0's progress records equal one process's (losses and grad norms
+  rtol 1e-5; the CAAT validation loss, a sum over rows, too), rank 1
+  prints none, and the final checkpoint (written by rank 0 in the
+  single-process layout) equals one process's (atol 1e-5 rtol 1e-4).
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from tests import _torch_parallel_worker as worker
+from tests.test_torch_port_cli import _overrides as caat_overrides
+from tests.test_torch_port_cli import corpus  # noqa: F401 (a fixture)
+from tests.test_torch_port_pretrain_cli import _argv as pretrain_argv
+from tests.test_torch_port_pretrain_cli import audio_corpus  # noqa: F401
+from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+from wav2vec_s_tpu_torch.train import cli
+
+torch.set_num_threads(1)
+
+DROPOUTS = {"model.dropout": 0.1, "model.attention_dropout": 0.1,
+            "model.encoder_layerdrop": 0.2, "caat.dropout": 0.1,
+            "caat.attention_dropout": 0.1, "caat.activation_dropout": 0.1,
+            "caat.rand_pos_decoder": 4}
+COMPARED = ("loss_total", "sample_size", "grad_norm", "skipped")
+
+
+def _records(text):
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+@pytest.fixture
+def runs(corpus, audio_corpus, tmp_path, capsys):  # noqa: F811
+    argv = {
+        "caat_fsdp": caat_overrides(corpus, "two_caat_fsdp", **DROPOUTS,
+                                    **{"run.fsdp": "true"}),
+        "pretrain_zero": pretrain_argv(audio_corpus, "two_pretrain_zero",
+                                       **{"run.zero": "true",
+                                          "data.max_tokens": 8000,
+                                          "run.validate_interval_updates":
+                                              0})}
+    one = {}
+    for name, av in argv.items():
+        single = [a.replace("/two_", "/one_") for a in av]
+        single = [a for a in single
+                  if not a.startswith(("run.fsdp", "run.zero"))]
+        cli.main(single)
+        one[name] = _records(capsys.readouterr().out)
+    jobs = {name: {"argv": av, "stdout": str(tmp_path / name)}
+            for name, av in argv.items()}
+    worker.run_cli_job(jobs, str(tmp_path))
+    two = {}
+    for name in argv:
+        two[name] = [(tmp_path / f"{name}.{r}").read_text()
+                     for r in range(2)]
+    dirs = {"caat_fsdp": corpus[0], "pretrain_zero": audio_corpus}
+    return one, two, dirs
+
+
+@pytest.mark.parametrize("name", ["caat_fsdp", "pretrain_zero"])
+def test_two_rank_cli_equals_one_process(runs, name):
+    one, two, dirs = runs
+    got = _records(two[name][0])
+    assert _records(two[name][1]) == []           # rank 0 alone prints
+    want = one[name]
+    assert [r["tag"] for r in got] == [r["tag"] for r in want]
+    assert len([r for r in got if r["tag"] == "train"]) == 4
+    for a, b in zip(got, want):
+        keys = COMPARED if a["tag"] == "train" else ("valid_loss",)
+        for k in keys:
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+    root = dirs[name]
+    mine = CheckpointManager(root / f"two_{name}",
+                             keep_last=0).restore()[0]
+    theirs = CheckpointManager(root / f"one_{name}",
+                               keep_last=0).restore()[0]
+    assert mine["step"] == theirs["step"] == 4
+    for k, v in theirs["model"].items():
+        torch.testing.assert_close(mine["model"][k], v, rtol=1e-4,
+                                   atol=1e-5, msg=k)
+    for field, tensors in theirs["opt"].items():
+        if field == "count":
+            assert mine["opt"]["count"] == tensors
+            continue
+        for a, b in zip(mine["opt"][field], tensors):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -139,8 +139,8 @@ class Draws:
             self.uniform = real_uniform(ctx, shape)
             return self.uniform
 
-        def negatives(model, B_, M, ctx):
-            self.negatives = real_neg(model, B_, M, ctx)
+        def negatives(model, B_, M, ctx, shard=None):
+            self.negatives = real_neg(model, B_, M, ctx, shard)
             return self.negatives
 
         monkeypatch.setattr(port_dropout.DropoutContext, "uniform", uniform)

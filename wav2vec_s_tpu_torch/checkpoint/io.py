@@ -18,6 +18,14 @@ goes on; at most one write is in flight, ``wait`` commits it.
 For evaluation: ``load_params`` reads the model state dict of the latest
 step, or ``average_last_checkpoints`` averages the last K (fairseq
 scripts/average_checkpoints.py, JAX ``orbax_io.py:127-149``).
+
+A parallel run (a ``TrainState`` with a ``parallel.sharding.ParallelPlan``)
+writes the single-process layout: every rank joins the gathers of FSDP's
+parameters and of the ZeRO / FSDP moment blocks (``state_to_host``), and
+the writer (rank 0) alone writes.  Restoring copies the single-process
+payload into any layout: each rank takes its rows (as the JAX
+``CheckpointManager`` restores to the template's shardings), so a 2-rank
+ZeRO-1 or FSDP checkpoint resumes in one process and the other way round.
 """
 
 from __future__ import annotations
@@ -41,25 +49,49 @@ def _moment_fields(opt_state) -> List[str]:
     return [f.name for f in dataclasses.fields(opt_state) if f.name != "count"]
 
 
+def _sharded_moments(state: TrainState) -> Dict[str, List[bool]]:
+    """{moment field: per parameter, whether it is a row block}."""
+    fields = _moment_fields(state.opt_state)
+    out = {name: [] for name in fields}
+    for p, sh in zip(state.model.parameters(), state.shards):
+        which = state.optimizer.sharded_moments(tuple(p.shape))
+        for name in fields:
+            out[name].append(sh is not None and which[name])
+    return out
+
+
 def state_to_host(state: TrainState) -> Dict[str, Any]:
     """The checkpoint payload of a train state: CPU copies of the model's
     state dict and the optimizer's moments, the update count and the
-    step."""
+    step, in the single-process layout (with a parallel plan every rank
+    must call it: it gathers)."""
     def cpu(t):
         return t.detach().to("cpu", copy=True)
 
+    moments = {name: getattr(state.opt_state, name)
+               for name in _moment_fields(state.opt_state)}
+    model = state.model.state_dict()
+    if state.plan is not None:
+        model, moments = state.plan.full_state(
+            state.model, moments, _sharded_moments(state), state.shards)
     opt = {"count": state.opt_state.count}
-    for name in _moment_fields(state.opt_state):
-        opt[name] = [cpu(t) for t in getattr(state.opt_state, name)]
+    for name, tensors in moments.items():
+        opt[name] = [cpu(t) for t in tensors]
     return {"step": state.step,
-            "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
+            "model": {k: cpu(v) for k, v in model.items()},
             "opt": opt}
 
 
 def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     """Copy a payload of ``state_to_host`` into ``state`` in place (strict:
-    every parameter and moment must be present and shape-matched)."""
-    state.model.load_state_dict(payload["model"], strict=True)
+    every parameter and moment must be present and shape-matched); under a
+    parallel plan each rank takes its rows."""
+    plan = state.plan
+    if plan is None:
+        state.model.load_state_dict(payload["model"], strict=True)
+    else:
+        plan.load_full_state(state.model, payload["model"])
+        sharded = _sharded_moments(state)
     opt = payload["opt"]
     if opt is None:
         raise ValueError("the checkpoint holds no optimizer state (a "
@@ -73,7 +105,10 @@ def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
             raise ValueError(f"checkpoint holds {len(src)} optimizer {name} "
                              f"tensors, the model has {len(dst)}")
         with torch.no_grad():
-            for d, s in zip(dst, src):
+            for i, (d, s) in enumerate(zip(dst, src)):
+                if plan is not None:
+                    s = plan.moment_block(s, state.shards[i],
+                                          sharded[name][i], d)
                 if d.shape != s.shape:
                     raise ValueError(f"optimizer {name} tensor of shape "
                                      f"{tuple(s.shape)} for "
@@ -86,9 +121,14 @@ def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
 
 class CheckpointManager:
     def __init__(self, directory, keep_last: int = 3, keep_best: int = 0,
-                 maximize_metric: bool = False, async_save: bool = False):
+                 maximize_metric: bool = False, async_save: bool = False,
+                 writer: bool = True):
+        """``writer`` False: ``save`` computes the payload (the gathers of
+        a parallel run) and writes nothing (the ranks but rank 0)."""
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.writer = writer
+        if writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self.keep_last = keep_last
         self.keep_best = keep_best
         self.maximize = maximize_metric
@@ -113,7 +153,9 @@ class CheckpointManager:
     def save(self, step: int, state: TrainState,
              extra: Optional[Dict[str, Any]] = None,
              metric: Optional[float] = None) -> None:
-        self.save_payload(step, state_to_host(state), extra, metric)
+        payload = state_to_host(state)
+        if self.writer:
+            self.save_payload(step, payload, extra, metric)
 
     def save_payload(self, step: int, payload: Dict[str, Any],
                      extra: Optional[Dict[str, Any]] = None,

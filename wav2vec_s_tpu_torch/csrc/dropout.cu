@@ -10,7 +10,19 @@
 // The mask thus depends on (seed, offset, i) only -- not on the launch
 // shape, the dtype or the tensor's width -- so the backward regenerates it
 // exactly and nothing is stored, and the plain twin in ops/dropout.py
-// computes the same bits in integer arithmetic.  keep <=> (word >> 8) >=
+// computes the same bits in integer arithmetic.
+//
+// A shard of a tensor (a data-parallel rank's rows, a context-parallel
+// rank's time block) draws the bits of its elements' places in the whole
+// tensor: local element i has the index
+//   base + (i / span_local) * span_global + i % span_local,
+// span_local (span_global) the elements below the split axis in the shard
+// (the whole tensor), base the whole tensor's index of the shard's first
+// element.  span_local == span_global is the identity plus base; base 0 on
+// top of it is the unsharded mask, bit for bit.  Where the map keeps every
+// aligned group of 4 elements together (base, and both spans unless they
+// are equal, multiples of 4) a thread still draws one Philox block for its
+// 4 elements; elsewhere each element draws the block of its own index.  keep <=> (word >> 8) >=
 // threshold, threshold = ceil(p * 2^24): the TPU kernel's "24 top bits as
 // a uniform in [0, 1), keep if >= p", compared in integers so that the
 // twin agrees bit for bit.  y = x * (keep ? 1/(1-p) : 0), the product in
@@ -70,23 +82,58 @@ __device__ __forceinline__ void store(__half* p, float v) {
   *p = __float2half(v);
 }
 
+// where element i of the shard lies in the whole tensor
+struct IndexMap {
+  unsigned long long base;
+  long long span_local, span_global;
+  int grouped;               // aligned groups of 4 stay together
+};
+
+__device__ __forceinline__ unsigned long long global_index(const IndexMap& m,
+                                                           long long i) {
+  if (m.span_local == m.span_global) return m.base + (unsigned long long)i;
+  return m.base + (unsigned long long)(i / m.span_local) * m.span_global +
+         (unsigned long long)(i % m.span_local);
+}
+
+__device__ __forceinline__ uint4 philox_block(unsigned long long g, uint2 key,
+                                              uint32_t off_lo,
+                                              uint32_t off_hi) {
+  return philox4x32_10(
+      make_uint4((uint32_t)g, (uint32_t)(g >> 32), off_lo, off_hi), key);
+}
+
 template <typename T>
 __global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                                long long n, uint2 key, uint32_t off_lo,
                                uint32_t off_hi, uint32_t threshold,
-                               typename Acc<T>::type scale) {
+                               typename Acc<T>::type scale, IndexMap map) {
   using A = typename Acc<T>::type;
   const long long groups = (n + 3) / 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        g < groups; g += stride) {
-    const uint4 r = philox4x32_10(
-        make_uint4((uint32_t)g, (uint32_t)(g >> 32), off_lo, off_hi), key);
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-    const long long base = g * 4;
+    const long long first = g * 4;
+    uint32_t w[4];
+    if (map.grouped) {
+      const uint4 r =
+          philox_block(global_index(map, first) >> 2, key, off_lo, off_hi);
+      w[0] = r.x;
+      w[1] = r.y;
+      w[2] = r.z;
+      w[3] = r.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned long long gi = global_index(map, first + j);
+        const uint4 r = philox_block(gi >> 2, key, off_lo, off_hi);
+        const int k = (int)(gi & 3);
+        w[j] = k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const long long i = base + j;
+      const long long i = first + j;
       if (i < n) {
         const A keep = (w[j] >> 8) >= threshold ? scale : A(0);
         store(y + i, load(x + i) * keep);
@@ -98,7 +145,7 @@ __global__ void dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
 template <typename T>
 int launch(const void* x, void* y, long long n, uint64_t seed,
            uint64_t offset, uint32_t threshold, double scale,
-           cudaStream_t stream) {
+           const IndexMap& map, cudaStream_t stream) {
   const long long groups = (n + 3) / 4;
   long long blocks = (groups + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -107,27 +154,40 @@ int launch(const void* x, void* y, long long n, uint64_t seed,
   dropout_kernel<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const T*)x, (T*)y, n, key, (uint32_t)offset,
       (uint32_t)(offset >> 32), threshold,
-      (typename Acc<T>::type)scale);
+      (typename Acc<T>::type)scale, map);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x, y: n contiguous elements on the current device (y may be x).
-// dtype_code 0 float32, 1 bfloat16, 2 float16, 3 float64.
+// dtype_code 0 float32, 1 bfloat16, 2 float16, 3 float64.  base,
+// span_local, span_global: the index map of a shard (span_local ==
+// span_global and base 0 for a whole tensor); span_local > 0.
 extern "C" int w2vs_dropout(const void* x, void* y, long long n,
                             unsigned long long seed,
                             unsigned long long offset, unsigned threshold,
-                            double scale, int dtype_code, void* stream) {
+                            double scale, int dtype_code,
+                            unsigned long long base, long long span_local,
+                            long long span_global, void* stream) {
+  if (span_local < 1 || span_global < span_local) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool same = span_local == span_global;
+  const IndexMap map = {base, span_local, span_global,
+                        base % 4 == 0 &&
+                            (same || (span_local % 4 == 0 &&
+                                      span_global % 4 == 0))};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (dtype_code) {
     case 1:
-      return launch<__nv_bfloat16>(x, y, n, seed, offset, threshold, scale, s);
+      return launch<__nv_bfloat16>(x, y, n, seed, offset, threshold, scale,
+                                   map, s);
     case 2:
-      return launch<__half>(x, y, n, seed, offset, threshold, scale, s);
+      return launch<__half>(x, y, n, seed, offset, threshold, scale, map, s);
     case 3:
-      return launch<double>(x, y, n, seed, offset, threshold, scale, s);
+      return launch<double>(x, y, n, seed, offset, threshold, scale, map, s);
     default:
-      return launch<float>(x, y, n, seed, offset, threshold, scale, s);
+      return launch<float>(x, y, n, seed, offset, threshold, scale, map, s);
   }
 }

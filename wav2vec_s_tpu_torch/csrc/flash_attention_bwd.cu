@@ -379,12 +379,13 @@ extern "C" int w2vs_flash_attention_bwd(
     const void* kinds, const void* kinds_t, void* dq, void* dk, void* dv,
     void* dvec, int B, int S, int D, int H, int T_frames, int mc, int rc,
     int dtype_code, unsigned long long seed, unsigned long long offset,
-    unsigned threshold, double keep_scale, void* stream) {
+    unsigned long long base, unsigned threshold, double keep_scale,
+    void* stream) {
   if (H < 1 || D % H || D / H > kMaxDh || mc < 1 || rc < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout drop = make_dropout(seed, offset, threshold, keep_scale);
+  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
 #define W2VS_BWD(T, DROP)                                                     \
   launch<T, DROP>(q, k, v, out, dout, (const float*)m, (const float*)l,      \
                   (const unsigned char*)key_pad, (const signed char*)kinds,  \

@@ -529,14 +529,15 @@ extern "C" int w2vs_flash_attention_bwd_mma(
     const void* kinds, const void* kinds_t, void* dq, void* dk, void* dv,
     void* dvec, int B, int S, int D, int H, int T_frames, int mc, int rc,
     int dtype_code, unsigned long long seed, unsigned long long offset,
-    unsigned threshold, double keep_scale, void* stream) {
+    unsigned long long base, unsigned threshold, double keep_scale,
+    void* stream) {
   if (dtype_code != 1 || H < 1 || D % H || mc < 1 || rc < 0 ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) &
        15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop = make_dropout(seed, offset, threshold, keep_scale);
+  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
 #define W2VS_BWD(DH, DROP)                                                   \
   launch<DH, DROP>(q, k, v, out, dout, (const float*)m, (const float*)l,    \
                    (const unsigned char*)key_pad, (const signed char*)kinds, \

@@ -280,14 +280,15 @@ extern "C" int w2vs_flash_attention_mma(
     const void* q, const void* k, const void* v, const void* key_pad,
     const void* kinds, void* out, void* m_out, void* l_out, int B, int S,
     int D, int H, int T_frames, int mc, int rc, int dtype_code,
-    unsigned long long seed, unsigned long long offset, unsigned threshold,
-    double keep_scale, void* stream) {
+    unsigned long long seed, unsigned long long offset,
+    unsigned long long base, unsigned threshold, double keep_scale,
+    void* stream) {
   if (dtype_code != 1 || H < 1 || D % H || mc < 1 || rc < 0 ||
       (m_out == nullptr) != (l_out == nullptr) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop = make_dropout(seed, offset, threshold, keep_scale);
+  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
 #define W2VS_FWD(DH)                                                        \
   launch<DH>(q, k, v, (const unsigned char*)key_pad,                        \
              (const signed char*)kinds, out, (float*)m_out, (float*)l_out,  \

@@ -24,7 +24,9 @@
 //                 key = seed),
 // keep <=> (word >> 8) >= threshold, kept probabilities scaled by
 // 1/(1 - rate): exactly the scheme of dropout.cu applied to the
-// probabilities tensor that never exists.  Any tiling regenerates the same
+// probabilities tensor that never exists.  A shard of a data-parallel
+// batch passes the element index of its first row, base = b0*H*S*S, added
+// to every i: its masks are the matching rows of the whole batch's.  Any tiling regenerates the same
 // bits, so the forward and both backward kernels agree, the plain twin
 // builds the mask with ops/dropout.keep_mask, and flash training equals
 // dense training (which drops the materialised probabilities through
@@ -104,15 +106,17 @@ __device__ __forceinline__ bool pair_allowed(int q_blk, int k_blk,
 struct Dropout {
   uint2 key;            // the step seed
   uint32_t off_lo, off_hi;   // the site offset
+  unsigned long long base;   // flat index of element (0, 0, 0, 0)
   uint32_t threshold;   // ceil(rate * 2^24)
   float scale;          // 1 / (1 - rate)
 };
 
 // the C entry points' dropout arguments (threshold 0: none)
 inline Dropout make_dropout(unsigned long long seed, unsigned long long offset,
-                            unsigned threshold, double keep_scale) {
+                            unsigned long long base, unsigned threshold,
+                            double keep_scale) {
   return {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)), (uint32_t)offset,
-          (uint32_t)(offset >> 32), threshold, (float)keep_scale};
+          (uint32_t)(offset >> 32), base, threshold, (float)keep_scale};
 }
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -127,9 +131,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-// the Philox block of flat elements 4g .. 4g+3
+// the Philox block of flat elements 4g .. 4g+3 of the shard (the aligned
+// paths: S % 4 == 0 makes the base a multiple of 4)
 __device__ __forceinline__ uint4 philox_group(const Dropout& d,
                                               unsigned long long g) {
+  g += d.base >> 2;
   return philox4x32_10(
       make_uint4((uint32_t)g, (uint32_t)(g >> 32), d.off_lo, d.off_hi), d.key);
 }
@@ -139,7 +145,10 @@ __device__ __forceinline__ float keep_of(const Dropout& d, uint32_t word) {
 // 0 or 1/(1-rate) for the flat element idx, from a Philox block of its own
 __device__ __forceinline__ float keep_at(const Dropout& d,
                                          unsigned long long idx) {
-  const uint4 r = philox_group(d, idx >> 2);
+  idx += d.base;
+  const unsigned long long g = idx >> 2;
+  const uint4 r = philox4x32_10(
+      make_uint4((uint32_t)g, (uint32_t)(g >> 32), d.off_lo, d.off_hi), d.key);
   const int w = (int)(idx & 3);
   return keep_of(d, w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w);
 }

@@ -15,6 +15,13 @@
   source / padding_mask / targets, identical to the JAX package's on the
   same manifest.
 
+Under data parallelism each rank collates its ``rows`` of the global
+batch (``parallel.mesh.process_local_rows``): it reads only their audio,
+and every shape and draw is the global batch's (the crop bucket from the
+size hint, the target bucket from every row's tokens, the crops and masks
+drawn for every row, the manifest's sizes standing in for the audio it
+does not read), so the ranks' rows are the rows one process collates.
+
 ``to_device`` moves a batch to the card in one pinned, non-blocking copy
 per array.
 """
@@ -50,14 +57,17 @@ class PretrainBatcher:
     conv_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
 
     def collate(self, indices: np.ndarray, size_hint: Optional[int] = None,
-                key: Tuple[int, int] = (0, 0)) -> Dict[str, np.ndarray]:
+                key: Tuple[int, int] = (0, 0),
+                rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
         """``size_hint``: the batch's shortest sample size according to the
         manifest (clipped to the largest bucket); ``key``: (epoch, batch
-        offset) of the batch, which with ``seed`` keys its generator.
+        offset) of the batch, which with ``seed`` keys its generator;
+        ``rows``: the rows of the batch to return (module docstring).
         -> {source [B, T] float32, mask_positions [B, M] int32}."""
         rng = np.random.default_rng((self.seed, *key))
+        rows = rows or slice(0, len(indices))
         wavs = read_audio_batch(
-            [self.manifest.full_path(i) for i in indices])
+            [self.manifest.full_path(i) for i in indices[rows]])
         if self.normalize:
             wavs = [instance_normalize(w) for w in wavs]
         shortest = min(len(w) for w in wavs)
@@ -68,18 +78,20 @@ class PretrainBatcher:
         usable = [b for b in self.buckets if b <= shortest]
         T = usable[-1] if usable else self.buckets[0]
         out = np.zeros((len(wavs), T), np.float32)
-        for r, w in enumerate(wavs):
-            if len(w) > T:
-                start = rng.integers(0, len(w) - T + 1)
-                out[r] = w[start:start + T]
-            else:
-                out[r, :len(w)] = w
+        for r, i in enumerate(indices):
+            mine = rows.start <= r < rows.stop
+            n = (len(wavs[r - rows.start]) if mine
+                 else int(self.manifest.sizes[i]))
+            start = rng.integers(0, n - T + 1) if n > T else 0
+            if mine:
+                w = wavs[r - rows.start]
+                out[r - rows.start, :min(T, len(w))] = w[start:start + T]
 
         frames = conv_output_length(T, self.conv_layers)
         M = expected_mask_count(frames, self.mask_prob, self.mask_length)
         mask = compute_span_mask_np(
-            (len(wavs), frames), None, self.mask_prob, self.mask_length,
-            rng, exact_count=M)
+            (len(indices), frames), None, self.mask_prob, self.mask_length,
+            rng, exact_count=M)[rows]
         positions = np.zeros((len(wavs), M), np.int32)
         for r in range(len(wavs)):
             positions[r] = np.flatnonzero(mask[r])[:M]
@@ -104,19 +116,24 @@ class CaatBatcher:
         return self.tgt_dict.encode(pieces, append_eos=True)
 
     def collate(self, indices: np.ndarray,
-                size_hint: Optional[int] = None) -> Dict[str, np.ndarray]:
+                size_hint: Optional[int] = None,
+                rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
         """``size_hint``: the batch's longest audio in samples according to
         the manifest; the pad bucket covers it even where a file is
-        shorter than its manifest row says."""
-        wavs, targets = [], []
-        for i in indices:
+        shorter than its manifest row says.  ``rows``: the rows of the
+        batch to return (module docstring)."""
+        rows = rows or slice(0, len(indices))
+        targets = [np.asarray(self.encode_target(i), np.int64)
+                   for i in indices]
+        U = bucket_for(max(len(t) for t in targets), self.target_buckets)
+        wavs = []
+        for i in indices[rows]:
             wav = read_audio(self.manifest.audio_paths[i])
             wavs.append(instance_normalize(wav) if self.normalize else wav)
-            targets.append(np.asarray(self.encode_target(i), np.int64))
+        targets = targets[rows]
 
         S = bucket_for(max([len(w) for w in wavs] + [size_hint or 0]),
                        self.audio_buckets)
-        U = bucket_for(max(len(t) for t in targets), self.target_buckets)
         B = len(wavs)
         src = np.zeros((B, S), np.float32)
         pad_mask = np.ones((B, S), bool)

@@ -19,7 +19,7 @@ from torch import nn
 
 from wav2vec_s_tpu_torch.models.caat.config import CaatConfig
 from wav2vec_s_tpu_torch.models.modules import (
-    Dropouts, TransformerEncoderLayer, encoder_layer, ln)
+    Dropouts, TransformerEncoderLayer, ln)
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 from wav2vec_s_tpu_torch.utils.positional import PADDING_IDX, sinusoidal_table
@@ -70,8 +70,8 @@ class IsolatedDecoder(nn.Module):
                 + torch.where(pad_mask, MASK_VALUE, 0.0)[:, None, None, :])
         rates = Dropouts(c.dropout, c.attention_dropout, c.activation_dropout)
         for layer in self.layers:
-            x = encoder_layer(layer, x, bias, c.decoder_normalize_before,
-                              F.relu, rates, ctx)
+            x = layer(x, bias, c.decoder_normalize_before, F.relu, rates,
+                      ctx)
         if self.layer_norm is not None:
             x = ln(self.layer_norm, x)
         return x

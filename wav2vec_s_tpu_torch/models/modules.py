@@ -15,6 +15,11 @@ the attention and the FFN, ``activation_dropout`` inside the FFN, in both
 layer-norm orders) run through an optional ``DropoutContext``
 (``ops/dropout.py``, kernel K4); without one (inference) every site is the
 identity.
+
+Context parallelism (``parallel/context.py``): given a ``SeqShard``, a
+layer holds its rows of the time axis, gathers the keys and values of the
+whole sequence, attends its queries (dense only) and drops each row at its
+place in the whole sequence.
 """
 
 from __future__ import annotations
@@ -105,6 +110,16 @@ class TransformerEncoderLayer(nn.Module):
         self.fc2 = nn.Linear(ffn_dim, dim)
         self.final_layer_norm = nn.LayerNorm(dim)
 
+    def forward(self, x: torch.Tensor, bias, layer_norm_first: bool,
+                act: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                rates: Optional["Dropouts"] = None,
+                ctx: Optional[DropoutContext] = None,
+                seq=None) -> torch.Tensor:
+        """``encoder_layer`` on this layer (a module call, so that an FSDP
+        unit gathers its parameters)."""
+        return encoder_layer(self, x, bias, layer_norm_first,
+                             act or gelu, rates or Dropouts(), ctx, seq)
+
 
 @dataclasses.dataclass(frozen=True)
 class FlashSpec:
@@ -120,49 +135,59 @@ class FlashSpec:
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor],
                           dropout_rate: float = 0.0,
-                          ctx: Optional[DropoutContext] = None
-                          ) -> torch.Tensor:
+                          ctx: Optional[DropoutContext] = None,
+                          seq=None) -> torch.Tensor:
     """[B, H, T, Dh] attention as ``wav2vec_s_tpu/models/modules.py:106``:
     f32 logits plus the additive bias (broadcastable to [B, H, Tq, Tk]: a
     block mask, a causal-plus-padding mask, a group mask), softmax,
-    probabilities cast to the compute dtype, dropped, then P.V."""
+    probabilities cast to the compute dtype, dropped, then P.V.  ``seq``:
+    the queries are a ``SeqShard``'s rows of the keys' sequence."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     logits = logits * q.shape[-1] ** -0.5
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    probs = drop(ctx, probs, dropout_rate)
+    probs = drop(ctx, probs, dropout_rate,
+                 None if seq is None else seq.site(2))
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
 def self_attention(att: MultiheadAttention, x: torch.Tensor,
                    bias: Union[torch.Tensor, FlashSpec, None],
                    dropout_rate: float = 0.0,
-                   ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+                   ctx: Optional[DropoutContext] = None,
+                   seq=None) -> torch.Tensor:
     """Full-sequence self-attention of ``MultiheadSelfAttention``
     (``wav2vec_s_tpu/models/modules.py:133-173``), ``out_proj`` applied.
     ``bias`` is an additive mask broadcastable to [B, H, T, T], or a
     ``FlashSpec`` for the block-sparse kernels on the packed projections,
     which drop the probabilities in-kernel at the site the dense branch's
     ``drop(ctx, probs, rate)`` would take: one seed gives both the same
-    mask."""
+    mask.  ``seq`` (a ``SeqShard``): ``x`` holds its rows; the keys and
+    values of the whole sequence are gathered and ``bias`` holds the rows'
+    [.., rows, whole] block."""
     B, T, D = x.shape
     H = att.num_heads
     q, k, v = (dense(p, x) for p in (att.q_proj, att.k_proj, att.v_proj))
+    if seq is not None:
+        if isinstance(bias, FlashSpec):
+            raise ValueError("context parallelism runs the dense attention")
+        k, v = seq.gather(k), seq.gather(v)
     if isinstance(bias, FlashSpec):
-        rate, seed, offset = 0.0, 0, 0
+        rate, seed, offset, row0 = 0.0, 0, 0, 0
         if ctx is not None and dropout_rate:
             rate, (seed, offset) = dropout_rate, ctx.next_site()
+            row0 = ctx.first_row()
         out = blockwise_flash_attention_packed(
             q, k, v, bias.key_padding_mask, H, bias.seq_len,
             bias.main_context, bias.right_context, dropout_rate=rate,
-            dropout_seed=seed, dropout_offset=offset)
+            dropout_seed=seed, dropout_offset=offset, dropout_row0=row0)
     else:
         def split(t):
-            return t.reshape(B, T, H, D // H).transpose(1, 2)
+            return t.reshape(B, t.shape[1], H, D // H).transpose(1, 2)
 
         out = dot_product_attention(split(q), split(k), split(v), bias,
-                                    dropout_rate, ctx)
+                                    dropout_rate, ctx, seq)
         out = out.transpose(1, 2).reshape(B, T, D)
     return dense(att.out_proj, out)
 
@@ -177,16 +202,19 @@ def layer_tail(layer: TransformerEncoderLayer, x: torch.Tensor,
                h: torch.Tensor, layer_norm_first: bool,
                act: Callable[[torch.Tensor], torch.Tensor],
                rates: Dropouts = Dropouts(),
-               ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+               ctx: Optional[DropoutContext] = None,
+               seq=None) -> torch.Tensor:
     """Residuals, norms and FFN after the attention output ``h``
     (``out_proj`` applied) — the two orderings of
     ``wav2vec_s_tpu/stream/incremental.py:275-285``, with the dropout sites
     of ``wav2vec_s_tpu/models/modules.py:257-268``."""
-    def ffn(t):
-        t = drop(ctx, act(dense(layer.fc1, t)), rates.activation)
-        return drop(ctx, dense(layer.fc2, t), rates.dropout)
+    site = None if seq is None else seq.site(1)
 
-    h = drop(ctx, h, rates.dropout)
+    def ffn(t):
+        t = drop(ctx, act(dense(layer.fc1, t)), rates.activation, site)
+        return drop(ctx, dense(layer.fc2, t), rates.dropout, site)
+
+    h = drop(ctx, h, rates.dropout, site)
     if layer_norm_first:
         x = x + h
         return x + ffn(ln(layer.final_layer_norm, x))
@@ -199,13 +227,14 @@ def encoder_layer(layer: TransformerEncoderLayer, x: torch.Tensor,
                   layer_norm_first: bool,
                   act: Callable[[torch.Tensor], torch.Tensor] = gelu,
                   rates: Dropouts = Dropouts(),
-                  ctx: Optional[DropoutContext] = None) -> torch.Tensor:
-    """One transformer layer over the full sequence: the wav2vec-S encoder
-    layer (GELU FFN) or, with ``act=F.relu`` and a causal bias, the CAAT
-    LM layer."""
+                  ctx: Optional[DropoutContext] = None,
+                  seq=None) -> torch.Tensor:
+    """One transformer layer over the full sequence (or a ``SeqShard``'s
+    rows of it): the wav2vec-S encoder layer (GELU FFN) or, with
+    ``act=F.relu`` and a causal bias, the CAAT LM layer."""
     h = self_attention(layer.self_attn, attn_input(layer, x, layer_norm_first),
-                       bias, rates.attention, ctx)
-    return layer_tail(layer, x, h, layer_norm_first, act, rates, ctx)
+                       bias, rates.attention, ctx, seq)
+    return layer_tail(layer, x, h, layer_norm_first, act, rates, ctx, seq)
 
 
 @torch.no_grad()

@@ -25,6 +25,8 @@ from torch import nn
 
 from wav2vec_s_tpu_torch.models.modules import dense
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+from wav2vec_s_tpu_torch.parallel.functional import batch_mean
+from wav2vec_s_tpu_torch.parallel.mesh import Shard
 
 
 def gumbel_temperature(num_updates: int, max_temp: float, min_temp: float,
@@ -63,19 +65,22 @@ class GumbelVectorQuantizer(nn.Module):
         self.vars.uniform_(0.0, 1.0, generator=generator)
 
     def forward(self, x: torch.Tensor, temperature: torch.Tensor,
-                ctx: Optional[DropoutContext] = None
-                ) -> Dict[str, torch.Tensor]:
+                ctx: Optional[DropoutContext] = None,
+                shard: Optional[Shard] = None) -> Dict[str, torch.Tensor]:
         """x: [B, T, C] -> {x [B, T, vq_dim] in x.dtype, code_perplexity,
         prob_perplexity, num_vars, temp, targets [B, T, G] (hard codes),
         sel_codes [B, T, G] (the codes the output was built from)}.
-        ``ctx`` None is eval mode: the hard codes, no noise."""
+        ``ctx`` None is eval mode: the hard codes, no noise.  ``shard``:
+        the rows of the whole batch that ``x`` holds, whose group the
+        perplexities' means are summed over (None: one process)."""
         B, T, _ = x.shape
         G, V = self.groups, self.num_vars
         logits = dense(self.weight_proj, x).reshape(B * T, G, V).float()
         hard_idx = logits.argmax(dim=-1)                          # [BT, G]
         hard_onehot = F.one_hot(hard_idx, V).float()
-        code_ppl = _perplexity(hard_onehot.mean(dim=0))
-        prob_ppl = _perplexity(torch.softmax(logits, dim=-1).mean(dim=0))
+        code_ppl = _perplexity(batch_mean(hard_onehot, 0, shard))
+        prob_ppl = _perplexity(batch_mean(torch.softmax(logits, dim=-1), 0,
+                                          shard))
 
         temperature = temperature.to(logits.device)
         if ctx is not None:

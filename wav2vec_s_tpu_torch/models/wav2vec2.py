@@ -45,14 +45,16 @@ from torch import nn
 from wav2vec_s_tpu_torch.models.feature_extractor import (
     ConvFeatureExtractor, DEFAULT_CONV_LAYERS)
 from wav2vec_s_tpu_torch.models.modules import (
-    Dropouts, FlashSpec, GradMultiply, TransformerEncoderLayer, dense,
-    encoder_layer, gelu, ln)
+    Dropouts, FlashSpec, GradMultiply, TransformerEncoderLayer, dense, gelu,
+    ln)
 from wav2vec_s_tpu_torch.models.quantizer import (
     GumbelVectorQuantizer, gumbel_temperature)
 from wav2vec_s_tpu_torch.ops.block_mask import (
     append_right_context, block_attn_bias, block_layout, extend_padding_mask,
     strip_right_context)
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
+from wav2vec_s_tpu_torch.parallel.functional import batch_mean
+from wav2vec_s_tpu_torch.parallel.mesh import Shard
 from wav2vec_s_tpu_torch.utils.positional import (
     sinusoidal_positions_from_padding)
 
@@ -107,7 +109,9 @@ class Wav2Vec2Config:
     attention_impl: str = "dense"          # "dense" | "flash" (the
                                            # block-sparse kernel)
     remat_extractor: bool = False          # TPU memory switch: not ported
-    seq_axis: Optional[str] = None         # TPU mesh axis: not ported
+    seq_axis: Optional[str] = None         # the mesh dim of context
+                                           # parallelism (parallel/
+                                           # context.py)
     dtype: str = "float32"
 
     @property
@@ -136,9 +140,6 @@ def check_ported(cfg: Wav2Vec2Config) -> None:
     if cfg.remat_extractor:
         todo.append("remat_extractor (ROADMAP Queue 1 item 9: a TPU memory "
                     "switch that waits for a measurement on the card)")
-    if cfg.seq_axis is not None:
-        todo.append(f"seq_axis={cfg.seq_axis!r} (ROADMAP Queue 1 item 11: "
-                    f"context parallelism over a TPU mesh axis)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -150,7 +151,14 @@ def wav2vec_s_base_config(**kw) -> Wav2Vec2Config:
 
 
 class TransformerEncoder(nn.Module):
-    """The wav2vec-S blockwise encoder (wav2vec_S.py:355-440)."""
+    """The wav2vec-S blockwise encoder (wav2vec_S.py:355-440).
+
+    ``seq_group``: the process group of context parallelism, set by
+    ``parallel.context.enable`` (a config with ``seq_axis`` needs it): the
+    layer stack then runs on this rank's rows of the sequence
+    (``parallel/context.py``), on the dense attention."""
+
+    seq_group = None
 
     def __init__(self, cfg: Wav2Vec2Config):
         super().__init__()
@@ -196,18 +204,33 @@ class TransformerEncoder(nn.Module):
         x = drop(ctx, x, c.dropout)
         layout = block_layout(T + pad_len, mc, rc)
         x = append_right_context(x, layout)
+        seq = None
+        if c.seq_axis is not None:
+            if self.seq_group is None:
+                raise RuntimeError(
+                    f"seq_axis={c.seq_axis!r} splits the encoder over a "
+                    f"process group, and none is set: launch with python "
+                    f"-m torch.distributed.run and run.seq > 1 (or call "
+                    f"parallel.context.enable)")
+            from wav2vec_s_tpu_torch.parallel.context import SeqShard
+            seq = SeqShard.of(self.seq_group, layout.total_len)
         # the flash kernel takes the exact length: no tile padding
-        if c.attention_impl == "flash":
+        if c.attention_impl == "flash" and seq is None:
             bias = FlashSpec(extend_padding_mask(pm, layout), T + pad_len,
                              mc, rc)
         else:
             bias = block_attn_bias(layout, pm, dtype=torch.float32)
+        if seq is not None:
+            # this rank's query rows of the bias, and of the sequence
+            bias = seq.split(bias, dim=2)
+            x = seq.split(x)
         rates = Dropouts(c.dropout, c.attention_dropout, c.activation_dropout)
         for layer in self.layers:
             if ctx is not None and ctx.layer_dropped(c.encoder_layerdrop):
                 continue
-            x = encoder_layer(layer, x, bias, c.layer_norm_first, gelu,
-                              rates, ctx)
+            x = layer(x, bias, c.layer_norm_first, gelu, rates, ctx, seq)
+        if seq is not None:
+            x = seq.gather(x)
         x = strip_right_context(x, layout)
         if c.layer_norm_first:
             # the one `layer_norm` runs after the stack in pre-LN models,
@@ -341,17 +364,23 @@ class Wav2Vec2Model(nn.Module):
         return x, padding_mask
 
     def _negative_indices(self, B: int, M: int,
-                          ctx: Optional[DropoutContext]) -> torch.Tensor:
+                          ctx: Optional[DropoutContext],
+                          shard: Optional[Shard] = None) -> torch.Tensor:
         """[B, M, n_negatives] uniform same-utterance distractor rows, never
         the row's own (JAX ``_negative_indices``: ``randint(0, M - 1)``
         shifted past the own position), drawn on the host: from the step's
-        generator in training, from a fixed seed in eval mode."""
+        generator in training, from a fixed seed in eval mode (the whole
+        batch's draw, and ``shard``'s rows of it)."""
         shape = (B, M, self.cfg.n_negatives)
         if ctx is not None:
             idxs = ctx.randint(M - 1, shape)
         else:
-            idxs = torch.randint(0, M - 1, shape, generator=torch.Generator(
-            ).manual_seed(EVAL_NEGATIVES_SEED))
+            whole, rows = shape, slice(None)
+            if shard is not None:
+                whole = (shard.total,) + shape[1:]
+                rows = slice(shard.start, shard.stop)
+            idxs = torch.randint(0, M - 1, whole, generator=torch.Generator(
+            ).manual_seed(EVAL_NEGATIVES_SEED))[rows]
         own = torch.arange(M)[None, :, None]
         return idxs + (idxs >= own)
 
@@ -359,11 +388,15 @@ class Wav2Vec2Model(nn.Module):
                 num_updates: int, padding_mask: Optional[torch.Tensor] = None,
                 main_context: Optional[int] = None,
                 right_context: Optional[int] = None,
-                ctx: Optional[DropoutContext] = None) -> Dict[str, object]:
+                ctx: Optional[DropoutContext] = None,
+                shard: Optional[Shard] = None) -> Dict[str, object]:
         """Pre-training forward.  source: [B, S] waveform; mask_positions:
         [B, M] masked frame indices (equal count per row); num_updates: the
         update count that anneals the Gumbel temperature; ``ctx`` None is
-        eval mode (no dropout, hard codes).  Returns the JAX dict: InfoNCE
+        eval mode (no dropout, hard codes); ``shard``: the rows of the
+        whole batch that ``source`` holds (data parallelism): the feature
+        penalty's and the perplexities' means are summed over its group,
+        and eval mode takes its rows of the whole batch's negatives.  Returns the JAX dict: InfoNCE
         ``logits [B, M, 1 + N]`` (positive first), ``features_pen``,
         ``prob_perplexity``, ``code_perplexity``, ``num_vars``, ``temp``,
         ``mask_positions``, ``padding_mask``."""
@@ -372,7 +405,7 @@ class Wav2Vec2Model(nn.Module):
                                "pre-training heads (pretraining=False)")
         c = self.cfg
         feats = self.forward_features(source)
-        features_pen = feats.float().square().mean()
+        features_pen = batch_mean(feats.float().square(), shard=shard)
         feats = ln(self.layer_norm, feats)
         unmasked = feats
         if padding_mask is not None:
@@ -396,14 +429,14 @@ class Wav2Vec2Model(nn.Module):
         y, x_masked = unmasked[rows, pos], x[rows, pos]           # [B, M, .]
         if self.quantizer is not None:
             temp = gumbel_temperature(num_updates, *c.latent_temp)
-            q = self.quantizer(y, temp, ctx)
+            q = self.quantizer(y, temp, ctx, shard)
             y_q = dense(self.project_q, q["x"])
         else:
             q = {"prob_perplexity": None, "code_perplexity": None,
                  "num_vars": 0, "temp": torch.tensor(0.0)}
             y_q = dense(self.project_q, y)
         preds = dense(self.final_proj, x_masked)
-        idxs = self._negative_indices(B, M, ctx).to(x.device)
+        idxs = self._negative_indices(B, M, ctx, shard).to(x.device)
         if self.quantizer is not None:
             logits = contrastive_logits(preds, y_q, q["sel_codes"], idxs,
                                         c.logit_temp)

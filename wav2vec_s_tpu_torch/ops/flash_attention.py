@@ -22,7 +22,10 @@ Attention dropout acts on the normalised probabilities (``l`` sums the
 plain ``p``, the value product takes ``p * keep``; ``m`` and ``l`` do not
 depend on it).  The keep mask is a function of the element's coordinates in
 the [B, H, S, S] probabilities: K4's Philox scheme (``ops/dropout.py``) on
-the flat index, under the step ``seed`` and the site ``offset``.  The twin's
+the flat index, under the step ``seed`` and the site ``offset``; a shard
+of a data-parallel batch whose first row is row ``dropout_row0`` of the
+whole batch adds ``dropout_row0 * H * S * S`` to every index, so its masks
+are the matching rows of the whole batch's.  The twin's
 mask is ``keep_mask(B*H*S*S, ...)`` reshaped, bit-equal to the kernels';
 flash training therefore equals dense training, which drops the
 materialised probabilities at the same site, under one seed.
@@ -80,12 +83,14 @@ def _bias(key_padding_mask, seq_len, main_context, right_context):
             + torch.where(key_padding_mask, NEG, 0.0)[:, None, None, :])
 
 
-def _keep_scale(B, H, S, rate, seed, offset, device):
+def _keep_scale(B, H, S, rate, seed, offset, device, row0=0):
     """[B, H, S, S] float32 tensor of 0 or 1/(1 - rate) (the kernels' keep
     mask), or None when ``rate`` is 0."""
     if not rate:
         return None
-    keep = keep_mask(B * H * S * S, rate, seed, offset, device)
+    n = B * H * S * S
+    keep = keep_mask(n, rate, seed, offset, device,
+                     (row0 * H * S * S, n, n) if row0 else None)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
                          device=device)
     return torch.where(keep.reshape(B, H, S, S), scale, 0.0)
@@ -106,7 +111,8 @@ def blockwise_flash_attention_ref(q, k, v, key_padding_mask, num_heads: int,
                                   right_context: int,
                                   dropout_rate: float = 0.0,
                                   dropout_seed: int = 0,
-                                  dropout_offset: int = 0):
+                                  dropout_offset: int = 0,
+                                  dropout_row0: int = 0):
     """Plain PyTorch twin; same arguments as
     ``blockwise_flash_attention_packed``.  Returns ``(out, m, l)``: out
     [B, S, D] in ``q.dtype``, and the row max ``m`` and row sum of
@@ -121,7 +127,7 @@ def blockwise_flash_attention_ref(q, k, v, key_padding_mask, num_heads: int,
     l = e.sum(dim=-1)
     p = e / l[..., None]
     keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
-                       q.device)
+                       q.device, dropout_row0)
     if keep is not None:
         p = p * keep
     o = torch.einsum("bhqk,bhkd->bhqd", p, _split(v, H))
@@ -134,7 +140,8 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
                                       right_context: int,
                                       dropout_rate: float = 0.0,
                                       dropout_seed: int = 0,
-                                      dropout_offset: int = 0):
+                                      dropout_offset: int = 0,
+                                      dropout_row0: int = 0):
     """Plain PyTorch twin of the backward kernels, formula by formula
     (``csrc/flash_attention_bwd.cu``): from the forward's inputs, its
     ``out`` and row stats ``m``, ``l`` and the cotangent ``dout`` to
@@ -148,7 +155,7 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
         key_padding_mask, seq_len, main_context, right_context)
     p = torch.exp(s - m[..., None]) / l.clamp(min=1e-20)[..., None]
     keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
-                       q.device)
+                       q.device, dropout_row0)
     dvec = (do * _split(out, H)).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vh)
     pt = p
@@ -201,9 +208,12 @@ def _kinds_on(seq_len: int, main_context: int, right_context: int,
 
 
 def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-           right_context, dropout_rate, dropout_seed, dropout_offset):
+           right_context, dropout_rate, dropout_seed, dropout_offset,
+           dropout_row0=0):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate {dropout_rate} is not in [0, 1)")
+    if dropout_row0 < 0:
+        raise ValueError(f"dropout_row0 {dropout_row0} is negative")
     if not (0 <= dropout_seed < 1 << 64 and 0 <= dropout_offset < 1 << 64):
         raise ValueError(f"seed {dropout_seed} and offset {dropout_offset} "
                          f"must be unsigned 64-bit integers")
@@ -261,7 +271,7 @@ def _count(wrapper, path):
 def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
     """Twin (CPU) or kernel K2 (CUDA) -> (out, m, l); m and l are None on
     CUDA unless ``want_stats``.  ``layout`` = (num_heads, seq_len, mc, rc),
-    ``drop`` = (rate, seed, offset)."""
+    ``drop`` = (rate, seed, offset, row0)."""
     if q.device.type == "cpu":
         return blockwise_flash_attention_ref(q, k, v, key_padding_mask,
                                              *layout, *drop)
@@ -270,7 +280,7 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
 
     B, S, D = q.shape
     H, seq_len, mc, rc = layout
-    rate, seed, offset = drop
+    rate, seed, offset, row0 = drop
     path = _path_of(q, H, q, k, v)
     with torch.cuda.device(q.device):
         lib = native.library()
@@ -288,7 +298,7 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
             None if m is None else m.data_ptr(),
             None if l is None else l.data_ptr(),
             B, S, D, H, seq_len, mc, rc, _DTYPE_CODES[q.dtype], seed, offset,
-            _threshold(rate), 1.0 / (1.0 - rate),
+            row0 * H * S * S, _threshold(rate), 1.0 / (1.0 - rate),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
@@ -302,7 +312,8 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
                                   main_context: int, right_context: int,
                                   dropout_rate: float = 0.0,
                                   dropout_seed: int = 0,
-                                  dropout_offset: int = 0):
+                                  dropout_offset: int = 0,
+                                  dropout_row0: int = 0):
     """The backward of ``blockwise_flash_attention_packed``: the forward's
     inputs, its ``out`` [B, S, D] and row stats ``m``, ``l`` [B, H, S]
     float32, and the cotangent ``dout`` [B, S, D] -> ``(dq, dk, dv)`` in
@@ -312,7 +323,8 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
     ``blockwise_flash_attention_bwd.launches`` per call, and in its
     ``path_launches`` under the kernel set that ran) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-           right_context, dropout_rate, dropout_seed, dropout_offset)
+           right_context, dropout_rate, dropout_seed, dropout_offset,
+           dropout_row0)
     B, S, D = q.shape
     H = num_heads
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
@@ -327,7 +339,7 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
         return blockwise_flash_attention_bwd_ref(
             q, k, v, out, dout, m, l, key_padding_mask, num_heads, seq_len,
             main_context, right_context, dropout_rate, dropout_seed,
-            dropout_offset)
+            dropout_offset, dropout_row0)
     _contiguous(q, k, v, out, dout, m, l, key_padding_mask)
     from wav2vec_s_tpu_torch.ops import native
 
@@ -347,7 +359,8 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
             kinds_t.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dvec.data_ptr(), B, S, D, H, seq_len, main_context,
             right_context, _DTYPE_CODES[q.dtype], dropout_seed,
-            dropout_offset, _threshold(dropout_rate),
+            dropout_offset, dropout_row0 * H * S * S,
+            _threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate),
             torch.cuda.current_stream().cuda_stream)
     if err:
@@ -386,14 +399,16 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
                                      dropout_rate: float = 0.0,
                                      return_stats: bool = False,
                                      dropout_seed: int = 0,
-                                     dropout_offset: int = 0):
+                                     dropout_offset: int = 0,
+                                     dropout_row0: int = 0):
     """q, k, v: [B, S, D] packed projections (head h at columns
     ``h*dh:(h+1)*dh``, q NOT pre-scaled), S = ``block_layout(seq_len,
     main_context, right_context).total_len``; key_padding_mask: [B, S]
     bool, True = padded key (the extended mask, rc copies included).
     ``dropout_rate`` > 0 drops the normalised probabilities with the mask
     of ``(dropout_seed, dropout_offset)`` (one site of the step's
-    ``DropoutContext``).
+    ``DropoutContext``) at the index of the batch row ``dropout_row0`` on
+    (a data-parallel shard's first row; 0 for a whole batch).
 
     Returns [B, S, D] in ``q.dtype`` (padded query rows hold anything;
     callers strip them), or ``(out, m, l)`` with the [B, H, S] float32 row
@@ -404,9 +419,11 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
     ``blockwise_flash_attention_bwd.launches``, per kernel set in their
     ``path_launches``) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
-           right_context, dropout_rate, dropout_seed, dropout_offset)
+           right_context, dropout_rate, dropout_seed, dropout_offset,
+           dropout_row0)
     layout = (num_heads, seq_len, main_context, right_context)
-    drop = (float(dropout_rate), int(dropout_seed), int(dropout_offset))
+    drop = (float(dropout_rate), int(dropout_seed), int(dropout_offset),
+            int(dropout_row0))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.device.type == "cuda":
             q, k, v = (t.contiguous() for t in (q, k, v))

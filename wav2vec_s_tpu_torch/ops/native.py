@@ -180,9 +180,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    # (seed, offset, threshold, keep scale) of the attention dropout
-    drop = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
-            ctypes.c_double]
+    # (seed, offset, base, threshold, keep scale) of the attention dropout
+    drop = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_ulonglong,
+            ctypes.c_uint, ctypes.c_double]
     # the CUDA-core and the tensor-core kernels share their signatures
     for fn in (lib.w2vs_flash_attention, lib.w2vs_flash_attention_mma):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + drop
@@ -196,7 +196,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.w2vs_dropout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,
-                   ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_double, ctypes.c_int, ctypes.c_ulonglong,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.w2vs_transducer_alphas
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
@@ -210,9 +211,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    # the warp set of the lattice kernels (csrc/transducer_warp.cu); a
-    # length tensor comes as (pointer, 1 if int64 else 0), the delay values
-    # as (pointer, three element strides)
+    # the warp set of the lattice kernels (csrc/transducer_warp.cu) and the
+    # fused walks of both sets; a length tensor comes as (pointer, 1 if
+    # int64 else 0), the delay values as (pointer, three element strides)
     lens = [ctypes.c_void_p, ctypes.c_int] * 2
     dv = [ctypes.c_void_p] + [ctypes.c_longlong] * 3
     shape = [ctypes.c_int] * 3
@@ -225,7 +226,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
              + [ctypes.c_void_p] * 2 + shape),
             ("betas_delay", [ctypes.c_void_p] * 2 + lens + dv
              + [ctypes.c_void_p] * 2 + shape)):
-        fn = getattr(lib, f"w2vs_lattice_warp_{name}")
-        fn.argtypes = args + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        names = [f"w2vs_lattice_warp_{name}"]
+        if name.endswith("_delay"):
+            names.append(f"w2vs_transducer_{name}")
+        for full in names:
+            fn = getattr(lib, full)
+            fn.argtypes = args + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib

@@ -12,18 +12,24 @@
   forward K6 in one kernel) and ``betas_and_expected_delay_bwd`` (the
   reverse fused walk: K5b and the reverse K6), which the loss runs.
 
+No training path calls the three single recursions or ``lattice``'s
+``rows=`` hook: they stay so that each TPU kernel's computation can be
+held alone against its twin and against float64 (``chip_smoke.py`` phase
+5, ``tests/test_torch_port_gpu.py``).  A numeric fault of a fused walk is
+found by running its recursions one at a time, as the block set's delay
+error past U 256 was (PERF.md).
+
 ``lattice_path(U)`` chooses the kernel set from the label cells alone: the
 warp set (one warp per lattice, heads in registers) up to ``WARP_MAX_U``,
-the block set (one block per lattice, heads in shared memory) beyond, where
-the fused wrappers run the block set's unfused sequence (``alphas``, the
-coefficients, ``affine_rows``).  Each wrapper runs its twin in
-``lattice.py`` for CPU tensors and launches its kernel for CUDA tensors
-(count in ``<fn>.launches``; the three single-recursion wrappers count per
-kernel set in ``<fn>.path_launches`` too).  Before a launch a wrapper checks
-its arguments and nothing else; a failed check, build or launch raises,
-there is no fallback.  The kernels take contiguous float32 [B, T, U]
-lattices, delay values at any strides, and lengths on the lattice's device
-(int32 or int64; the block set copies them to int32).
+the block set (one block per lattice, heads in shared memory) beyond.  Both
+sets have all five kernels.  Each wrapper runs its twin in ``lattice.py``
+for CPU tensors and launches its kernel for CUDA tensors (count in
+``<fn>.launches`` and, per kernel set, in ``<fn>.path_launches``).  Before
+a launch a wrapper checks its arguments and nothing else; a failed check,
+build or launch raises, there is no fallback.  The kernels take contiguous
+float32 [B, T, U] lattices, delay values at any strides, and lengths on the
+lattice's device (int32 or int64; the block set's ``betas`` copies them to
+int32).
 """
 
 from __future__ import annotations
@@ -169,63 +175,54 @@ def affine_rows(a: torch.Tensor, pb: torch.Tensor, c: torch.Tensor,
 def alphas_and_expected_delay(lp_blank: torch.Tensor, lp_emit: torch.Tensor,
                               delay_values: torch.Tensor):
     """(alphas, ad), each [B, T, U] (``lattice.alphas_and_expected_delay``):
-    one forward fused walk on the warp set."""
+    one forward fused walk."""
     _check(lp_blank, lp_emit, delay_values)
     if lp_blank.device.type == "cpu":
         return lattice.alphas_and_expected_delay(lp_blank, lp_emit,
                                                  delay_values)
     B, T, U = lp_blank.shape
-    if lattice_path(U) == BLOCK:
-        a = alphas(lp_blank, lp_emit)
-        return a, lattice.expected_delay(lp_blank, lp_emit, a, delay_values,
-                                         rows=affine_rows)
     with torch.cuda.device(lp_blank.device):
         lib, stream = _cuda_args(lp_blank, lp_emit)
         dv = _delay(delay_values)
         a, ad = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
         if a.numel():
-            _done(lib.w2vs_lattice_warp_alphas_delay(
-                lp_blank.data_ptr(), lp_emit.data_ptr(), *dv, a.data_ptr(),
-                ad.data_ptr(), B, T, U, stream), "alphas_and_expected_delay")
-            alphas_and_expected_delay.launches += 1
+            path = lattice_path(U)
+            fn = (lib.w2vs_lattice_warp_alphas_delay if path == WARP
+                  else lib.w2vs_transducer_alphas_delay)
+            _done(fn(lp_blank.data_ptr(), lp_emit.data_ptr(), *dv,
+                     a.data_ptr(), ad.data_ptr(), B, T, U, stream),
+                  "alphas_and_expected_delay")
+            _launched(alphas_and_expected_delay, path)
     return a, ad
 
 
 def betas_and_expected_delay_bwd(lp_blank, lp_emit, act_lens, label_lens,
                                  delay_values):
     """(betas, bd), each [B, T, U]
-    (``lattice.betas_and_expected_delay_bwd``): one reverse fused walk on
-    the warp set."""
+    (``lattice.betas_and_expected_delay_bwd``): one reverse fused walk."""
     _check(lp_blank, lp_emit, delay_values)
     if lp_blank.device.type == "cpu":
         return lattice.betas_and_expected_delay_bwd(
             lp_blank, lp_emit, act_lens, label_lens, delay_values)
     B, T, U = lp_blank.shape
-    if lattice_path(U) == BLOCK:
-        be = betas(lp_blank, lp_emit, act_lens, label_lens)
-        t_valid, emit_ok = lattice.lattice_masks((B, T, U), act_lens,
-                                                 label_lens)
-        down, up = lattice.beta_shifts(be, label_lens)
-        return be, lattice.expected_delay_bwd(
-            lp_blank, lp_emit, be, down, up, delay_values, t_valid, emit_ok,
-            rows=affine_rows)[0]
     with torch.cuda.device(lp_blank.device):
         lib, stream = _cuda_args(lp_blank, lp_emit)
         lens = _lens(lp_blank, act_lens, label_lens)
         dv = _delay(delay_values)
         be, bd = torch.empty_like(lp_blank), torch.empty_like(lp_blank)
         if be.numel():
-            _done(lib.w2vs_lattice_warp_betas_delay(
-                lp_blank.data_ptr(), lp_emit.data_ptr(), *lens, *dv,
-                be.data_ptr(), bd.data_ptr(), B, T, U, stream),
-                "betas_and_expected_delay_bwd")
-            betas_and_expected_delay_bwd.launches += 1
+            path = lattice_path(U)
+            fn = (lib.w2vs_lattice_warp_betas_delay if path == WARP
+                  else lib.w2vs_transducer_betas_delay)
+            _done(fn(lp_blank.data_ptr(), lp_emit.data_ptr(), *lens, *dv,
+                     be.data_ptr(), bd.data_ptr(), B, T, U, stream),
+                  "betas_and_expected_delay_bwd")
+            _launched(betas_and_expected_delay_bwd, path)
     return be, bd
 
 
-alphas.launches = betas.launches = affine_rows.launches = 0
-alphas.path_launches = {WARP: 0, BLOCK: 0}
-betas.path_launches = {WARP: 0, BLOCK: 0}
-affine_rows.path_launches = {WARP: 0, BLOCK: 0}
-alphas_and_expected_delay.launches = 0
-betas_and_expected_delay_bwd.launches = 0
+_WRAPPERS = (alphas, betas, affine_rows, alphas_and_expected_delay,
+             betas_and_expected_delay_bwd)
+for _fn in _WRAPPERS:
+    _fn.launches = 0
+    _fn.path_launches = {WARP: 0, BLOCK: 0}

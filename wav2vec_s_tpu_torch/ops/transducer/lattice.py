@@ -15,9 +15,9 @@ blank is free.
   JAX package's row scans, one Python step per source row with a prefix
   log-sum-exp (``torch.logcumsumexp``) or a Hillis-Steele affine prefix
   along U.  ``expected_delay`` and ``expected_delay_bwd`` build the
-  transition probabilities elementwise and run a row recursion given as
-  ``rows`` (the twin by default, the block set's kernel beyond the warp
-  set's U in ``kernels.py``).
+  transition probabilities elementwise from the stored alphas (betas) and
+  run a row recursion given as ``rows`` (the twin by default, K6 through
+  ``kernels.affine_rows`` in the card's checks).
 - ``alphas_and_expected_delay`` and ``betas_and_expected_delay_bwd``, the
   twins of the fused walks, are those pieces in sequence.
 

@@ -32,6 +32,22 @@ What differs from the JAX CLI, on purpose:
 - A batch that runs out of device memory is skipped as the fairseq trainer
   does (trainer.py:700-720): gradients freed, the allocator's cache
   emptied, the skip counted in the next progress record (``oom_skipped``).
+  Not under a process group: one rank's skip would leave the others
+  waiting in a collective, so there it raises.
+- Parallel runs (``parallel/``): launched by ``python -m
+  torch.distributed.run --nproc-per-node N -m wav2vec_s_tpu_torch.train.cli
+  ...`` (or in a process whose default group is already started), one
+  process per device (``cuda:{LOCAL_RANK}``; ``nccl`` on the card,
+  ``gloo`` on the CPU).  ``run.num_devices``, when set, must equal the
+  world size; ``run.seq`` ranks split the encoder's time axis (context
+  parallelism), the rest form the ``data`` dim; ``run.zero`` shards the
+  optimizer moments and ``run.fsdp`` the parameters over it.  As in the
+  JAX CLI every batch is a multiple of the data width and each rank
+  collates its contiguous rows with the global batch's shapes; a rank's
+  dropout masks and host draws are its rows' part of the global batch's,
+  so a DP step equals one process over the global batch.  Validation sums
+  loss and count over the data ranks; rank 0 alone prints the progress
+  and writes checkpoints (in the single-process layout).
 - What the port does not do yet raises at start-up and names the ROADMAP
   item that will bring it; no configuration key is ignored silently.
 """
@@ -81,9 +97,10 @@ def check_supported(cfg: TrainConfig) -> None:
     if data.features != "raw":
         todo.append(f"data.features={data.features} (item 12: the fbank "
                     f"and text families)")
-    if run.num_devices > 1 or run.zero or run.fsdp or run.seq > 1:
-        todo.append("run.num_devices > 1 / run.zero / run.fsdp / run.seq > 1 "
-                    "(item 11: parallel)")
+    if run.seq > 1 and (run.zero or run.fsdp):
+        todo.append("run.seq > 1 with run.zero or run.fsdp (item 11b: "
+                    "context parallelism composes with data parallelism "
+                    "only)")
     if run.eval_bleu or run.eval_wer:
         todo.append("run.eval_bleu / run.eval_wer (item 12: needs "
                     "eval/generator.py)")
@@ -156,9 +173,10 @@ def build_caat(cfg: TrainConfig):
         print(f"encoder initialized from {cfg.run.pretrained_encoder_path}",
               file=sys.stderr)
 
-    def make_loss(mc, rc, downsample=None, train=True):
+    def make_loss(mc, rc, downsample=None, train=True, plan=None):
         return make_caat_loss_fn(model, caat_cfg, mc, rc,
-                                 downsample=downsample, train=train)
+                                 downsample=downsample, train=train,
+                                 plan=plan)
 
     return manifest, batcher, model, caat_cfg, make_loss
 
@@ -196,8 +214,8 @@ def build_pretrain(cfg: TrainConfig):
         print(f"model initialized from "
               f"{cfg.run.load_pretrained_model_from}", file=sys.stderr)
 
-    def make_loss(mc, rc, downsample=None, train=True):
-        return make_pretrain_loss_fn(model, mc, rc, train=train)
+    def make_loss(mc, rc, downsample=None, train=True, plan=None):
+        return make_pretrain_loss_fn(model, mc, rc, train=train, plan=plan)
 
     return manifest, batcher, model, make_loss
 
@@ -216,7 +234,62 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(give --device cpu to run on the host)")
-    _train(cfg, device)
+    plan, started = _parallel_plan(cfg, device.type)
+    if plan is not None:
+        from wav2vec_s_tpu_torch.parallel.mesh import device_for
+        device = device_for(device.type, _local_rank())
+    try:
+        _train(cfg, device, plan)
+    finally:
+        if started:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _local_rank() -> int:
+    import os
+
+    import torch.distributed as dist
+    return int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+
+
+def _parallel_plan(cfg: TrainConfig, device_type: str):
+    """(the run's ``ParallelPlan`` or None, whether this call started the
+    process group).  A run is parallel when ``torch.distributed.run``
+    launched it (or the default group is already started); a parallel
+    setting without one raises."""
+    import torch.distributed as dist
+
+    from wav2vec_s_tpu_torch.parallel import mesh as pmesh
+    from wav2vec_s_tpu_torch.parallel.sharding import ParallelPlan
+
+    run = cfg.run
+    started = False
+    if not dist.is_initialized():
+        if not pmesh.launched():
+            if run.num_devices > 1 or run.zero or run.fsdp or run.seq > 1:
+                raise RuntimeError(
+                    f"run.num_devices={run.num_devices} / run.zero="
+                    f"{run.zero} / run.fsdp={run.fsdp} / run.seq={run.seq} "
+                    f"need a process group: launch with python -m "
+                    f"torch.distributed.run --nproc-per-node N")
+            return None, False
+        pmesh.init_from_env(device_type)
+        started = True
+    world = dist.get_world_size()
+    if run.num_devices and run.num_devices != world:
+        raise ValueError(f"run.num_devices={run.num_devices} but "
+                         f"{world} processes were launched")
+    if world % run.seq:
+        raise ValueError(f"run.seq={run.seq} does not divide the {world} "
+                         f"processes")
+    if run.seq > 1:
+        # the encoder splits its time axis over the mesh's seq dim (the
+        # JAX CLI sets the same default)
+        cfg.model.setdefault("seq_axis", pmesh.AXES.seq)
+    mesh = pmesh.make_mesh(world // run.seq, run.seq, device_type)
+    mode = "fsdp" if run.fsdp else "zero" if run.zero else "dp"
+    return ParallelPlan(mesh, mode), started
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -234,9 +307,11 @@ def _keyed(epoch_itr, epoch: int, start: int):
         yield (epoch, offset), batch_idx
 
 
-def _train(cfg: TrainConfig, device: torch.device):
+def _train(cfg: TrainConfig, device: torch.device, plan=None):
     run = cfg.run
     pretrain = run.task == "pretrain"
+    n_data = 1 if plan is None else plan.n_data
+    writer = plan is None or plan.writer
     if pretrain:
         manifest, batcher, model, make_loss = build_pretrain(cfg)
         # crop-only batches: sizes clipped to the largest bucket, the crop
@@ -255,18 +330,26 @@ def _train(cfg: TrainConfig, device: torch.device):
         sampled_steps = (caat_cfg.sampled_steps
                          if caat_cfg.step_mode == "random" else None)
     model.to(device)
+    if plan is not None:
+        plan.prepare(model)
+        if plan.seq_group is not None:
+            from wav2vec_s_tpu_torch.parallel.context import enable
+            enable(model, plan.seq_group)
 
-    batches = batch_by_size(sizes, cfg.data.max_tokens)
+    batches = _batches(sizes, cfg.data.max_tokens, n_data)
     if not batches:
-        raise ValueError("the training manifest gives no batch")
+        raise ValueError(
+            "the training manifest gives no batch" + (
+                f" of at least {n_data} rows (the data-parallel width)"
+                if n_data > 1 else ""))
     itr = EpochBatchIterator(batches, seed=cfg.data.seed)
 
     optimizer = build_optimizer(cfg.optim)
-    state = TrainState.create(model, optimizer)
+    state = TrainState.create(model, optimizer, plan)
 
     mgr = CheckpointManager(run.save_dir, keep_last=run.keep_last,
                             keep_best=run.keep_best,
-                            async_save=run.async_checkpoints)
+                            async_save=run.async_checkpoints, writer=writer)
     if run.restore_from or mgr.latest_step() is not None:
         src = CheckpointManager(run.restore_from) if run.restore_from else mgr
         restored, meta = src.restore(template=state)
@@ -287,7 +370,7 @@ def _train(cfg: TrainConfig, device: torch.device):
     def get_step(mc, rc, ds=None):
         if (mc, rc, ds) not in steps:
             steps[(mc, rc, ds)] = make_train_step(
-                make_loss(mc, rc, ds), optimizer,
+                make_loss(mc, rc, ds, plan=plan), optimizer,
                 accum_steps=run.update_freq, grad_mask=grad_mask)
         return steps[(mc, rc, ds)]
 
@@ -311,27 +394,38 @@ def _train(cfg: TrainConfig, device: torch.device):
                                      cfg.data.audio_root)
             vsizes = np.asarray(vman.n_frames)
             vbatcher = _valid_batcher(batcher, vman)
-        valid_setup = (vbatcher, batch_by_size(vsizes, cfg.data.max_tokens),
+        valid_setup = (vbatcher, _batches(vsizes, cfg.data.max_tokens,
+                                          n_data),
                        vsizes, make_loss(mc0, rc0, train=False))
 
     @torch.no_grad()
     def validate() -> float:
         vbatcher, vbatches, vsz, vloss_fn = valid_setup
-        tot = n = 0.0
+        tot = torch.zeros(2, dtype=torch.float64)
         for i, bidx in enumerate(vbatches):
             keyed = {"key": (0, i)} if pretrain else {}
             hb = vbatcher.collate(bidx, size_hint=int(hint(vsz[bidx])),
-                                  **keyed)
+                                  rows=_rows(len(bidx)), **keyed)
             loss, size, _ = vloss_fn(to_device(hb, device), None, 0)
-            tot += float(loss)
-            n += float(size)
-        return tot / max(n, 1.0)
+            tot += torch.tensor([float(loss), float(size)],
+                                dtype=torch.float64)
+        if plan is not None:
+            import torch.distributed as dist
+            dist.all_reduce(tot, group=plan.data_group)
+        return float(tot[0] / max(float(tot[1]), 1.0))
+
+    def _rows(n_rows):
+        if plan is None:
+            return None
+        from wav2vec_s_tpu_torch.parallel.mesh import process_local_rows
+        return process_local_rows(n_rows, plan.mesh)
 
     def collate_train(item):
         key, batch_idx = item
         keyed = {"key": key} if pretrain else {}
         host_batch = batcher.collate(
-            batch_idx, size_hint=int(hint(sizes[batch_idx])), **keyed)
+            batch_idx, size_hint=int(hint(sizes[batch_idx])),
+            rows=_rows(len(batch_idx)), **keyed)
         if run.update_freq > 1:
             host_batch = {k: _microbatch(v, run.update_freq)
                           for k, v in host_batch.items()}
@@ -373,6 +467,8 @@ def _train(cfg: TrainConfig, device: torch.device):
                     state, to_device(host_batch, device), gen)
                 oom = None
             except torch.cuda.OutOfMemoryError as e:
+                if plan is not None:
+                    raise        # the other ranks wait in a collective
                 oom = e
             if oom is not None:
                 # skip the batch: free what the failed step left behind
@@ -410,20 +506,25 @@ def _train(cfg: TrainConfig, device: torch.device):
                 stats["ups"] = round(speed.avg, 2)
                 if oom_skipped:
                     stats["oom_skipped"], oom_skipped = oom_skipped, 0
-                progress.log(stats, host_step)
+                if writer:
+                    progress.log(stats, host_step)
                 window.clear()
 
             if valid_setup is not None and run.validate_interval_updates \
                     and host_step % run.validate_interval_updates == 0:
                 vloss = validate()
-                progress.log({"valid_loss": vloss}, host_step, tag="valid")
+                if writer:
+                    progress.log({"valid_loss": vloss}, host_step,
+                                 tag="valid")
                 if vloss < best_valid - 1e-6:
                     best_valid, bad_validations = vloss, 0
                 else:
                     bad_validations += 1
                     if run.patience and bad_validations >= run.patience:
-                        print(f"early stop: no improvement in "
-                              f"{run.patience} validations", file=sys.stderr)
+                        if writer:
+                            print(f"early stop: no improvement in "
+                                  f"{run.patience} validations",
+                                  file=sys.stderr)
                         stop = True
 
             if run.save_interval_updates and \
@@ -439,7 +540,23 @@ def _train(cfg: TrainConfig, device: torch.device):
 
     mgr.save(host_step, state, extra={"iterator": dict(position)})
     mgr.wait()                         # commit any in-flight async write
-    print(f"training done at step {host_step}", file=sys.stderr)
+    if plan is not None:
+        import torch.distributed as dist
+        dist.barrier()                 # the checkpoint is written
+    if writer:
+        print(f"training done at step {host_step}", file=sys.stderr)
+
+
+def _batches(sizes: np.ndarray, max_tokens: int, n_data: int):
+    """max_tokens batches, each a multiple of the data-parallel width
+    (JAX CLI: ``required_batch_size_multiple=n_data``, trimmed, shorter
+    batches dropped)."""
+    batches = batch_by_size(sizes, max_tokens,
+                            required_batch_size_multiple=n_data)
+    if n_data == 1:
+        return batches
+    return [b[:len(b) // n_data * n_data] for b in batches
+            if len(b) >= n_data]
 
 
 def _microbatch(x: np.ndarray, k: int) -> np.ndarray:

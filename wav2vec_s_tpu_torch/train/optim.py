@@ -27,15 +27,49 @@ to it; the port ignores them the same way.
 A step skipped for a non-finite gradient never reaches ``update``: the
 count, the moments and the parameters stay as they were
 (``train/step.py``).
+
+Sharded updates (ZeRO-1 and FSDP, ``parallel/sharding.py``): ``init`` and
+``update`` take the row block of each parameter that this rank updates and
+its ``RowShard`` (the whole parameter's leading dim and the data group),
+or None for a whole parameter.  Adam is elementwise.  Adafactor decides
+its factoring on the whole parameter's shape and all-reduces every mean
+that runs over the parameter's leading dim or over the whole parameter
+(the factored moment of the other dim, the RMS of the update and of the
+parameter); ``sharded_moments`` says which of a parameter's moments are
+row blocks (the checkpoint gathers them).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+#: per parameter: its RowShard (parallel/sharding.py) or None
+Shards = Optional[Sequence[Optional[object]]]
+
+
+def _full_shape(p: torch.Tensor, shard) -> Tuple[int, ...]:
+    return tuple(p.shape) if shard is None else (shard.rows,) + tuple(
+        p.shape[1:])
+
+
+def _mean(x: torch.Tensor, dim: Optional[int], shard,
+          over_rows: bool) -> torch.Tensor:
+    """``x.mean()`` (``dim`` None) or ``x.mean(dim=dim)``; when the mean
+    runs over the parameter's sharded leading dim (``over_rows``), the sum
+    is all-reduced over the shard's group and divided by the whole
+    count."""
+    if shard is None or not over_rows:
+        return x.mean() if dim is None else x.mean(dim=dim)
+    import torch.distributed as dist
+
+    total = x.sum() if dim is None else x.sum(dim=dim)
+    dist.all_reduce(total, group=shard.group)
+    count = shard.rows * (int(np.prod(x.shape[1:])) if dim is None else 1)
+    return total / count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,16 +126,23 @@ class Adam:
         self.cfg = cfg
         self.schedule = build_schedule(cfg)
 
-    def init(self, params: List[torch.Tensor]) -> AdamState:
+    def init(self, params: List[torch.Tensor],
+             shards: Shards = None) -> AdamState:
         return AdamState(0, [torch.zeros_like(p) for p in params],
                          [torch.zeros_like(p) for p in params])
 
+    @staticmethod
+    def sharded_moments(full_shape) -> Dict[str, bool]:
+        return {"mu": True, "nu": True}
+
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdamState, grad_norm: torch.Tensor) -> None:
+               state: AdamState, grad_norm: torch.Tensor,
+               shards: Shards = None) -> None:
         """One update of ``params`` and ``state`` in place; ``grads`` are
         the normalised gradients (consumed) and ``grad_norm`` their global
-        norm."""
+        norm.  Elementwise: a row block updates as its whole parameter
+        would."""
         c = self.cfg
         b1, b2 = c.adam_betas
         if c.clip_norm and c.clip_norm > 0:
@@ -161,10 +202,23 @@ class Adafactor:
         self.cfg = cfg
         self.schedule = build_schedule(cfg)
 
-    def init(self, params: List[torch.Tensor]) -> AdafactorState:
+    def sharded_moments(self, full_shape) -> Dict[str, bool]:
+        """Which moments of a row-sharded parameter are row blocks: the
+        whole moment v, or the factored moment that keeps the leading
+        dim."""
+        dims = factored_dims(tuple(full_shape), self.min_dim_size_to_factor)
+        if dims is None:
+            return {"v_row": False, "v_col": False, "v": True}
+        d1, d0 = dims
+        return {"v_row": d0 != 0, "v_col": d1 != 0, "v": False}
+
+    def init(self, params: List[torch.Tensor],
+             shards: Shards = None) -> AdafactorState:
         state = AdafactorState(0, [], [], [])
-        for p in params:
-            dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+        for i, p in enumerate(params):
+            sh = None if shards is None else shards[i]
+            dims = factored_dims(_full_shape(p, sh),
+                                 self.min_dim_size_to_factor)
             one = p.new_zeros((1,))
             if dims is None:
                 state.v_row.append(one)
@@ -180,7 +234,8 @@ class Adafactor:
 
     @torch.no_grad()
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
-               state: AdafactorState, grad_norm: torch.Tensor) -> None:
+               state: AdafactorState, grad_norm: torch.Tensor,
+               shards: Shards = None) -> None:
         """One update of ``params`` and ``state`` in place; ``grad_norm``
         is not read (adafactor clips per block)."""
         del grad_norm
@@ -189,23 +244,27 @@ class Adafactor:
         lr = self.schedule(state.count)
         state.count += 1
         for i, (p, g) in enumerate(zip(params, grads)):
+            sh = None if shards is None else shards[i]
             sq = g * g + self.eps
-            dims = factored_dims(tuple(p.shape), self.min_dim_size_to_factor)
+            dims = factored_dims(_full_shape(p, sh),
+                                 self.min_dim_size_to_factor)
             if dims is None:
                 v = state.v[i].mul_(decay).add_(sq, alpha=1.0 - decay)
                 u = g * v.rsqrt()
             else:
                 d1, d0 = dims
                 vr = state.v_row[i].mul_(decay).add_(
-                    sq.mean(dim=d0), alpha=1.0 - decay)
+                    _mean(sq, d0, sh, d0 == 0), alpha=1.0 - decay)
                 vc = state.v_col[i].mul_(decay).add_(
-                    sq.mean(dim=d1), alpha=1.0 - decay)
+                    _mean(sq, d1, sh, d1 == 0), alpha=1.0 - decay)
                 r1 = d1 - 1 if d1 > d0 else d1
-                row = (vr / vr.mean(dim=r1, keepdim=True)).rsqrt()
+                # vr keeps the leading dim when d0 != 0, at its dim 0
+                row = (vr / _mean(vr, r1, sh, d0 != 0 and r1 == 0)
+                       .unsqueeze(r1)).rsqrt()
                 u = g * row.unsqueeze(d0) * vc.rsqrt().unsqueeze(d1)
-            rms = u.square().mean().sqrt()
+            rms = _mean(u.square(), None, sh, True).sqrt()
             u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
-            p_rms = p.square().mean().sqrt()
+            p_rms = _mean(p.square(), None, sh, True).sqrt()
             scale = torch.where(p_rms <= self.min_param_scale,
                                 self.min_param_scale, p_rms)
             p.sub_(u * lr * scale)

@@ -26,7 +26,7 @@ from wav2vec_s_tpu_torch.train.criterion import wav2vec_loss
 
 def make_pretrain_loss_fn(model, main_context: Optional[int] = None,
                           right_context: Optional[int] = None,
-                          train: bool = True):
+                          train: bool = True, plan=None):
     """loss_fn for ``make_train_step`` over ``model`` (a ``Wav2Vec2Model``
     built with ``pretraining=True``): batch {source, mask_positions,
     [padding_mask]}.  Every draw of the update (dropout seed, layerdrop,
@@ -34,14 +34,20 @@ def make_pretrain_loss_fn(model, main_context: Optional[int] = None,
     one ``DropoutContext``, so an update is a function of the generator's
     seed on any device.  ``train=False`` is the validation loss: no
     dropout, hard codes, negatives of a fixed seed; the generator is not
-    read.  The step number anneals the Gumbel temperature."""
+    read.  The step number anneals the Gumbel temperature.  ``plan`` (a
+    ``parallel.sharding.ParallelPlan``): the batch is this rank's rows of
+    the global batch (``_context``); the model is told its ``Shard``, in
+    training and in validation, so the feature penalty and the
+    perplexities are means over the global batch and the eval negatives
+    the global batch's."""
 
     def loss_fn(batch, generator: torch.Generator, step: int):
-        ctx = DropoutContext(generator) if train else None
+        shard = _shard(batch["source"], plan)
+        ctx = DropoutContext(generator, shard) if train else None
         out = model(batch["source"], batch["mask_positions"], step,
                     padding_mask=batch.get("padding_mask"),
                     main_context=main_context, right_context=right_context,
-                    ctx=ctx)
+                    ctx=ctx, shard=shard)
         loss, n, logs = wav2vec_loss(out)
         return loss, n, {k: torch.as_tensor(v).float()
                          for k, v in logs.items()
@@ -52,19 +58,21 @@ def make_pretrain_loss_fn(model, main_context: Optional[int] = None,
 
 def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
                       right_context: Optional[int] = None,
-                      downsample: Optional[int] = None, train: bool = True):
+                      downsample: Optional[int] = None, train: bool = True,
+                      plan=None):
     """loss_fn for ``make_train_step`` over ``model`` (a
     ``W2V2CaatModel``): batch {source, targets, [padding_mask]}; each call
     draws the step's dropout seed, layerdrop and position offsets from the
     host ``generator``.  ``train=False`` is the validation loss: no
     ``DropoutContext`` (every dropout site is the identity, no layer is
-    dropped, no position offset), the generator is not read."""
+    dropped, no position offset), the generator is not read.  ``plan``: as
+    in ``make_pretrain_loss_fn``."""
 
     def loss_fn(batch, generator: torch.Generator, step: int):
         tgt = batch["targets"]
         B = tgt.shape[0]
         prev = torch.cat([tgt.new_full((B, 1), caat_cfg.bos), tgt], dim=1)
-        ctx = DropoutContext(generator) if train else None
+        ctx = _context(generator, tgt, plan) if train else None
         joint_h, glens = model(batch["source"], prev,
                                padding_mask=batch.get("padding_mask"),
                                main_context=main_context,
@@ -77,6 +85,19 @@ def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
         return loss, n, {k: v.float() for k, v in logs.items()}
 
     return loss_fn
+
+
+def _shard(batch_rows: torch.Tensor, plan):
+    """This rank's ``Shard`` of the global batch under a parallel plan,
+    else None."""
+    return None if plan is None else plan.shard(batch_rows.shape[0])
+
+
+def _context(generator: torch.Generator, batch_rows: torch.Tensor, plan):
+    """The step's ``DropoutContext``; under a parallel plan it holds this
+    rank's ``Shard`` of the global batch, so its masks and draws are the
+    rows' part of the global batch's."""
+    return DropoutContext(generator, _shard(batch_rows, plan))
 
 
 def sample_context_bucket(rng: random.Random,

@@ -9,7 +9,12 @@ whose gradient norm is not finite is skipped (the bf16 replacement for the
 fp16 loss scaler's skip).
 
 Eager torch: the gradients accumulate in ``.grad`` across microbatches and
-the optimizer updates the parameters in place.  The step reads the
+the optimizer updates the parameters in place.  Under a
+``parallel.sharding.ParallelPlan`` (data parallelism, ZeRO-1, FSDP) the
+summed gradients and the sample count are all-reduced before the
+normalisation, so the step divides by the global count as fairseq does;
+the optimizer updates the row blocks this rank owns, and the norm is the
+global one, read once.  The step reads the
 gradient norm on the host once (to decide the skip before anything is
 touched); nothing else waits for the device.  The JAX step's
 ``remat_policy`` and ``flat_optimizer`` options were TPU experiments and
@@ -25,6 +30,7 @@ from typing import Callable, Dict, Optional, Union
 import torch
 from torch import nn
 
+from wav2vec_s_tpu_torch.parallel.sharding import local
 from wav2vec_s_tpu_torch.train.optim import (
     Adafactor, AdafactorState, Adam, AdamState)
 
@@ -41,10 +47,24 @@ class TrainState:
     step: int                        # advances on every call, skips too
     model: nn.Module
     opt_state: Union[AdamState, AdafactorState]
+    plan: Optional[object] = None    # parallel.sharding.ParallelPlan
+    shards: Optional[list] = None    # each parameter's RowShard or None
+    optimizer: Optional[Optimizer] = None
 
     @classmethod
-    def create(cls, model: nn.Module, optimizer: Optimizer) -> "TrainState":
-        return cls(0, model, optimizer.init(list(model.parameters())))
+    def create(cls, model: nn.Module, optimizer: Optimizer,
+               plan=None) -> "TrainState":
+        """A fresh state; with a ``plan`` the model must already be
+        prepared (``plan.prepare``) and the moments cover this rank's row
+        blocks."""
+        params = list(model.parameters())
+        if plan is None:
+            return cls(0, model, optimizer.init(params),
+                       optimizer=optimizer)
+        shards = plan.row_shards(params)
+        return cls(0, model, optimizer.init(plan.blocks(params, shards),
+                                            shards),
+                   plan, shards, optimizer)
 
 
 def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
@@ -87,13 +107,30 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
         if grad_mask is not None:
             grad_mask(grads, state.step)
         g = list(grads.values())
-        torch._foreach_div_(g, torch.clamp(n_total, min=1.0))
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(g)))
+        plan = state.plan
+        n_norm = n_total
+        if plan is not None:
+            n_norm = plan.reduce(g, n_total)
+            g = [local(t) for t in g]        # FSDP2: this rank's rows
+            logs.update(loss_total=loss_total, sample_size=n_total)
+            plan.reduce_logs(logs)
+            loss_total, n_total = logs["loss_total"], logs["sample_size"]
+        torch._foreach_div_(g, torch.clamp(n_norm, min=1.0))
+        if plan is None:
+            gnorm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(g)))
+        else:
+            gnorm = plan.grad_norm(g)
         ok = not skip_nonfinite or math.isfinite(gnorm.item())
         if ok:
-            optimizer.update([p for _, p in named], g, state.opt_state,
-                             gnorm)
+            params = [p for _, p in named]
+            if plan is None:
+                optimizer.update(params, g, state.opt_state, gnorm)
+            else:
+                optimizer.update(plan.blocks(params, state.shards),
+                                 plan.blocks(g, state.shards),
+                                 state.opt_state, gnorm, state.shards)
+                plan.after_update(params, state.shards)
         for _, p in named:
             p.grad = None
         state.step += 1
