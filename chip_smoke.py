@@ -24,7 +24,9 @@ Phases, each printed on its own line:
                and bfloat16, padded keys; and an rc 0 layout): output on
                valid rows and the row stats m/l; float32 runs the CUDA-core
                kernel, bfloat16 the tensor-core kernel (each case prints its
-               set); then kernel, twin and library call timed per call;
+               set); the same at the Large seq2seq call's encoder (phase
+               17c: B 2, T 500, 16 heads of 64, bfloat16); then kernel,
+               twin and library call timed per call;
   3b. flash backward — the flash backward kernels (K3) against their plain
                twin at the training call (8 streams, T 500 -> S 748, mc 16,
                rc 8, 12 heads of 64, padded keys; and an rc 0 layout; float32
@@ -33,7 +35,9 @@ Phases, each printed on its own line:
                bit-identical; a data-parallel shard (rows 3: of 8 with
                dropout_row0 3) equal to the whole batch's rows bit for bit;
                float32 on the CUDA-core kernels, bfloat16 on
-               the tensor-core kernels; then kernel, twin and the library
+               the tensor-core kernels; the same in bfloat16 at the Base
+               seq2seq microbatch (B 4) and the Large one (B 2, 16 heads of
+               64 over 1024) of phase 17; then kernel, twin and the library
                call (its backward alone: forward + backward minus forward)
                timed;
   3c. flash pretrain — K2, then K3 at dropout 0 and 0.1, against their
@@ -222,6 +226,33 @@ Phases, each printed on its own line:
                each against the same call without a process group: the same
                updates and skips, losses rtol 1e-5, grad norms rtol 1e-4,
                parameters within 1e-2 x lr.
+  17. asr    — the offline-ASR family (models/asr.py, eval/generator.py).
+               (a) Tiny CTC (also with a row whose labels cannot fit its
+               frames: optax's finite floor) and seq2seq recipes, dense and
+               flash, float32: loss (rtol 1e-5) and every gradient (|diff|
+               <= 1e-4 |g| + 1e-5 max |g|; F.ctc_loss's backward is not
+               deterministic on the card) against the CPU; the three greedy
+               decoders (flash encode) and Seq2SeqBeamGenerator: the same
+               ids (tools/asr_parity.py, shared with the card tests).
+               (b) The training entry point on
+               configs/ctc_asr_base.yaml (letter dict, char tokenizer,
+               run.eval_wer) and configs/offline_asr_base.yaml (a
+               10000-entry word dict, word tokenizer, run.eval_bleu) at
+               Base width, bf16, the recipes' dropouts, B 8 x 10 s
+               (data.max_tokens 1280000), 2 warm + 10 timed updates and one
+               validation of 8 wavs, dense then flash: K3 == encoder layers
+               kept, K2 == K3 + 2 x 12 (the validation's loss forward and
+               the decode's encode), K4 > 0, all on the tensor-core
+               kernels; finite losses and metrics; updates/s, peak memory.
+               (c) configs/offline_asr_large.yaml (24 x 1024 encoder, 12 x
+               1024 decoder), flash, B 4, 2 updates: K2 == K3 == layers
+               kept, peak memory.  (d) eval.cli ctc-decode on (b)'s flash
+               CTC checkpoint, 64 wavs, and eval.cli generate on phase 13's
+               CAAT checkpoint (written again), 8 wavs, each call cold,
+               flash encode: K2 a multiple of 12, audio-sec/s.  Then K4
+               against its twin (bit-equal outputs and masks, forward mask
+               == backward mask) at every (shape, dtype, rate) that the
+               training calls of (b) and (c) dropped.
 Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
@@ -569,8 +600,9 @@ def _allowed_pairs(T, mc, rc):
 
 
 def phase_flash():
-    """K2 vs twin at the one-shot encoder's full-width call -> the
-    kernel's row."""
+    """K2 vs twin at the one-shot encoder's full-width call and at the
+    Large seq2seq encoder's training call (phase 17c) -> the kernel's
+    row."""
     import torch
     import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.block_mask import block_layout
@@ -583,7 +615,12 @@ def phase_flash():
     g = torch.Generator(device=dev).manual_seed(1)
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst = 0.0
-    for rc in (8, 0):
+    # (B, T, H, D, dtypes): the one-shot encode; the Large call's encoder
+    # (B 2 per microbatch, 16 heads of 64 over 1024)
+    cases = ((B, T, H, D, (torch.float32, torch.bfloat16)),
+             (LARGE_MICRO_B, TRAIN_T, 16, 1024, (torch.bfloat16,)))
+    for (B, T, H, D, dtypes), rc in ((c, rc) for c in cases
+                                     for rc in (8, 0)):
         S = block_layout(T, mc, rc).total_len
         shares = {}
         for path, (qt, kt) in TILES.items():
@@ -592,14 +629,15 @@ def phase_flash():
                             f"tiles of {qt} x {kt}, "
                             f"{(kinds != 0).sum() * qt * kt / S / S:.3f} of "
                             f"S x S")
-        print(f"phase flash: S={S} rc={rc}: computed {shares}")
+        print(f"phase flash: B={B} H={H} D={D} S={S} rc={rc}: computed "
+              f"{shares}")
         # non-contiguous key padding of one stream: a frame tail and the
         # last rc copies (tests/test_pallas_attention.py)
         pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
         pad[1, T - 10:T] = True
         pad[1, S - 3:] = True
         valid = ~pad
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v = (torch.randn((B, S, D), generator=g, device=dev)
                        .to(dtype) for _ in range(3))
             args = (q, k, v, pad, H, T, mc, rc)
@@ -618,15 +656,17 @@ def phase_flash():
             stat_err = max(((a[rows] - b[rows]).abs()
                             / (1.0 + b[rows].abs())).max().item()
                            for a, b in ((m, m_want), (l, l_want)))
-            print(f"phase flash: S={S} rc={rc} {str(dtype)[6:]} ({path} "
-                  f"kernel) max_abs_err={err:.3g} tol={tol[dtype]:g}; m/l max "
-                  f"err/(1+|x|)={stat_err:.3g} tol=1e-4")
+            print(f"phase flash: B={B} H={H} D={D} S={S} rc={rc} "
+                  f"{str(dtype)[6:]} ({path} kernel) max_abs_err={err:.3g} "
+                  f"tol={tol[dtype]:g}; m/l max err/(1+|x|)={stat_err:.3g} "
+                  f"tol=1e-4")
             assert err <= tol[dtype], (rc, dtype, err)
             assert stat_err <= 1e-4, (rc, dtype, stat_err)
             worst = max(worst, err)
             del out, m, l, want, m_want, l_want
 
     # timing: the main path's call (rc 8, bfloat16), mean per call
+    B, T, H, D = cases[0][:4]
     S = block_layout(T, 16, 8).total_len
     q, k, v = (torch.randn((B, S, D), generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -700,8 +740,8 @@ def _flash_shard(q, k, v, do, lay, rate, seed, offset, out, grads):
 
 
 def phase_flash_bwd():
-    """K3 (and K2 with dropout) vs their twins at the training call -> the
-    kernel's row."""
+    """K3 (and K2 with dropout) vs their twins at the CAAT training call and
+    at the Large seq2seq call (phase 17c) -> the kernel's row."""
     import torch
     import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.block_mask import block_layout
@@ -718,13 +758,18 @@ def phase_flash_bwd():
     tol_fwd = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     tol_bwd = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     worst = 0.0
-    for rc in (8, 0):
+    # (B, H, D, dtypes): the CAAT step (the Base CTC step of phase 17b
+    # too); the Base seq2seq and the Large microbatches (update_freq 2)
+    cases = ((B, H, D, (torch.float32, torch.bfloat16)),
+             (B // 2, H, D, (torch.bfloat16,)),
+             (LARGE_MICRO_B, 16, 1024, (torch.bfloat16,)))
+    for (B, H, D, dtypes), rc in ((c, rc) for c in cases for rc in (8, 0)):
         S = block_layout(T, mc, rc).total_len
         pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
         pad[1, T - 10:T] = True
         pad[1, S - 3:] = True
         valid = ~pad
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
                            .to(dtype) for _ in range(4))
             do = do * valid[:, :, None].to(dtype)   # padded rows: stripped
@@ -763,10 +808,10 @@ def phase_flash_bwd():
                                 .item())
                     errs.append(((a.float() - b.float()).abs().max()
                                  / b.float().abs().max()).item())
-                if rate:
+                if rate and B > 3:
                     _flash_shard(q, k, v, do, lay, rate, seed, offset, out,
                                  got)
-                print(f"phase flash backward: S={S} rc={rc} "
+                print(f"phase flash backward: B={B} H={H} D={D} S={S} rc={rc} "
                       f"{str(dtype)[6:]} ({path} kernels) rate={rate}: "
                       f"forward max_abs_err="
                       f"{err_f:.3g} (tol {tol_fwd[dtype]:g}); dQ, dK, dV max "
@@ -779,6 +824,7 @@ def phase_flash_bwd():
                 del got, ref, out, m, l
 
     # timing: the training call (rc 8, bfloat16, dropout 0.1), mean per call
+    B, H, D = cases[0][:3]
     S = block_layout(T, mc, 8).total_len
     q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
@@ -837,13 +883,48 @@ def _keep_share(keep, p):
     return share, abs(share - (1 - p)) <= 4 * (p * (1 - p) / n) ** 0.5
 
 
-def phase_dropout():
-    """K4 vs its twin: bit-equal outputs and masks at the dropout shapes of
-    the CAAT step and of the pre-training step -> the kernel's row."""
+DROPOUT_SEED = 0x1234_5678_9ABC_DEF
+
+
+def _hold_dropout(x, p, seed, offset):
+    """K4 on ``x`` at rate ``p``: output and mask bit-equal to the twin's,
+    keep share within 4 sigma of 1 - p, the backward's mask the forward's,
+    a new seed and a new offset a new mask -> (max abs error, keep
+    share)."""
     import torch
-    import torch.nn.functional as F
     from wav2vec_s_tpu_torch.ops.dropout import (
         dropout_ref, hw_dropout, keep_mask)
+
+    key = (tuple(x.shape), x.dtype, p)
+    got = hw_dropout(x, p, seed, offset)
+    torch.cuda.synchronize()
+    want = dropout_ref(x, p, seed, offset)
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.equal(got, want), key
+    del got, want
+    ones = torch.ones_like(x)
+    mask = hw_dropout(ones, p, seed, offset) != 0
+    assert torch.equal(mask, keep_mask(x.numel(), p, seed, offset, x.device)
+                       .reshape(x.shape)), key
+    share, ok = _keep_share(mask, p)
+    assert ok, (key, share)
+    xg = x.detach().clone().requires_grad_(True)
+    hw_dropout(xg, p, seed, offset).backward(ones)
+    assert torch.equal(xg.grad != 0, mask), ("fwd/bwd masks", key)
+    for s, o in ((seed + 1, offset), (seed, offset + 1)):
+        other = hw_dropout(ones, p, s, o) != 0
+        diff = (other != mask).float().mean().item()
+        assert diff > p * (1 - p), (key, s, o, diff)
+    return err, share
+
+
+def phase_dropout():
+    """K4 vs its twin: bit-equal outputs and masks at the dropout shapes of
+    the CAAT step and of the pre-training step (phase 17 holds it at the
+    offline-ASR calls' own) -> the kernel's row."""
+    import torch
+    import torch.nn.functional as F
+    from wav2vec_s_tpu_torch.ops.dropout import dropout_ref, hw_dropout
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -855,37 +936,18 @@ def phase_dropout():
     P, PF = PRETRAIN_B * PRETRAIN_T, PRETRAIN_B * (PRETRAIN_T - 1)
     shapes = [(N, 768), (N, 3072), (8 * 12 * 748, 748),
               (PF, 768), (PF, 512), (P, 3072), (PRETRAIN_B * 12 * 940, 940)]
-    seed, offset = 0x1234_5678_9ABC_DEF, 17
+    seed, offset = DROPOUT_SEED, 17
     worst = 0.0
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
             for p in (0.1, 0.3):
-                got = hw_dropout(x, p, seed, offset)
-                torch.cuda.synchronize()
-                want = dropout_ref(x, p, seed, offset)
-                worst = max(worst, (got.float() - want.float()).abs().max()
-                            .item())
-                assert torch.equal(got, want), (shape, dtype, p)
-                ones = torch.ones_like(x)
-                mask = hw_dropout(ones, p, seed, offset) != 0
-                twin_mask = keep_mask(x.numel(), p, seed, offset,
-                                      dev).reshape(shape)
-                assert torch.equal(mask, twin_mask), (shape, dtype, p)
-                share, ok = _keep_share(mask, p)
-                assert ok, (shape, dtype, p, share)
-                xg = x.detach().clone().requires_grad_(True)
-                hw_dropout(xg, p, seed, offset).backward(ones)
-                assert torch.equal(xg.grad != 0, mask), "fwd/bwd masks"
-                for s, o in ((seed + 1, offset), (seed, offset + 1)):
-                    other = hw_dropout(ones, p, s, o) != 0
-                    diff = (other != mask).float().mean().item()
-                    assert diff > p * (1 - p), (s, o, diff)
+                err, share = _hold_dropout(x, p, seed, offset)
+                worst = max(worst, err)
                 print(f"phase dropout: {shape} {str(dtype)[6:]} p={p}: "
                       f"outputs and masks bit-equal to the twin, keep "
                       f"share {share:.5f}, fwd == bwd mask, new seed and "
                       f"new offset change the mask")
-                del got, want, ones, mask, twin_mask, xg
             del x
     _dropout_shards(dev, seed, offset)
     # timing: the attention-probability call, bf16, p 0.1
@@ -2627,11 +2689,10 @@ def _eval_corpus(root, vocab_size):
         (root / f"{name}.tsv").write_text("\n".join(lines) + "\n")
 
 
-def _eval_cli(label, argv, card):
+def _eval_cli(argv):
     """One call of ``eval.cli.main`` with every launch count set to 0 just
     before it -> (JSON lines it printed, counts, kernel sets, the decoder
-    it built and its (batch, texts, delays) per ``decode_corpus``), each
-    JSON line printed with the card."""
+    it built and its (batch, texts, delays) per ``decode_corpus``)."""
     import contextlib
     import io
     from unittest import mock
@@ -2665,8 +2726,6 @@ def _eval_cli(label, argv, card):
     counts, sets = _counts(), _set_paths()
     lines = [json.loads(ln) for ln in stdout.getvalue().splitlines()
              if ln.startswith("{")]
-    for ln in lines:
-        print(f"phase eval cli: {label}: {json.dumps(ln)} [{card}]")
     return lines, counts, sets, made
 
 
@@ -2738,8 +2797,10 @@ def phase_eval_cli_full(card):
         for path, argv, extra, want in runs:
             t = time.perf_counter()
             lines, counts, sets, made = _eval_cli(
-                path, [argv[0], *common, *argv[1:], *ov, *extra], card)
+                [argv[0], *common, *argv[1:], *ov, *extra])
             wall = time.perf_counter() - t
+            for ln in lines:
+                print(f"phase eval cli: {path}: {json.dumps(ln)} [{card}]")
             _check_launches(path, counts, sets, want)
             n_same = _same_as_direct(made)
             assert len(lines) == (2 if path == "eval_cli_sweep" else 1)
@@ -2760,10 +2821,11 @@ def phase_eval_cli_full(card):
         # simul: the agent over the host searcher, its prefix encode on K2
         t = time.perf_counter()
         lines, counts, sets, _ = _eval_cli(
-            "eval_cli_simul", ["simul", *common, "--manifest", str(root / "simul.tsv"),
-             "--max-instances", "2", *ov, "model.attention_impl=flash"],
-            card)
+            ["simul", *common, "--manifest", str(root / "simul.tsv"),
+             "--max-instances", "2", *ov, "model.attention_impl=flash"])
         (scores,) = lines
+        print(f"phase eval cli: eval_cli_simul: {json.dumps(scores)} "
+              f"[{card}]")
         k2 = counts["blockwise_flash_attention_packed"]
         _check_launches("eval_cli_simul", counts, sets, {"K1": 0, "K2": None},
                         k2_per_call=w2v.encoder_layers)
@@ -2782,13 +2844,13 @@ def phase_eval_cli_full(card):
         (root / "hyp.txt").write_text("\n".join(hyps) + "\n")
         (root / "ref.txt").write_text("\n".join(refs) + "\n")
         (got,), _, _, _ = _eval_cli(
-            "score", ["score", "-s", str(root / "hyp.txt"), "-r",
-             str(root / "ref.txt"), "--metric", "both"], card)
+            ["score", "-s", str(root / "hyp.txt"), "-r",
+             str(root / "ref.txt"), "--metric", "both"])
         want = {"n": EVAL_STREAMS, "BLEU": round(corpus_bleu(hyps, refs), 2),
                 "WER": round(corpus_wer(hyps, refs), 4)}
         assert got == want, (got, want)
         print(f"phase eval cli: score == corpus_bleu / corpus_wer of the "
-              f"cached run's texts: {got}")
+              f"cached run's texts: {got} [{card}]")
     return paths
 
 
@@ -3773,6 +3835,360 @@ def phase_cli_parallel(card):
         assert payload["step"] == ref["step"] == 3
 
 
+# -- phase 17: the offline-ASR family ----------------------------------------
+
+ASR_WARM, ASR_TIMED = 2, 10
+ASR_CLIPS = 16             # training wavs of 10 s: two batches of 8
+ASR_VALID = 8              # validation wavs of 10 s: one batch
+LARGE_B = 4
+LARGE_MICRO_B = LARGE_B // 2   # offline_asr_large.yaml: update_freq 2
+CTC_DECODE_WAVS = 64
+GENERATE_WAVS = 8
+def phase_asr_parity():
+    """17a (``tools/asr_parity.py``): the tiny CTC (with and without a row
+    no path fits) and seq2seq recipes, dense and flash: loss and every
+    gradient on the card against the CPU; the three greedy decoders and the
+    beam generator: the same ids."""
+    from wav2vec_s_tpu_torch.tools import asr_parity as ap
+
+    rtol, atol = ap.GRAD_TOL
+    for kind, infeasible in (("ctc", False), ("ctc", True), ("s2s", False)):
+        for impl in ("dense", "flash"):
+            cpu, card = (ap.loss_and_grads(kind, impl, infeasible, dev)
+                         for dev in ("cpu", "cuda"))
+            rel, worst = ap.gap(cpu, card)
+            label = kind + (" (a row no path fits)" if infeasible else "")
+            print(f"phase asr parity: tiny {label}, {impl}, float32: loss "
+                  f"cpu {cpu[0]:.6f} cuda {card[0]:.6f} (rel diff "
+                  f"{rel:.3g}, tol {ap.LOSS_RTOL:g}); every gradient within "
+                  f"{worst:.3g} of the bound |diff| <= {rtol:g} |g| + "
+                  f"{atol:g} max |g|")
+            assert rel <= ap.LOSS_RTOL and worst <= 1.0, (label, impl, rel,
+                                                          worst)
+            if infeasible:
+                assert ap.FLOOR[0] < cpu[0] < ap.FLOOR[1], cpu[0]
+
+    for kind in ("ctc", "s2s", "transducer"):
+        cpu, card = (ap.greedy(kind, dev) for dev in ("cpu", "cuda"))
+        for x, y in zip(cpu, card):
+            np.testing.assert_array_equal(x, y)
+        print(f"phase asr parity: tiny {kind} greedy decode (flash encode) "
+              f"cuda == cpu: lens {card[1].tolist()}")
+    cpu, card = (ap.beam(dev) for dev in ("cpu", "cuda"))
+    assert [h.tokens for h in card] == [h.tokens for h in cpu]
+    np.testing.assert_allclose([h.score for h in card],
+                               [h.score for h in cpu], rtol=1e-5)
+    print(f"phase asr parity: tiny Seq2SeqBeamGenerator (beam 4) cuda == "
+          f"cpu: {len(card)} hypotheses, token ids equal, scores within "
+          f"rtol 1e-5")
+
+
+def _asr_corpus(root, name, n, seconds, seed):
+    """``n`` seeded-noise wavs of ``seconds`` under ``root`` and two S2T
+    tsvs over them -> (letters tsv, words tsv): the transcript
+    (``src_text``, what ``task_type: asr`` trains on) is 20 random words
+    spelled in letters (CTC, char tokenizer) or taken from the word dict
+    (seq2seq); ``tgt_text`` is the word one in both."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    S = int(seconds * 16000)
+    rows = {"letters": [], "words": []}
+    for i in range(n):
+        path = root / f"{name}{i}.wav"
+        write_wav(path, rng.standard_normal(S).astype(np.float32) * 0.1)
+        words = " ".join(f"w{j}" for j in rng.integers(0, 9990, 20))
+        spelled = " ".join("".join(chr(97 + c) for c in rng.integers(0, 26, k))
+                           for k in rng.integers(2, 7, 20))
+        for kind, src in (("letters", spelled), ("words", words)):
+            rows[kind].append(f"{name}{i}\t{path}\t{S}\t{words}\t{src}")
+    out = []
+    for kind, lines in rows.items():
+        tsv = root / f"{name}_{kind}.tsv"
+        tsv.write_text("\n".join(["id\taudio\tn_frames\ttgt_text\tsrc_text",
+                                  *lines]) + "\n")
+        out.append(tsv)
+    return tuple(out)
+
+
+def _asr_dicts(root):
+    """A letter dict (``▁`` and a-z: the char tokenizer's pieces) and a
+    10000-entry word dict."""
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+
+    letters = ["▁"] + [chr(97 + i) for i in range(26)]
+    (root / "letters.txt").write_text("".join(f"{c} 1\n" for c in letters))
+    (root / "words.txt").write_text("".join(
+        f"w{i} 1\n" for i in range(10000 - Dictionary().nspecial)))
+
+
+def _run_asr_cli(argv, sites):
+    """One call of the trainer's entry point with every launch count set to
+    0 before it -> (counts, kernel sets, progress records with the host
+    time of each, encoder layers kept per training forward, peak GB); each
+    dropout site's (shape, dtype, rate) added to ``sites``."""
+    import io
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.train import cli, recipes
+    from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
+
+    kept, records = [], []
+
+    class Recorded(DropoutContext):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            kept.append(0)
+
+        def layer_dropped(self, p):
+            dropped = super().layer_dropped(p)
+            kept[-1] += not dropped
+            return dropped
+
+        def __call__(self, x, rate, seq=None):
+            if rate:
+                sites.add((tuple(x.shape), x.dtype, rate))
+            return super().__call__(x, rate, seq)
+
+    class Timed(JsonProgress):
+        def __init__(self, **kw):
+            super().__init__(stream=io.StringIO(), **kw)
+
+        def log(self, stats, step, tag="train"):
+            torch.cuda.synchronize()
+            records.append(dict(stats, step=step, tag=tag,
+                                at=time.perf_counter()))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+            mock.patch.object(cli, "JsonProgress", Timed):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return (_counts(), _set_paths(), records, kept,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def phase_asr_full(card):
+    """17b-d: the offline-ASR family at full width through the entry points
+    a user calls; then K4 against its twin at every dropout site's shape
+    and rate of 17b-c -> ({path: launch counts}, K4's max abs error)."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        _asr_dicts(root)
+        train = _asr_corpus(root, "train", ASR_CLIPS, SECONDS, 1)
+        valid = _asr_corpus(root, "valid", ASR_VALID, SECONDS, 2)
+        print(f"phase asr full: {ASR_CLIPS} + {ASR_VALID} wavs of "
+              f"{SECONDS:g} s, tsvs and dicts written in "
+              f"{time.perf_counter() - t:.1f} s")
+        sites = set()
+        paths.update(_asr_train_calls(root, train, valid, card, sites))
+        paths.update(_asr_large_call(root, train, card, sites))
+        paths.update(_asr_eval_calls(root, card))
+    return paths, _asr_dropout(sites)
+
+
+def _asr_dropout(sites):
+    """K4 == its twin at each (shape, dtype, rate) that the training calls
+    of 17b-c dropped -> the max abs error."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for shape, dtype, p in sorted(sites, key=str):
+        x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        err, _ = _hold_dropout(x, p, DROPOUT_SEED, 17)
+        worst = max(worst, err)
+        del x
+    print(f"phase asr dropout: K4 at the {len(sites)} (shape, dtype, rate) "
+          f"sites of the Base and Large training calls: outputs and masks "
+          f"bit-equal to the twin, fwd == bwd mask: "
+          f"{sorted((s, str(d)[6:], p) for s, d, p in sites)}")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _asr_train_calls(root, train, valid, card, sites):
+    """17b: configs/ctc_asr_base.yaml and configs/offline_asr_base.yaml
+    through train.cli, dense then flash, each validating once."""
+    import math
+
+    import torch
+
+    S = int(SECONDS * 16000)
+    L = 12
+    paths = {}
+    total = ASR_WARM + ASR_TIMED
+    common = [f"data.max_tokens={8 * S}",
+              f"data.max_sample_size={S}", "run.log_interval=1",
+              "run.save_interval_updates=0", "run.keep_last=1",
+              "run.w2v2_model_path=", f"run.max_update={total}"]
+    tasks = {
+        "ctc": ("ctc_asr_base.yaml", "valid_wer",
+                [f"data.vocab={root}/letters.txt",
+                 f"data.train_manifest={train[0]}",
+                 f"data.valid_manifest={valid[0]}",
+                 f"run.validate_interval_updates={total}"]),
+        "s2s": ("offline_asr_base.yaml", "valid_bleu",
+                [f"data.vocab={root}/words.txt", "data.tokenizer=word",
+                 "run.eval_bleu=true", f"data.train_manifest={train[1]}",
+                 f"data.valid_manifest={valid[1]}",
+                 f"run.validate_interval_updates={total}"]),
+    }
+    for task, (yaml, key, extra) in tasks.items():
+        for impl in ("dense", "flash"):
+            path = f"asr_{task}_{impl}"
+            argv = ["--config", os.path.join(CONFIGS, yaml), "--device",
+                    "cuda", *common, *extra,
+                    f"run.save_dir={root}/{path}",
+                    f"model.attention_impl={impl}"]
+            t = time.perf_counter()
+            counts, sets, recs, kept, peak = _run_asr_cli(argv, sites)
+            wall = time.perf_counter() - t
+            train_recs = [r for r in recs if r["tag"] == "train"]
+            (vrec,) = [r for r in recs if r["tag"] == "valid"]
+            assert [r["step"] for r in train_recs] == list(
+                range(1, total + 1))
+            assert all(math.isfinite(r["loss_total"]) and math.isfinite(
+                r["grad_norm"]) and r["skipped"] == 0.0
+                for r in train_recs), train_recs
+            assert math.isfinite(vrec["valid_loss"]) and math.isfinite(
+                vrec[key]), vrec
+            # validation: the loss forward and the decode's encode, one
+            # batch, every layer (eval mode: no layerdrop)
+            flash = impl == "flash"
+            want_k3 = sum(kept) if flash else 0
+            want_k2 = want_k3 + (2 * L if flash else 0)
+            assert counts["blockwise_flash_attention_bwd"] == want_k3, (
+                path, counts, kept)
+            assert counts["blockwise_flash_attention_packed"] == \
+                want_k2, (path, counts, kept)
+            assert counts["hw_dropout"] > 0 and counts[
+                "chunk_cache_attention"] == 0, (path, counts)
+            _on_tensor_cores(sets, {"K1": 0, "K2": want_k2,
+                                    "K3": want_k3})
+            span = train_recs[-1]["at"] - train_recs[ASR_WARM - 1]["at"]
+            ups = ASR_TIMED / span
+            paths[path] = counts
+            vstats = {k: v for k, v in vrec.items()
+                      if k.startswith("valid")}
+            print(f"phase asr full: {path}: configs/{yaml}, Base, bf16, "
+                  f"B 8 x {SECONDS:g} s, the recipe's dropouts: "
+                  f"launches {counts}; encoder layers kept per forward "
+                  f"{kept}; {ASR_WARM} warm + {ASR_TIMED} timed updates "
+                  f"in {span:.4f} s -> {ups:.3f} updates/s "
+                  f"({8 * SECONDS * ups:.2f} audio-sec/s), peak memory "
+                  f"{peak:.3f} GB, loss {train_recs[0]['loss_total']:.2f}"
+                  f" -> {train_recs[-1]['loss_total']:.2f}, validation "
+                  f"{vstats}; the whole call {wall:.1f} s [{card}]")
+            torch.cuda.empty_cache()
+    return paths
+
+
+def _asr_large_call(root, train, card, sites):
+    """17c: configs/offline_asr_large.yaml, one call: 2 updates of B 4,
+    flash, no validation."""
+    import math
+
+    import torch
+
+    S = int(SECONDS * 16000)
+    argv = ["--config", os.path.join(CONFIGS, "offline_asr_large.yaml"),
+            "--device", "cuda", f"data.train_manifest={train[1]}",
+            f"data.max_tokens={LARGE_B * S}", f"data.max_sample_size={S}",
+            "run.log_interval=1", "run.save_interval_updates=0",
+            "run.keep_last=1", "run.w2v2_model_path=", "run.max_update=2",
+            f"data.vocab={root}/words.txt", "data.tokenizer=word",
+            f"run.save_dir={root}/large", "model.attention_impl=flash"]
+    t = time.perf_counter()
+    counts, sets, recs, kept, peak = _run_asr_cli(argv, sites)
+    wall = time.perf_counter() - t
+    assert [r["step"] for r in recs] == [1, 2] and all(
+        math.isfinite(r["loss_total"]) and r["skipped"] == 0.0
+        for r in recs), recs
+    assert counts["blockwise_flash_attention_bwd"] == sum(kept) == \
+        counts["blockwise_flash_attention_packed"] > 0, (counts, kept)
+    _on_tensor_cores(sets, {"K1": 0, "K2": sum(kept), "K3": sum(kept)})
+    print(f"phase asr full: asr_s2s_large: configs/offline_asr_large.yaml"
+          f" (24 x 1024 encoder, 12 x 1024 decoder, layer_norm_first, "
+          f"conv_bias, normalize), bf16, flash, B {LARGE_B} x "
+          f"{SECONDS:g} s in 2 microbatches: launches {counts}; losses "
+          f"{[round(r['loss_total'], 2) for r in recs]}, peak memory "
+          f"{peak:.3f} GB; the whole call (model, 2 updates, "
+          f"checkpoint) {wall:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    return {"asr_s2s_large": counts}
+
+
+def _asr_eval_calls(root, card):
+    """17d: the eval CLI, each call cold: ctc-decode on 17b's flash CTC
+    checkpoint, generate on phase 13's CAAT checkpoint (Base + CAAT base,
+    seed 0, written again)."""
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.step import TrainState
+
+    L = 12
+    paths = {}
+    letters_tsv, words_tsv = _asr_corpus(root, "dev", CTC_DECODE_WAVS,
+                                         SECONDS, 3)
+    model = _base_model(torch.device("cuda"))[2]
+    CheckpointManager(root / "caat", keep_last=1).save(
+        0, TrainState.create(model, build_optimizer(OptimConfig())))
+    del model
+    torch.cuda.empty_cache()
+    gen_tsv = root / "gen.tsv"
+    gen_tsv.write_text("\n".join(
+        words_tsv.read_text().splitlines()[:GENERATE_WAVS + 1]) + "\n")
+    evals = (
+        ("ctc_decode", ["ctc-decode", "--config",
+                        os.path.join(CONFIGS, "ctc_asr_base.yaml"),
+                        "--ckpt-dir", f"{root}/asr_ctc_flash",
+                        "--manifest", str(letters_tsv),
+                        f"data.vocab={root}/letters.txt"],
+         CTC_DECODE_WAVS, "WER"),
+        ("generate", ["generate", "--ckpt-dir", f"{root}/caat",
+                      "--manifest", str(gen_tsv), "--metric", "bleu",
+                      f"data.vocab={root}/words.txt",
+                      "model.dtype=bfloat16", "caat.dtype=bfloat16"],
+         GENERATE_WAVS, "BLEU"))
+    for path, argv, n, key in evals:
+        t = time.perf_counter()
+        lines, counts, sets, _ = _eval_cli(
+            [argv[0], "--device", "cuda", *argv[1:],
+             "model.attention_impl=flash"])
+        wall = time.perf_counter() - t
+        assert len(lines) == n + 1 and lines[-1]["n"] == n
+        assert np.isfinite(lines[-1][key]), lines[-1]
+        k2 = counts["blockwise_flash_attention_packed"]
+        assert k2 > 0 and k2 % L == 0 and counts[
+            "blockwise_flash_attention_bwd"] == 0, (path, counts)
+        assert counts["chunk_cache_attention"] == 0 and counts[
+            "hw_dropout"] == 0, (path, counts)
+        _on_tensor_cores(sets, {"K1": 0, "K2": k2, "K3": 0})
+        paths[path] = counts
+        print(f"phase asr full: {path}: {n} wavs of {SECONDS:g} s, "
+              f"Base, bf16, flash encode: {lines[-1]}; some hypotheses "
+              f"{[ln['hypo'][:40] for ln in lines[:2]]}; launches "
+              f"{counts} ({k2 // L} encodes); the whole call "
+              f"{wall:.1f} s -> {n * SECONDS / wall:.2f} audio-sec/s "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+    return paths
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -3835,6 +4251,10 @@ def main() -> int:
     for name, counts in phase_ddp(card).items():
         paths["ddp " + name] = counts
     phase_cli_parallel(card)
+    phase_asr_parity()
+    asr_paths, asr_k4_err = phase_asr_full(card)
+    paths.update(asr_paths)
+    k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err)
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 

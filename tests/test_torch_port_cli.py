@@ -490,13 +490,9 @@ def test_cli_patience_stops_early(corpus, capsys):
 
 
 UNSUPPORTED = {
-    "s2s": ({"run.task": "s2s"}, "item 12"),
-    "ctc": ({"run.task": "ctc"}, "item 12"),
     "fbank": ({"data.features": "fbank"}, "item 12"),
     "text": ({"data.features": "text"}, "item 12"),
     "seq_zero": ({"run.seq": 2, "run.zero": "true"}, "item 11b"),
-    "eval_bleu": ({"run.eval_bleu": "true"}, "item 12"),
-    "eval_wer": ({"run.eval_wer": "true"}, "item 12"),
     "remat": ({"run.remat": "dots"}, "item 9"),
     "flat_optimizer": ({"run.flat_optimizer": "true"}, "item 9"),
     "profile_dir": ({"run.profile_dir": "/tmp/p"}, "item 12"),

@@ -12,9 +12,10 @@ port's ``CheckpointManager``, every subcommand with ``--device cpu``.
   files; ``average`` of two checkpoints writes their mean; ``eval-lm``
   equals the NLL summed by hand over ``W2V2CaatModel.lm_log_probs``, which
   equals the JAX model's (1e-5);
-- ``generate``, ``ctc-decode``, ``--decoder fused`` and the fbank features
-  raise ``NotImplementedError`` naming their ROADMAP item; ``--device
-  cuda`` raises without a card.
+- ``--decoder fused`` and the fbank features raise
+  ``NotImplementedError`` naming their ROADMAP item; ``--device cuda``
+  raises without a card (``generate`` and ``ctc-decode`` are held against
+  the JAX CLI in ``test_torch_port_asr_cli.py``).
 
 The model is the tiny one of ``test_torch_port_serving.py`` (its weights
 emit on these clips); the configuration is given by dot-overrides alone.
@@ -302,10 +303,6 @@ def test_eval_lm_equals_direct_nll(corpus, capsys):
 
 
 RAISES = {
-    "generate": (["generate", "--manifest", "x"], NotImplementedError,
-                 "item 12"),
-    "ctc-decode": (["ctc-decode", "--manifest", "x"], NotImplementedError,
-                   "item 12"),
     "fused": (["batch-decode", "--manifest", "{tsv}", "--decoder", "fused"],
               NotImplementedError, "Not to port"),
     "fbank_batch_decode": (["batch-decode", "--manifest", "{tsv}",

@@ -5,7 +5,9 @@ plain twins, the tiny cached and one-shot decodes, the four tiny beam
 decodes, the tiny training step and a tiny run of the training CLI on the
 card against the same on the CPU, the flash kernels at the pre-training
 call under each context bucket and two tiny pre-training updates on the
-card against the CPU.  They skip without a CUDA device.  On a card:
+card against the CPU, and the offline-ASR heads (CTC and seq2seq loss and
+gradients, the greedy decoders, the beam generator) on the card against
+the CPU.  They skip without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -1048,3 +1050,42 @@ def test_tiny_pretrain_two_updates_on_cuda_equal_cpu(cuda, impl):
         assert abs(gc - gg) <= 1e-4 * gc
     for k, v in out["cpu"][1].items():
         assert (v - out["cuda"][1][k]).abs().max() <= 1e-2 * cfg.lr, k
+
+
+# -- the offline-ASR heads (models/asr.py, eval/generator.py) ----------------
+
+@pytest.mark.parametrize("impl", ["dense", "flash"])
+@pytest.mark.parametrize("kind,infeasible", [("ctc", False), ("ctc", True),
+                                             ("s2s", False)])
+def test_tiny_asr_loss_and_grads_on_cuda_equal_cpu(cuda, kind, infeasible,
+                                                   impl):
+    """The CTC (with a row whose labels cannot fit: optax's floor) and
+    seq2seq recipes' loss and every gradient on the card against the CPU
+    (``tools/asr_parity.py``: its tolerances)."""
+    from wav2vec_s_tpu_torch.tools import asr_parity as ap
+
+    cpu, card = (ap.loss_and_grads(kind, impl, infeasible, dev)
+                 for dev in ("cpu", "cuda"))
+    rel, worst = ap.gap(cpu, card)
+    assert rel <= ap.LOSS_RTOL and worst <= 1.0, (rel, worst)
+    if infeasible:
+        assert ap.FLOOR[0] < cpu[0] < ap.FLOOR[1]
+
+
+@pytest.mark.parametrize("kind", ["ctc", "s2s", "transducer"])
+def test_tiny_asr_greedy_decoders_on_cuda_equal_cpu(cuda, kind):
+    """The three batched greedy decoders (flash encode) give the same ids on
+    the card as on the CPU."""
+    from wav2vec_s_tpu_torch.tools import asr_parity as ap
+
+    for a, b in zip(ap.greedy(kind, "cpu"), ap.greedy(kind, "cuda")):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_tiny_beam_generator_on_cuda_equals_cpu(cuda):
+    from wav2vec_s_tpu_torch.tools import asr_parity as ap
+
+    cpu, card = ap.beam("cpu"), ap.beam("cuda")
+    assert [h.tokens for h in card] == [h.tokens for h in cpu]
+    np.testing.assert_allclose([h.score for h in card],
+                               [h.score for h in cpu], rtol=1e-5)

@@ -4,13 +4,15 @@ against the same call in one process, with the recipe's dropouts and
 flash attention on (the flash twins drop at their rows' place in the
 whole batch).
 
-- CAAT fine-tuning with ``run.fsdp=true`` and pre-training with
-  ``run.zero=true`` (sampled block contexts): every batch of the corpora
-  holds 2 rows, so one process and 2 data ranks see the same batches;
-  rank 0's progress records equal one process's (losses and grad norms
-  rtol 1e-5; the CAAT validation loss, a sum over rows, too), rank 1
-  prints none, and the final checkpoint (written by rank 0 in the
-  single-process layout) equals one process's (atol 1e-5 rtol 1e-4).
+- CAAT fine-tuning with ``run.fsdp=true`` and ``run.eval_bleu``, seq2seq
+  fine-tuning under data parallelism with ``run.eval_bleu``, and
+  pre-training with ``run.zero=true`` (sampled block contexts): every
+  batch of the corpora holds 2 rows, so one process and 2 data ranks see
+  the same batches; rank 0's progress records equal one process's (losses
+  and grad norms rtol 1e-5; the validation loss, a sum over rows, and the
+  BLEU and accuracy of the ranks' gathered decodes too), rank 1 prints
+  none, and the final checkpoint (written by rank 0 in the single-process
+  layout) equals one process's (atol 1e-5 rtol 1e-4).
 """
 
 import json
@@ -34,6 +36,7 @@ DROPOUTS = {"model.dropout": 0.1, "model.attention_dropout": 0.1,
             "caat.attention_dropout": 0.1, "caat.activation_dropout": 0.1,
             "caat.rand_pos_decoder": 4}
 COMPARED = ("loss_total", "sample_size", "grad_norm", "skipped")
+VALID = ("valid_loss", "valid_bleu", "valid_accuracy")
 
 
 def _records(text):
@@ -42,46 +45,46 @@ def _records(text):
 
 
 @pytest.fixture
-def runs(corpus, audio_corpus, tmp_path, capsys):  # noqa: F811
-    argv = {
-        "caat_fsdp": caat_overrides(corpus, "two_caat_fsdp", **DROPOUTS,
-                                    **{"run.fsdp": "true"}),
-        "pretrain_zero": pretrain_argv(audio_corpus, "two_pretrain_zero",
-                                       **{"run.zero": "true",
-                                          "data.max_tokens": 8000,
-                                          "run.validate_interval_updates":
-                                              0})}
-    one = {}
-    for name, av in argv.items():
-        single = [a.replace("/two_", "/one_") for a in av]
-        single = [a for a in single
-                  if not a.startswith(("run.fsdp", "run.zero"))]
-        cli.main(single)
-        one[name] = _records(capsys.readouterr().out)
-    jobs = {name: {"argv": av, "stdout": str(tmp_path / name)}
-            for name, av in argv.items()}
-    worker.run_cli_job(jobs, str(tmp_path))
-    two = {}
-    for name in argv:
-        two[name] = [(tmp_path / f"{name}.{r}").read_text()
-                     for r in range(2)]
-    dirs = {"caat_fsdp": corpus[0], "pretrain_zero": audio_corpus}
-    return one, two, dirs
+def run(request, corpus, audio_corpus, tmp_path, capsys):  # noqa: F811
+    """The scenario ``request.param`` in one process and on two ranks ->
+    (one process's records, each rank's standard output, the corpus
+    directory)."""
+    name = request.param
+    if name == "pretrain_zero":
+        root = audio_corpus
+        argv = pretrain_argv(audio_corpus, "two_pretrain_zero",
+                             **{"run.zero": "true", "data.max_tokens": 8000,
+                                "run.validate_interval_updates": 0})
+    else:
+        root = corpus[0]
+        extra = ({"run.fsdp": "true"} if name == "caat_fsdp"
+                 else {"run.task": "s2s"})
+        argv = caat_overrides(corpus, f"two_{name}", **DROPOUTS,
+                              **{"run.eval_bleu": "true"}, **extra)
+    single = [a.replace("/two_", "/one_") for a in argv]
+    cli.main([a for a in single
+              if not a.startswith(("run.fsdp", "run.zero"))])
+    one = _records(capsys.readouterr().out)
+    worker.run_cli_job({name: {"argv": argv, "stdout": str(tmp_path / name)}},
+                       str(tmp_path))
+    two = [(tmp_path / f"{name}.{r}").read_text() for r in range(2)]
+    return one, two, root
 
 
-@pytest.mark.parametrize("name", ["caat_fsdp", "pretrain_zero"])
-def test_two_rank_cli_equals_one_process(runs, name):
-    one, two, dirs = runs
-    got = _records(two[name][0])
-    assert _records(two[name][1]) == []           # rank 0 alone prints
-    want = one[name]
+@pytest.mark.parametrize("run", ["caat_fsdp", "s2s_dp", "pretrain_zero"],
+                         indirect=True)
+def test_two_rank_cli_equals_one_process(run, request):
+    name = request.node.callspec.params["run"]
+    want, two, root = run
+    got = _records(two[0])
+    assert _records(two[1]) == []                 # rank 0 alone prints
     assert [r["tag"] for r in got] == [r["tag"] for r in want]
     assert len([r for r in got if r["tag"] == "train"]) == 4
     for a, b in zip(got, want):
-        keys = COMPARED if a["tag"] == "train" else ("valid_loss",)
-        for k in keys:
+        keys = COMPARED if a["tag"] == "train" else VALID
+        assert [k for k in keys if k in a] == [k for k in keys if k in b]
+        for k in (k for k in keys if k in b):
             np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
-    root = dirs[name]
     mine = CheckpointManager(root / f"two_{name}",
                              keep_last=0).restore()[0]
     theirs = CheckpointManager(root / f"one_{name}",

@@ -6,7 +6,9 @@
 ``wav2vec_s_tpu/checkpoint/torch_export.export_caat_params`` /
 ``export_wav2vec2_params`` exactly (the port must not import the JAX
 package, so the mapping is repeated here), producing rain ``w2v2_caat`` and
-fairseq wav2vec2 names:
+fairseq wav2vec2 names; ``ctc_state_dict_from_jax`` and
+``s2s_state_dict_from_jax`` give the fairseq names of the offline-ASR
+heads (``models/asr.py``):
 
 - dense ``kernel [in, out]``       -> ``weight [out, in]``
 - conv ``kernel [k, in, out]``     -> ``weight [out, in, k]``
@@ -114,4 +116,39 @@ def caat_state_dict_from_jax(params: Dict[str, Any]
         _a(params["out_proj"]["kernel"]).T if "out_proj" in params
         else out["decoder.lm.embed_tokens.weight"])
     out["decoder.lm.version"] = np.asarray([3.0], np.float32)
+    return _tensors(out)
+
+
+def ctc_state_dict_from_jax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``Wav2VecCtc`` tree -> the state dict of the port's
+    ``models/asr.Wav2VecCtc`` (fairseq names: ``w2v_encoder.w2v_model.*``,
+    ``w2v_encoder.proj``)."""
+    out: Dict[str, np.ndarray] = {}
+    _wav2vec2(out, params["encoder"], "w2v_encoder.w2v_model.")
+    _linear(out, "w2v_encoder.proj", params["proj"])
+    return _tensors(out)
+
+
+def s2s_state_dict_from_jax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``Wav2Vec2Seq2Seq`` tree -> the state dict of the port's
+    ``models/asr.Wav2Vec2Seq2Seq`` (``encoder.w2v2_model.*``, fairseq
+    ``TransformerDecoder`` names under ``decoder.``)."""
+    out: Dict[str, np.ndarray] = {}
+    _wav2vec2(out, params["encoder"], "encoder.w2v2_model.")
+    dec = params["decoder"]
+    out["decoder.embed_tokens.weight"] = _a(dec["embed_tokens"])
+    for name, layer in dec.items():
+        if not name.startswith("layer_") or name == "layer_norm":
+            continue
+        base = f"decoder.layers.{int(name.split('_')[1])}"
+        _layer(out, base, layer)
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(out, f"{base}.encoder_attn.{proj}",
+                    layer["encoder_attn"][proj])
+        _norm(out, base + ".encoder_attn_layer_norm",
+              layer["encoder_attn_layer_norm"])
+    if "layer_norm" in dec:
+        _norm(out, "decoder.layer_norm", dec["layer_norm"])
     return _tensors(out)

@@ -9,7 +9,8 @@ in an earlier stage.  Accepted sources:
 
 - a checkpoint directory of the port (the ``save_dir`` of an earlier run,
   latest step, or one ``step_*`` directory in it): its ``encoder.*``
-  entries;
+  entries (a seq2seq or CAAT run), or the wav2vec2 weights of a CTC run
+  (``w2v_encoder.w2v_model.*``, read as ``encoder.w2v2_model.*``);
 - a fairseq / rain ``.pt`` file: the wav2vec2 weights under the first of
   ``TORCH_PREFIXES`` that holds a conv front-end (rain's
   ``OnlineW2V2TransformerEncoder``, fairseq's fine-tuned heads, a bare
@@ -27,6 +28,7 @@ from torch import nn
 
 ENCODER_PREFIX = "encoder."
 W2V2_PREFIX = "encoder.w2v2_model."
+CTC_PREFIX = "w2v_encoder.w2v_model."    # models/asr.Wav2VecCtc
 TORCH_PREFIXES = (
     "encoder.w2v2_model.",      # rain OnlineW2V2TransformerEncoder
     "w2v_encoder.w2v_model.",   # fairseq wav2vec2_asr fine-tune heads
@@ -72,6 +74,9 @@ def load_pretrained_encoder(path, w2v_model: Optional[nn.Module] = None
         raise FileNotFoundError(f"no checkpoint under {path}")
     enc = {k: v for k, v in payload["model"].items()
            if k.startswith(ENCODER_PREFIX)}
+    enc.update({W2V2_PREFIX + k[len(CTC_PREFIX):]: v
+                for k, v in payload["model"].items()
+                if k.startswith(CTC_PREFIX)})
     if not enc:
         raise ValueError(f"{path}: checkpoint has no 'encoder' subtree")
     return enc
@@ -80,21 +85,28 @@ def load_pretrained_encoder(path, w2v_model: Optional[nn.Module] = None
 def apply_pretrained_encoder(model: torch.nn.Module, path) -> None:
     """Overwrite ``model``'s encoder subtree with the one saved under
     ``path`` (from a ``.pt``: the wav2vec2 part, ``encoder.w2v2_model.*``).
-    Template-driven, as the JAX package's merge: the source may carry
-    extra entries, but every encoder parameter of ``model`` must be
-    present in it with the same shape."""
+    ``model`` is a CAAT or seq2seq model (its ``encoder.*``) or a
+    ``Wav2VecCtc`` (its ``w2v_encoder.w2v_model.*``, read from the
+    source's ``encoder.w2v2_model.*``).  Template-driven, as the JAX
+    package's merge: the source may carry extra entries, but every encoder
+    parameter of ``model`` must be present in it with the same shape."""
     is_file = Path(path).is_file()
-    src = load_pretrained_encoder(
-        path, model.encoder.w2v2_model if is_file else None)
-    prefix = W2V2_PREFIX if is_file else ENCODER_PREFIX
+    ctc = hasattr(model, "w2v_encoder")
+    src = load_pretrained_encoder(path, None if not is_file else (
+        model.w2v_encoder.w2v_model if ctc else model.encoder.w2v2_model))
+    prefix = (CTC_PREFIX if ctc else W2V2_PREFIX if is_file
+              else ENCODER_PREFIX)
     own = {k: v for k, v in model.state_dict().items()
            if k.startswith(prefix)}
+    name = ({k: W2V2_PREFIX + k[len(CTC_PREFIX):] for k in own} if ctc
+            else {k: k for k in own})
     for k, v in own.items():
-        if k not in src:
-            raise ValueError(f"pretrained encoder at {path} is missing {k}")
-        if src[k].shape != v.shape:
+        if name[k] not in src:
+            raise ValueError(f"pretrained encoder at {path} is missing "
+                             f"{name[k]}")
+        if src[name[k]].shape != v.shape:
             raise ValueError(f"shape mismatch at {k}: {tuple(v.shape)} vs "
-                             f"{tuple(src[k].shape)}")
+                             f"{tuple(src[name[k]].shape)}")
     with torch.no_grad():
         for k, v in own.items():
-            v.copy_(src[k])
+            v.copy_(src[name[k]])

@@ -7,6 +7,11 @@ Subcommands re-providing the reference's eval entry points:
   fairseq/rain parameter names
 - ``simul``    ~ the SimulEval harness run (simuleval CLI): streaming decode
   by the agent with AL/AP/DAL + quality, in-process
+- ``generate`` ~ fairseq-generate (fairseq_cli/generate.py): offline CAAT
+  transducer decode of each utterance (one streaming search over the whole
+  wav) + BLEU / WER
+- ``ctc-decode`` ~ fairseq's argmax WER eval for ``Wav2VecCtc``
+  checkpoints trained with ``run.task: ctc``: length-sorted batches
 - ``interactive`` ~ fairseq-interactive: words printed as they are emitted
 - ``eval-lm``  ~ fairseq-eval-lm: perplexity of the decoupled CAAT decoder
   as a language model
@@ -17,8 +22,7 @@ Subcommands re-providing the reference's eval entry points:
 - ``score``    ~ fairseq-score: BLEU/WER of a system file against a
   reference file
 
-``generate`` and ``ctc-decode`` stay in the parser and raise: they need
-``eval/generator.py`` (ROADMAP Queue 1 item 12), as do the fbank features.
+The fbank features raise (ROADMAP Queue 1 item 12b).
 
 What differs from the JAX CLI: ``--device cuda|cpu`` (default ``cuda``,
 which raises without a card) takes the place of ``--platform``;
@@ -49,11 +53,6 @@ import torch
 
 from wav2vec_s_tpu_torch.checkpoint.io import load_params
 from wav2vec_s_tpu_torch.train.config import load_config
-
-#: what ``generate`` and ``ctc-decode`` wait for
-_GENERATOR = ("ROADMAP Queue 1 item 12: needs eval/generator.py, not ported "
-              "yet")
-
 
 def _device(args) -> torch.device:
     dev = torch.device(args.device)
@@ -258,11 +257,94 @@ def cmd_sweep(args):
 
 
 def cmd_generate(args):
-    raise NotImplementedError(f"generate: {_GENERATOR}")
+    """Offline CAAT decode of each utterance of the manifest (one streaming
+    search over the whole wav, ``eval/generator.transducer_offline_decode``)
+    + corpus BLEU / WER against its ``tgt_text``; one JSON line per
+    utterance, then the score."""
+    from wav2vec_s_tpu_torch.data.audio import read_audio
+    from wav2vec_s_tpu_torch.data.manifests import read_s2t_manifest
+    from wav2vec_s_tpu_torch.eval.bleu import corpus_bleu
+    from wav2vec_s_tpu_torch.eval.generator import transducer_offline_decode
+    from wav2vec_s_tpu_torch.eval.wer import corpus_wer
+    from wav2vec_s_tpu_torch.stream.engine import StreamingEngine
+    from wav2vec_s_tpu_torch.stream.searcher import (
+        StreamingTransducerSearcher)
+
+    cfg = load_config(args.config, args.overrides)
+    model, tgt_dict, _, _ = _build_caat(cfg, args)
+    engine = StreamingEngine(model, main_context=cfg.context.main_context,
+                             right_context=cfg.context.right_context)
+    searcher = StreamingTransducerSearcher(engine, tgt_dict,
+                                           len_scale=args.len_scale)
+    man = read_s2t_manifest(args.manifest, cfg.data.audio_root)
+    n = min(len(man.ids), args.max_instances or len(man.ids))
+    hyps, refs = [], []
+    for i in range(n):
+        wav = read_audio(man.audio_paths[i])
+        hypo = transducer_offline_decode(searcher, wav,
+                                         intra_beam=args.intra_beam)
+        hyps.append(hypo)
+        refs.append(man.tgt_texts[i])
+        print(json.dumps({"id": man.ids[i], "hypo": hypo,
+                          "ref": refs[-1]}))
+    score = (corpus_bleu(hyps, refs) if args.metric == "bleu"
+             else corpus_wer(hyps, refs))
+    print(json.dumps({args.metric.upper(): score, "n": n}))
 
 
 def cmd_ctc_decode(args):
-    raise NotImplementedError(f"ctc-decode: {_GENERATOR}")
+    """Batched offline CTC decode + WER over a manifest: the eval side of
+    the ``run.task: ctc`` fine-tune (fairseq's argmax WER path for
+    Wav2VecCtc, wav2vec2_asr.py:154 + criterions/ctc.py; blank = bos).
+    Utterances go in length-sorted batches of ``--batch-size``, each padded
+    to the 640-multiple bucket of its longest wav; one JSON line per
+    utterance, then the WER."""
+    from wav2vec_s_tpu_torch.data.audio import instance_normalize, read_audio
+    from wav2vec_s_tpu_torch.data.batching import bucket_for, length_buckets
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+    from wav2vec_s_tpu_torch.data.manifests import read_s2t_manifest
+    from wav2vec_s_tpu_torch.eval.generator import make_ctc_greedy_decoder
+    from wav2vec_s_tpu_torch.eval.wer import corpus_wer
+    from wav2vec_s_tpu_torch.models.asr import Wav2VecCtc
+    from wav2vec_s_tpu_torch.stream.searcher import detok_pieces
+    from wav2vec_s_tpu_torch.train.cli import encoder_config
+
+    cfg = load_config(args.config, args.overrides)
+    device = _device(args)
+    tgt_dict = Dictionary.load(cfg.data.vocab)
+    params = load_params(args.ckpt_dir, args.average_k)
+    with device:
+        model = Wav2VecCtc(encoder_config(cfg), vocab_size=len(tgt_dict))
+    model.load_state_dict(params, strict=True)
+    decode = make_ctc_greedy_decoder(
+        model, tgt_dict, cfg.context.main_context,
+        cfg.context.right_context, blank=tgt_dict.bos())
+    tokenizer = _tokenizer(cfg)
+
+    man = read_s2t_manifest(args.manifest, cfg.data.audio_root)
+    n = min(len(man.ids), args.max_instances or len(man.ids))
+    order = sorted(range(n), key=lambda i: man.n_frames[i])
+    buckets = length_buckets(int(max(man.n_frames[i] for i in order)),
+                             multiple=640)
+    hyps, refs = [None] * n, [None] * n
+    for lo in range(0, n, args.batch_size):
+        idx = order[lo:lo + args.batch_size]
+        wavs = [read_audio(man.audio_paths[i]) for i in idx]
+        if cfg.data.normalize:
+            wavs = [instance_normalize(w) for w in wavs]
+        S = bucket_for(max(len(w) for w in wavs), buckets)
+        src = np.zeros((len(idx), S), np.float32)
+        pad = np.ones((len(idx), S), bool)
+        for r, w in enumerate(wavs):
+            src[r, :len(w)] = w[:S]
+            pad[r, :len(w)] = False
+        pfx, lens = decode(torch.from_numpy(src), torch.from_numpy(pad))
+        for r, i in enumerate(idx):
+            hyps[i] = detok_pieces(tgt_dict, tokenizer, pfx[r, 1:lens[r]])
+            refs[i] = man.src_texts[i] or man.tgt_texts[i]
+            print(json.dumps({"id": man.ids[i], "hypo": hyps[i],
+                              "ref": refs[i]}))
+    print(json.dumps({"WER": corpus_wer(hyps, refs), "n": n}))
 
 
 def cmd_interactive(args):

@@ -156,7 +156,8 @@ def self_attention(att: MultiheadAttention, x: torch.Tensor,
                    bias: Union[torch.Tensor, FlashSpec, None],
                    dropout_rate: float = 0.0,
                    ctx: Optional[DropoutContext] = None,
-                   seq=None) -> torch.Tensor:
+                   seq=None, kv: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Full-sequence self-attention of ``MultiheadSelfAttention``
     (``wav2vec_s_tpu/models/modules.py:133-173``), ``out_proj`` applied.
     ``bias`` is an additive mask broadcastable to [B, H, T, T], or a
@@ -165,10 +166,14 @@ def self_attention(att: MultiheadAttention, x: torch.Tensor,
     ``drop(ctx, probs, rate)`` would take: one seed gives both the same
     mask.  ``seq`` (a ``SeqShard``): ``x`` holds its rows; the keys and
     values of the whole sequence are gathered and ``bias`` holds the rows'
-    [.., rows, whole] block."""
+    [.., rows, whole] block.  ``kv`` [B, Tk, kdim]: the keys and values
+    are projected from it instead of ``x`` (the decoder's encoder
+    attention; dense only)."""
     B, T, D = x.shape
     H = att.num_heads
-    q, k, v = (dense(p, x) for p in (att.q_proj, att.k_proj, att.v_proj))
+    src = x if kv is None else kv
+    q = dense(att.q_proj, x)
+    k, v = dense(att.k_proj, src), dense(att.v_proj, src)
     if seq is not None:
         if isinstance(bias, FlashSpec):
             raise ValueError("context parallelism runs the dense attention")

@@ -4,8 +4,10 @@
 Port of ``wav2vec_s_tpu/train/cli.py`` for wav2vec-S streaming pre-training
 (``run.task=pretrain``: span masking, the Gumbel quantizer, the contrastive
 head, a block context sampled per update under
-``context.context_type=sampling``) and CAAT fine-tuning on raw audio
-(``run.task=caat``): the fairseq training program's epoch/update loop
+``context.context_type=sampling``), CAAT fine-tuning on raw audio
+(``run.task=caat``) and the offline-ASR heads (``run.task=s2s``: the
+seq2seq model whose encoder seeds CAAT; ``run.task=ctc``): the fairseq
+training program's epoch/update loop
 (fairseq/fairseq_cli/train.py:52-488 + trainer.py) with max-tokens batches,
 periodic validation and checkpointing with keep-K/best policies, patience
 early stop, json progress records and resume.  The same yaml and the same
@@ -28,7 +30,14 @@ What differs from the JAX CLI, on purpose:
   the consumer's position, not the prefetch thread's.
 - Validation runs the loss in eval mode (no dropout, no layerdrop; in
   pre-training hard codes and negatives of a fixed seed) under
-  ``torch.no_grad()``.
+  ``torch.no_grad()``.  ``run.eval_bleu`` (and ``run.eval_wer`` for CTC)
+  decode the validation set greedily (``eval/generator.py``) and track
+  BLEU (WER) for the best checkpoint and patience, as the JAX CLI does.
+  Under a process group each data rank decodes its rows, the ranks'
+  decoding loops stop together, and every rank scores the gathered
+  hypotheses in the global batch's row order (the JAX CLI decodes only in
+  a single process; one process per card is the port's data
+  parallelism).
 - A batch that runs out of device memory is skipped as the fairseq trainer
   does (trainer.py:700-720): gradients freed, the allocator's cache
   emptied, the skip counted in the next progress record (``oom_skipped``).
@@ -80,20 +89,22 @@ from wav2vec_s_tpu_torch.models.modules import random_init_
 from wav2vec_s_tpu_torch.train.config import TrainConfig, load_config
 from wav2vec_s_tpu_torch.train.optim import build_optimizer
 from wav2vec_s_tpu_torch.train.recipes import (
-    make_caat_loss_fn, make_freeze_mask, make_pretrain_loss_fn,
-    sample_context_bucket)
+    make_caat_loss_fn, make_ctc_loss_fn, make_freeze_mask,
+    make_pretrain_loss_fn, make_s2s_loss_fn, sample_context_bucket)
 from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
 from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
+
+
+TASKS = ("pretrain", "caat", "s2s", "ctc")
 
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for every configuration the JAX CLI
     takes and the port does not yet, naming the ROADMAP item."""
     run, data = cfg.run, cfg.data
+    if run.task not in TASKS:
+        raise ValueError(f"run.task={run.task!r} is not one of {TASKS}")
     todo = []
-    if run.task not in ("pretrain", "caat"):
-        todo.append(f"run.task={run.task} (ROADMAP Queue 1 item 12; "
-                    f"'pretrain' and 'caat' are ported)")
     if data.features != "raw":
         todo.append(f"data.features={data.features} (item 12: the fbank "
                     f"and text families)")
@@ -101,9 +112,6 @@ def check_supported(cfg: TrainConfig) -> None:
         todo.append("run.seq > 1 with run.zero or run.fsdp (item 11b: "
                     "context parallelism composes with data parallelism "
                     "only)")
-    if run.eval_bleu or run.eval_wer:
-        todo.append("run.eval_bleu / run.eval_wer (item 12: needs "
-                    "eval/generator.py)")
     if run.remat != "none":
         todo.append("run.remat (item 9: a TPU experiment that waits for a "
                     "measurement on the card)")
@@ -133,19 +141,25 @@ def _config(cls, kwargs: Dict, section: str, **fixed):
     return cls(**kw, **fixed)
 
 
+def encoder_config(cfg: TrainConfig) -> Wav2Vec2Config:
+    """The fine-tuning encoder's config: the ``model`` section with the
+    ``context`` section's (mc, rc)."""
+    return _config(Wav2Vec2Config, cfg.model, "model",
+                   main_context=cfg.context.main_context,
+                   right_context=cfg.context.right_context)
+
+
 def caat_configs(cfg: TrainConfig, vocab_size: int):
     """(Wav2Vec2Config, CaatConfig) of the configuration's ``model``,
     ``caat`` and ``context`` sections."""
-    model_cfg = _config(Wav2Vec2Config, cfg.model, "model",
-                        main_context=cfg.context.main_context,
-                        right_context=cfg.context.right_context)
     caat_cfg = _config(CaatConfig, cfg.caat, "caat", vocab_size=vocab_size)
-    return model_cfg, caat_cfg
+    return encoder_config(cfg), caat_cfg
 
 
-def build_caat(cfg: TrainConfig):
-    """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run on raw
-    audio (``wav2vec_s_tpu/train/cli.py`` ``build_caat``)."""
+def _s2t_data(cfg: TrainConfig):
+    """(manifest, target dict, batcher) of a fine-tuning run on raw audio:
+    the S2T tsv, its dictionary, ``CaatBatcher`` over the 640-multiple pad
+    grid."""
     manifest = read_s2t_manifest(cfg.data.train_manifest, cfg.data.audio_root)
     tgt_dict = Dictionary.load(cfg.data.vocab)
     tokenizer = build_tokenizer(cfg.data.tokenizer, cfg.data.spm_model or None,
@@ -154,15 +168,19 @@ def build_caat(cfg: TrainConfig):
     batcher = CaatBatcher(manifest, tgt_dict, tokenizer, audio_buckets,
                           task_type=cfg.data.task_type,
                           normalize=cfg.data.normalize)
-    model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
-    model = random_init_(W2V2CaatModel(model_cfg, caat_cfg),
-                         torch.Generator().manual_seed(cfg.run.seed))
+    return manifest, tgt_dict, batcher
+
+
+def _init_fine_tuning(cfg: TrainConfig, model, w2v_model):
+    """Seeded random weights, then the pre-trained wav2vec2 weights
+    (``run.w2v2_model_path``) over ``w2v_model``, then the fine-tuned
+    encoder of ``run.pretrained_encoder_path``, which wins (the reference
+    order).  Returns ``model``."""
+    random_init_(model, torch.Generator().manual_seed(cfg.run.seed))
     if cfg.run.w2v2_model_path:
-        # the pre-trained wav2vec2 weights over the fresh encoder; the
-        # fine-tuned encoder below, when given, wins (the reference order)
         from wav2vec_s_tpu_torch.checkpoint.torch_import import (
             load_torch_checkpoint, load_wav2vec2_)
-        load_wav2vec2_(model.encoder.w2v2_model, load_torch_checkpoint(
+        load_wav2vec2_(w2v_model, load_torch_checkpoint(
             cfg.run.w2v2_model_path)["model"])
         print(f"wav2vec2 encoder initialized from {cfg.run.w2v2_model_path}",
               file=sys.stderr)
@@ -172,6 +190,16 @@ def build_caat(cfg: TrainConfig):
         apply_pretrained_encoder(model, cfg.run.pretrained_encoder_path)
         print(f"encoder initialized from {cfg.run.pretrained_encoder_path}",
               file=sys.stderr)
+    return model
+
+
+def build_caat(cfg: TrainConfig):
+    """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run on raw
+    audio (``wav2vec_s_tpu/train/cli.py`` ``build_caat``)."""
+    manifest, tgt_dict, batcher = _s2t_data(cfg)
+    model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
+    model = W2V2CaatModel(model_cfg, caat_cfg)
+    _init_fine_tuning(cfg, model, model.encoder.w2v2_model)
 
     def make_loss(mc, rc, downsample=None, train=True, plan=None):
         return make_caat_loss_fn(model, caat_cfg, mc, rc,
@@ -179,6 +207,47 @@ def build_caat(cfg: TrainConfig):
                                  plan=plan)
 
     return manifest, batcher, model, caat_cfg, make_loss
+
+
+def build_s2s(cfg: TrainConfig):
+    """(manifest, batcher, model, caat_cfg, make_loss) of an offline
+    seq2seq run (JAX ``build_s2s``): the reference's
+    ``online_w2v2_transformer_offline`` stage
+    (train_wav2vec_s_offline_asr_base.sh), whose encoder seeds the CAAT ST
+    model through ``run.pretrained_encoder_path``."""
+    from wav2vec_s_tpu_torch.models.asr import Wav2Vec2Seq2Seq
+
+    manifest, tgt_dict, batcher = _s2t_data(cfg)
+    model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
+    model = Wav2Vec2Seq2Seq(model_cfg, caat_cfg)
+    _init_fine_tuning(cfg, model, model.encoder.w2v2_model)
+
+    def make_loss(mc, rc, downsample=None, train=True, plan=None):
+        return make_s2s_loss_fn(model, caat_cfg, mc, rc,
+                                label_smoothing=cfg.run.label_smoothing,
+                                train=train, plan=plan)
+
+    return manifest, batcher, model, caat_cfg, make_loss
+
+
+def build_ctc(cfg: TrainConfig):
+    """(manifest, batcher, model, None, make_loss) of a CTC fine-tuning run
+    (JAX ``build_ctc``): the reference's fork-shipped ``Wav2VecCtc`` head
+    (fairseq wav2vec2_asr.py:154, criterions/ctc.py, blank = bos) over the
+    S2T manifest, ``task_type: asr`` transcripts as targets."""
+    from wav2vec_s_tpu_torch.models.asr import Wav2VecCtc
+
+    manifest, tgt_dict, batcher = _s2t_data(cfg)
+    model = Wav2VecCtc(encoder_config(cfg), vocab_size=len(tgt_dict),
+                       final_dropout=cfg.run.final_dropout)
+    _init_fine_tuning(cfg, model, model.w2v_encoder.w2v_model)
+
+    def make_loss(mc, rc, downsample=None, train=True, plan=None):
+        return make_ctc_loss_fn(model, pad=tgt_dict.pad(), eos=tgt_dict.eos(),
+                                main_context=mc, right_context=rc,
+                                blank=tgt_dict.bos(), train=train, plan=plan)
+
+    return manifest, batcher, model, None, make_loss
 
 
 def pretrain_config(cfg: TrainConfig) -> Wav2Vec2Config:
@@ -321,14 +390,15 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
         hint = np.min
         sampled_steps = None
     else:
-        manifest, batcher, model, caat_cfg, make_loss = build_caat(cfg)
+        build = {"s2s": build_s2s, "ctc": build_ctc}.get(run.task, build_caat)
+        manifest, batcher, model, caat_cfg, make_loss = build(cfg)
         sizes = np.asarray(manifest.n_frames)
         hint = np.max
         # sampled decision-step training (reference step_mode=random,
         # rain/layers/attention_transducer.py:800-815): one trained model
         # serves every DECISION_STEP eval point.  Host-side draw per update.
-        sampled_steps = (caat_cfg.sampled_steps
-                         if caat_cfg.step_mode == "random" else None)
+        sampled_steps = (caat_cfg.sampled_steps if run.task == "caat"
+                         and caat_cfg.step_mode == "random" else None)
     model.to(device)
     if plan is not None:
         plan.prepare(model)
@@ -396,23 +466,58 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
             vbatcher = _valid_batcher(batcher, vman)
         valid_setup = (vbatcher, _batches(vsizes, cfg.data.max_tokens,
                                           n_data),
-                       vsizes, make_loss(mc0, rc0, train=False))
+                       vsizes, make_loss(mc0, rc0, train=False),
+                       _valid_decoder(cfg, model, vbatcher, plan))
 
     @torch.no_grad()
-    def validate() -> float:
-        vbatcher, vbatches, vsz, vloss_fn = valid_setup
-        tot = torch.zeros(2, dtype=torch.float64)
+    def validate():
+        """(loss per sample, BLEU / WER of the greedy decode or None,
+        accuracy (s2s) or None)."""
+        from wav2vec_s_tpu_torch.stream.searcher import detok_pieces
+
+        vbatcher, vbatches, vsz, vloss_fn, vdecode = valid_setup
+        tot = torch.zeros(3, dtype=torch.float64)
+        pairs = []             # per batch: (hypothesis, reference) per row
         for i, bidx in enumerate(vbatches):
             keyed = {"key": (0, i)} if pretrain else {}
+            rows = _rows(len(bidx))
             hb = vbatcher.collate(bidx, size_hint=int(hint(vsz[bidx])),
-                                  rows=_rows(len(bidx)), **keyed)
-            loss, size, _ = vloss_fn(to_device(hb, device), None, 0)
-            tot += torch.tensor([float(loss), float(size)],
+                                  rows=rows, **keyed)
+            vb = to_device(hb, device)
+            loss, size, logs = vloss_fn(vb, None, 0)
+            tot += torch.tensor([float(loss), float(size),
+                                 float(logs.get("n_correct", 0.0))],
                                 dtype=torch.float64)
+            if vdecode is not None:
+                pfx, lens = vdecode(vb["source"], vb.get("padding_mask"))
+                texts = (vman.src_texts if cfg.data.task_type == "asr"
+                         else vman.tgt_texts)
+                local = bidx if rows is None else bidx[rows]
+                pairs.append([(detok_pieces(vbatcher.tgt_dict,
+                                            vbatcher.tokenizer,
+                                            pfx[r, 1:lens[r]]), texts[row])
+                              for r, row in enumerate(local)])
         if plan is not None:
             import torch.distributed as dist
             dist.all_reduce(tot, group=plan.data_group)
-        return float(tot[0] / max(float(tot[1]), 1.0))
+            if vdecode is not None:
+                # every data rank's rows of each batch, in rank order: the
+                # global batch's row order
+                parts = [None] * plan.n_data
+                dist.all_gather_object(parts, pairs, group=plan.data_group)
+                pairs = [sum((p[i] for p in parts), [])
+                         for i in range(len(pairs))]
+        hyps = [h for batch in pairs for h, _ in batch]
+        refs = [r for batch in pairs for _, r in batch]
+        n = max(float(tot[1]), 1.0)
+        vacc = float(tot[2]) / n if run.task == "s2s" else None
+        if vdecode is None:
+            return float(tot[0]) / n, None, vacc
+        if run.task == "ctc":
+            from wav2vec_s_tpu_torch.eval.wer import corpus_wer
+            return float(tot[0]) / n, corpus_wer(hyps, refs), vacc
+        from wav2vec_s_tpu_torch.eval.bleu import corpus_bleu
+        return float(tot[0]) / n, corpus_bleu(hyps, refs), vacc
 
     def _rows(n_rows):
         if plan is None:
@@ -512,12 +617,27 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
 
             if valid_setup is not None and run.validate_interval_updates \
                     and host_step % run.validate_interval_updates == 0:
-                vloss = validate()
+                vloss, vscore, vacc = validate()
+                vstats = {"valid_loss": vloss}
+                if vscore is not None:
+                    vstats["valid_wer" if run.task == "ctc"
+                           else "valid_bleu"] = vscore
+                if vacc is not None:
+                    vstats["valid_accuracy"] = vacc
                 if writer:
-                    progress.log({"valid_loss": vloss}, host_step,
-                                 tag="valid")
-                if vloss < best_valid - 1e-6:
-                    best_valid, bad_validations = vloss, 0
+                    progress.log(vstats, host_step, tag="valid")
+                # patience and the best checkpoint track WER for CTC, BLEU
+                # (negated: lower is better) under eval_bleu, else the s2s
+                # accuracy (the reference's --best-checkpoint-metric
+                # accuracy --maximize), else the loss
+                if vscore is not None:
+                    vmetric = vscore if run.task == "ctc" else -vscore
+                elif vacc is not None:
+                    vmetric = -vacc
+                else:
+                    vmetric = vloss
+                if vmetric < best_valid - 1e-6:
+                    best_valid, bad_validations = vmetric, 0
                 else:
                     bad_validations += 1
                     if run.patience and bad_validations >= run.patience:
@@ -562,6 +682,29 @@ def _batches(sizes: np.ndarray, max_tokens: int, n_data: int):
 def _microbatch(x: np.ndarray, k: int) -> np.ndarray:
     b = x.shape[0] // k * k
     return x[:b].reshape((k, b // k) + x.shape[1:])
+
+
+def _valid_decoder(cfg: TrainConfig, model, vbatcher, plan):
+    """The greedy decoder of generation-based validation (rain
+    w2v2_s2s_task.py:199-236; the CTC argmax WER path of fairseq
+    criterions/ctc.py), or None: BLEU under ``run.eval_bleu`` (any
+    fine-tuning task), WER under ``run.eval_wer`` for CTC.  Under a process
+    group the emission loops of the data ranks stop together (FSDP gathers
+    parameters in every step's forward)."""
+    run = cfg.run
+    if run.task == "pretrain" or not (
+            run.eval_bleu or (run.eval_wer and run.task == "ctc")):
+        return None
+    from wav2vec_s_tpu_torch.eval import generator
+
+    mc, rc = cfg.context.main_context, cfg.context.right_context
+    if run.task == "ctc":
+        return generator.make_ctc_greedy_decoder(model, vbatcher.tgt_dict,
+                                                 mc, rc)
+    make = (generator.make_s2s_greedy_decoder if run.task == "s2s"
+            else generator.make_offline_greedy_decoder)
+    return make(model, vbatcher.tgt_dict, mc, rc,
+                group=None if plan is None else plan.data_group)
 
 
 def _valid_batcher(batcher: CaatBatcher, manifest) -> CaatBatcher:

@@ -1,10 +1,12 @@
-"""The two training recipes bound to the generic train step (port of the
-pre-training and CAAT parts of ``wav2vec_s_tpu/train/recipes.py``).
+"""The training recipes bound to the generic train step (port of
+``wav2vec_s_tpu/train/recipes.py``).
 
 - ``make_pretrain_loss_fn``: wav2vec-S streaming pre-training, InfoNCE +
   diversity + features_pen at one (mc, rc) context bucket;
 - ``make_caat_loss_fn``: delay-transducer + label-smoothed CE through the
   joint lattice, prev tokens ``[bos; targets]`` built per call;
+- ``make_s2s_loss_fn`` / ``make_ctc_loss_fn``: the offline-ASR heads
+  (``models/asr.py``), label-smoothed CE with accuracy, and summed CTC;
 - ``sample_context_bucket`` / ``DEFAULT_CONTEXT_BUCKETS``: the host-side
   (mc, rc) draw of the sampled-context schedule;
 - ``make_freeze_mask``: the reference's encoder freeze schedules, by
@@ -19,7 +21,9 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from wav2vec_s_tpu_torch.models.caat.transducer_model import caat_loss
+from wav2vec_s_tpu_torch.models.asr import ctc_loss
+from wav2vec_s_tpu_torch.models.caat.transducer_model import (
+    caat_loss, label_smoothed_ce)
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
 from wav2vec_s_tpu_torch.train.criterion import wav2vec_loss
 
@@ -83,6 +87,66 @@ def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
                                tgt, glens, tgt_lens, caat_cfg)
         n = logs.pop("sample_size")
         return loss, n, {k: v.float() for k, v in logs.items()}
+
+    return loss_fn
+
+
+def make_s2s_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
+                     right_context: Optional[int] = None,
+                     label_smoothing: float = 0.1, train: bool = True,
+                     plan=None):
+    """Label-smoothed CE + accuracy for ``Wav2Vec2Seq2Seq`` (JAX
+    ``make_s2s_loss_fn``): the reference's offline ASR/ST stage, fairseq
+    ``label_smoothed_cross_entropy --label-smoothing 0.1
+    --report-accuracy`` (``eps_i = ls / (V - 1)``); prev tokens are the
+    targets shifted right behind eos.  The sample count is the target
+    tokens; logs ``nll_loss``, ``n_correct`` (argmax == target on target
+    tokens) and ``accuracy``.  ``train`` and ``plan``: as in
+    ``make_caat_loss_fn``."""
+    pad, eos = caat_cfg.pad, caat_cfg.eos
+
+    def loss_fn(batch, generator: torch.Generator, step: int):
+        tgt = batch["targets"]              # [B, U] ends with eos, padded
+        prev = torch.cat([tgt.new_full((tgt.shape[0], 1), eos), tgt[:, :-1]],
+                         dim=1)
+        ctx = _context(generator, tgt, plan) if train else None
+        logits = model(batch["source"], prev,
+                       padding_mask=batch.get("padding_mask"),
+                       main_context=main_context,
+                       right_context=right_context, ctx=ctx)
+        lprobs = torch.log_softmax(logits.float(), dim=-1)
+        loss, nll = label_smoothed_ce(lprobs, tgt, label_smoothing, pad)
+        mask = tgt != pad
+        ntokens = mask.sum().float()
+        n_correct = ((lprobs.argmax(-1) == tgt) & mask).sum().float()
+        return loss, ntokens, {
+            "nll_loss": nll, "n_correct": n_correct,
+            "accuracy": n_correct / torch.clamp(ntokens, min=1.0)}
+
+    return loss_fn
+
+
+def make_ctc_loss_fn(model, pad: int, eos: int,
+                     main_context: Optional[int] = None,
+                     right_context: Optional[int] = None, blank: int = 0,
+                     train: bool = True, plan=None):
+    """Summed CTC for ``Wav2VecCtc`` (JAX ``make_ctc_loss_fn``, fairseq
+    criterions/ctc.py, blank = bos): the targets arrive eos-terminated from
+    ``CaatBatcher`` and the trailing eos is folded into the label padding
+    (fairseq CTC targets carry no eos).  The sample count is the labels;
+    logs ``nll_loss`` (the loss) and ``n_frames``."""
+
+    def loss_fn(batch, generator: torch.Generator, step: int):
+        tgt = batch["targets"]
+        ctx = _context(generator, tgt, plan) if train else None
+        logits, lpad = model(batch["source"],
+                             padding_mask=batch.get("padding_mask"),
+                             main_context=main_context,
+                             right_context=right_context, ctx=ctx)
+        tpad = (tgt == pad) | (tgt == eos)
+        loss = ctc_loss(logits, lpad, tgt, tpad, blank=blank)
+        return loss, (~tpad).sum().float(), {
+            "nll_loss": loss, "n_frames": (~lpad).sum().float()}
 
     return loss_fn
 
