@@ -253,7 +253,31 @@ Phases, each printed on its own line:
                against its twin (bit-equal outputs and masks, forward mask
                == backward mask) at every (shape, dtype, rate) that the
                training calls of (b) and (c) dropped.
-Each of the full paths runs with every launch count set to 0 just before
+  18. families — the fbank and text CAAT families (models/fbank.py,
+               models/text_caat.py, stream/fbank_engine.py).  (a) Tiny, float32,
+               the recipe's dropouts on: every fbank front-end x jointer and
+               the text model, loss (rtol 1e-5) and every gradient (|diff|
+               <= 1e-4 |g| + 1e-5 max |g|) on the card against the CPU; the
+               fbank agent's texts and delays equal
+               (tools/family_parity.py, shared with the card tests).  (b)
+               The training entry point on configs/caat_simulasr_base.yaml
+               with data.features=fbank, shallow2d + mha, the word tokenizer,
+               a 10000-entry dict, run.w2v2_model_path naming no file (the
+               family ignores it): Base + CAAT base, bf16, B 8 x 10 s (1008
+               log-mel frames), 2 warm + 10 timed updates and one validation
+               of 8 wavs with its greedy decode; then one update at full
+               width for each other front-end (vgg2d, resnet, resnet_small)
+               and jointer (concat, attention), peak memory each.  (c) The
+               same entry point with data.features=text: 64 seeded pairs
+               (sources of 58-61 tokens, targets of 21-61), B 16, 2 warm +
+               10 timed updates.  K4 and the warp set's two fused walks in
+               every update, K1 / K2 / K3 none (the families' encoders run
+               the dense block bias); updates/s, peak memory, K4 and walk
+               launches per update.  (d) eval.cli simul on (b)'s checkpoint,
+               2 streams of 4 s: AL, audio-sec/s.  Then K4 against its twin
+               at every (shape, dtype, rate) that (b) and (c) dropped.
+Each phase prints its wall seconds ("phase clock"), and the whole script's
+before the card line.  Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
 least time the card could take: bytes over 3.35 TB/s or operations over the
 peak rate of their type, whichever is larger; for the lattice recursions
@@ -1019,7 +1043,7 @@ def _lattice_inputs(dev, B, T, U, V, seed):
     acts = torch.randn((B, T, U, V), generator=g, device=dev)
     labels = torch.randint(1, V, (B, U - 1), generator=g, device=dev)
     # ragged: the first utterance fills the lattice, the others do not
-    al = torch.randint(T // 2, T + 1, (B,), generator=g, device=dev)
+    al = torch.randint(max(1, T // 2), T + 1, (B,), generator=g, device=dev)
     ll = torch.randint(U // 2, U, (B,), generator=g, device=dev)
     al[0], ll[0] = T, U - 1
     dv = delay_cost_diag_positive((B, T, U), al, ll)
@@ -1044,7 +1068,7 @@ PROBE_STEPS = 20000        # dependent steps of one probe launch
 CHAIN_LOADS = 4096         # dependent loads of one load-chain launch
 
 
-def _lattice_f64(lpb, lpe, al, ll, dv, valid, kernel_out):
+def _lattice_f64(lpb, lpe, al, ll, dv, valid, kernel_out, label):
     """err/(1+|x|) against float64 twins (on the CPU) of each lattice
     kernel alone, of the block set's unfused sequence and of the fused
     walks, each beside the f32 twins' own; printed on one line.
@@ -1100,7 +1124,7 @@ def _lattice_f64(lpb, lpe, al, ll, dv, valid, kernel_out):
         errs[name] = _rel_err(cpu(got), want, w)
         errs[f"f32 twin {name}"] = _rel_err(
             lattice.affine_rows(*r32, reverse=rev), want, w)
-    print(f"phase lattice: {list(shape)} {kernels.lattice_path(shape[2])} "
+    print(f"phase {label}: {list(shape)} {kernels.lattice_path(shape[2])} "
           f"set, err/(1+|x|) vs float64 twins: "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + " (ad, bd: the unfused sequence; walk ad, walk bd: the fused "
@@ -1256,7 +1280,7 @@ LAT_TOL = {"alphas": 2e-5, "betas": 5e-5, "affine_rows": 2e-5,
 BLOCK_WALK_F64_TOL = 1e-5
 
 
-def _check_loss(loss_grad, acts, shape):
+def _check_loss(loss_grad, acts, shape, label="lattice"):
     """The loss and d/dacts through the kernels (CUDA, f32) against the
     twins on the CPU in float64; the f32 twins' own error is printed beside
     it (their prefix form cancels large partial sums, see PERF.md)."""
@@ -1268,7 +1292,7 @@ def _check_loss(loss_grad, acts, shape):
         errs_vs_f64[name] = (
             _rel_err(t, ref[0]), _rel_err(d, ref[1]),
             ((g_ - ref[2]).abs().max() / ref[2].abs().max()).item())
-    print(f"phase lattice: {list(shape)} loss vs float64 twins (total "
+    print(f"phase {label}: {list(shape)} loss vs float64 twins (total "
           f"err/(1+|x|), delay err/(1+|x|), grad max|diff|/max|g|): "
           + "; ".join(f"{k} " + ", ".join(f"{e:.3g}" for e in v)
                       for k, v in errs_vs_f64.items())
@@ -1296,6 +1320,122 @@ def _check_loss(loss_grad, acts, shape):
         errs_vs_f64, bound)
 
 
+def _hold_lattice(dev, B, T, U, V, seed, label):
+    """Phase 5's comparison at one lattice [B, T, U] (seeded inputs over V
+    symbols, ragged lengths): K5a, K5b, K6 and both fused walks on the set
+    that ``kernels.lattice_path`` picks against their twins at
+    ``LAT_TOL``, and every one against float64 twins (the block set's
+    walks held there at ``BLOCK_WALK_F64_TOL``) -> a namespace of the
+    inputs, the set, ``errs`` (vs the twins), ``f64`` (vs float64) and
+    ``abs_errs`` (max |diff| vs the twins, per kernel)."""
+    import types
+
+    import torch
+    from wav2vec_s_tpu_torch.ops.transducer import kernels, lattice
+
+    acts, labels, al, ll, dv, lpb, lpe = _lattice_inputs(dev, B, T, U, V,
+                                                         seed)
+    valid = ((torch.arange(T, device=dev)[None, :, None]
+              < al[:, None, None])
+             & (torch.arange(U, device=dev)[None, None, :]
+                <= ll[:, None, None]))
+    path = kernels.lattice_path(U)
+    _reset_counts()
+    a_k = kernels.alphas(lpb, lpe)
+    a_t = lattice.alphas(lpb, lpe)
+    b_k = kernels.betas(lpb, lpe, al, ll)
+    b_t = lattice.betas(lpb, lpe, al, ll)[0]
+    t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
+    down, up = lattice.beta_shifts(b_k, ll)
+    ad_k = lattice.expected_delay(lpb, lpe, a_k, dv,
+                                  rows=kernels.affine_rows)
+    ad_t = lattice.expected_delay(lpb, lpe, a_k, dv)
+    bd_k = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
+                                      t_valid, emit_ok,
+                                      rows=kernels.affine_rows)[0]
+    bd_t = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
+                                      t_valid, emit_ok)[0]
+    fa, fad = kernels.alphas_and_expected_delay(lpb, lpe, dv)
+    fb, fbd = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
+    f_down, f_up = lattice.beta_shifts(fb, ll)
+    fad_t = lattice.expected_delay(lpb, lpe, fa, dv)
+    fbd_t = lattice.expected_delay_bwd(lpb, lpe, fb, f_down, f_up, dv,
+                                       t_valid, emit_ok)[0]
+    torch.cuda.synchronize()
+    # every launch on the chosen set: the single recursions called
+    # above and each fused walk once
+    counts, sets = _counts(), _set_paths()
+    singles = {"K5a": 1, "K5b": 1, "K6": 2}
+    on = "" if path == kernels.WARP else "_block"
+    for name in WALKS:
+        assert counts[name + on] == 1, counts
+    for k, n in singles.items():
+        want = {kernels.WARP: 0, kernels.BLOCK: 0}
+        want[path] = n
+        assert sets[k] == want, (k, sets)
+    f64, ref = _lattice_f64(
+        lpb, lpe, al, ll, dv, valid,
+        {"alphas": a_k, "betas": b_k, "ad": ad_k, "bd": bd_k,
+         "walk a": fa, "walk ad": fad, "walk b": fb, "walk bd": fbd},
+        label)
+    errs = {"alphas": _rel_err(a_k, a_t),
+            "betas": _rel_err(b_k, b_t, valid),
+            "affine_rows": max(_rel_err(ad_k, ad_t),
+                               _rel_err(bd_k, bd_t, valid)),
+            "forward_walk alphas": _rel_err(fa, a_t),
+            "forward_walk ad": _rel_err(fad, fad_t),
+            "reverse_walk betas": _rel_err(fb, b_t, valid),
+            "reverse_walk bd": _rel_err(fbd, fbd_t, valid)}
+    if path == kernels.BLOCK:
+        # the block set's walks normalise each cell's transition
+        # probabilities (csrc/transducer.cu), the twin rows take them
+        # from the stored alpha: held to float64 instead, at a fixed
+        # bound and within twice the f32 twins' own error
+        del errs["forward_walk ad"], errs["reverse_walk bd"]
+        for k in ("ad", "bd"):
+            walk, twin = f64[f"walk {k}"], f64[f"f32 twin {k}"]
+            assert walk <= BLOCK_WALK_F64_TOL, (B, T, U, k, f64)
+            assert walk <= max(2 * twin, 1e-6), (B, T, U, k, f64)
+        fad_t, fbd_t = (ref[k].to(dev, torch.float32) for k in ("ad",
+                                                               "bd"))
+    print(f"phase {label}: [{B},{T},{U}] {path} set, err/(1+|x|) vs "
+          f"twin: " + ", ".join(f"{k} {v:.3g} (tol {LAT_TOL[k]:g})"
+                                 for k, v in errs.items()))
+    for k, v in errs.items():
+        assert v <= LAT_TOL[k], (B, T, U, k, v)
+    abs_errs = {
+        "alphas": (a_k - a_t).abs().max().item(),
+        "betas": (b_k - b_t).abs()[valid].max().item(),
+        "affine_rows": max((ad_k - ad_t).abs().max().item(),
+                           (bd_k - bd_t).abs()[valid].max().item()),
+        "forward_walk": max((fa - a_t).abs().max().item(),
+                            (fad - fad_t).abs().max().item()),
+        "reverse_walk": max((fb - b_t).abs()[valid].max().item(),
+                            (fbd - fbd_t).abs()[valid].max().item())}
+    return types.SimpleNamespace(
+        acts=acts, labels=labels, al=al, ll=ll, dv=dv, lpb=lpb, lpe=lpe,
+        path=path, errs=errs, f64=f64, abs_errs=abs_errs)
+
+
+def _loss_grad(lat):
+    """acts -> (total [B], delay [B], d/dacts) of the delay-transducer loss
+    on ``lat``'s labels, lengths and delays (``_hold_lattice``), on the
+    device and in the dtype of acts, rows weighted 1..B."""
+    import torch
+    from wav2vec_s_tpu_torch.ops.transducer import analytic
+
+    def loss_grad(a):
+        a = a.detach().clone().requires_grad_(True)
+        total, prob, delay = analytic.delay_transducer_loss(
+            a, lat.labels.to(a.device), lat.al.to(a.device),
+            lat.ll.to(a.device), lat.dv.to(a.device))
+        w = torch.arange(1, a.shape[0] + 1, device=a.device, dtype=a.dtype)
+        (total * w).sum().backward()
+        return total.detach(), delay.detach(), a.grad
+
+    return loss_grad
+
+
 def phase_lattice():
     """K5a, K5b, K6 (forward and reverse) and the two fused walks vs their
     twins on the kernel set that ``kernels.lattice_path`` picks, then the
@@ -1319,94 +1459,11 @@ def phase_lattice():
     block_set = mock.patch.object(kernels, "lattice_path",
                                   lambda U: kernels.BLOCK)
     for i, (B, T, U, V) in enumerate(LATTICE_SHAPES):
-        acts, labels, al, ll, dv, lpb, lpe = _lattice_inputs(dev, B, T, U,
-                                                             V, i)
-        valid = ((torch.arange(T, device=dev)[None, :, None]
-                  < al[:, None, None])
-                 & (torch.arange(U, device=dev)[None, None, :]
-                    <= ll[:, None, None]))
-        path = kernels.lattice_path(U)
-        _reset_counts()
-        a_k = kernels.alphas(lpb, lpe)
-        a_t = lattice.alphas(lpb, lpe)
-        b_k = kernels.betas(lpb, lpe, al, ll)
-        b_t = lattice.betas(lpb, lpe, al, ll)[0]
-        t_valid, emit_ok = lattice.lattice_masks((B, T, U), al, ll)
-        down, up = lattice.beta_shifts(b_k, ll)
-        ad_k = lattice.expected_delay(lpb, lpe, a_k, dv,
-                                      rows=kernels.affine_rows)
-        ad_t = lattice.expected_delay(lpb, lpe, a_k, dv)
-        bd_k = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
-                                          t_valid, emit_ok,
-                                          rows=kernels.affine_rows)[0]
-        bd_t = lattice.expected_delay_bwd(lpb, lpe, b_k, down, up, dv,
-                                          t_valid, emit_ok)[0]
-        fa, fad = kernels.alphas_and_expected_delay(lpb, lpe, dv)
-        fb, fbd = kernels.betas_and_expected_delay_bwd(lpb, lpe, al, ll, dv)
-        f_down, f_up = lattice.beta_shifts(fb, ll)
-        fad_t = lattice.expected_delay(lpb, lpe, fa, dv)
-        fbd_t = lattice.expected_delay_bwd(lpb, lpe, fb, f_down, f_up, dv,
-                                           t_valid, emit_ok)[0]
-        torch.cuda.synchronize()
-        # every launch on the chosen set: the single recursions called
-        # above and each fused walk once
-        counts, sets = _counts(), _set_paths()
-        singles = {"K5a": 1, "K5b": 1, "K6": 2}
-        on = "" if path == kernels.WARP else "_block"
-        for name in WALKS:
-            assert counts[name + on] == 1, counts
-        for k, n in singles.items():
-            want = {kernels.WARP: 0, kernels.BLOCK: 0}
-            want[path] = n
-            assert sets[k] == want, (k, sets)
-        f64, ref = _lattice_f64(
-            lpb, lpe, al, ll, dv, valid,
-            {"alphas": a_k, "betas": b_k, "ad": ad_k, "bd": bd_k,
-             "walk a": fa, "walk ad": fad, "walk b": fb, "walk bd": fbd})
-        errs = {"alphas": _rel_err(a_k, a_t),
-                "betas": _rel_err(b_k, b_t, valid),
-                "affine_rows": max(_rel_err(ad_k, ad_t),
-                                   _rel_err(bd_k, bd_t, valid)),
-                "forward_walk alphas": _rel_err(fa, a_t),
-                "forward_walk ad": _rel_err(fad, fad_t),
-                "reverse_walk betas": _rel_err(fb, b_t, valid),
-                "reverse_walk bd": _rel_err(fbd, fbd_t, valid)}
-        if path == kernels.BLOCK:
-            # the block set's walks normalise each cell's transition
-            # probabilities (csrc/transducer.cu), the twin rows take them
-            # from the stored alpha: held to float64 instead, at a fixed
-            # bound and within twice the f32 twins' own error
-            del errs["forward_walk ad"], errs["reverse_walk bd"]
-            for k in ("ad", "bd"):
-                walk, twin = f64[f"walk {k}"], f64[f"f32 twin {k}"]
-                assert walk <= BLOCK_WALK_F64_TOL, (B, T, U, k, f64)
-                assert walk <= max(2 * twin, 1e-6), (B, T, U, k, f64)
-            fad_t, fbd_t = (ref[k].to(dev, torch.float32) for k in ("ad",
-                                                                   "bd"))
-        print(f"phase lattice: [{B},{T},{U}] {path} set, err/(1+|x|) vs "
-              f"twin: " + ", ".join(f"{k} {v:.3g} (tol {LAT_TOL[k]:g})"
-                                     for k, v in errs.items()))
-        for k, v in errs.items():
-            assert v <= LAT_TOL[k], (B, T, U, k, v)
-        abs_errs = {
-            "alphas": (a_k - a_t).abs().max().item(),
-            "betas": (b_k - b_t).abs()[valid].max().item(),
-            "affine_rows": max((ad_k - ad_t).abs().max().item(),
-                               (bd_k - bd_t).abs()[valid].max().item()),
-            "forward_walk": max((fa - a_t).abs().max().item(),
-                                (fad - fad_t).abs().max().item()),
-            "reverse_walk": max((fb - b_t).abs()[valid].max().item(),
-                                (fbd - fbd_t).abs()[valid].max().item())}
-
-        def loss_grad(a):
-            a = a.detach().clone().requires_grad_(True)
-            total, prob, delay = analytic.delay_transducer_loss(
-                a, labels.to(a.device), al.to(a.device), ll.to(a.device),
-                dv.to(a.device))
-            w = torch.arange(1, B + 1, device=a.device, dtype=a.dtype)
-            (total * w).sum().backward()
-            return total.detach(), delay.detach(), a.grad
-
+        lat = _hold_lattice(dev, B, T, U, V, i, "lattice")
+        acts, labels, al, ll, dv, lpb, lpe, path, abs_errs = (
+            lat.acts, lat.labels, lat.al, lat.ll, lat.dv, lat.lpb, lat.lpe,
+            lat.path, lat.abs_errs)
+        loss_grad = _loss_grad(lat)
         if i in LAT_LOSS:
             _check_loss(loss_grad, acts, (B, T, U, V))
         del acts
@@ -3996,12 +4053,12 @@ def phase_asr_full(card):
         paths.update(_asr_train_calls(root, train, valid, card, sites))
         paths.update(_asr_large_call(root, train, card, sites))
         paths.update(_asr_eval_calls(root, card))
-    return paths, _asr_dropout(sites)
+    return paths, _hold_sites(sites, "asr")
 
 
-def _asr_dropout(sites):
-    """K4 == its twin at each (shape, dtype, rate) that the training calls
-    of 17b-c dropped -> the max abs error."""
+def _hold_sites(sites, label):
+    """K4 == its twin at each (shape, dtype, rate) that a phase's training
+    calls dropped -> the max abs error."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(6)
@@ -4011,8 +4068,8 @@ def _asr_dropout(sites):
         err, _ = _hold_dropout(x, p, DROPOUT_SEED, 17)
         worst = max(worst, err)
         del x
-    print(f"phase asr dropout: K4 at the {len(sites)} (shape, dtype, rate) "
-          f"sites of the Base and Large training calls: outputs and masks "
+    print(f"phase {label} dropout: K4 at the {len(sites)} (shape, dtype, "
+          f"rate) sites of the phase's training calls: outputs and masks "
           f"bit-equal to the twin, fwd == bwd mask: "
           f"{sorted((s, str(d)[6:], p) for s, d, p in sites)}")
     torch.cuda.empty_cache()
@@ -4189,6 +4246,298 @@ def _asr_eval_calls(root, card):
     return paths
 
 
+# -- phase 18: the fbank and text CAAT families -----------------------------
+FAMILY_CLIPS = 16          # fbank training wavs of 10 s: two batches of 8
+FAMILY_VALID = 8           # fbank validation wavs of 10 s: one batch
+FAMILY_PAIRS = 64          # text pairs: four batches of 16
+FAMILY_SRC = (57, 61)      # source words per pair (+ eos: 58-61 tokens)
+FAMILY_TGT = (20, 61)      # target words per pair
+FAMILY_SIMUL = 2           # simul streams of 4 s on 18b's checkpoint
+#: 18b's one-update calls at full width: (frontend, jointer)
+FAMILY_VARIANTS = (("vgg2d", "mha"), ("resnet", "mha"),
+                   ("resnet_small", "mha"), ("shallow2d", "concat"),
+                   ("shallow2d", "attention"))
+
+
+def phase_family_parity():
+    """18a (``tools/family_parity.py``): every fbank front-end x jointer
+    and the text model at tiny widths, float32, the recipe's dropouts on:
+    loss and every gradient on the card against the CPU; the fbank agent's
+    texts and delays on the card equal the CPU's."""
+    from wav2vec_s_tpu_torch.tools import family_parity as fp
+
+    rtol, atol = fp.GRAD_TOL
+    for case in fp.CASES:
+        cpu, card = (fp.loss_and_grads(*case, dev) for dev in ("cpu",
+                                                               "cuda"))
+        rel, worst = fp.gap(cpu, card)
+        print(f"phase family parity: tiny {'/'.join(filter(None, case))}, "
+              f"float32, dropouts on: loss cpu {cpu[0]:.6f} cuda "
+              f"{card[0]:.6f} (rel diff {rel:.3g}, tol {fp.LOSS_RTOL:g}); "
+              f"{len(card[1])} gradients within {worst:.3g} of the bound "
+              f"|diff| <= {rtol:g} |g| + {atol:g} max |g|")
+        assert rel <= fp.LOSS_RTOL and worst <= 1.0, (case, rel, worst)
+    cpu, card = fp.agent("cpu"), fp.agent("cuda")
+    assert card == cpu and any(text for text, _ in card), (cpu, card)
+    print(f"phase family parity: tiny fbank agent (SimulEvaluator, beam 2) "
+          f"cuda == cpu, texts and delays: "
+          f"{[(text[:24], delays[:3]) for text, delays in card]}")
+
+
+def _family_corpus(root):
+    """18b-c's files: ``FAMILY_CLIPS`` + ``FAMILY_VALID`` seeded-noise wavs
+    of 10 s (S2T tsvs, 20-word transcripts), 2 of 4 s for simul, the
+    10000-entry word dict, ``FAMILY_PAIRS`` seeded sentence pairs."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+
+    _asr_dicts(root)
+    train = _asr_corpus(root, "fbank", FAMILY_CLIPS, SECONDS, 4)[1]
+    valid = _asr_corpus(root, "fbankvalid", FAMILY_VALID, SECONDS, 5)[1]
+    rng = np.random.default_rng(6)
+    S = int(4.0 * 16000)
+    lines = ["id\taudio\tn_frames\ttgt_text"]
+    for i in range(FAMILY_SIMUL):
+        write_wav(root / f"simul{i}.wav",
+                  rng.standard_normal(S).astype(np.float32) * 0.1)
+        lines.append(f"simul{i}\t{root}/simul{i}.wav\t{S}\t"
+                     + " ".join(f"w{j}" for j in rng.integers(0, 9990, 10)))
+    (root / "simul.tsv").write_text("\n".join(lines) + "\n")
+    pairs = ["id\tsrc_text\ttgt_text"]
+    for i in range(FAMILY_PAIRS):
+        src, tgt = (" ".join(f"w{j}" for j in rng.integers(
+            0, 9990, rng.integers(*span))) for span in (FAMILY_SRC,
+                                                        FAMILY_TGT))
+        pairs.append(f"p{i}\t{src}\t{tgt}")
+    (root / "bitext.tsv").write_text("\n".join(pairs) + "\n")
+    return train, valid, root / "bitext.tsv"
+
+
+def _family_call(argv, sites, lattices, updates):
+    """One trainer call (``_run_asr_cli``) of ``updates`` updates ->
+    (counts, records, peak GB, updates/s over the timed ones or None,
+    wall s); each lattice [B, G, U] that a fused walk of the loss took
+    added to ``lattices`` ({shape: the walks that took it})."""
+    import math
+    import types
+    from unittest import mock
+
+    from wav2vec_s_tpu_torch.ops.transducer import analytic, kernels
+
+    def recorded(walk, name):
+        def call(lp_blank, *args):
+            lattices.setdefault(tuple(lp_blank.shape), set()).add(name)
+            return walk(lp_blank, *args)
+        return call
+
+    walks = types.SimpleNamespace(
+        alphas_and_expected_delay=recorded(
+            kernels.alphas_and_expected_delay, "forward"),
+        betas_and_expected_delay_bwd=recorded(
+            kernels.betas_and_expected_delay_bwd, "reverse"))
+    t = time.perf_counter()
+    with mock.patch.object(analytic, "kernels", walks):
+        counts, sets, recs, kept, peak = _run_asr_cli(argv, sites)
+    wall = time.perf_counter() - t
+    train = [r for r in recs if r["tag"] == "train"]
+    assert [r["step"] for r in train] == list(range(1, updates + 1))
+    assert all(math.isfinite(r["loss_total"]) and math.isfinite(
+        r["grad_norm"]) and r["skipped"] == 0.0 for r in train), train
+    # dense attention everywhere: no K1, K2 or K3; K4 and the warp set's
+    # two fused walks in every update
+    assert counts["chunk_cache_attention"] == counts[
+        "blockwise_flash_attention_packed"] == counts[
+        "blockwise_flash_attention_bwd"] == 0, counts
+    assert counts["hw_dropout"] > 0 and all(
+        counts[w] > 0 and counts[w + "_block"] == 0 for w in WALKS), counts
+    ups = None
+    if updates > ASR_WARM:
+        ups = ASR_TIMED / (train[-1]["at"] - train[ASR_WARM - 1]["at"])
+    return counts, recs, peak, ups, wall
+
+
+def _hold_walks(lattices, V):
+    """Phase 5's comparison (``_hold_lattice``, then the loss and its
+    gradient against float64 twins) at every lattice [B, G, U] that a
+    phase's training calls walked, over V symbols -> {walk: max |diff|
+    against its twin}; the worst of each walk's errors printed."""
+    import torch
+
+    dev = torch.device("cuda")
+    worst = {}
+    keys = {"forward_walk": ("forward_walk alphas", "forward_walk ad"),
+            "reverse_walk": ("reverse_walk betas", "reverse_walk bd")}
+    f64_keys = {"forward_walk": ("walk a", "walk ad"),
+                "reverse_walk": ("walk b", "walk bd")}
+    for i, (B, G, U) in enumerate(sorted(lattices)):
+        lat = _hold_lattice(dev, B, G, U, V, i, "family lattice")
+        _check_loss(_loss_grad(lat), lat.acts, (B, G, U, V),
+                    "family lattice")
+        for walk in keys:
+            for k in (*keys[walk], walk):
+                err = lat.errs.get(k, lat.abs_errs.get(k))
+                worst[k] = max(worst.get(k, 0.0), err)
+            for k in f64_keys[walk]:
+                worst["f64 " + k] = max(worst.get("f64 " + k, 0.0),
+                                        lat.f64[k])
+        del lat
+    torch.cuda.empty_cache()
+    print(f"phase family walks: the fused walks at the {len(lattices)} "
+          f"lattices [B, G, U] of the phase's training calls "
+          f"{sorted((s, sorted(w)) for s, w in lattices.items())}, V {V}; "
+          f"the worst over them: "
+          + "; ".join(
+              f"{walk}: max |diff| vs twin {worst[walk]:.3g}, err/(1+|x|) "
+              f"vs twin " + ", ".join(
+                  f"{k.split()[1]} {worst[k]:.3g} (tol {LAT_TOL[k]:g})"
+                  for k in keys[walk])
+              + ", vs float64 " + ", ".join(
+                  f"{k} {worst['f64 ' + k]:.3g}" for k in f64_keys[walk])
+              for walk in keys))
+    return {walk: worst[walk] for walk in keys}
+
+
+def _collate_ms(yaml, overrides):
+    """{features: host ms of ``CaatBatcher.collate`` of the manifest's
+    first 8 rows (mean of 3)} for fbank (log-mel, Whiten, TFMask) and raw
+    audio."""
+    from wav2vec_s_tpu_torch.train import cli, config
+
+    out = {}
+    for features in ("fbank", "raw"):
+        cfg = config.load_config(yaml, [*overrides,
+                                        f"data.features={features}"])
+        batcher = cli._s2t_data(cfg)[2]
+        t = time.perf_counter()
+        for _ in range(3):
+            batcher.collate(np.arange(8))
+        out[features] = round((time.perf_counter() - t) / 3 * 1e3, 2)
+    return out
+
+
+def phase_family_full(card):
+    """18b-d: the fbank and text families at full width through the entry
+    points a user calls; then K4 against its twin at every dropout site's
+    shape and rate of 18b-c -> ({path: launch counts}, K4's max abs
+    error, {walk: its max abs error at the lattices of 18b-c})."""
+    import pathlib
+    import tempfile
+
+    import torch
+    from wav2vec_s_tpu_torch.data.batching import bucket_for, length_buckets
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+
+    torch.cuda.empty_cache()
+    S = int(SECONDS * 16000)
+    total = ASR_WARM + ASR_TIMED
+    yaml = os.path.join(CONFIGS, "caat_simulasr_base.yaml")
+    paths, sites, lattices = {}, set(), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        train, valid, bitext = _family_corpus(root)
+        print(f"phase family full: {FAMILY_CLIPS} + {FAMILY_VALID} wavs of "
+              f"{SECONDS:g} s, {FAMILY_SIMUL} of 4 s, {FAMILY_PAIRS} "
+              f"sentence pairs and the dict written in "
+              f"{time.perf_counter() - t:.1f} s")
+        # the word tokenizer: no sentencepiece on the card's machine;
+        # run.w2v2_model_path names no file: the fbank family ignores it
+        common = ["--config", yaml, "--device", "cuda", "data.tokenizer=word",
+                  f"data.vocab={root}/words.txt", "run.log_interval=1",
+                  "run.save_interval_updates=0", "run.keep_last=1"]
+        fbank = [*common, "data.features=fbank", f"data.max_tokens={8 * S}",
+                 f"data.max_sample_size={S}", f"data.train_manifest={train}",
+                 "run.w2v2_model_path=/no/such/wav2vec_s_base.pt"]
+
+        # 18b: shallow2d + MHA, 12 updates and one validation with its
+        # greedy decode (run.eval_bleu: run.eval_wer decodes for CTC only,
+        # in both packages)
+        counts, recs, peak, ups, wall = _family_call(
+            [*fbank, "caat.frontend=shallow2d", "caat.jointer_type=mha",
+             f"data.valid_manifest={valid}", "run.eval_bleu=true",
+             f"run.validate_interval_updates={total}",
+             f"run.max_update={total}", f"run.save_dir={root}/fbank"],
+            sites, lattices, total)
+        (vrec,) = [r for r in recs if r["tag"] == "valid"]
+        assert np.isfinite(vrec["valid_loss"]), vrec
+        frames = (S - 400) // 160 + 1
+        bucket = bucket_for(frames, length_buckets(S // 160, multiple=16))
+        losses = [r["loss_total"] for r in recs if r["tag"] == "train"]
+        paths["fbank_cli"] = counts
+        print(f"phase family full: fbank_cli: configs/caat_simulasr_base."
+              f"yaml, data.features=fbank, shallow2d + mha, Base + CAAT "
+              f"base, bf16, the recipe's dropouts, B 8 x {SECONDS:g} s "
+              f"({frames} log-mel frames in a bucket of {bucket}): "
+              f"launches {counts}; per update K4 "
+              f"{counts['hw_dropout'] / total:.1f}, forward walks "
+              f"{counts['transducer_forward_walk'] / total:.2f}, reverse "
+              f"walks {counts['transducer_reverse_walk'] / total:.2f} (the "
+              f"validation's loss adds forward walks); {ASR_WARM} warm + "
+              f"{ASR_TIMED} timed updates -> {ups:.3f} updates/s "
+              f"({8 * SECONDS * ups:.2f} audio-sec/s), peak memory "
+              f"{peak:.3f} GB, loss {losses[0]:.2f} -> {losses[-1]:.2f}, "
+              f"validation {vrec}; the whole call {wall:.1f} s [{card}]")
+        print(f"phase family full: host ms of one training collate of 8 "
+              f"wavs of {SECONDS:g} s (mean of 3; the prefetch thread runs "
+              f"it beside the update's dispatch): "
+              f"{_collate_ms(yaml, common[4:] + fbank[len(common):])} "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+        for frontend, jointer in FAMILY_VARIANTS:
+            name = f"{frontend}+{jointer}"
+            counts, recs, peak, _, wall = _family_call(
+                [*fbank, f"caat.frontend={frontend}",
+                 f"caat.jointer_type={jointer}", "run.max_update=1",
+                 f"run.save_dir={root}/{name}"], sites, lattices, 1)
+            print(f"phase family full: fbank {name}: one update at full "
+                  f"width, B 8 x {SECONDS:g} s, loss "
+                  f"{recs[0]['loss_total']:.2f}, peak memory {peak:.3f} GB, "
+                  f"launches {counts}; the whole call {wall:.1f} s [{card}]")
+            torch.cuda.empty_cache()
+
+        # 18c: the text family, B 16 (every source 58-61 tokens)
+        counts, recs, peak, ups, wall = _family_call(
+            [*common, "data.features=text", f"data.train_manifest={bitext}",
+             f"data.max_tokens={16 * (FAMILY_SRC[1])}",
+             f"run.max_update={total}", f"run.save_dir={root}/text"],
+            sites, lattices, total)
+        losses = [r["loss_total"] for r in recs]
+        paths["text_cli"] = counts
+        print(f"phase family full: text_cli: data.features=text, Base "
+              f"encoder widths + CAAT base, bf16, the recipe's dropouts, "
+              f"B 16 pairs (sources of 58-61 tokens, targets of 21-61): "
+              f"launches {counts}; per update K4 "
+              f"{counts['hw_dropout'] / total:.1f}, forward walks "
+              f"{counts['transducer_forward_walk'] / total:.2f}, reverse "
+              f"walks {counts['transducer_reverse_walk'] / total:.2f}; "
+              f"{ASR_WARM} warm + {ASR_TIMED} timed updates -> {ups:.3f} "
+              f"updates/s, peak memory {peak:.3f} GB, loss "
+              f"{losses[0]:.2f} -> {losses[-1]:.2f}; the whole call "
+              f"{wall:.1f} s [{card}]")
+        torch.cuda.empty_cache()
+
+        # 18d: eval.cli simul on 18b's checkpoint
+        t = time.perf_counter()
+        lines, counts, _, _ = _eval_cli(
+            ["simul", "--config", yaml, "--device", "cuda", "--ckpt-dir",
+             f"{root}/fbank", "--manifest", str(root / "simul.tsv"),
+             "data.features=fbank", "data.tokenizer=word",
+             f"data.vocab={root}/words.txt"])
+        wall = time.perf_counter() - t
+        (scores,) = lines
+        assert scores["num_instances"] == FAMILY_SIMUL and all(
+            np.isfinite(scores[k]) for k in ("AL", "AP", "DAL", "BLEU"))
+        assert not any(counts.values()), counts       # eager, dense, no loss
+        paths["fbank_simul"] = counts
+        print(f"phase family full: fbank_simul: eval.cli simul on "
+              f"fbank_cli's checkpoint, {FAMILY_SIMUL} streams of 4 s: "
+              f"{json.dumps(scores)}; AL {scores['AL']:.1f} ms; the whole "
+              f"call {wall:.1f} s -> {FAMILY_SIMUL * 4.0 / wall:.2f} "
+              f"audio-sec/s (cold: checkpoint read and model build "
+              f"included) [{card}]")
+        V = len(Dictionary.load(root / "words.txt"))
+    return paths, _hold_sites(sites, "family"), _hold_walks(lattices, V)
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -4201,6 +4550,14 @@ def _check_launches(path, counts, sets, want, k2_per_call=None):
     assert counts["blockwise_flash_attention_packed"] == want["K2"], (
         path, counts)
     _on_tensor_cores(sets, dict(want, K3=0))
+
+
+def _clocked(phase, *args):
+    """``phase(*args)``, then its wall seconds on a line of their own."""
+    t = time.perf_counter()
+    out = phase(*args)
+    print(f"phase clock: {phase.__name__}: {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -4219,7 +4576,7 @@ def main() -> int:
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, cuda {torch.version.cuda})")
 
-    t = time.perf_counter()
+    t = start = time.perf_counter()
     native.library()
     print(f"phase build: {time.perf_counter() - t:.1f} s "
           f"(nvcc {native.build_seconds and round(native.build_seconds, 1)} s)"
@@ -4227,34 +4584,45 @@ def main() -> int:
           + "; ".join(f"{name}: {regs}, {spilled}" for name, regs, spilled
                       in native.ptxas_summary(native.build_log)))
 
-    k1 = phase_kernel()
-    k2 = phase_flash()
-    k3 = phase_flash_bwd()
-    pretrain_calls = phase_flash_pretrain()
-    k4 = phase_dropout()
-    lat = phase_lattice()
-    phase_parity()
-    phase_oneshot_parity()
-    same_in_bf16 = phase_beam_parity()
-    phase_serving_parity()
-    phase_train_parity()
-    phase_train_flash_parity()
-    phase_pretrain_parity()
-    paths = {"agent": phase_full(card), "one_shot": phase_oneshot_full(card)}
-    paths.update(phase_beam_full(card, same_in_bf16))
+    k1 = _clocked(phase_kernel)
+    k2 = _clocked(phase_flash)
+    k3 = _clocked(phase_flash_bwd)
+    pretrain_calls = _clocked(phase_flash_pretrain)
+    k4 = _clocked(phase_dropout)
+    lat = _clocked(phase_lattice)
+    _clocked(phase_parity)
+    _clocked(phase_oneshot_parity)
+    same_in_bf16 = _clocked(phase_beam_parity)
+    _clocked(phase_serving_parity)
+    _clocked(phase_train_parity)
+    _clocked(phase_train_flash_parity)
+    _clocked(phase_pretrain_parity)
+    paths = {"agent": _clocked(phase_full, card),
+             "one_shot": _clocked(phase_oneshot_full, card)}
+    paths.update(_clocked(phase_beam_full, card, same_in_bf16))
     (paths["train_dense"], paths["train_long"], dense_ups,
-     dense_gb) = phase_train_full(card)
-    paths["cli_flash"] = phase_cli_full(card)
-    paths.update(phase_eval_cli_full(card))
-    paths["serving"] = phase_serving_full(card)
-    paths.update(phase_pretrain_full(card))
-    for name, counts in phase_ddp(card).items():
+     dense_gb) = _clocked(phase_train_full, card)
+    paths["cli_flash"] = _clocked(phase_cli_full, card)
+    paths.update(_clocked(phase_eval_cli_full, card))
+    paths["serving"] = _clocked(phase_serving_full, card)
+    paths.update(_clocked(phase_pretrain_full, card))
+    for name, counts in _clocked(phase_ddp, card).items():
         paths["ddp " + name] = counts
-    phase_cli_parallel(card)
-    phase_asr_parity()
-    asr_paths, asr_k4_err = phase_asr_full(card)
+    _clocked(phase_cli_parallel, card)
+    _clocked(phase_asr_parity)
+    asr_paths, asr_k4_err = _clocked(phase_asr_full, card)
     paths.update(asr_paths)
-    k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err)
+    _clocked(phase_family_parity)
+    family_paths, family_k4_err, family_walk_errs = _clocked(
+        phase_family_full, card)
+    paths.update(family_paths)
+    k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err, family_k4_err)
+    for walk, err in family_walk_errs.items():
+        lat[walk]["max_abs_err"] = max(lat[walk]["max_abs_err"], err)
+    # K4 and the warp set's two fused walks carry both families' training
+    for path in ("fbank_cli", "text_cli"):
+        assert all(paths[path][name] > 0 for name in (
+            "hw_dropout", *WALKS)), (path, paths[path])
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 
@@ -4297,6 +4665,8 @@ def main() -> int:
             b: {"ms": t[f"{key}_ms"], "bound_ms": t[f"{key}_bound_ms"],
                 "library_ms": t[f"{key}_library_ms"], "S": t["S"]}
             for b, t in pretrain_calls.items()}
+    print(f"phase clock: the whole script {time.perf_counter() - start:.1f} "
+          f"s")
     print(card)
     print(json.dumps({"kernels": [
         dict({"name": name, "route": "cuda", "source": src + file,

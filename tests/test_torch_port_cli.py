@@ -490,8 +490,6 @@ def test_cli_patience_stops_early(corpus, capsys):
 
 
 UNSUPPORTED = {
-    "fbank": ({"data.features": "fbank"}, "item 12"),
-    "text": ({"data.features": "text"}, "item 12"),
     "seq_zero": ({"run.seq": 2, "run.zero": "true"}, "item 11b"),
     "remat": ({"run.remat": "dots"}, "item 9"),
     "flat_optimizer": ({"run.flat_optimizer": "true"}, "item 9"),

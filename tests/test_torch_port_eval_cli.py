@@ -12,8 +12,12 @@ port's ``CheckpointManager``, every subcommand with ``--device cpu``.
   files; ``average`` of two checkpoints writes their mean; ``eval-lm``
   equals the NLL summed by hand over ``W2V2CaatModel.lm_log_probs``, which
   equals the JAX model's (1e-5);
-- ``--decoder fused`` and the fbank features raise
-  ``NotImplementedError`` naming their ROADMAP item; ``--device cuda``
+- ``--decoder fused`` raises ``NotImplementedError`` naming its ROADMAP
+  list, ``batch-decode`` of an fbank configuration a ``ValueError`` that
+  names the subcommands which decode it, and ``simul`` of an fbank
+  configuration over this raw-audio checkpoint the strict load's error
+  (the fbank and text paths are held in
+  ``test_torch_port_family_cli.py``); ``--device cuda
   raises without a card (``generate`` and ``ctc-decode`` are held against
   the JAX CLI in ``test_torch_port_asr_cli.py``).
 
@@ -305,11 +309,14 @@ def test_eval_lm_equals_direct_nll(corpus, capsys):
 RAISES = {
     "fused": (["batch-decode", "--manifest", "{tsv}", "--decoder", "fused"],
               NotImplementedError, "Not to port"),
+    # the fbank family decodes through simul / interactive alone
     "fbank_batch_decode": (["batch-decode", "--manifest", "{tsv}",
-                            "data.features=fbank"], NotImplementedError,
-                           "item 12"),
+                            "data.features=fbank"], ValueError,
+                           "'simul' and 'interactive'"),
+    # an fbank configuration over this raw-audio checkpoint: the strict
+    # load refuses it
     "fbank_simul": (["simul", "--manifest", "{tsv}", "data.features=fbank"],
-                    NotImplementedError, "item 12"),
+                    RuntimeError, "Missing key"),
 }
 
 

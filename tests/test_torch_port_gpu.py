@@ -5,9 +5,12 @@ plain twins, the tiny cached and one-shot decodes, the four tiny beam
 decodes, the tiny training step and a tiny run of the training CLI on the
 card against the same on the CPU, the flash kernels at the pre-training
 call under each context bucket and two tiny pre-training updates on the
-card against the CPU, and the offline-ASR heads (CTC and seq2seq loss and
+card against the CPU, the offline-ASR heads (CTC and seq2seq loss and
 gradients, the greedy decoders, the beam generator) on the card against
-the CPU.  They skip without a CUDA device.  On a card:
+the CPU, and the fbank and text CAAT families (loss and gradients of every
+front-end x jointer and of the text model, the fbank agent) on the card
+against the CPU with K4 at their dropout sites.  They skip without a CUDA
+device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -1089,3 +1092,60 @@ def test_tiny_beam_generator_on_cuda_equals_cpu(cuda):
     assert [h.tokens for h in card] == [h.tokens for h in cpu]
     np.testing.assert_allclose([h.score for h in card],
                                [h.score for h in cpu], rtol=1e-5)
+
+
+def _family_id(case):
+    family, frontend, jointer = case
+    return family if frontend is None else f"{frontend}-{jointer}"
+
+
+def _family_cases():
+    from wav2vec_s_tpu_torch.tools import family_parity as fp
+
+    return fp.CASES
+
+
+@pytest.mark.parametrize("case", _family_cases(), ids=_family_id)
+def test_tiny_family_loss_and_grads_on_cuda_equal_cpu(cuda, case):
+    """The fbank (each front-end x jointer) and text CAAT recipes with
+    their dropouts on: loss and every gradient on the card against the CPU
+    (``tools/family_parity.py``; ``asr_parity``'s tolerances)."""
+    from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
+    from wav2vec_s_tpu_torch.tools import family_parity as fp
+
+    cpu = fp.loss_and_grads(*case, "cpu")
+    before = hw_dropout.launches
+    card = fp.loss_and_grads(*case, "cuda")
+    assert hw_dropout.launches > before
+    rel, worst = fp.gap(cpu, card)
+    assert rel <= fp.LOSS_RTOL and worst <= 1.0, (rel, worst)
+
+
+def test_tiny_fbank_agent_on_cuda_equals_cpu(cuda):
+    from wav2vec_s_tpu_torch.tools import family_parity as fp
+
+    cpu, card = fp.agent("cpu"), fp.agent("cuda")
+    assert card == cpu and any(text for text, _ in card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["fbank", "text"])
+def test_dropout_kernel_at_the_family_sites(cuda, family, dtype):
+    """K4 bit-equal to its twin (output and mask) at every dropout site
+    of the family's tiny training forward (shallow2d / MHA for fbank)."""
+    from wav2vec_s_tpu_torch.ops.dropout import (
+        dropout_ref, hw_dropout, keep_mask)
+    from wav2vec_s_tpu_torch.tools import family_parity as fp
+
+    sites = fp.dropout_sites(family, *(("shallow2d", "mha")
+                                       if family == "fbank" else (None,
+                                                                  None)))
+    assert len(sites) >= 5
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for offset, (shape, p) in enumerate(sorted(sites)):
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        got = hw_dropout(x, p, 0xABCDEF, offset)
+        assert torch.equal(got, dropout_ref(x, p, 0xABCDEF, offset)), shape
+        mask = hw_dropout(torch.ones_like(x), p, 0xABCDEF, offset) != 0
+        assert torch.equal(mask.reshape(-1), keep_mask(
+            x.numel(), p, 0xABCDEF, offset, cuda)), shape

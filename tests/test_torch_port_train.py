@@ -299,7 +299,7 @@ def test_freeze_mask_matches_jax(freeze_enc, freeze_updates, step):
                                                                  step)))
     model = port_caat(params, W2V, CAAT)
     grads = {n: torch.ones_like(p) for n, p in model.named_parameters()}
-    make_freeze_mask(freeze_enc, freeze_updates)(grads, step)
+    make_freeze_mask(model, freeze_enc, freeze_updates)(grads, step)
     for name, g in grads.items():
         np.testing.assert_array_equal(g.numpy(), want[name].numpy(),
                                       err_msg=name)

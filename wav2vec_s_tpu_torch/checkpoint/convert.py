@@ -8,10 +8,13 @@
 package, so the mapping is repeated here), producing rain ``w2v2_caat`` and
 fairseq wav2vec2 names; ``ctc_state_dict_from_jax`` and
 ``s2s_state_dict_from_jax`` give the fairseq names of the offline-ASR
-heads (``models/asr.py``):
+heads (``models/asr.py``), ``fbank_state_dict_from_jax`` and
+``text_caat_state_dict_from_jax`` those of the fbank and text CAAT models
+(``models/fbank.py``, ``models/text_caat.py``):
 
 - dense ``kernel [in, out]``       -> ``weight [out, in]``
 - conv ``kernel [k, in, out]``     -> ``weight [out, in, k]``
+- 2-D conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``
 - norm ``scale`` / ``bias``        -> ``weight`` / ``bias``
 
 The tree is given as nested dicts of numpy arrays (``jax.device_get`` of
@@ -101,6 +104,18 @@ def caat_state_dict_from_jax(params: Dict[str, Any]
     _wav2vec2(out, params["encoder"], "encoder.w2v2_model.")
     if "encoder_proj" in params:
         _linear(out, "encoder.encoder_proj", params["encoder_proj"])
+    _caat_decoder(out, params)
+    # tied to embed_tokens unless the model has its own out_proj
+    out["decoder.transducer_out.output_proj.weight"] = (
+        _a(params["out_proj"]["kernel"]).T if "out_proj" in params
+        else out["decoder.lm.embed_tokens.weight"])
+    return _tensors(out)
+
+
+def _caat_decoder(out, params):
+    """``decoder.lm.*`` (the embedding included) and ``decoder.jointer.*``
+    of a JAX CAAT tree: the MHA jointer's layers, or a single-layer
+    jointer's projections (the fbank family's ``concat`` / ``attention``)."""
     out["decoder.lm.embed_tokens.weight"] = _a(params["embed_tokens"])
     lm = params["decoder_lm"]
     for name, layer in lm.items():
@@ -109,13 +124,56 @@ def caat_state_dict_from_jax(params: Dict[str, Any]
     if "layer_norm" in lm:
         _norm(out, "decoder.lm.layer_norm", lm["layer_norm"])
     for name, layer in params["jointer"].items():
-        _layer(out, f"decoder.jointer.layers.{int(name.split('_')[1])}",
-               layer, attn="enc_attn", norm="attn_layer_norm")
-    # tied to embed_tokens unless the model has its own out_proj
-    out["decoder.transducer_out.output_proj.weight"] = (
-        _a(params["out_proj"]["kernel"]).T if "out_proj" in params
-        else out["decoder.lm.embed_tokens.weight"])
+        if name.startswith("layer_"):
+            _layer(out, f"decoder.jointer.layers.{int(name.split('_')[1])}",
+                   layer, attn="enc_attn", norm="attn_layer_norm")
+        else:
+            _linear(out, f"decoder.jointer.{name}", layer)
     out["decoder.lm.version"] = np.asarray([3.0], np.float32)
+
+
+def _blockwise_encoder(out, enc):
+    """``encoder.layers.{i}`` and ``encoder.layer_norm`` of the fbank and
+    text encoders."""
+    _norm(out, "encoder.layer_norm", enc["layer_norm"])
+    for name, layer in enc["layers"].items():
+        _layer(out, f"encoder.layers.{int(name.split('_')[1])}", layer)
+
+
+def _frontend(out, prefix, p):
+    """A conv front-end's tree, names kept: conv ``kernel [kh, kw, in,
+    out]`` -> ``weight [out, in, kh, kw]``, dense ``kernel`` -> ``weight``
+    transposed, GroupNorm ``scale`` -> ``weight``."""
+    for name, v in p.items():
+        if isinstance(v, dict):
+            _frontend(out, f"{prefix}.{name}", v)
+        elif name == "kernel":
+            k = _a(v)
+            out[prefix + ".weight"] = (np.transpose(k, (3, 2, 0, 1))
+                                       if k.ndim == 4 else k.T)
+        else:
+            out[f"{prefix}.{'weight' if name == 'scale' else name}"] = _a(v)
+
+
+def fbank_state_dict_from_jax(params: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX ``FbankCaatModel`` tree (any front-end and jointer) -> the
+    state dict of the port's ``models/fbank.FbankCaatModel``."""
+    out: Dict[str, np.ndarray] = {}
+    _frontend(out, "encoder.subsample", params["encoder"]["subsample"])
+    _blockwise_encoder(out, params["encoder"])
+    _caat_decoder(out, params)
+    return _tensors(out)
+
+
+def text_caat_state_dict_from_jax(params: Dict[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``TextCaatModel`` tree -> the state dict of the port's
+    ``models/text_caat.TextCaatModel``."""
+    out: Dict[str, np.ndarray] = {
+        "encoder.embed_tokens.weight": _a(params["encoder"]["embed_tokens"])}
+    _blockwise_encoder(out, params["encoder"])
+    _caat_decoder(out, params)
     return _tensors(out)
 
 

@@ -85,7 +85,8 @@ def load_pretrained_encoder(path, w2v_model: Optional[nn.Module] = None
 def apply_pretrained_encoder(model: torch.nn.Module, path) -> None:
     """Overwrite ``model``'s encoder subtree with the one saved under
     ``path`` (from a ``.pt``: the wav2vec2 part, ``encoder.w2v2_model.*``).
-    ``model`` is a CAAT or seq2seq model (its ``encoder.*``) or a
+    ``model`` is a CAAT (the fbank family's too, from a directory only) or
+    seq2seq model (its ``encoder.*``) or a
     ``Wav2VecCtc`` (its ``w2v_encoder.w2v_model.*``, read from the
     source's ``encoder.w2v2_model.*``).  Template-driven, as the JAX
     package's merge: the source may carry extra entries, but every encoder
@@ -93,7 +94,8 @@ def apply_pretrained_encoder(model: torch.nn.Module, path) -> None:
     is_file = Path(path).is_file()
     ctc = hasattr(model, "w2v_encoder")
     src = load_pretrained_encoder(path, None if not is_file else (
-        model.w2v_encoder.w2v_model if ctc else model.encoder.w2v2_model))
+        model.w2v_encoder.w2v_model if ctc
+        else getattr(model.encoder, "w2v2_model", None)))
     prefix = (CTC_PREFIX if ctc else W2V2_PREFIX if is_file
               else ENCODER_PREFIX)
     own = {k: v for k, v in model.state_dict().items()

@@ -1,6 +1,6 @@
 """Audio IO without heavyweight deps (own copy of the readers of
-``wav2vec_s_tpu/data/audio.py``; the log-mel features come with the fbank
-model family).
+``wav2vec_s_tpu/data/audio.py`` and of its log-mel ``logmel_fbank``, the
+features of the fbank model family).
 
 Re-provides the reference's waveform loading paths
 (fairseq/fairseq/data/audio/raw_audio_dataset.py:54-71 via soundfile;
@@ -176,3 +176,56 @@ def instance_normalize(wav: np.ndarray) -> np.ndarray:
     m = wav.mean()
     v = wav.var()
     return ((wav - m) / np.sqrt(v + 1e-5)).astype(np.float32)
+
+
+FRAME = 400          # 25 ms window @ 16 kHz
+SHIFT = 160          # 10 ms shift
+N_FFT = 512
+
+
+def _mel_fb(rate=16000, n_mels=80, n_fft=N_FFT):
+    def hz2mel(f):
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+
+    def mel2hz(m):
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+    mels = np.linspace(hz2mel(20), hz2mel(rate / 2), n_mels + 2)
+    bins = np.floor((n_fft + 1) * mel2hz(mels) / rate).astype(int)
+    fb = np.zeros((n_mels, n_fft // 2 + 1))
+    for i in range(n_mels):
+        lo, c, hi = bins[i], bins[i + 1], bins[i + 2]
+        if c > lo:
+            fb[i, lo:c] = (np.arange(lo, c) - lo) / (c - lo)
+        if hi > c:
+            fb[i, c:hi] = (hi - np.arange(c, hi)) / (hi - c)
+    return fb
+
+
+_MEL_FB = _mel_fb()
+
+
+def fbank_frames(wav: np.ndarray, start: int, n: int) -> np.ndarray:
+    """log-mel of frames [start/SHIFT, start/SHIFT + n) of the FULL
+    signal ``wav`` (pre-emphasis over the whole signal, so a chunked
+    extractor's frames equal the offline ones): float32 [n, 80]."""
+    pe = np.empty_like(wav)
+    pe[0] = wav[0]
+    pe[1:] = wav[1:] - 0.97 * wav[:-1]
+    idx = (np.arange(FRAME)[None, :] + start
+           + SHIFT * np.arange(n)[:, None])
+    frames = pe[idx] * np.hanning(FRAME)[None, :]
+    spec = np.abs(np.fft.rfft(frames, N_FFT)) ** 2
+    return np.log(np.maximum(spec @ _MEL_FB.T, 1e-10)).astype(np.float32)
+
+
+def logmel_fbank(wav: np.ndarray) -> np.ndarray:
+    """Kaldi-style log-mel filterbank (the fbank CAAT twin's features,
+    rain/data/transforms/audio_encoder.py:11-17 via torchaudio): 80 mels,
+    25 ms Hann windows every 10 ms at 16 kHz, pre-emphasis 0.97, float64
+    inside, float32 [T_frames, 80] out (JAX ``data/audio.logmel_fbank`` at
+    its defaults).  A signal shorter than one window is zero-padded to
+    one frame."""
+    if len(wav) < FRAME:
+        wav = np.pad(wav, (0, FRAME - len(wav)))
+    return fbank_frames(wav, 0, 1 + (len(wav) - FRAME) // SHIFT)

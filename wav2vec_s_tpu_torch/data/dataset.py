@@ -1,5 +1,5 @@
 """Batch assembly for the two training recipes (host-side, numpy; port of
-``wav2vec_s_tpu/data/dataset.py``, raw-waveform features).
+``wav2vec_s_tpu/data/dataset.py``).
 
 - ``PretrainBatcher`` ~ ``RawAudioDataset.collater``
   (raw_audio_dataset.py:116-226): random-crop every utterance to the
@@ -13,7 +13,10 @@
   (rain/data/st_raw_audio_triple_dataset.py:298-387): pad waveforms to the
   audio bucket, tokenize and pad targets to the text bucket; emits
   source / padding_mask / targets, identical to the JAX package's on the
-  same manifest.
+  same manifest; ``features="fbank"`` collates log-mel frames [B, S, 80]
+  after its ``transforms``;
+- ``TextBatcher``: source and target token ids of a parallel-text
+  manifest (the text CAAT family).
 
 Under data parallelism each rank collates its ``rows`` of the global
 batch (``parallel.mesh.process_local_rows``): it reads only their audio,
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from wav2vec_s_tpu_torch.data.audio import (
-    instance_normalize, read_audio, read_audio_batch)
+    instance_normalize, logmel_fbank, read_audio, read_audio_batch)
 from wav2vec_s_tpu_torch.data.batching import bucket_for
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
 from wav2vec_s_tpu_torch.data.manifests import AudioManifest, S2TManifest
@@ -107,6 +110,10 @@ class CaatBatcher:
     target_buckets: Sequence[int] = (16, 32, 64, 128)
     task_type: str = "st"              # "st" -> tgt_text, "asr" -> src_text
     normalize: bool = False
+    features: str = "raw"              # "raw" waveform | "fbank" log-mel
+    transforms: Sequence = ()          # fbank feature transforms (Whiten,
+    # TFMask), applied in order after the log-mel; a validation batcher
+    # leaves TFMask out
 
     def encode_target(self, idx: int) -> List[int]:
         text = (self.manifest.tgt_texts[idx] if self.task_type != "asr"
@@ -118,10 +125,12 @@ class CaatBatcher:
     def collate(self, indices: np.ndarray,
                 size_hint: Optional[int] = None,
                 rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
-        """``size_hint``: the batch's longest audio in samples according to
-        the manifest; the pad bucket covers it even where a file is
-        shorter than its manifest row says.  ``rows``: the rows of the
-        batch to return (module docstring)."""
+        """``size_hint``: the batch's longest audio according to the
+        manifest (samples; log-mel frames for fbank); the pad bucket covers
+        it even where a file is shorter than its manifest row says.
+        ``rows``: the rows of the batch to return (module docstring).
+        -> {source [B, S] float32 ([B, S, 80] for fbank), padding_mask
+        [B, S], targets [B, U] int32}."""
         rows = rows or slice(0, len(indices))
         targets = [np.asarray(self.encode_target(i), np.int64)
                    for i in indices]
@@ -129,13 +138,19 @@ class CaatBatcher:
         wavs = []
         for i in indices[rows]:
             wav = read_audio(self.manifest.audio_paths[i])
-            wavs.append(instance_normalize(wav) if self.normalize else wav)
+            if self.normalize:
+                wav = instance_normalize(wav)
+            if self.features == "fbank":
+                wav = logmel_fbank(wav)               # [T_frames, 80]
+                for t in self.transforms:
+                    wav = t(wav)
+            wavs.append(wav)
         targets = targets[rows]
 
         S = bucket_for(max([len(w) for w in wavs] + [size_hint or 0]),
                        self.audio_buckets)
         B = len(wavs)
-        src = np.zeros((B, S), np.float32)
+        src = np.zeros((B, S) + wavs[0].shape[1:], np.float32)
         pad_mask = np.ones((B, S), bool)
         tgt = np.full((B, U), self.tgt_dict.pad(), np.int32)
         for r, (w, t) in enumerate(zip(wavs, targets)):
@@ -145,6 +160,52 @@ class CaatBatcher:
             t = t[:U]
             tgt[r, :len(t)] = t
         return {"source": src, "padding_mask": pad_mask, "targets": tgt}
+
+
+@dataclasses.dataclass
+class TextBatcher:
+    """Parallel-text collater of the text-source CAAT family (port of the
+    JAX ``TextBatcher``; the reference's bitext path,
+    rain/tasks/dropout_translation.py over ``TranslationTask`` +
+    ``BpeDropoutDataset``): tokenize both sides (the source with BPE
+    dropout when its tokenizer carries it), append eos, pad to static
+    buckets.  Emits {source [B, S] int32 tokens, targets [B, U] int32},
+    the batch contract of ``CaatBatcher`` with token ids in place of
+    waveforms; ``rows`` as there (the buckets from every row)."""
+
+    manifest: S2TManifest
+    tgt_dict: Dictionary
+    tokenizer: Tokenizer                     # target side
+    src_buckets: Sequence[int] = (16, 32, 64, 128, 256, 512)
+    target_buckets: Sequence[int] = (16, 32, 64, 128)
+    src_dict: Optional[Dictionary] = None    # None -> shared with target
+    src_tokenizer: Optional[Tokenizer] = None  # None -> shared
+
+    def _encode(self, text: str, src: bool) -> List[int]:
+        tok = (self.src_tokenizer or self.tokenizer) if src \
+            else self.tokenizer
+        d = (self.src_dict or self.tgt_dict) if src else self.tgt_dict
+        return d.encode(tok.encode(text), append_eos=True)
+
+    def collate(self, indices: np.ndarray, size_hint: Optional[int] = None,
+                rows: Optional[slice] = None) -> Dict[str, np.ndarray]:
+        rows = rows or slice(0, len(indices))
+        srcs = [np.asarray(self._encode(self.manifest.src_texts[i], True),
+                           np.int64) for i in indices]
+        tgts = [np.asarray(self._encode(self.manifest.tgt_texts[i], False),
+                           np.int64) for i in indices]
+        S = bucket_for(max([len(s) for s in srcs] + [size_hint or 0]),
+                       self.src_buckets)
+        U = bucket_for(max(len(t) for t in tgts), self.target_buckets)
+        srcs, tgts = srcs[rows], tgts[rows]
+        B = len(srcs)
+        src = np.full((B, S), (self.src_dict or self.tgt_dict).pad(),
+                      np.int32)
+        tgt = np.full((B, U), self.tgt_dict.pad(), np.int32)
+        for r, (s, t) in enumerate(zip(srcs, tgts)):
+            src[r, :len(s[:S])] = s[:S]
+            tgt[r, :len(t[:U])] = t[:U]
+        return {"source": src, "targets": tgt}
 
 
 def to_device(batch: Dict[str, np.ndarray],

@@ -1,5 +1,5 @@
-"""Manifest readers for pre-training and fine-tuning (port of the audio
-and S2T parts of ``wav2vec_s_tpu/data/manifests.py``).
+"""Manifest readers for pre-training and fine-tuning (port of the audio,
+S2T and parallel-text parts of ``wav2vec_s_tpu/data/manifests.py``).
 
 - Pre-training manifests (``FileAudioDataset``,
   fairseq/fairseq/data/audio/raw_audio_dataset.py:227-262): first line is the
@@ -9,7 +9,8 @@ and S2T parts of ``wav2vec_s_tpu/data/manifests.py``).
   mandatory columns id/audio/n_frames/tgt_text, optional src_text/speaker;
   audio paths relative to ``audio_root``.
 
-The parallel-text manifests come with their task (ROADMAP item 12).
+- Parallel-text manifests of the text CAAT family (``read_text_manifest``):
+  a tsv with src_text/tgt_text columns, or a ``src.txt,tgt.txt`` pair.
 """
 
 from __future__ import annotations
@@ -82,3 +83,37 @@ def read_s2t_manifest(path, audio_root: str = "") -> S2TManifest:
         src_texts=[r.get("src_text", "") for r in rows],
         speakers=[r.get("speaker", "") for r in rows],
     )
+
+
+def read_text_manifest(path) -> S2TManifest:
+    """Parallel-text manifest for the text-source CAAT family (the
+    reference trains those via fairseq bitext tasks —
+    rain/tasks/dropout_translation.py over ``TranslationTask`` data).
+
+    Accepts either a tsv with ``src_text``/``tgt_text`` columns (id
+    optional) or a pair of plain text files ``src.txt,tgt.txt``.  Returns
+    an ``S2TManifest`` whose ``n_frames`` is the whitespace token count of
+    the source side (the batching size key), so the train CLI's manifest
+    plumbing is shared with the speech tasks.
+    """
+    if "," in str(path):
+        src_p, tgt_p = str(path).split(",", 1)
+        src = Path(src_p).read_text(encoding="utf-8").splitlines()
+        tgt = Path(tgt_p).read_text(encoding="utf-8").splitlines()
+        if len(src) != len(tgt):
+            raise ValueError(
+                f"parallel text length mismatch: {len(src)} vs {len(tgt)}")
+        ids = [str(i) for i in range(len(src))]
+    else:
+        with open(path, newline="", encoding="utf-8") as f:
+            reader = csv.DictReader(
+                f, delimiter="\t", quotechar=None, doublequote=False,
+                lineterminator="\n", quoting=csv.QUOTE_NONE)
+            rows = list(reader)
+        src = [r["src_text"] for r in rows]
+        tgt = [r["tgt_text"] for r in rows]
+        ids = [r.get("id", str(i)) for i, r in enumerate(rows)]
+    return S2TManifest(
+        ids=ids, audio_paths=[""] * len(src),
+        n_frames=[len(s.split()) + 1 for s in src],
+        tgt_texts=tgt, src_texts=src, speakers=[""] * len(src))

@@ -22,7 +22,10 @@ Subcommands re-providing the reference's eval entry points:
 - ``score``    ~ fairseq-score: BLEU/WER of a system file against a
   reference file
 
-The fbank features raise (ROADMAP Queue 1 item 12b).
+A checkpoint of the fbank family (``data.features=fbank``) decodes through
+``simul`` and ``interactive`` (``FbankStreamingEngine`` under the same
+agent), as in the JAX CLI; the other decoding subcommands run the raw-audio
+CAAT model only, and the text family has no eval-CLI path: both raise.
 
 What differs from the JAX CLI: ``--device cuda|cpu`` (default ``cuda``,
 which raises without a card) takes the place of ``--platform``;
@@ -62,24 +65,34 @@ def _device(args) -> torch.device:
     return dev
 
 
-def _build_caat(cfg, args):
+def _check_features(cfg, args, want: str = "raw") -> None:
+    """Raise unless the configuration's ``data.features`` is ``want``."""
+    if cfg.data.features != want:
+        raise ValueError(
+            f"data.features={cfg.data.features}: eval.cli {args.cmd} decodes "
+            f"{want} audio; the fbank family decodes through 'simul' and "
+            f"'interactive', and the text family has no eval-CLI path (its "
+            f"agent is models/text_caat.TextTransducerAgent), as in the JAX "
+            f"package")
+
+
+def _build_caat(cfg, args, fbank: bool = False):
     """(model on ``--device`` with the checkpoint's weights, tgt_dict,
-    model_cfg, caat_cfg) of a raw-audio CAAT configuration."""
+    model_cfg, caat_cfg) of a raw-audio CAAT configuration, or with
+    ``fbank`` of the fbank family's (the agent's two families)."""
     from wav2vec_s_tpu_torch.data.dictionary import Dictionary
     from wav2vec_s_tpu_torch.models.caat import W2V2CaatModel
+    from wav2vec_s_tpu_torch.models.fbank import FbankCaatModel
     from wav2vec_s_tpu_torch.train.cli import caat_configs
 
-    if cfg.data.features != "raw":
-        raise NotImplementedError(
-            f"data.features={cfg.data.features}: the fbank and text families "
-            f"(models/fbank.py, stream/fbank_engine.py, models/text_caat.py) "
-            f"are ROADMAP Queue 1 item 12, not ported yet")
+    _check_features(cfg, args, "fbank" if fbank else "raw")
     device = _device(args)
     tgt_dict = Dictionary.load(cfg.data.vocab)
     model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
     params = load_params(args.ckpt_dir, args.average_k)
     with device:
-        model = W2V2CaatModel(model_cfg, caat_cfg)
+        model = (FbankCaatModel if fbank else W2V2CaatModel)(model_cfg,
+                                                             caat_cfg)
     model.load_state_dict(params, strict=True)
     return model.eval(), tgt_dict, model_cfg, caat_cfg
 
@@ -114,25 +127,36 @@ def cmd_average(args):
 
 
 def _agent_factory(args, cfg):
-    """A factory of fresh ``SpeechTransducerAgent``s over one searcher (raw
-    audio; the JAX CLI's fbank branch is item 12 and raises in
-    ``_build_caat``)."""
+    """A factory of fresh ``SpeechTransducerAgent``s over one searcher: raw
+    audio through ``StreamingEngine`` (320 samples per frame), or an fbank
+    checkpoint through ``FbankStreamingEngine``, the chunked carry-over
+    featurizer (rain TransducerAgent / OnlineSpeechModels,
+    transducer_agent.py:170-614; 160 samples per feature frame times the
+    front-end's subsampling)."""
     from wav2vec_s_tpu_torch.stream.agent import (
         AgentConfig, SpeechTransducerAgent)
     from wav2vec_s_tpu_torch.stream.engine import StreamingEngine
+    from wav2vec_s_tpu_torch.stream.fbank_engine import FbankStreamingEngine
     from wav2vec_s_tpu_torch.stream.searcher import (
         StreamingTransducerSearcher)
 
-    model, tgt_dict, model_cfg, caat_cfg = _build_caat(cfg, args)
-    engine = StreamingEngine(model, main_context=cfg.context.main_context,
-                             right_context=cfg.context.right_context)
+    fbank = cfg.data.features == "fbank"
+    model, tgt_dict, model_cfg, caat_cfg = _build_caat(cfg, args, fbank)
+    ctx = dict(main_context=cfg.context.main_context,
+               right_context=cfg.context.right_context)
+    if fbank:
+        engine = FbankStreamingEngine(model, **ctx)
+        frame_samples = 160 * engine.subsample
+    else:
+        engine = StreamingEngine(model, **ctx)
+        frame_samples = 320
     searcher = StreamingTransducerSearcher(
         engine, tgt_dict, _tokenizer(cfg),
         len_scale=args.len_scale, eager=args.eager)
     agent_cfg = AgentConfig(
         main_context=cfg.context.main_context,
         right_context=cfg.context.right_context,
-        frame_samples=320,
+        frame_samples=frame_samples,
         step_read_blocks=args.step_read_blocks,
         intra_beam=args.intra_beam, inter_beam=args.inter_beam,
         decoder_step_read=args.decoder_step_read, eager=args.eager,
@@ -310,6 +334,7 @@ def cmd_ctc_decode(args):
     from wav2vec_s_tpu_torch.train.cli import encoder_config
 
     cfg = load_config(args.config, args.overrides)
+    _check_features(cfg, args)
     device = _device(args)
     tgt_dict = Dictionary.load(cfg.data.vocab)
     params = load_params(args.ckpt_dir, args.average_k)

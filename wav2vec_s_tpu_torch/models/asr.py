@@ -54,6 +54,9 @@ class _CtcEncoder(nn.Module):
 
 
 class Wav2VecCtc(nn.Module):
+    #: the encoder that the freeze schedules reach (``CaatModelBase``)
+    encoder_prefix = "w2v_encoder.w2v_model."
+
     def __init__(self, w2v_cfg: Wav2Vec2Config, vocab_size: int,
                  final_dropout: float = 0.0):
         super().__init__()
@@ -264,6 +267,9 @@ class _S2SEncoder(nn.Module):
 
 class Wav2Vec2Seq2Seq(nn.Module):
     """Encoder-decoder fine-tune head (wav2vec2_asr.py:247)."""
+
+    #: the encoder that the freeze schedules reach (``CaatModelBase``)
+    encoder_prefix = "encoder.w2v2_model."
 
     def __init__(self, w2v_cfg: Wav2Vec2Config, cfg: CaatConfig):
         super().__init__()

@@ -5,8 +5,8 @@ rain/models/w2v2_transducer.py:317-347): 768-d decoder LM (6 layers, pre-LN,
 relu, shared in/out embedding), a 6-layer 768-d MHA jointer,
 transducer_downsample 64 with sampled decision steps, and the loss and
 dropout fields of the fine-tuning recipe.  Names and defaults are the JAX
-package's (the fbank-family fields ``frontend``/``jointer_type`` are not
-ported).
+package's; ``frontend`` and ``jointer_type`` pick the fbank family's conv
+front-end and jointer (``models/fbank.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +41,10 @@ class CaatConfig:
     transducer_downsample: int = 64
     # --use-linear-layer: project encoder features to decoder_embed_dim
     encoder_proj: bool = False
+    # fbank model family selection (rain encodes these in arch names, e.g.
+    # transducer_base_s2 = shallow2d front-end; caat_transformer = mha)
+    frontend: str = "shallow2d"   # shallow2d | vgg2d | resnet | resnet_small
+    jointer_type: str = "mha"     # mha | concat | attention
     # decision steps: "constant" | "random" (the published recipes train
     # with random); sampled from {2, 4, 10, 20} * step_scale unless
     # decision_steps gives the set

@@ -69,36 +69,18 @@ class _Decoder(nn.Module):
         self.transducer_out = _TransducerOut(cfg, self.lm.embed_tokens)
 
 
-class W2V2CaatModel(nn.Module):
-    def __init__(self, w2v_cfg: Wav2Vec2Config, cfg: CaatConfig):
-        super().__init__()
-        self.w2v_cfg = w2v_cfg
-        self.cfg = cfg
-        self.encoder = _Encoder(w2v_cfg, cfg)
-        # the jointer's keys/values read the encoder output: projected to
-        # the decoder width with --use-linear-layer, else the encoder width
-        enc_dim = (cfg.decoder_embed_dim if cfg.encoder_proj
-                   else w2v_cfg.encoder_embed_dim)
-        self.decoder = _Decoder(cfg, enc_dim)
+class CaatModelBase(nn.Module):
+    """The CAAT models' shared contract over a subclass's ``encoder``,
+    ``decoder.lm`` and ``decoder.jointer``: the fine-tuning ``forward``,
+    ``encode``, ``decode_step``, ``token_embedding`` and ``output_logits``
+    (the LM's embedding; ``W2V2CaatModel`` overrides it for an untied
+    projection).  A subclass defines ``_encode(source, padding_mask,
+    main_context, right_context, ctx)`` -> (enc [B, S, D], enc_pad [B, S]
+    or None) and ``encoder_prefix``, the names under which it keeps the
+    encoder that the freeze schedules reach (``recipes.make_freeze_mask``:
+    the JAX models' ``encoder`` subtree)."""
 
-    @torch.no_grad()
-    def encode(self, source: torch.Tensor,
-               padding_mask: Optional[torch.Tensor] = None,
-               main_context: Optional[int] = None,
-               right_context: Optional[int] = None):
-        """One-shot blockwise encode (JAX ``W2V2CaatModel.encode``):
-        source [B, S] samples -> ([B, T, D_out] features, frame padding
-        mask or None)."""
-        return self._encode(source, padding_mask, main_context,
-                            right_context)
-
-    def _encode(self, source, padding_mask, main_context, right_context,
-                ctx: Optional[DropoutContext] = None):
-        enc, enc_pad = self.encoder.w2v2_model.extract_features(
-            source, padding_mask, main_context, right_context, ctx)
-        if self.encoder.encoder_proj is not None:
-            enc = dense(self.encoder.encoder_proj, enc)
-        return enc, enc_pad
+    encoder_prefix = "encoder."
 
     def forward(self, source: torch.Tensor, prev_tokens: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -107,9 +89,10 @@ class W2V2CaatModel(nn.Module):
                 downsample: Optional[int] = None,
                 ctx: Optional[DropoutContext] = None):
         """Fine-tuning forward (JAX ``W2V2CaatModel.__call__``): source
-        [B, S] samples, prev_tokens [B, U+1] = [bos; targets] ->
-        (joint_h [B, G, U+1, D], group_lens [B] int32).  ``ctx`` carries
-        the step's dropout, layerdrop and position-offset draws."""
+        [B, S] samples (or the family's features / tokens), prev_tokens
+        [B, U+1] = [bos; targets] -> (joint_h [B, G, U+1, D], group_lens
+        [B] int32).  ``ctx`` carries the step's dropout, layerdrop and
+        position-offset draws."""
         enc, enc_pad = self._encode(source, padding_mask, main_context,
                                     right_context, ctx)
         if enc_pad is None:
@@ -126,23 +109,24 @@ class W2V2CaatModel(nn.Module):
                                device=enc.device)
         return joint_h, glens
 
-    def output_logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Joint states -> float32 vocabulary logits (the shared embedding
-        by default)."""
-        proj = self.decoder.transducer_out.output_proj
-        if self.cfg.share_input_output_embed:
-            return F.linear(h.float(), proj.weight.float())
-        return dense(proj, h).float()
-
     @torch.no_grad()
-    def lm_log_probs(self, prev_tokens: torch.Tensor) -> torch.Tensor:
-        """Language-model view of the decoupled decoder (JAX
-        ``W2V2CaatModel.lm_log_probs``): float32 next-token log-probs
-        [B, U, V] of the IsolatedDecoder in eval mode under the (shared)
-        output embedding, the teacher-forcing LM of the training forward.
-        The measurement behind ``eval.cli eval-lm``."""
-        h_lm = self.decoder.lm(prev_tokens)
-        return torch.log_softmax(self.output_logits(h_lm), dim=-1)
+    def encode(self, source: torch.Tensor,
+               padding_mask: Optional[torch.Tensor] = None,
+               main_context: Optional[int] = None,
+               right_context: Optional[int] = None):
+        """One-shot blockwise encode (JAX ``W2V2CaatModel.encode``):
+        source -> ([B, T, D_out] features, frame padding mask or None)."""
+        return self._encode(source, padding_mask, main_context,
+                            right_context)
+
+    def token_embedding(self) -> torch.Tensor:
+        """The [V, D] matrix ``caat_loss`` projects joint states with: the
+        LM's embedding, tied or not (as the JAX recipe)."""
+        return self.decoder.lm.embed_tokens.weight
+
+    def output_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Joint states -> float32 vocabulary logits."""
+        return F.linear(h.float(), self.token_embedding().float())
 
     @torch.no_grad()
     def decode_step(self, prev_tokens: torch.Tensor,
@@ -161,6 +145,47 @@ class W2V2CaatModel(nn.Module):
         h_last = h_lm[rows, token_lens.long() - 1][:, None]     # [K, 1, D]
         joint = self.decoder.jointer(h_last, enc, enc_pad, downsample=-1)
         return torch.log_softmax(self.output_logits(joint)[:, 0, 0], dim=-1)
+
+
+class W2V2CaatModel(CaatModelBase):
+    encoder_prefix = "encoder.w2v2_model."
+
+    def __init__(self, w2v_cfg: Wav2Vec2Config, cfg: CaatConfig):
+        super().__init__()
+        self.w2v_cfg = w2v_cfg
+        self.cfg = cfg
+        self.encoder = _Encoder(w2v_cfg, cfg)
+        # the jointer's keys/values read the encoder output: projected to
+        # the decoder width with --use-linear-layer, else the encoder width
+        enc_dim = (cfg.decoder_embed_dim if cfg.encoder_proj
+                   else w2v_cfg.encoder_embed_dim)
+        self.decoder = _Decoder(cfg, enc_dim)
+
+    def _encode(self, source, padding_mask, main_context, right_context,
+                ctx: Optional[DropoutContext] = None):
+        enc, enc_pad = self.encoder.w2v2_model.extract_features(
+            source, padding_mask, main_context, right_context, ctx)
+        if self.encoder.encoder_proj is not None:
+            enc = dense(self.encoder.encoder_proj, enc)
+        return enc, enc_pad
+
+    def output_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """Joint states -> float32 vocabulary logits (the shared embedding
+        by default)."""
+        proj = self.decoder.transducer_out.output_proj
+        if self.cfg.share_input_output_embed:
+            return F.linear(h.float(), proj.weight.float())
+        return dense(proj, h).float()
+
+    @torch.no_grad()
+    def lm_log_probs(self, prev_tokens: torch.Tensor) -> torch.Tensor:
+        """Language-model view of the decoupled decoder (JAX
+        ``W2V2CaatModel.lm_log_probs``): float32 next-token log-probs
+        [B, U, V] of the IsolatedDecoder in eval mode under the (shared)
+        output embedding, the teacher-forcing LM of the training forward.
+        The measurement behind ``eval.cli eval-lm``."""
+        h_lm = self.decoder.lm(prev_tokens)
+        return torch.log_softmax(self.output_logits(h_lm), dim=-1)
 
 
 def label_smoothed_ce(lprobs: torch.Tensor, targets: torch.Tensor,

@@ -245,19 +245,20 @@ def encoder_layer(layer: TransformerEncoderLayer, x: torch.Tensor,
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Refill every parameter from ``generator`` with the JAX package's
-    initialisers: linear weights lecun-normal and zero bias, conv weights
-    he-normal, norms one/zero, embeddings normal(dim ** -0.5); a module
+    initialisers: linear and 2-D conv weights lecun-normal and zero bias,
+    the waveform front-end's 1-D conv weights he-normal, norms one/zero,
+    embeddings normal(dim ** -0.5); a module
     with parameters of its own (the quantizer's codebook, the pre-training
     mask embedding) fills them in its ``random_init_(generator)``.
     Returns ``module``."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             fan_in = m.weight[0].numel()
             gain = 2.0 if isinstance(m, nn.Conv1d) else 1.0
             _normal_(m.weight, math.sqrt(gain / fan_in), generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, nn.Embedding):
@@ -281,6 +282,6 @@ def compute_copy(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
     out = copy.deepcopy(module)
     for m in out.modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Embedding)):
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Embedding)):
             m.to(dtype)
     return out

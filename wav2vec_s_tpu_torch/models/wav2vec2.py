@@ -224,11 +224,7 @@ class TransformerEncoder(nn.Module):
             # this rank's query rows of the bias, and of the sequence
             bias = seq.split(bias, dim=2)
             x = seq.split(x)
-        rates = Dropouts(c.dropout, c.attention_dropout, c.activation_dropout)
-        for layer in self.layers:
-            if ctx is not None and ctx.layer_dropped(c.encoder_layerdrop):
-                continue
-            x = layer(x, bias, c.layer_norm_first, gelu, rates, ctx, seq)
+        x = encoder_layers(self.layers, c, x, bias, ctx, seq)
         if seq is not None:
             x = seq.gather(x)
         x = strip_right_context(x, layout)
@@ -237,6 +233,22 @@ class TransformerEncoder(nn.Module):
             # before it in post-LN models (wav2vec2.py:846-871)
             x = ln(self.layer_norm, x)
         return x[:, :T]
+
+
+def encoder_layers(layers: nn.ModuleList, cfg: Wav2Vec2Config,
+                   x: torch.Tensor, bias, ctx: Optional[DropoutContext] = None,
+                   seq=None) -> torch.Tensor:
+    """The layer stack of the JAX ``EncoderLayers``
+    (``wav2vec_s_tpu/models/wav2vec2.py:156-182``): each layer under
+    ``bias`` (a dense bias or a ``FlashSpec``), skipped on a host layerdrop
+    draw of ``ctx``; ``seq``: ``x`` is a ``SeqShard``'s rows."""
+    rates = Dropouts(cfg.dropout, cfg.attention_dropout,
+                     cfg.activation_dropout)
+    for layer in layers:
+        if ctx is not None and ctx.layer_dropped(cfg.encoder_layerdrop):
+            continue
+        x = layer(x, bias, cfg.layer_norm_first, gelu, rates, ctx, seq)
+    return x
 
 
 def downsample_padding_mask(padding_mask: torch.Tensor,
@@ -304,6 +316,10 @@ class Wav2Vec2Model(nn.Module):
     """The wav2vec-S model on the blockwise encoder; ``pretraining=True``
     adds the quantizer (``quantize_targets``), ``project_q`` and
     ``final_proj`` that the pre-training ``forward`` needs."""
+
+    #: the transformer encoder, which the freeze schedules reach in
+    #: pre-training (``CaatModelBase``)
+    encoder_prefix = "encoder."
 
     def __init__(self, cfg: Wav2Vec2Config, pretraining: bool = False):
         super().__init__()

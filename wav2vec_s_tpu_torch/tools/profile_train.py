@@ -1,10 +1,16 @@
 """Where the time of one fine-tuning step goes on the card.
 
     python -m wav2vec_s_tpu_torch.tools.profile_train [--attention flash|dense]
-        [--steps 3] [--batch 8] [--seconds 10] [--targets 40] [--top 25]
+        [--family raw|fbank|text] [--frontend shallow2d] [--jointer mha]
+        [--steps 3] [--batch 8] [--seconds 10] [--tokens 64] [--targets 40]
+        [--top 25]
 
 Builds wav2vec-S Base + CAAT base with random weights from a seed (bf16
-compute, the recipe's dropouts), takes two warm steps on seeded noise, then
+compute, the recipe's dropouts) on raw audio, or the fbank family's model
+(Base encoder widths, ``--frontend`` / ``--jointer``) on seeded log-mel
+frames (``--seconds`` of 10 ms frames, padded to a multiple of 16), or the
+text family's on ``--tokens`` source tokens; takes two warm steps on seeded
+noise, then
 ``--steps`` steps on the host clock (a synchronize after each) and the same
 number under ``torch.profiler``.  Prints the step times, the device kernels
 per step, the device-busy time per step (the union of the kernel intervals,
@@ -16,6 +22,7 @@ CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -40,6 +47,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--attention", default="flash",
                     choices=("flash", "dense"))
+    ap.add_argument("--family", default="raw",
+                    choices=("raw", "fbank", "text"))
+    ap.add_argument("--frontend", default="shallow2d")
+    ap.add_argument("--jointer", default="mha")
+    ap.add_argument("--tokens", type=int, default=64)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seconds", type=float, default=10.0)
@@ -56,6 +68,8 @@ def main(argv=None) -> int:
     from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
     from wav2vec_s_tpu_torch.models.caat import (
         W2V2CaatModel, caat_base_config)
+    from wav2vec_s_tpu_torch.models.fbank import FbankCaatModel
+    from wav2vec_s_tpu_torch.models.text_caat import TextCaatModel
     from wav2vec_s_tpu_torch.models.modules import random_init_
     from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
     from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
@@ -66,16 +80,26 @@ def main(argv=None) -> int:
                                 attention_impl=args.attention)
     caat = caat_base_config(dtype="bfloat16")
     with dev:
-        model = W2V2CaatModel(w2v, caat)
+        model = {"raw": lambda: W2V2CaatModel(w2v, caat),
+                 "fbank": lambda: FbankCaatModel(w2v, dataclasses.replace(
+                     caat, frontend=args.frontend,
+                     jointer_type=args.jointer)),
+                 "text": lambda: TextCaatModel(w2v, caat)}[args.family]()
     random_init_(model, torch.Generator(device=dev).manual_seed(0))
     g = torch.Generator().manual_seed(0)
-    n_samples = int(args.seconds * 16000)
     tgt = torch.randint(4, caat.vocab_size, (args.batch, args.targets),
                         generator=g)
     tgt[:, -1] = caat.eos
-    batch = {"source": torch.randn((args.batch, n_samples),
-                                   generator=g).to(dev),
-             "targets": tgt.to(dev)}
+    if args.family == "raw":
+        source = torch.randn((args.batch, int(args.seconds * 16000)),
+                             generator=g)
+    elif args.family == "fbank":
+        frames = -(-int(args.seconds * 100) // 16) * 16
+        source = torch.randn((args.batch, frames, 80), generator=g)
+    else:
+        source = torch.randint(4, caat.vocab_size, (args.batch, args.tokens),
+                               generator=g)
+    batch = {"source": source.to(dev), "targets": tgt.to(dev)}
     opt = build_optimizer(OptimConfig(lr=1e-4, warmup_updates=100))
     state = TrainState.create(model, opt)
     step = make_train_step(make_caat_loss_fn(model, caat, 16, 8), opt)
@@ -115,8 +139,12 @@ def main(argv=None) -> int:
                           text=True).stdout.strip()
     n = args.steps
     wall = sum(walls) / n
-    print(f"profile_train: attention={args.attention} B {args.batch} x "
-          f"{args.seconds:g} s, U {args.targets} [{card}]")
+    what = {"raw": f"{args.seconds:g} s of audio",
+            "fbank": f"{args.seconds:g} s of log-mel frames, "
+                     f"{args.frontend} + {args.jointer}",
+            "text": f"{args.tokens} source tokens"}[args.family]
+    print(f"profile_train: {args.family}, attention={args.attention} B "
+          f"{args.batch} x {what}, U {args.targets} [{card}]")
     print(f"untraced step times {['%.2f' % w for w in walls]} ms (mean "
           f"{wall:.2f}), peak memory {peak_gb:.3f} GB")
     print(f"traced: {traced_ms / n:.2f} ms per step, {len(kernels) / n:.0f} "

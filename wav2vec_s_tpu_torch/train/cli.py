@@ -4,8 +4,11 @@
 Port of ``wav2vec_s_tpu/train/cli.py`` for wav2vec-S streaming pre-training
 (``run.task=pretrain``: span masking, the Gumbel quantizer, the contrastive
 head, a block context sampled per update under
-``context.context_type=sampling``), CAAT fine-tuning on raw audio
-(``run.task=caat``) and the offline-ASR heads (``run.task=s2s``: the
+``context.context_type=sampling``), CAAT fine-tuning (``run.task=caat``)
+on raw audio, on log-mel features (``data.features=fbank``: the fbank
+family, ``caat.frontend`` / ``caat.jointer_type``) or on source text
+(``data.features=text``: the text family, a parallel-text manifest) and
+the offline-ASR heads (``run.task=s2s``: the
 seq2seq model whose encoder seeds CAAT; ``run.task=ctc``): the fairseq
 training program's epoch/update loop
 (fairseq/fairseq_cli/train.py:52-488 + trainer.py) with max-tokens batches,
@@ -57,8 +60,15 @@ What differs from the JAX CLI, on purpose:
   so a DP step equals one process over the global batch.  Validation sums
   loss and count over the data ranks; rank 0 alone prints the progress
   and writes checkpoints (in the single-process layout).
+- The fbank family's ``TFMask`` draws from the batcher's generator in
+  collate order, as the JAX one does; the JAX CLI collates two rows for
+  its ``init_params`` first (the port does not), and under data
+  parallelism each rank masks its own rows.
 - What the port does not do yet raises at start-up and names the ROADMAP
-  item that will bring it; no configuration key is ignored silently.
+  item that will bring it; no configuration key is ignored silently
+  (``data.features=fbank|text`` outside ``run.task=caat``, and
+  ``caat.frontend`` / ``caat.jointer_type`` outside the fbank family,
+  raise where the JAX CLI ignores them).
 """
 
 from __future__ import annotations
@@ -77,12 +87,13 @@ from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
 from wav2vec_s_tpu_torch.data.batching import (
     EpochBatchIterator, batch_by_size, length_buckets)
 from wav2vec_s_tpu_torch.data.dataset import (
-    CaatBatcher, PretrainBatcher, to_device)
+    CaatBatcher, PretrainBatcher, TextBatcher, to_device)
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
 from wav2vec_s_tpu_torch.data.manifests import (
-    read_audio_manifest, read_s2t_manifest)
+    read_audio_manifest, read_s2t_manifest, read_text_manifest)
 from wav2vec_s_tpu_torch.data.prefetch import prefetch_batches
 from wav2vec_s_tpu_torch.data.tokenizer import build_tokenizer
+from wav2vec_s_tpu_torch.data.transforms import TFMask, Whiten
 from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
 from wav2vec_s_tpu_torch.models.caat import CaatConfig, W2V2CaatModel
 from wav2vec_s_tpu_torch.models.modules import random_init_
@@ -96,6 +107,7 @@ from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
 
 
 TASKS = ("pretrain", "caat", "s2s", "ctc")
+FEATURES = ("raw", "fbank", "text")
 
 
 def check_supported(cfg: TrainConfig) -> None:
@@ -104,10 +116,21 @@ def check_supported(cfg: TrainConfig) -> None:
     run, data = cfg.run, cfg.data
     if run.task not in TASKS:
         raise ValueError(f"run.task={run.task!r} is not one of {TASKS}")
+    if data.features not in FEATURES:
+        raise ValueError(f"data.features={data.features!r} is not one of "
+                         f"{FEATURES}")
+    if data.features != "raw" and run.task != "caat":
+        raise ValueError(f"data.features={data.features} trains the fbank "
+                         f"and text CAAT families: run.task=caat, not "
+                         f"{run.task!r}")
+    for key in ("frontend", "jointer_type"):
+        default = getattr(CaatConfig, key)
+        value = cfg.caat.get(key, default)
+        if value != default and data.features != "fbank":
+            raise ValueError(f"caat.{key}={value} picks a module of the "
+                             f"fbank family (data.features=fbank), not of "
+                             f"data.features={data.features}")
     todo = []
-    if data.features != "raw":
-        todo.append(f"data.features={data.features} (item 12: the fbank "
-                    f"and text families)")
     if run.seq > 1 and (run.zero or run.fsdp):
         todo.append("run.seq > 1 with run.zero or run.fsdp (item 11b: "
                     "context parallelism composes with data parallelism "
@@ -132,9 +155,7 @@ def _config(cls, kwargs: Dict, section: str, **fixed):
     unknown = sorted(set(kwargs) - known)
     if unknown:
         raise ValueError(
-            f"{section}.{unknown[0]} is not a field of {cls.__name__} "
-            f"(fbank-family fields of the CAAT config come with ROADMAP "
-            f"Queue 1 item 12)")
+            f"{section}.{unknown[0]} is not a field of {cls.__name__}")
     kw = {k: (tuple(map(tuple, v)) if k == "conv_feature_layers"
               else tuple(v) if isinstance(v, list) else v)
           for k, v in kwargs.items()}
@@ -157,27 +178,38 @@ def caat_configs(cfg: TrainConfig, vocab_size: int):
 
 
 def _s2t_data(cfg: TrainConfig):
-    """(manifest, target dict, batcher) of a fine-tuning run on raw audio:
-    the S2T tsv, its dictionary, ``CaatBatcher`` over the 640-multiple pad
-    grid."""
-    manifest = read_s2t_manifest(cfg.data.train_manifest, cfg.data.audio_root)
-    tgt_dict = Dictionary.load(cfg.data.vocab)
-    tokenizer = build_tokenizer(cfg.data.tokenizer, cfg.data.spm_model or None,
-                                cfg.data.bpe_dropout)
-    audio_buckets = length_buckets(cfg.data.max_sample_size, multiple=640)
+    """(manifest, target dict, batcher) of a fine-tuning run on audio: the
+    S2T tsv, its dictionary, ``CaatBatcher`` over the 640-multiple pad grid
+    of samples, or for fbank over a 16-multiple grid of log-mel frames
+    (10 ms shift) with ``Whiten`` and, under ``data.specaugment``,
+    ``TFMask``."""
+    data = cfg.data
+    manifest = read_s2t_manifest(data.train_manifest, data.audio_root)
+    tgt_dict = Dictionary.load(data.vocab)
+    tokenizer = build_tokenizer(data.tokenizer, data.spm_model or None,
+                                data.bpe_dropout)
+    transforms = ()
+    if data.features == "fbank":
+        audio_buckets = length_buckets(data.max_sample_size // 160,
+                                       multiple=16)
+        transforms = (Whiten(),) + (
+            (TFMask(seed=data.seed),) if data.specaugment else ())
+    else:
+        audio_buckets = length_buckets(data.max_sample_size, multiple=640)
     batcher = CaatBatcher(manifest, tgt_dict, tokenizer, audio_buckets,
-                          task_type=cfg.data.task_type,
-                          normalize=cfg.data.normalize)
+                          task_type=data.task_type, normalize=data.normalize,
+                          features=data.features, transforms=transforms)
     return manifest, tgt_dict, batcher
 
 
 def _init_fine_tuning(cfg: TrainConfig, model, w2v_model):
     """Seeded random weights, then the pre-trained wav2vec2 weights
-    (``run.w2v2_model_path``) over ``w2v_model``, then the fine-tuned
+    (``run.w2v2_model_path``) over ``w2v_model`` (None: the fbank family,
+    which ignores the path as the JAX CLI does), then the fine-tuned
     encoder of ``run.pretrained_encoder_path``, which wins (the reference
     order).  Returns ``model``."""
     random_init_(model, torch.Generator().manual_seed(cfg.run.seed))
-    if cfg.run.w2v2_model_path:
+    if cfg.run.w2v2_model_path and w2v_model is not None:
         from wav2vec_s_tpu_torch.checkpoint.torch_import import (
             load_torch_checkpoint, load_wav2vec2_)
         load_wav2vec2_(w2v_model, load_torch_checkpoint(
@@ -194,12 +226,55 @@ def _init_fine_tuning(cfg: TrainConfig, model, w2v_model):
 
 
 def build_caat(cfg: TrainConfig):
-    """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run on raw
-    audio (``wav2vec_s_tpu/train/cli.py`` ``build_caat``)."""
+    """(manifest, batcher, model, caat_cfg, make_loss) of a CAAT run
+    (``wav2vec_s_tpu/train/cli.py`` ``build_caat``): ``W2V2CaatModel`` on
+    raw audio, ``FbankCaatModel`` on log-mel features, or the text family
+    (``build_text_caat``)."""
+    if cfg.data.features == "text":
+        return build_text_caat(cfg)
     manifest, tgt_dict, batcher = _s2t_data(cfg)
     model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
-    model = W2V2CaatModel(model_cfg, caat_cfg)
-    _init_fine_tuning(cfg, model, model.encoder.w2v2_model)
+    if cfg.data.features == "fbank":
+        from wav2vec_s_tpu_torch.models.fbank import FbankCaatModel
+
+        model = _init_fine_tuning(cfg, FbankCaatModel(model_cfg, caat_cfg),
+                                  None)
+    else:
+        model = W2V2CaatModel(model_cfg, caat_cfg)
+        _init_fine_tuning(cfg, model, model.encoder.w2v2_model)
+
+    def make_loss(mc, rc, downsample=None, train=True, plan=None):
+        return make_caat_loss_fn(model, caat_cfg, mc, rc,
+                                 downsample=downsample, train=train,
+                                 plan=plan)
+
+    return manifest, batcher, model, caat_cfg, make_loss
+
+
+def build_text_caat(cfg: TrainConfig):
+    """(manifest, batcher, model, caat_cfg, make_loss) of simultaneous text
+    translation with the attention transducer (``run.task=caat`` +
+    ``data.features=text``; JAX ``build_text_caat``): the reference's text
+    side of the CAAT family (rain/models/caat_transformer.py text encoder,
+    trained by rain/tasks/dropout_translation.py over fairseq bitext with
+    BPE dropout).  Manifest: a tsv with src_text/tgt_text columns or a
+    ``src.txt,tgt.txt`` pair; ``data.src_vocab`` a separate source
+    dictionary; block contexts count token positions.  Seeded random
+    weights: as in the JAX CLI, no warm start reaches this family."""
+    from wav2vec_s_tpu_torch.models.text_caat import TextCaatModel
+
+    data = cfg.data
+    manifest = read_text_manifest(data.train_manifest)
+    tgt_dict = Dictionary.load(data.vocab)
+    src_dict = Dictionary.load(data.src_vocab) if data.src_vocab else None
+    tokenizer = build_tokenizer(data.tokenizer, data.spm_model or None,
+                                data.bpe_dropout)
+    batcher = TextBatcher(manifest, tgt_dict, tokenizer, src_dict=src_dict)
+    model_cfg, caat_cfg = caat_configs(cfg, len(tgt_dict))
+    model = random_init_(
+        TextCaatModel(model_cfg, caat_cfg,
+                      src_vocab_size=len(src_dict) if src_dict else 0),
+        torch.Generator().manual_seed(cfg.run.seed))
 
     def make_loss(mc, rc, downsample=None, train=True, plan=None):
         return make_caat_loss_fn(model, caat_cfg, mc, rc,
@@ -387,18 +462,25 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
         # bucket hinted by the batch's shortest wav
         sizes = np.minimum(np.asarray(manifest.sizes),
                            cfg.data.max_sample_size)
-        hint = np.min
         sampled_steps = None
     else:
         build = {"s2s": build_s2s, "ctc": build_ctc}.get(run.task, build_caat)
         manifest, batcher, model, caat_cfg, make_loss = build(cfg)
         sizes = np.asarray(manifest.n_frames)
-        hint = np.max
         # sampled decision-step training (reference step_mode=random,
         # rain/layers/attention_transducer.py:800-815): one trained model
         # serves every DECISION_STEP eval point.  Host-side draw per update.
         sampled_steps = (caat_cfg.sampled_steps if run.task == "caat"
                          and caat_cfg.step_mode == "random" else None)
+    fbank = cfg.data.features == "fbank"
+
+    def hint(batch_sizes) -> int:
+        """The pad (crop) bucket's size hint of a batch: its longest row
+        (pre-training: shortest); samples, log-mel frames for fbank."""
+        if pretrain:
+            return int(np.min(batch_sizes))
+        return int(np.max(batch_sizes)) // (160 if fbank else 1)
+
     model.to(device)
     if plan is not None:
         plan.prepare(model)
@@ -431,7 +513,7 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
 
     grad_mask = None
     if run.freeze_w2v2_enc or run.freeze_finetune_updates:
-        grad_mask = make_freeze_mask(run.freeze_w2v2_enc,
+        grad_mask = make_freeze_mask(model, run.freeze_w2v2_enc,
                                      run.freeze_finetune_updates)
 
     # one step function per context bucket and decision step
@@ -460,8 +542,10 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
                                 cfg.data.max_sample_size)
             vbatcher = dataclasses.replace(batcher, manifest=vman)
         else:
-            vman = read_s2t_manifest(cfg.data.valid_manifest,
-                                     cfg.data.audio_root)
+            vman = (read_text_manifest(cfg.data.valid_manifest)
+                    if cfg.data.features == "text" else
+                    read_s2t_manifest(cfg.data.valid_manifest,
+                                      cfg.data.audio_root))
             vsizes = np.asarray(vman.n_frames)
             vbatcher = _valid_batcher(batcher, vman)
         valid_setup = (vbatcher, _batches(vsizes, cfg.data.max_tokens,
@@ -481,7 +565,7 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
         for i, bidx in enumerate(vbatches):
             keyed = {"key": (0, i)} if pretrain else {}
             rows = _rows(len(bidx))
-            hb = vbatcher.collate(bidx, size_hint=int(hint(vsz[bidx])),
+            hb = vbatcher.collate(bidx, size_hint=hint(vsz[bidx]),
                                   rows=rows, **keyed)
             vb = to_device(hb, device)
             loss, size, logs = vloss_fn(vb, None, 0)
@@ -529,7 +613,7 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
         key, batch_idx = item
         keyed = {"key": key} if pretrain else {}
         host_batch = batcher.collate(
-            batch_idx, size_hint=int(hint(sizes[batch_idx])),
+            batch_idx, size_hint=hint(sizes[batch_idx]),
             rows=_rows(len(batch_idx)), **keyed)
         if run.update_freq > 1:
             host_batch = {k: _microbatch(v, run.update_freq)
@@ -707,16 +791,23 @@ def _valid_decoder(cfg: TrainConfig, model, vbatcher, plan):
                 group=None if plan is None else plan.data_group)
 
 
-def _valid_batcher(batcher: CaatBatcher, manifest) -> CaatBatcher:
-    """The training batcher over the validation manifest, without BPE
-    dropout (validation segments deterministically)."""
-    new = dataclasses.replace(batcher, manifest=manifest)
-    if getattr(new.tokenizer, "bpe_dropout", 0.0) > 0:
-        import copy
+def _valid_batcher(batcher, manifest):
+    """The training batcher (``CaatBatcher`` or ``TextBatcher``) over the
+    validation manifest, without ``TFMask`` and without BPE dropout on
+    either tokenizer (validation segments deterministically; JAX
+    ``dataclasses_replace_manifest``)."""
+    import copy
 
-        clean = copy.copy(new.tokenizer)
-        clean.bpe_dropout = 0.0
-        new = dataclasses.replace(new, tokenizer=clean)
+    new = dataclasses.replace(batcher, manifest=manifest)
+    if getattr(new, "transforms", ()):
+        new = dataclasses.replace(new, transforms=tuple(
+            t for t in new.transforms if not isinstance(t, TFMask)))
+    for attr in ("tokenizer", "src_tokenizer"):
+        tok = getattr(new, attr, None)
+        if tok is not None and getattr(tok, "bpe_dropout", 0.0) > 0:
+            clean = copy.copy(tok)
+            clean.bpe_dropout = 0.0
+            new = dataclasses.replace(new, **{attr: clean})
     return new
 
 

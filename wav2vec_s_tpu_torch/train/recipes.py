@@ -64,8 +64,10 @@ def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
                       right_context: Optional[int] = None,
                       downsample: Optional[int] = None, train: bool = True,
                       plan=None):
-    """loss_fn for ``make_train_step`` over ``model`` (a
-    ``W2V2CaatModel``): batch {source, targets, [padding_mask]}; each call
+    """loss_fn for ``make_train_step`` over ``model`` (a CAAT model:
+    ``W2V2CaatModel``, ``FbankCaatModel`` or ``TextCaatModel``, whose
+    ``token_embedding()`` the loss projects with): batch {source, targets,
+    [padding_mask]}; each call
     draws the step's dropout seed, layerdrop and position offsets from the
     host ``generator``.  ``train=False`` is the validation loss: no
     ``DropoutContext`` (every dropout site is the identity, no layer is
@@ -83,7 +85,7 @@ def make_caat_loss_fn(model, caat_cfg, main_context: Optional[int] = None,
                                right_context=right_context,
                                downsample=downsample, ctx=ctx)
         tgt_lens = (tgt != caat_cfg.pad).sum(dim=1).to(torch.int32)
-        loss, logs = caat_loss(joint_h, model.decoder.lm.embed_tokens.weight,
+        loss, logs = caat_loss(joint_h, model.token_embedding(),
                                tgt, glens, tgt_lens, caat_cfg)
         n = logs.pop("sample_size")
         return loss, n, {k: v.float() for k, v in logs.items()}
@@ -179,15 +181,12 @@ DEFAULT_CONTEXT_BUCKETS = (
     (8, 4), (12, 6), (16, 8), (20, 8), (24, 12), (28, 12), (32, 16),
 )
 
-_W2V2 = "encoder.w2v2_model."
-_W2V2_LAYER = re.compile(re.escape(_W2V2) + r"encoder\.layers\.(\d+)\.")
 
-
-def make_freeze_mask(freeze_w2v2_enc: int = 0,
+def make_freeze_mask(model, freeze_w2v2_enc: int = 0,
                      freeze_finetune_updates: int = 0):
     """Gradient mask for ``make_train_step`` implementing the reference's
-    freeze schedules over the wav2vec-S parameters (names under
-    ``encoder.w2v2_model.``):
+    freeze schedules over the encoder's parameters (the names under
+    ``model.encoder_prefix``: the JAX models' ``encoder`` subtree):
 
     - ``freeze_w2v2_enc`` (rain/models/w2v2_transducer.py:163-174): every
       one of them is frozen for good except encoder layers >= N;
@@ -196,15 +195,17 @@ def make_freeze_mask(freeze_w2v2_enc: int = 0,
 
     Frozen gradients are multiplied by 0 in place, as the JAX mask does (a
     non-finite frozen gradient still skips the step)."""
+    prefix = model.encoder_prefix
+    layer = re.compile(re.escape(prefix) + r"(?:encoder\.)?layers\.(\d+)\.")
 
     def grad_mask(grads: Dict[str, torch.Tensor], step: int) -> None:
         for name, g in grads.items():
-            if not name.startswith(_W2V2):
+            if not name.startswith(prefix):
                 continue
             frozen = 0 < freeze_finetune_updates and step < (
                 freeze_finetune_updates)
             if freeze_w2v2_enc > 0:
-                m = _W2V2_LAYER.match(name)
+                m = layer.match(name)
                 frozen |= not (m and int(m.group(1)) >= freeze_w2v2_enc)
             if frozen:
                 g.mul_(0.0)
