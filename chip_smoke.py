@@ -276,6 +276,39 @@ Phases, each printed on its own line:
                launches per update.  (d) eval.cli simul on (b)'s checkpoint,
                2 streams of 4 s: AL, audio-sec/s.  Then K4 against its twin
                at every (shape, dtype, rate) that (b) and (c) dropped.
+  19. full context and baselines — the group-norm front-end, the
+               full-context wav2vec 2.0 encoder (models/wav2vec2.py) and the
+               wait-k and MMA baselines (models/waitk.py, models/mma.py,
+               stream/mma_agent.py).  (a) Tiny, float32, on the card
+               against the CPU (tools/baseline_parity.py, shared with the
+               card tests): the group-norm model on the full-context and
+               the blockwise encoder (extract_features; the pre-training
+               loss and every gradient); wait-k and MMA training loss and
+               every gradient, dense and flash, the recipe's dropouts (MMA
+               without and with its energy noise); hard_decode_step; the
+               two agents' words and delays.  (b) A stock-layout wav2vec
+               2.0 Base .pt (weight_g / weight_v conv positions, the block-0
+               group norm) made from a seed through the port's export;
+               convert_cli --encoder-type full: the imported parameters
+               equal the model's, the exported .pt equals the input; the
+               full-context extract_features at B 8 x 10 s, bf16: ms per
+               call, peak memory; then continued pre-training through the
+               training entry point (configs/pretrain_base.yaml,
+               model.extractor_mode=default, run.load_pretrained_model_from
+               that .pt, flash): the model before its first update equals
+               the .pt's weights (conv positions dropped), 2 warm + 10
+               timed updates, K2 == K3 == layers kept, updates/s, peak
+               memory.  (c) wait-k (k 3, stride 8) and MMA on the
+               wav2vec-S Base encoder (flash) and CAAT-base decoder widths,
+               bf16, B 8 x 10 s, U 40, 1 warm + 4 timed updates by hand
+               (token NLL; MMA plus 0.1 latency_loss, energy noise on; an
+               update whose loss is not finite is skipped, and the layer-0
+               alignment mass per step printed): updates/s, peak
+               memory, K2 == K3 == layers kept, K4 > 0; WaitkAgent and
+               MMAStreamingAgent under SimulEvaluator on 2 streams of 4 s:
+               audio-sec/s, AL, K2 launches per model call.  Then K4
+               against its twin at every (shape, dtype, rate) that (b) and
+               (c) dropped.
 Each phase prints its wall seconds ("phase clock"), and the whole script's
 before the card line.  Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
@@ -2353,7 +2386,7 @@ def phase_train_full(card):
     from wav2vec_s_tpu_torch.models.caat import (
         W2V2CaatModel, caat_base_config)
     from wav2vec_s_tpu_torch.models.modules import random_init_
-    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
     from wav2vec_s_tpu_torch.train import recipes
     from wav2vec_s_tpu_torch.train.optim import OptimConfig
 
@@ -2376,16 +2409,11 @@ def phase_train_full(card):
     torch.cuda.synchronize()
 
     contexts = []
-
-    class Recorded(DropoutContext):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            contexts.append(self)
-
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
     times, all_logs = [], []
-    with mock.patch.object(recipes, "DropoutContext", Recorded):
+    with mock.patch.object(recipes, "DropoutContext",
+                           recording_context(contexts=contexts)):
         for _ in range(2):
             t = time.perf_counter()
             for _ in range(TRAIN_WINDOW):
@@ -2500,16 +2528,11 @@ def _run_cli(argv, n_layers, n_dec_layers):
     from unittest import mock
 
     import torch
-    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
     from wav2vec_s_tpu_torch.train import cli, recipes
     from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
 
     contexts, records = [], []
-
-    class Recorded(DropoutContext):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            contexts.append(self)
 
     class Timed(JsonProgress):
         def __init__(self, **kw):
@@ -2523,7 +2546,8 @@ def _run_cli(argv, n_layers, n_dec_layers):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+    with mock.patch.object(recipes, "DropoutContext",
+                           recording_context(contexts=contexts)), \
             mock.patch.object(cli, "JsonProgress", Timed):
         cli.main(argv)
     torch.cuda.synchronize()
@@ -3294,29 +3318,29 @@ def _pretrain_corpus(root):
     return root / "pretrain.tsv"
 
 
-def _run_pretrain_cli(argv):
+def _run_pretrain_cli(argv, sites=None):
     """One call of the trainer's entry point with every launch count set to
     0 before it -> (counts, progress records with the host time of each,
     dropout contexts of its updates, host ms of their draws, tile-table
-    rebuilds, peak GB)."""
+    rebuilds, peak GB); each dropout site's (shape, dtype, rate) added to
+    ``sites`` when given."""
     import io
     from unittest import mock
 
     import torch
     from wav2vec_s_tpu_torch.ops import flash_attention
-    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
     from wav2vec_s_tpu_torch.train import cli, recipes
     from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
 
     contexts, records = [], []
 
-    class Recorded(DropoutContext):
+    class DrawTimed(recording_context(sites, contexts=contexts)):
         """Times the host draws of an update (negatives, Gumbel noise)."""
 
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.draw_s = 0.0
-            contexts.append(self)
 
         def randint(self, *a, **kw):
             t = time.perf_counter()
@@ -3345,7 +3369,7 @@ def _run_pretrain_cli(argv):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+    with mock.patch.object(recipes, "DropoutContext", DrawTimed), \
             mock.patch.object(cli, "JsonProgress", Timed):
         cli.main(argv)
     torch.cuda.synchronize()
@@ -3988,26 +4012,11 @@ def _run_asr_cli(argv, sites):
     from unittest import mock
 
     import torch
-    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
     from wav2vec_s_tpu_torch.train import cli, recipes
     from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
 
     kept, records = [], []
-
-    class Recorded(DropoutContext):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            kept.append(0)
-
-        def layer_dropped(self, p):
-            dropped = super().layer_dropped(p)
-            kept[-1] += not dropped
-            return dropped
-
-        def __call__(self, x, rate, seq=None):
-            if rate:
-                sites.add((tuple(x.shape), x.dtype, rate))
-            return super().__call__(x, rate, seq)
 
     class Timed(JsonProgress):
         def __init__(self, **kw):
@@ -4021,7 +4030,8 @@ def _run_asr_cli(argv, sites):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
-    with mock.patch.object(recipes, "DropoutContext", Recorded), \
+    with mock.patch.object(recipes, "DropoutContext",
+                           recording_context(sites, kept)), \
             mock.patch.object(cli, "JsonProgress", Timed):
         cli.main(argv)
     torch.cuda.synchronize()
@@ -4538,6 +4548,481 @@ def phase_family_full(card):
     return paths, _hold_sites(sites, "family"), _hold_walks(lattices, V)
 
 
+
+# phase 19: the full-context wav2vec 2.0 encoder (the group-norm front-end,
+# a stock-layout .pt, continued pre-training) and the wait-k and MMA
+# simultaneous baselines
+FULL_B, FULL_CALLS = 8, 5          # the full-context forward: B 8 x 10 s
+BASELINE_K, BASELINE_STRIDE = 3, 8
+BASELINE_WARM, BASELINE_TIMED = 1, 4
+BASELINE_STREAMS, BASELINE_STREAM_S = 2, 4.0
+BASELINE_MAX_LEN = 40
+#: (seconds, targets) of the MMA updates that must train (every loss
+#: finite, every update applied): at 10 s, U 40 the expected alignment of
+#: the seeded model overflows (ROADMAP Queue 3)
+MMA_FINITE = (1.0, 10)
+BASELINE_CASES = (("waitk", "dense", False), ("waitk", "flash", False),
+                  ("mma", "dense", False), ("mma", "flash", False),
+                  ("mma", "flash", True))
+
+
+def phase_baseline_parity():
+    """19a (``tools/baseline_parity.py``): the tiny group-norm model on the
+    full-context and the blockwise encoder (``extract_features``, the
+    pre-training loss and every gradient), the wait-k and MMA training loss
+    and every gradient (dense and flash, the recipe's dropouts; MMA without
+    and with its energy noise), ``hard_decode_step``, and the two agents'
+    words and delays: the card against the CPU."""
+    import torch
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    rtol, atol = bp.GRAD_TOL
+    for encoder_type in ("full", "blockwise"):
+        (lc, gc, fc), (lg, gg, fg) = (bp.full_context(dev, encoder_type)
+                                      for dev in ("cpu", "cuda"))
+        torch.testing.assert_close(fg, fc, rtol=1e-5, atol=1e-5)
+        rel, worst = bp.gap((lc, gc), (lg, gg))
+        print(f"phase baseline parity: tiny group-norm model, "
+              f"{encoder_type} encoder, float32: extract_features max abs "
+              f"diff {(fg - fc).abs().max().item():.3g}; pre-training loss "
+              f"cpu {lc:.6f} cuda {lg:.6f} (rel diff {rel:.3g}, tol "
+              f"{bp.LOSS_RTOL:g}); every gradient within {worst:.3g} of the "
+              f"bound |diff| <= {rtol:g} |g| + {atol:g} max |g|")
+        assert rel <= bp.LOSS_RTOL and worst <= 1.0, (encoder_type, rel,
+                                                      worst)
+    for kind, impl, noise in BASELINE_CASES:
+        cpu = bp.loss_and_grads(kind, impl, "cpu", noise)
+        _reset_counts()
+        card = bp.loss_and_grads(kind, impl, "cuda", noise)
+        counts = _counts()
+        assert counts["hw_dropout"] > 0, counts
+        k2k3 = (counts["blockwise_flash_attention_packed"],
+                counts["blockwise_flash_attention_bwd"])
+        assert (min(k2k3) > 0) == (impl == "flash"), (kind, impl, counts)
+        rel, worst = bp.gap(cpu, card)
+        label = f"{kind}, {impl}" + (", energy noise" if noise else "")
+        print(f"phase baseline parity: tiny {label}, float32, the recipe's "
+              f"dropouts: loss cpu {cpu[0]:.6f} cuda {card[0]:.6f} (rel "
+              f"diff {rel:.3g}); every gradient within {worst:.3g} of the "
+              f"bound; K4 {counts['hw_dropout']}, K2 {k2k3[0]}, K3 "
+              f"{k2k3[1]} launches")
+        assert rel <= bp.LOSS_RTOL and worst <= 1.0, (label, rel, worst)
+    (lc, nc), (lg, ng) = bp.hard_step("cpu"), bp.hard_step("cuda")
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ng, nc)
+    cpu, card = bp.agents("cpu"), bp.agents("cuda")
+    assert card == cpu and all(text for _, text, _ in card), (cpu, card)
+    print(f"phase baseline parity: hard_decode_step logits max abs diff "
+          f"{(lg - lc).abs().max().item():.3g}, need_more {ng.tolist()} "
+          f"equal; WaitkAgent and MMAStreamingAgent cuda == cpu: "
+          f"{[(name, text, delays) for name, text, delays in card]}")
+
+
+def _full_context_forward(model, card):
+    """The full-context ``extract_features`` of a bf16 copy of ``model`` on
+    B 8 x 10 s -> (launch counts of the timed calls, ms per call, peak
+    GB)."""
+    import torch
+    from wav2vec_s_tpu_torch.models.feature_extractor import (
+        conv_output_length)
+    from wav2vec_s_tpu_torch.models.modules import compute_copy
+
+    m = compute_copy(model, torch.bfloat16).cuda().eval()
+    S = int(SECONDS * 16000)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    src = torch.randn((FULL_B, S), generator=g, device="cuda") * 0.1
+    with torch.no_grad():
+        out, _ = m.extract_features(src)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        ms = _cuda_ms(lambda: m.extract_features(src), FULL_CALLS)
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = model.cfg
+    frames = conv_output_length(S, cfg.conv_feature_layers)
+    assert out.shape == (FULL_B, frames, cfg.encoder_embed_dim)
+    assert out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
+    # dense attention, no dropout: no kernel of the port runs here
+    assert all(v == 0 for v in counts.values()), counts
+    print(f"phase full context: extract_features, wav2vec 2.0 Base (group "
+          f"norm, conv positions 128/16, 12 x 768, dense attention), bf16, "
+          f"B {FULL_B} x {SECONDS:g} s (T {frames}): {ms:.3f} ms per call "
+          f"({FULL_B * SECONDS / ms * 1e3:.1f} audio-sec/s), peak memory "
+          f"{peak:.3f} GB over the calls [{card}]")
+    del m
+    torch.cuda.empty_cache()
+    return counts, ms, peak
+
+
+def phase_full_context(card):
+    """19b: a stock-layout wav2vec 2.0 Base ``.pt`` (weight-normed conv
+    positions, the block-0 group norm) from a seed through the port's
+    export; ``convert_cli --encoder-type full`` round trip; the
+    full-context forward at B 8 x 10 s; then continued pre-training
+    through the trainer (configs/pretrain_base.yaml,
+    ``model.extractor_mode=default``, ``run.load_pretrained_model_from``,
+    flash): 2 warm + 10 timed updates; then K4 against its twin at every
+    (shape, dtype, rate) the updates dropped -> ({path: launch counts},
+    K4's max abs error)."""
+    import math
+    import pathlib
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint import convert_cli
+    from wav2vec_s_tpu_torch.checkpoint.io import load_params
+    from wav2vec_s_tpu_torch.checkpoint.torch_export import (
+        export_wav2vec2_state_dict, save_fairseq_checkpoint)
+    from wav2vec_s_tpu_torch.checkpoint.torch_import import (
+        load_torch_checkpoint)
+    from wav2vec_s_tpu_torch.models import (
+        Wav2Vec2Model, wav2vec2_base_config)
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+    from wav2vec_s_tpu_torch.train import cli
+
+    torch.cuda.empty_cache()
+    paths = {}
+    t = time.perf_counter()
+    model = random_init_(Wav2Vec2Model(wav2vec2_base_config(
+        dtype="bfloat16"), pretraining=True, encoder_type="full"),
+                         torch.Generator().manual_seed(0))
+    sd = export_wav2vec2_state_dict(model)
+    for key in ("encoder.pos_conv.0.weight_g", "encoder.pos_conv.0.weight_v",
+                "feature_extractor.conv_layers.0.2.weight",
+                "quantizer.vars", "mask_emb"):
+        assert key in sd, key
+    assert sd["encoder.pos_conv.0.weight_g"].shape == (1, 1,
+                                                       model.cfg.conv_pos)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        pt = root / "wav2vec2_base.pt"
+        # the stored cfg of a fairseq checkpoint: convert_cli reads the
+        # widths and the extractor mode from it
+        save_fairseq_checkpoint(pt, sd, {"model": {k: getattr(model.cfg, k)
+                                                   for k in (
+            "extractor_mode", "encoder_layers", "encoder_embed_dim",
+            "encoder_ffn_embed_dim", "encoder_attention_heads", "final_dim",
+            "latent_vars", "latent_groups")}})
+        made = time.perf_counter() - t
+        t = time.perf_counter()
+        convert_cli.main(["--pt", str(pt), "--out", str(root / "ck"),
+                          "--encoder-type", "full"])
+        got = load_params(root / "ck")
+        own = model.state_dict()
+        assert sorted(got) == sorted(own)
+        assert all(torch.equal(got[k], v) for k, v in own.items())
+        convert_cli.main(["--export-from", str(root / "ck"), "--out",
+                          str(root / "back.pt")])
+        back = load_torch_checkpoint(root / "back.pt")["model"]
+        assert sorted(back) == sorted(sd)
+        assert all(torch.equal(back[k], v) for k, v in sd.items())
+        print(f"phase full context: a stock-layout wav2vec 2.0 Base .pt "
+              f"({len(sd)} tensors, {sum(v.numel() for v in sd.values())} "
+              f"values: weight_g / weight_v, the block-0 group norm, the "
+              f"quantizer) made from seed 0 in {made:.1f} s; convert_cli "
+              f"--encoder-type full: the imported parameters == the model's "
+              f"({len(got)} tensors), the exported .pt == the input, value "
+              f"for value; {time.perf_counter() - t:.1f} s")
+
+        paths["full_context_forward"], _, _ = _full_context_forward(model,
+                                                                    card)
+        del model
+        manifest = _pretrain_corpus(root)
+        total = PRETRAIN_WARM + PRETRAIN_TIMED
+        argv = ["--config", os.path.join(CONFIGS, "pretrain_base.yaml"),
+                "--device", "cuda", f"run.save_dir={root}/cont",
+                f"run.max_update={total}", "run.log_interval=1",
+                "run.save_interval_updates=0", "run.keep_last=1",
+                "run.validate_interval_updates=0",
+                f"data.train_manifest={manifest}",
+                "model.attention_impl=flash", "model.extractor_mode=default",
+                "model.pos_type=conv",
+                f"run.load_pretrained_model_from={pt}"]
+        snap = {}
+        real_create = cli.TrainState.create
+
+        def create(m, optimizer, plan=None):
+            snap.update({k: v.detach().cpu().clone()
+                         for k, v in m.state_dict().items()})
+            return real_create(m, optimizer, plan)
+
+        sites = set()
+        t = time.perf_counter()
+        with mock.patch.object(cli.TrainState, "create", create):
+            counts, recs, ctxs, _, _, peak_gb = _run_pretrain_cli(argv,
+                                                                  sites)
+        wall = time.perf_counter() - t
+    # the run started from the .pt: its group norm and encoder, no
+    # conv positions (the blockwise encoder adds sinusoidal ones)
+    want = {k: v for k, v in sd.items() if not k.startswith(
+        "encoder.pos_conv.")}
+    assert sorted(snap) == sorted(want), set(snap) ^ set(want)
+    assert all(torch.equal(snap[k], v) for k, v in want.items())
+    assert [r["step"] for r in recs] == list(range(1, total + 1))
+    assert all(math.isfinite(r["loss_total"]) and math.isfinite(
+        r["grad_norm"]) and r["skipped"] == 0.0 for r in recs), recs
+    kept = [(c.sites - 3) // 3 for c in ctxs]
+    flash_calls = sum(kept)
+    assert counts["blockwise_flash_attention_packed"] == flash_calls
+    assert counts["blockwise_flash_attention_bwd"] == flash_calls
+    assert counts["hw_dropout"] == 2 * (sum(c.sites for c in ctxs)
+                                        - flash_calls) > 0, counts
+    span = recs[-1]["at"] - recs[PRETRAIN_WARM - 1]["at"]
+    ups = PRETRAIN_TIMED / span
+    per = {k: v / total for k, v in counts.items() if v}
+    print(f"phase full context: continued pre-training (configs/"
+          f"pretrain_base.yaml, model.extractor_mode=default, "
+          f"run.load_pretrained_model_from=<that .pt>, flash, bf16, B "
+          f"{PRETRAIN_B} x 200960 samples, sampled contexts): the model "
+          f"before its first update == the .pt's weights ({len(want)} "
+          f"tensors, the group norm kept, the conv positions dropped); "
+          f"{PRETRAIN_WARM} warm + {PRETRAIN_TIMED} timed updates in "
+          f"{span:.4f} s -> {ups:.3f} updates/s, peak memory {peak_gb:.3f} "
+          f"GB; launches per update {per} (layers kept {kept}); loss "
+          f"{recs[0]['loss_total']:.2f} -> {recs[-1]['loss_total']:.2f}; "
+          f"the whole call {wall:.1f} s [{card}]")
+    paths["pretrain_from_pt"] = counts
+    return paths, _hold_sites(sites, "full context")
+
+
+def _baseline_model(kind):
+    import torch
+    from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
+    from wav2vec_s_tpu_torch.models.caat import caat_base_config
+    from wav2vec_s_tpu_torch.models.mma import MMAModel
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+    from wav2vec_s_tpu_torch.models.waitk import WaitkModel
+
+    dev = torch.device("cuda")
+    w2v = wav2vec_s_base_config(dtype="bfloat16", attention_impl="flash")
+    caat = caat_base_config(dtype="bfloat16")
+    with dev:
+        model = (WaitkModel(w2v, caat, BASELINE_K, BASELINE_STRIDE)
+                 if kind == "waitk" else MMAModel(w2v, caat))
+    random_init_(model, torch.Generator(device=dev).manual_seed(0))
+    return model
+
+
+def _baseline_updates(kind, model, card, sites, seconds=None,
+                      n_targets=None):
+    """BASELINE_WARM + BASELINE_TIMED updates by hand of the baseline's
+    ``sequence_loss`` (MMA: with its latency term and energy noise) on B 8
+    x ``seconds`` (SECONDS), U ``n_targets`` (TRAIN_U) -> (launch counts
+    of the timed updates, updates/s, peak GB).  Every timed loss must be finite and every update
+    applied, except MMA's at 10 s (ROADMAP Queue 3: the expected alignment
+    kept from JAX has no bound there)."""
+    import math
+
+    import torch
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.baseline_parity import sequence_loss
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    seconds, n_targets = seconds or SECONDS, n_targets or TRAIN_U
+    caat = model.cfg
+    S = int(seconds * 16000)
+    batch = _train_batch(TRAIN_B, S, n_targets, caat.vocab_size, caat.eos,
+                         "cuda")
+    kept = []
+    Recorded = recording_context(sites, kept)
+
+    def loss_fn(b, gen, step):
+        ctx = Recorded(gen)
+        n = (b["targets"] != caat.pad).sum()
+        loss = sequence_loss(kind, model, b, ctx) * n
+        return loss, n, {"loss": loss.detach()}
+
+    opt = build_optimizer(OptimConfig(lr=1e-4, warmup_updates=100))
+    state = TrainState.create(model, opt)
+    step = make_train_step(loss_fn, opt)
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(BASELINE_WARM):
+        state, logs = step(state, batch, gen)
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone()
+              for n, p in model.decoder.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    kept.clear()
+    t = time.perf_counter()
+    all_logs = []
+    for _ in range(BASELINE_TIMED):
+        state, logs = step(state, batch, gen)
+        all_logs.append(logs)
+    torch.cuda.synchronize()
+    span = time.perf_counter() - t
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(lg["loss_total"]) / float(lg["sample_size"])
+              for lg in all_logs]
+    skipped = [float(lg["skipped"]) for lg in all_logs]
+    unchanged = [n for n, p in model.decoder.named_parameters()
+                 if torch.equal(p, before[n])]
+    del before
+    if kind == "mma" and seconds == SECONDS:
+        # ROADMAP Queue 3: the expected alignment kept from JAX has no
+        # bound; at 10 s its mass overflows and the step skips the update
+        # of a non-finite loss, and only then
+        assert all(math.isfinite(v) == (k == 0.0)
+                   for v, k in zip(losses, skipped)), all_logs
+    else:
+        assert all(math.isfinite(v) for v in losses) and not any(
+            skipped), all_logs
+        assert not unchanged, ("updates not applied to", unchanged)
+    # one K2 forward and one K3 backward per kept encoder layer
+    assert counts["hw_dropout"] > 0, counts
+    assert counts["blockwise_flash_attention_packed"] == counts[
+        "blockwise_flash_attention_bwd"] == sum(kept) > 0, (counts, kept)
+    _on_tensor_cores(_set_paths(), {
+        "K1": 0, "K2": counts["blockwise_flash_attention_packed"],
+        "K3": counts["blockwise_flash_attention_bwd"]})
+    mass = ""
+    if kind == "mma":
+        # the expected alignment's mass per target step: at most 1 in
+        # exact arithmetic, more where the recursion's clips act
+        tgt = batch["targets"]
+        prev = torch.cat([torch.full_like(tgt[:, :1], caat.eos),
+                          tgt[:, :-1]], dim=1)
+        with torch.no_grad():
+            _, alphas = model(batch["source"], prev, ctx=DropoutContext(
+                torch.Generator().manual_seed(1)))
+        # layer 0 reads clean inputs; later layers read its output
+        m = alphas[0].float().sum(-1).amax(dim=(0, 1))            # [U]
+        bad = (~torch.isfinite(m)).nonzero()
+        steps = tuple(sorted({u for u in (0, 1, 2, 5, 10, 20)
+                              if u < n_targets} | {n_targets - 1}))
+        at = ", ".join(f"{m[u].item():.3g}" for u in steps)
+        mass = (f"; layer 0's expected-alignment mass per target step "
+                f"(max over rows and heads) at steps {steps}: {at}; "
+                f"first non-finite step "
+                f"{int(bad[0]) if len(bad) else None}; every layer finite: "
+                f"{bool(torch.isfinite(alphas).all())}")
+        del alphas
+    ups = BASELINE_TIMED / span
+    per = {k: v / BASELINE_TIMED for k, v in counts.items() if v}
+    what = ("token NLL" if kind == "waitk" else
+            "token NLL + 0.1 latency_loss, energy noise on")
+    rate = (f"{ups:.3f} updates/s" if not any(skipped) else
+            f"{ups:.3f} skipped updates/s (forward + backward, no "
+            f"optimizer step)")
+    print(f"phase baselines full: {kind} (wav2vec-S Base mc 16 rc 8, flash "
+          f"+ CAAT-base decoder widths: 6 x 768, 12 heads, vocab "
+          f"{caat.vocab_size}"
+          + (f"; k {BASELINE_K}, stride {BASELINE_STRIDE}"
+             if kind == "waitk" else "") +
+          f"), bf16, the recipe's dropouts, {what}: B {TRAIN_B} x "
+          f"{seconds:g} s, U {n_targets}: {BASELINE_WARM} warm + "
+          f"{BASELINE_TIMED} timed updates in {span:.4f} s -> {rate} "
+          f"({TRAIN_B * seconds * ups:.2f} audio-sec/s), peak memory "
+          f"{peak:.3f} GB; launches per update {per}, K2/K3 all on the "
+          f"tensor-core kernels (encoder layers kept {kept}); loss per "
+          f"token {losses[0]:.3f} -> {losses[-1]:.3f}, updates skipped "
+          f"(non-finite) {int(sum(skipped))} of {BASELINE_TIMED}, decoder "
+          f"tensors unchanged by the updates {len(unchanged)}{mass} "
+          f"[{card}]")
+    return counts, ups, peak
+
+
+def _baseline_agent(kind, model, card):
+    """``WaitkAgent`` or ``MMAStreamingAgent`` under ``SimulEvaluator`` on
+    BASELINE_STREAMS seeded-noise streams of 4 s -> launch counts."""
+    import math
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.models.waitk import WaitkAgent
+    from wav2vec_s_tpu_torch.stream.agent import SimulEvaluator
+    from wav2vec_s_tpu_torch.stream.engine import StreamingEngine
+    from wav2vec_s_tpu_torch.stream.mma_agent import MMAStreamingAgent
+
+    model.eval()
+    vocab = _vocab(model.cfg.vocab_size)
+    with torch.no_grad():
+        # random weights: the eos row (tied to the output) scaled down so
+        # that the agents write words before eos, and MMA's heads able to
+        # stop (energy bias 0, not -2), as tools/baseline_parity.agents
+        model.decoder.embed_tokens.weight[model.cfg.eos] *= 0.1
+        if kind == "mma":
+            for layer in model.decoder.layers:
+                layer.encoder_attn.energy_bias.fill_(0.0)
+    if kind == "waitk":
+        def factory():
+            return WaitkAgent(model, vocab, BASELINE_K, BASELINE_STRIDE,
+                              max_len=BASELINE_MAX_LEN)
+        counted, name, agent = WaitkAgent, "_emit_one", "WaitkAgent"
+    else:
+        def factory():
+            return MMAStreamingAgent(model, vocab, main_context=16,
+                                     right_context=8, eager=True,
+                                     max_len=BASELINE_MAX_LEN)
+        counted, name, agent = (StreamingEngine, "encode_prefix",
+                                "MMAStreamingAgent")
+    calls = [0]
+    real = getattr(counted, name)
+
+    def count(self, *a, **kw):
+        calls[0] += 1
+        return real(self, *a, **kw)
+
+    wavs = _clips([int(BASELINE_STREAM_S * 16000)] * BASELINE_STREAMS,
+                  seed=7)
+    ev = SimulEvaluator(factory, segment_size_ms=25)
+    with torch.no_grad():
+        ev.run_instance(wavs[0][:16000], "w1")          # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        calls[0] = 0
+        t = time.perf_counter()
+        with mock.patch.object(counted, name, count):
+            out = ev.evaluate(wavs, ["w1 w2 w3"] * len(wavs), metric="wer")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = _counts()
+    k2 = counts["blockwise_flash_attention_packed"]
+    assert calls[0] > 0 and k2 > 0 and k2 % calls[0] == 0, (k2, calls)
+    assert counts["blockwise_flash_attention_bwd"] == 0, counts
+    assert math.isfinite(out["AL"]), out
+    what = ("a whole-model recompute per emission" if kind == "waitk"
+            else "a prefix encode per policy step")
+    print(f"phase baselines full: {agent} under "
+          f"SimulEvaluator, {len(wavs)} streams of {BASELINE_STREAM_S:g} s "
+          f"(25 ms segments), max_len {BASELINE_MAX_LEN}: "
+          f"{len(wavs) * BASELINE_STREAM_S / wall:.3f} audio-sec/s "
+          f"({wall:.2f} s), AL {out['AL']:.1f} ms, AP {out['AP']:.3f}; "
+          f"{calls[0]} calls ({what}), K2 {k2} launches = {k2 // calls[0]} "
+          f"per call [{card}]")
+    return counts
+
+
+def phase_baselines_full(card):
+    """19c: wait-k and MMA at full width: training updates by hand and the
+    two agents under ``SimulEvaluator``; then K4 against its twin at every
+    (shape, dtype, rate) the updates dropped -> ({path: launch counts},
+    K4's max abs error)."""
+    import torch
+
+    paths, sites = {}, set()
+    for kind in ("waitk", "mma"):
+        torch.cuda.empty_cache()
+        model = _baseline_model(kind)
+        paths[f"{kind}_train"], _, _ = _baseline_updates(kind, model, card,
+                                                         sites)
+        if kind == "mma":
+            # a full-width MMA update that trains: a source short enough
+            # for the expected alignment to stay finite (ROADMAP Queue 3)
+            paths["mma_train_short"], _, _ = _baseline_updates(
+                kind, model, card, sites, *MMA_FINITE)
+        paths[f"{kind}_agent"] = _baseline_agent(kind, model, card)
+        del model
+    torch.cuda.empty_cache()
+    return paths, _hold_sites(sites, "baselines")
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -4616,13 +5101,25 @@ def main() -> int:
     family_paths, family_k4_err, family_walk_errs = _clocked(
         phase_family_full, card)
     paths.update(family_paths)
-    k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err, family_k4_err)
+    _clocked(phase_baseline_parity)
+    full_paths, full_k4_err = _clocked(phase_full_context, card)
+    paths.update(full_paths)
+    baseline_paths, baseline_k4_err = _clocked(phase_baselines_full, card)
+    paths.update(baseline_paths)
+    k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err, family_k4_err,
+                            full_k4_err, baseline_k4_err)
     for walk, err in family_walk_errs.items():
         lat[walk]["max_abs_err"] = max(lat[walk]["max_abs_err"], err)
     # K4 and the warp set's two fused walks carry both families' training
     for path in ("fbank_cli", "text_cli"):
         assert all(paths[path][name] > 0 for name in (
             "hw_dropout", *WALKS)), (path, paths[path])
+    # K4 carries every new training path, K2 and K3 the flash ones
+    for path in ("pretrain_from_pt", "waitk_train", "mma_train",
+                 "mma_train_short"):
+        assert all(paths[path][name] > 0 for name in (
+            "hw_dropout", "blockwise_flash_attention_packed",
+            "blockwise_flash_attention_bwd")), (path, paths[path])
     print(f"phase train full (dense, by hand, U 40): {dense_ups:.3f} "
           f"updates/s, {dense_gb:.3f} GB peak [{card}]")
 

@@ -14,7 +14,8 @@ package, ``convert_cli`` and the ``.pt`` warm start.
   a model without them), an optional ``mask_emb``, and the raises on an
   unknown key, a missing key and a wrong shape;
 - ``python -m wav2vec_s_tpu_torch.checkpoint.convert_cli``: import to a
-  checkpoint directory, export back, for w2v2 and caat;
+  checkpoint directory, export back, for w2v2 and caat, and again with
+  ``--encoder-type full`` (a full-context w2v2 model; caat ignores it);
 - ``warm_start.apply_pretrained_encoder`` from a ``.pt`` under each of the
   three prefixes the JAX package tries.
 """
@@ -183,9 +184,28 @@ def test_convert_cli_imports_and_exports(tmp_path, model):
                       str(tmp_path / "out.pt"), "--model", model])
     back = torch_import.load_torch_checkpoint(tmp_path / "out.pt")
     _dicts_equal(back["model"], jax_sd)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        convert_cli.main(["--pt", str(tmp_path / "in.pt"), "--out",
-                          str(tmp_path / "x"), "--encoder-type", "full"])
+    # --encoder-type full: a w2v2 model on the full-context encoder (its
+    # folded conv positions) goes round the same way; a CAAT import takes
+    # the blockwise encoder whatever it says, as in JAX
+    if model == "w2v2":
+        from tests.test_torch_port_full_context import jax_full
+
+        full = dataclasses.replace(W2V, conv_pos=16, conv_pos_groups=4)
+        _, params = jax_full(full, "full")
+        jax_sd = jax_export.export_wav2vec2_params(params)
+        want = wav2vec2_state_dict_from_jax(params)
+        jax_export.save_fairseq_checkpoint(tmp_path / "in.pt", jax_sd)
+        cfg_kw += ["conv_pos=16", "conv_pos_groups=4"]
+    convert_cli.main(["--pt", str(tmp_path / "in.pt"), "--out",
+                      str(tmp_path / "full"), "--model", model,
+                      "--encoder-type", "full"] + cfg_kw)
+    _dicts_equal(load_params(tmp_path / "full"), want)
+    convert_cli.main(["--export-from", str(tmp_path / "full"), "--out",
+                      str(tmp_path / "full.pt"), "--model", model])
+    back = torch_import.load_torch_checkpoint(tmp_path / "full.pt")
+    _dicts_equal(back["model"], jax_sd)
+    assert ("encoder.pos_conv.0.weight_g" in back["model"]) == (
+        model == "w2v2")
 
 
 @pytest.mark.parametrize("prefix", TORCH_PREFIXES)

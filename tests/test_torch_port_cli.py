@@ -45,6 +45,7 @@ from wav2vec_s_tpu_torch.data import tokenizer
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
 from wav2vec_s_tpu_torch.data.prefetch import prefetch_batches
 from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
+from wav2vec_s_tpu_torch.models.modules import random_init_
 from wav2vec_s_tpu_torch.train import cli, config
 from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
 from wav2vec_s_tpu_torch.train.step import TrainState
@@ -495,8 +496,6 @@ UNSUPPORTED = {
     "flat_optimizer": ({"run.flat_optimizer": "true"}, "item 9"),
     "profile_dir": ({"run.profile_dir": "/tmp/p"}, "item 12"),
     "debug_nan": ({"run.debug_nan": "true"}, "item 12"),
-    "pos_type_conv": ({"model.pos_type": "conv"}, "item 12"),
-    "extractor_default": ({"model.extractor_mode": "default"}, "item 12"),
     "remat_extractor": ({"model.remat_extractor": "True"}, "item 9"),
 }
 
@@ -593,8 +592,121 @@ def test_cli_builds_every_caat_recipe(corpus, recipe):
     assert caat_cfg.vocab_size == len(Dictionary.load(str(vocab)))
 
 
+#: model values that the JAX CLI takes and the port builds as JAX does:
+#: pos_type is read nowhere (the encoder type decides the positions), the
+#: default extractor mode puts a group norm in conv block 0
+AS_IN_JAX = {"pos_type_conv": ("pos_type", "conv"),
+             "extractor_default": ("extractor_mode", "default")}
+
+
+def _jax_tree(model, *inputs):
+    """The parameter tree of the flax ``model`` (traced, not run), each
+    leaf filled from a seeded numpy normal."""
+    import jax
+    import jax.numpy as jnp
+
+    shapes = jax.eval_shape(lambda: model.init(
+        {n: jax.random.PRNGKey(i) for i, n in enumerate(
+            ("params", "dropout", "gumbel", "negatives", "layerdrop",
+             "rand_pos"))},
+        *(jnp.zeros(x.shape, x.dtype) for x in inputs),
+        train=False))["params"]
+    rng = np.random.default_rng(0)
+    return jax.tree_util.tree_map(
+        lambda leaf: rng.standard_normal(leaf.shape).astype(np.float32),
+        shapes)
+
+
+def _built_as_in_jax(case, model, plain, jax_sd, jax_plain_sd):
+    """``model`` (built with the case's value) against ``plain`` (the
+    default config's), and the JAX package's two models converted to the
+    port's names (``jax_sd``, ``jax_plain_sd``): the port holds the JAX
+    model's parameters, name for name and shape for shape;
+    pos_type=conv leaves both packages' models and the port's features as
+    they are; extractor_mode=default swaps block 0's layer norm for a
+    group norm, under fairseq's names."""
+    a, b = model.state_dict(), plain.state_dict()
+    assert {k: v.shape for k, v in a.items()} == {
+        k: v.shape for k, v in jax_sd.items()}
+    model.load_state_dict(jax_sd, strict=True)
+    plain.load_state_dict(jax_plain_sd, strict=True)
+    if case == "pos_type_conv":
+        assert jax_sd.keys() == jax_plain_sd.keys()
+        a, b = model.state_dict(), plain.state_dict()
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k])
+                                            for k in a)
+        src = torch.randn((2, 1600), generator=torch.Generator(
+        ).manual_seed(0))
+        with torch.no_grad():
+            assert torch.equal(model.extract_features(src)[0],
+                               plain.extract_features(src)[0])
+        return
+    fe = "feature_extractor.conv_layers.0.2"
+    assert isinstance(model.feature_extractor.conv_layers[0][2],
+                      torch.nn.GroupNorm)
+    assert set(a) - set(b) == {fe + ".weight", fe + ".bias"}
+    gone = set(b) - set(a)           # every block's layer norm
+    assert {fe + ".1.weight", fe + ".1.bias"} <= gone
+    assert all(".2.1." in k for k in gone)
+
+
+@pytest.mark.parametrize("case", sorted(AS_IN_JAX))
+def test_cli_builds_what_jax_builds_for_the_ported_values(corpus, case):
+    """The two values the CLI refused until the full-context encoder and
+    the group norm came: ``cli.build_caat`` builds the encoder that the
+    JAX CLI's ``build_caat`` builds for them."""
+    from wav2vec_s_tpu.train import cli as jax_cli
+    from wav2vec_s_tpu_torch.checkpoint.convert import (
+        caat_state_dict_from_jax)
+
+    field, value = AS_IN_JAX[case]
+    argvs = [_overrides(corpus, "a", **extra)[2:]
+             for extra in ({f"model.{field}": value}, {})]
+    model, plain = (cli.build_caat(config.load_config(None, argv))[2]
+                    for argv in argvs)
+    assert getattr(model.encoder.w2v2_model.cfg, field) == value
+    prev = np.zeros((1, 5), np.int32)
+    jax_sd, jax_plain_sd = (
+        caat_state_dict_from_jax(_jax_tree(
+            jax_cli.build_caat(jax_config.load_config(None, argv))[2],
+            np.zeros((1, 2400), np.float32), prev))
+        for argv in argvs)
+    enc = "encoder.w2v2_model."
+    _built_as_in_jax(case, model.encoder.w2v2_model,
+                     plain.encoder.w2v2_model,
+                     *({k[len(enc):]: v for k, v in sd.items()
+                        if k.startswith(enc)}
+                       for sd in (jax_sd, jax_plain_sd)))
+
+
+@pytest.mark.parametrize("case", sorted(AS_IN_JAX))
+def test_model_builds_what_jax_builds_for_the_ported_values(case):
+    """Built directly: ``Wav2Vec2Model`` takes the two values and holds
+    what the JAX package's ``Wav2Vec2Model`` holds for them."""
+    from wav2vec_s_tpu.models.wav2vec2 import Wav2Vec2Model as JaxModel
+    from wav2vec_s_tpu_torch.checkpoint.convert import (
+        wav2vec2_state_dict_from_jax)
+
+    field, value = AS_IN_JAX[case]
+    kw = dict(conv_feature_layers=((8, 10, 5), (8, 3, 2)), encoder_layers=1,
+              encoder_embed_dim=8, encoder_ffn_embed_dim=16,
+              encoder_attention_heads=2, main_context=4, right_context=2,
+              final_dim=8)
+    cfgs = (dict(kw, **{field: value}), kw)
+    model, plain = (random_init_(Wav2Vec2Model(Wav2Vec2Config(**c),
+                                               pretraining=True),
+                                 torch.Generator().manual_seed(1))
+                    for c in cfgs)
+    jax_sd, jax_plain_sd = (
+        wav2vec2_state_dict_from_jax(_jax_tree(
+            JaxModel(JaxWav2Vec2Config(**c)),
+            np.zeros((1, 2400), np.float32), np.zeros((1, 4), np.int32),
+            np.zeros((), np.int32)))
+        for c in cfgs)
+    _built_as_in_jax(case, model, plain, jax_sd, jax_plain_sd)
+
+
 @pytest.mark.parametrize("field, value, item", [
-    ("extractor_mode", "default", "item 12"), ("pos_type", "conv", "item 12"),
     ("remat_extractor", True, "item 9")])
 def test_model_raises_on_values_that_are_not_ported(field, value, item):
     """Built directly, not through the CLI: the encoder refuses a value

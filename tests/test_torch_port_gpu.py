@@ -9,8 +9,11 @@ card against the CPU, the offline-ASR heads (CTC and seq2seq loss and
 gradients, the greedy decoders, the beam generator) on the card against
 the CPU, and the fbank and text CAAT families (loss and gradients of every
 front-end x jointer and of the text model, the fbank agent) on the card
-against the CPU with K4 at their dropout sites.  They skip without a CUDA
-device.  On a card:
+against the CPU with K4 at their dropout sites, and the group-norm
+wav2vec 2.0 model (full-context and blockwise), the wait-k and MMA
+baselines (loss and gradients, ``hard_decode_step``, the two agents) on
+the card against the CPU with K4 at the baselines' dropout sites.  They
+skip without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -1146,6 +1149,86 @@ def test_dropout_kernel_at_the_family_sites(cuda, family, dtype):
         x = torch.randn(shape, generator=g, device=cuda).to(dtype)
         got = hw_dropout(x, p, 0xABCDEF, offset)
         assert torch.equal(got, dropout_ref(x, p, 0xABCDEF, offset)), shape
+        mask = hw_dropout(torch.ones_like(x), p, 0xABCDEF, offset) != 0
+        assert torch.equal(mask.reshape(-1), keep_mask(
+            x.numel(), p, 0xABCDEF, offset, cuda)), shape
+
+
+# ---- the full-context encoder and the simultaneous baselines --------------
+
+@pytest.mark.parametrize("kind, impl, noise", [
+    ("waitk", "dense", False), ("waitk", "flash", False),
+    ("mma", "dense", False), ("mma", "flash", False),
+    ("mma", "dense", True), ("mma", "flash", True)])
+def test_tiny_baseline_loss_and_grads_on_cuda_equal_cpu(cuda, kind, impl,
+                                                        noise):
+    """The wait-k and MMA training loss (dropouts on; MMA's energy noise
+    drawn from the step generator, or none) and every gradient on the card
+    against the CPU (``tools/baseline_parity.py``; ``asr_parity``'s
+    tolerances); K4 launches, and under flash K2 and K3."""
+    from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    cpu = bp.loss_and_grads(kind, impl, "cpu", noise)
+    counters = (hw_dropout, blockwise_flash_attention_packed,
+                blockwise_flash_attention_bwd)
+    before = [f.launches for f in counters]
+    card = bp.loss_and_grads(kind, impl, "cuda", noise)
+    ran = [f.launches - b for f, b in zip(counters, before)]
+    assert ran[0] > 0 and (min(ran[1:]) > 0) == (impl == "flash"), ran
+    rel, worst = bp.gap(cpu, card)
+    assert rel <= bp.LOSS_RTOL and worst <= 1.0, (rel, worst)
+
+
+@pytest.mark.parametrize("encoder_type", ["full", "blockwise"])
+def test_tiny_group_norm_model_on_cuda_equals_cpu(cuda, encoder_type):
+    """The group-norm wav2vec 2.0 model on the full-context and the
+    blockwise encoder: ``extract_features`` and the pre-training loss with
+    every gradient, the card against the CPU."""
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    (lc, gc, fc), (lg, gg, fg) = (bp.full_context(dev, encoder_type)
+                                  for dev in ("cpu", "cuda"))
+    torch.testing.assert_close(fg, fc, rtol=1e-5, atol=1e-5)
+    rel, worst = bp.gap((lc, gc), (lg, gg))
+    assert rel <= bp.LOSS_RTOL and worst <= 1.0, (rel, worst)
+
+
+def test_tiny_hard_decode_step_on_cuda_equals_cpu(cuda):
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    (lc, nc), (lg, ng) = bp.hard_step("cpu"), bp.hard_step("cuda")
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+    assert torch.equal(ng, nc)
+
+
+def test_tiny_baseline_agents_on_cuda_equal_cpu(cuda):
+    """``WaitkAgent`` and ``MMAStreamingAgent``: the same words and delays
+    on the card as on the CPU."""
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    cpu, card = bp.agents("cpu"), bp.agents("cuda")
+    assert card == cpu and all(text for _, text, _ in card)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["waitk", "mma"])
+def test_dropout_kernel_at_the_baseline_sites(cuda, kind, dtype):
+    """K4 bit-equal to its twin (output and mask) at every dropout site of
+    the baseline's tiny training forward."""
+    from wav2vec_s_tpu_torch.ops.dropout import (
+        dropout_ref, hw_dropout, keep_mask)
+    from wav2vec_s_tpu_torch.tools import baseline_parity as bp
+
+    sites = bp.dropout_sites(kind)
+    assert len(sites) >= 4        # MMA's decoder has no dropout
+    g = torch.Generator(device=cuda).manual_seed(4)
+    for offset, (shape, p) in enumerate(sorted(sites)):
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        assert torch.equal(hw_dropout(x, p, 0xABCDEF, offset),
+                           dropout_ref(x, p, 0xABCDEF, offset)), shape
         mask = hw_dropout(torch.ones_like(x), p, 0xABCDEF, offset) != 0
         assert torch.equal(mask.reshape(-1), keep_mask(
             x.numel(), p, 0xABCDEF, offset, cuda)), shape

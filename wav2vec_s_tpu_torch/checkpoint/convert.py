@@ -10,10 +10,14 @@ fairseq wav2vec2 names; ``ctc_state_dict_from_jax`` and
 ``s2s_state_dict_from_jax`` give the fairseq names of the offline-ASR
 heads (``models/asr.py``), ``fbank_state_dict_from_jax`` and
 ``text_caat_state_dict_from_jax`` those of the fbank and text CAAT models
-(``models/fbank.py``, ``models/text_caat.py``):
+(``models/fbank.py``, ``models/text_caat.py``), and
+``waitk_state_dict_from_jax`` / ``mma_state_dict_from_jax`` those of the
+simultaneous baselines (``models/waitk.py``, ``models/mma.py``):
 
 - dense ``kernel [in, out]``       -> ``weight [out, in]``
-- conv ``kernel [k, in, out]``     -> ``weight [out, in, k]``
+- conv ``kernel [k, in, out]``     -> ``weight [out, in, k]`` (the
+  full-context encoder's conv positions stay folded: ``pos_conv.conv`` ->
+  ``encoder.pos_conv.0.weight``)
 - 2-D conv ``kernel [kh, kw, in, out]`` -> ``weight [out, in, kh, kw]``
 - norm ``scale`` / ``bias``        -> ``weight`` / ``bias``
 
@@ -65,6 +69,8 @@ def _wav2vec2(out, p, prefix):
             out[base + ".0.bias"] = _a(conv["bias"])
         if f"ln_{i}" in fe:
             _norm(out, base + ".2.1", fe[f"ln_{i}"])
+        elif f"gn_{i}" in fe:
+            _norm(out, base + ".2", fe[f"gn_{i}"])
         i += 1
     _norm(out, prefix + "layer_norm", p["layer_norm"])
     if "post_extract_proj" in p:
@@ -72,6 +78,12 @@ def _wav2vec2(out, p, prefix):
     if "mask_emb" in p:
         out[prefix + "mask_emb"] = _a(p["mask_emb"])
     enc = p["encoder"]
+    if "pos_conv" in enc:
+        # the full-context encoder's folded conv positions, [k, in/g, out]
+        conv = enc["pos_conv"]["conv"]
+        out[prefix + "encoder.pos_conv.0.weight"] = np.transpose(
+            _a(conv["kernel"]), (2, 1, 0))
+        out[prefix + "encoder.pos_conv.0.bias"] = _a(conv["bias"])
     _norm(out, prefix + "encoder.layer_norm", enc["layer_norm"])
     for name, layer in enc["layers"].items():
         _layer(out, f"{prefix}encoder.layers.{int(name.split('_')[1])}", layer)
@@ -198,15 +210,45 @@ def s2s_state_dict_from_jax(params: Dict[str, Any]
     dec = params["decoder"]
     out["decoder.embed_tokens.weight"] = _a(dec["embed_tokens"])
     for name, layer in dec.items():
-        if not name.startswith("layer_") or name == "layer_norm":
-            continue
-        base = f"decoder.layers.{int(name.split('_')[1])}"
-        _layer(out, base, layer)
-        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            _linear(out, f"{base}.encoder_attn.{proj}",
-                    layer["encoder_attn"][proj])
-        _norm(out, base + ".encoder_attn_layer_norm",
-              layer["encoder_attn_layer_norm"])
+        if name.startswith("layer_") and name != "layer_norm":
+            _decoder_layer(out, f"decoder.layers.{int(name.split('_')[1])}",
+                           layer)
     if "layer_norm" in dec:
         _norm(out, "decoder.layer_norm", dec["layer_norm"])
+    return _tensors(out)
+
+
+def _decoder_layer(out, base, layer, mono=False):
+    """A fairseq ``TransformerDecoderLayer``'s names; ``mono``: the MMA
+    layer's encoder attention, which adds the monotonic heads."""
+    _layer(out, base, layer)
+    att = layer["encoder_attn"]
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj") + (
+            ("mono_q_proj", "mono_k_proj") if mono else ()):
+        _linear(out, f"{base}.encoder_attn.{proj}", att[proj])
+    if mono:
+        out[base + ".encoder_attn.energy_bias"] = _a(att["energy_bias"])
+    _norm(out, base + ".encoder_attn_layer_norm",
+          layer["encoder_attn_layer_norm"])
+
+
+#: the JAX ``WaitkModel`` tree is the JAX seq2seq model's, and the port's
+#: ``models/waitk.WaitkModel`` carries the seq2seq names
+waitk_state_dict_from_jax = s2s_state_dict_from_jax
+
+
+def mma_state_dict_from_jax(params: Dict[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """The JAX ``MMAModel`` tree -> the state dict of the port's
+    ``models/mma.MMAModel``: ``embed_tokens`` -> ``decoder.embed_tokens``,
+    ``layer_{i}`` -> ``decoder.layers.{i}`` (the monotonic heads under
+    their JAX leaf names), ``final_ln`` -> ``decoder.layer_norm``."""
+    out: Dict[str, np.ndarray] = {}
+    _wav2vec2(out, params["encoder"], "encoder.w2v2_model.")
+    out["decoder.embed_tokens.weight"] = _a(params["embed_tokens"])
+    for name, layer in params.items():
+        if name.startswith("layer_"):
+            _decoder_layer(out, f"decoder.layers.{int(name.split('_')[1])}",
+                           layer, mono=True)
+    _norm(out, "decoder.layer_norm", params["final_ln"])
     return _tensors(out)

@@ -2,10 +2,13 @@
 port's checkpoint directories (port of
 ``wav2vec_s_tpu/checkpoint/convert_cli.py``).
 
-Import: a fairseq ``.pt`` (a pre-trained wav2vec-S model, or a fine-tuned
-rain CAAT checkpoint with ``encoder.w2v2_model.*`` keys) becomes a
-checkpoint directory of ``checkpoint/io.py`` (step 0, no optimizer state)
-that the eval CLI reads and the trainer warm-starts from.
+Import: a fairseq ``.pt`` (a pre-trained wav2vec-S model, a stock
+wav2vec 2.0 model with ``--encoder-type full``, or a fine-tuned rain CAAT
+checkpoint with ``encoder.w2v2_model.*`` keys) becomes a checkpoint
+directory of ``checkpoint/io.py`` (step 0, no optimizer state) that the
+eval CLI reads and the trainer warm-starts from.  ``--encoder-type full``
+keeps the conv positions (folded, ``torch_import.fold_weight_norm``); the
+default ``blockwise`` drops them, as the JAX converter does.
 
 Export: the latest step of a port checkpoint directory becomes a
 reference-named ``.pt`` that the fairseq / rain stack loads.
@@ -14,15 +17,17 @@ Usage:
   # import
   python -m wav2vec_s_tpu_torch.checkpoint.convert_cli \\
       --pt wav2vec-S-base.pt --out ckpt_dir [--prefix encoder.w2v2_model.] \\
-      [--model w2v2|caat] [key=value ...] [caat.key=value ...]
+      [--encoder-type blockwise|full] [--model w2v2|caat] \\
+      [key=value ...] [caat.key=value ...]
   # export
   python -m wav2vec_s_tpu_torch.checkpoint.convert_cli \\
       --export-from ckpt_dir --out model.pt --model w2v2|caat
 
-The widths come from the checkpoint's stored ``cfg["model"]`` where it has
-them, else from the overrides (``Wav2Vec2Config`` fields; ``caat.*`` for
-``CaatConfig``); a w2v2 checkpoint with a quantizer or projections builds
-the pre-training model.  Everything runs on the CPU.
+The widths and ``extractor_mode`` come from the checkpoint's stored
+``cfg["model"]`` where it has them, else from the overrides
+(``Wav2Vec2Config`` fields; ``caat.*`` for ``CaatConfig``); a w2v2
+checkpoint with a quantizer or projections builds the pre-training model.
+Everything runs on the CPU.
 """
 
 from __future__ import annotations
@@ -80,10 +85,6 @@ def _import(args) -> None:
         load_caat_, load_torch_checkpoint, load_wav2vec2_)
     from wav2vec_s_tpu_torch.models import Wav2Vec2Config, Wav2Vec2Model
 
-    if args.encoder_type != "blockwise":
-        raise NotImplementedError(
-            "--encoder-type full: the full-context encoder comes with the "
-            "ASR family (ROADMAP Queue 1 item 12)")
     state = load_torch_checkpoint(args.pt)
     sd = state["model"] if "model" in state else state
     kw, caat_kw = _overrides(args.overrides)
@@ -109,8 +110,9 @@ def _import(args) -> None:
         model = load_caat_(W2V2CaatModel(cfg, CaatConfig(**caat_kw)), sd)
     else:
         heads = any(k.startswith(args.prefix + h) for k in sd for h in HEADS)
-        model = load_wav2vec2_(Wav2Vec2Model(cfg, pretraining=heads), sd,
-                               args.prefix)
+        model = load_wav2vec2_(Wav2Vec2Model(
+            cfg, pretraining=heads, encoder_type=args.encoder_type), sd,
+            args.prefix)
     model_sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
     CheckpointManager(args.out, keep_last=0).save_payload(
         0, {"step": 0, "model": model_sd, "opt": None},

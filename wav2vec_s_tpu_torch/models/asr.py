@@ -1,5 +1,6 @@
-"""CTC and seq2seq fine-tuning heads on the blockwise wav2vec-S encoder
-(torch port of ``wav2vec_s_tpu/models/asr.py``).
+"""CTC and seq2seq fine-tuning heads on the wav2vec encoder, blockwise
+(the default) or full-context (``encoder_type="full"``) (torch port of
+``wav2vec_s_tpu/models/asr.py``).
 
 Twins of the reference's fork-shipped fine-tune models
 (fairseq/fairseq/models/wav2vec/wav2vec2_asr.py): ``Wav2VecCtc`` (:154,
@@ -47,9 +48,10 @@ CTC_LOG_EPSILON = -1e5
 
 
 class _CtcEncoder(nn.Module):
-    def __init__(self, w2v_cfg: Wav2Vec2Config, vocab_size: int):
+    def __init__(self, w2v_cfg: Wav2Vec2Config, vocab_size: int,
+                 encoder_type: str):
         super().__init__()
-        self.w2v_model = Wav2Vec2Model(w2v_cfg)
+        self.w2v_model = Wav2Vec2Model(w2v_cfg, encoder_type=encoder_type)
         self.proj = nn.Linear(w2v_cfg.encoder_embed_dim, vocab_size)
 
 
@@ -58,11 +60,11 @@ class Wav2VecCtc(nn.Module):
     encoder_prefix = "w2v_encoder.w2v_model."
 
     def __init__(self, w2v_cfg: Wav2Vec2Config, vocab_size: int,
-                 final_dropout: float = 0.0):
+                 final_dropout: float = 0.0, encoder_type: str = "blockwise"):
         super().__init__()
         self.w2v_cfg = w2v_cfg
         self.final_dropout = final_dropout
-        self.w2v_encoder = _CtcEncoder(w2v_cfg, vocab_size)
+        self.w2v_encoder = _CtcEncoder(w2v_cfg, vocab_size, encoder_type)
 
     def forward(self, source: torch.Tensor,
                 padding_mask: Optional[torch.Tensor] = None,
@@ -234,35 +236,46 @@ class Seq2SeqDecoder(nn.Module):
         """prev_tokens [B, U] (eos first), enc [B, T, enc_dim], enc_pad
         [B, T] -> float32 logits [B, U, V]."""
         c = self.cfg
-        D = c.decoder_embed_dim
-        B, U = prev_tokens.shape
-        dev = prev_tokens.device
-        W = self.embed_tokens.weight
-        x = W.to(c.compute_dtype)[prev_tokens] * (D ** 0.5)
-        pad_mask = prev_tokens == c.pad
-        nonpad = (~pad_mask).long()
-        positions = torch.cumsum(nonpad, dim=1) * nonpad + PADDING_IDX
-        table = sinusoidal_table(U + PADDING_IDX + 2, D, dev)
-        x = x + table[positions].to(x.dtype)
-
-        causal = torch.triu(torch.full((U, U), MASK_VALUE, device=dev),
-                            diagonal=1)
-        pad_bias = torch.where(pad_mask, MASK_VALUE, 0.0)[:, None, None, :]
-        self_bias = causal[None, None] + pad_bias
-        cross_bias = torch.where(enc_pad, MASK_VALUE, 0.0)[:, None, None, :]
+        x, self_bias = embed_prev(self.embed_tokens.weight, c, prev_tokens)
+        cross_bias = self.cross_bias(prev_tokens.shape[1], enc_pad)
         for layer in self.layers:
             x = layer(x, enc, self_bias, cross_bias,
                       c.decoder_normalize_before, c.dropout,
                       c.attention_dropout, ctx)
         if self.layer_norm is not None:
             x = ln(self.layer_norm, x)
+        W = self.embed_tokens.weight
         return F.linear(x.float(), W.float())
+
+    def cross_bias(self, U: int, enc_pad: torch.Tensor) -> torch.Tensor:
+        """The encoder attention's additive mask: the padded frames."""
+        return torch.where(enc_pad, MASK_VALUE, 0.0)[:, None, None, :]
+
+
+def embed_prev(W: torch.Tensor, cfg: CaatConfig, prev_tokens: torch.Tensor):
+    """The decoder input of the JAX seq2seq, wait-k and MMA decoders:
+    (the embedding ``W`` in the compute dtype at ``prev_tokens`` x sqrt(D)
+    plus fairseq sinusoidal positions, [B, U, D]; the additive causal and
+    padding self-attention mask at ``MASK_VALUE``, [B, 1, U, U])."""
+    D = cfg.decoder_embed_dim
+    U = prev_tokens.shape[1]
+    dev = prev_tokens.device
+    x = W.to(cfg.compute_dtype)[prev_tokens] * (D ** 0.5)
+    pad_mask = prev_tokens == cfg.pad
+    nonpad = (~pad_mask).long()
+    positions = torch.cumsum(nonpad, dim=1) * nonpad + PADDING_IDX
+    table = sinusoidal_table(U + PADDING_IDX + 2, D, dev)
+    x = x + table[positions].to(x.dtype)
+    causal = torch.triu(torch.full((U, U), MASK_VALUE, device=dev),
+                        diagonal=1)
+    pad_bias = torch.where(pad_mask, MASK_VALUE, 0.0)[:, None, None, :]
+    return x, causal[None, None] + pad_bias
 
 
 class _S2SEncoder(nn.Module):
-    def __init__(self, w2v_cfg: Wav2Vec2Config):
+    def __init__(self, w2v_cfg: Wav2Vec2Config, encoder_type: str):
         super().__init__()
-        self.w2v2_model = Wav2Vec2Model(w2v_cfg)
+        self.w2v2_model = Wav2Vec2Model(w2v_cfg, encoder_type=encoder_type)
 
 
 class Wav2Vec2Seq2Seq(nn.Module):
@@ -271,11 +284,12 @@ class Wav2Vec2Seq2Seq(nn.Module):
     #: the encoder that the freeze schedules reach (``CaatModelBase``)
     encoder_prefix = "encoder.w2v2_model."
 
-    def __init__(self, w2v_cfg: Wav2Vec2Config, cfg: CaatConfig):
+    def __init__(self, w2v_cfg: Wav2Vec2Config, cfg: CaatConfig,
+                 encoder_type: str = "blockwise"):
         super().__init__()
         self.w2v_cfg = w2v_cfg
         self.cfg = cfg
-        self.encoder = _S2SEncoder(w2v_cfg)
+        self.encoder = _S2SEncoder(w2v_cfg, encoder_type)
         self.decoder = Seq2SeqDecoder(cfg, w2v_cfg.encoder_embed_dim)
 
     def encode(self, source: torch.Tensor,

@@ -46,6 +46,24 @@ def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     return y.to(x.dtype)
 
 
+def fp32_group_norm(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, groups: int,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over [B, T, C] in float32, cast back to ``x.dtype`` (JAX
+    ``Fp32GroupNorm``, ``wav2vec_s_tpu/models/modules.py:80-103``): the
+    statistics of each group run over (T, C / groups), padded frames
+    included; with ``groups == C`` each channel is normalised over time.
+    Plain ops with the two-pass variance of ``jnp.var``: their autograd is
+    the JAX gradient (``F.group_norm``'s float32 backward on the CPU
+    strays from float64 where this one does not)."""
+    B, T, C = x.shape
+    g = x.float().reshape(B, T, groups, C // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = (g - mean).square().mean(dim=(1, 3), keepdim=True)
+    y = ((g - mean) * torch.rsqrt(var + eps)).reshape(B, T, C)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
     return fp32_layer_norm(x, norm.weight, norm.bias, norm.eps)
 

@@ -1,15 +1,25 @@
 """wav2vec-S models: configuration, parameters, the one-shot feature
 forward and the pre-training forward (torch).
 
-Port of ``wav2vec_s_tpu/models/wav2vec2.py`` on the blockwise encoder:
-``Wav2Vec2Config`` (every field of the JAX one, same defaults), a
-``Wav2Vec2Model`` holding the fairseq-named parameters of the conv
-front-end, the feature norm/projection, ``mask_emb`` and the encoder
-layers, and two forwards:
+Port of ``wav2vec_s_tpu/models/wav2vec2.py``: ``Wav2Vec2Config`` (every
+field of the JAX one, same defaults), ``wav2vec2_base_config`` (wav2vec 2.0
+Base: the group-norm front-end), a ``Wav2Vec2Model`` holding the
+fairseq-named parameters of the conv front-end, the feature
+norm/projection, ``mask_emb`` and the encoder, on one of the two encoders
+of the JAX package (``encoder_type``):
 
-- ``extract_features``: the full-utterance downstream path through the
-  blockwise encoder (``TransformerEncoder.forward``, the JAX
-  ``BlockwiseTransformerEncoder``), no masking; the CAAT model's encoder;
+- ``"blockwise"``: the wav2vec-S ``BlockwiseTransformerEncoder``
+  (sinusoidal positions, the block attention mask with right-context
+  copies, dense or the flash kernels);
+- ``"full"``: the wav2vec 2.0 full-context ``TransformerEncoder`` (conv
+  positions, a key-padding mask, dense attention as in JAX), so that a
+  stock wav2vec 2.0 checkpoint runs as it was trained.
+
+As in the JAX package the encoder type decides the positions and
+``pos_type`` is read by nobody.  Two forwards:
+
+- ``extract_features``: the full-utterance downstream path, no masking;
+  the CAAT model's encoder;
 - ``forward``: wav2vec-S pre-training (``Wav2Vec2Model.__call__``, the
   reference's Wav2Vec2Model.forward, wav2vec2.py:557-698): the conv
   features and their L2 penalty, ``dropout_input`` / ``dropout_features``,
@@ -29,9 +39,12 @@ Every draw of a training forward (dropout seed, layerdrop, negatives,
 Gumbel noise) comes from its ``DropoutContext``'s host generator; in eval
 mode (``ctx=None``) the negatives come from a generator of fixed seed.
 
-The full-context encoder with conv positions (``pos_type="conv"``) and the
-group-norm front-end (``extractor_mode="default"``) come with the ASR
-family (ROADMAP Queue 1 item 12) and raise until then.
+The conv positions' weight: fairseq holds it weight-normed
+(``weight_g`` [1, 1, k], ``weight_v``); the JAX package folds the two into
+one plain kernel at import and trains that, and so does the port
+(``encoder.pos_conv.0.weight`` [D, D / groups, k] and ``.bias``):
+``checkpoint/torch_import.py`` folds, ``checkpoint/torch_export.py``
+splits (ROADMAP Queue 3, departures).
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from wav2vec_s_tpu_torch.models.feature_extractor import (
@@ -50,8 +64,8 @@ from wav2vec_s_tpu_torch.models.modules import (
 from wav2vec_s_tpu_torch.models.quantizer import (
     GumbelVectorQuantizer, gumbel_temperature)
 from wav2vec_s_tpu_torch.ops.block_mask import (
-    append_right_context, block_attn_bias, block_layout, extend_padding_mask,
-    strip_right_context)
+    MASK_VALUE, append_right_context, block_attn_bias, block_layout,
+    extend_padding_mask, strip_right_context)
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 from wav2vec_s_tpu_torch.parallel.functional import batch_mean
 from wav2vec_s_tpu_torch.parallel.mesh import Shard
@@ -63,8 +77,7 @@ from wav2vec_s_tpu_torch.utils.positional import (
 class Wav2Vec2Config:
     # conv front-end
     conv_feature_layers: Tuple[Tuple[int, int, int], ...] = DEFAULT_CONV_LAYERS
-    extractor_mode: str = "layer_norm"     # "default" (group norm) is not
-                                           # ported: ``check_ported``
+    extractor_mode: str = "layer_norm"     # "default" | "layer_norm"
     conv_bias: bool = False
     feature_grad_mult: float = 0.1
     # encoder
@@ -79,9 +92,8 @@ class Wav2Vec2Config:
     encoder_layerdrop: float = 0.05
     dropout_input: float = 0.1             # pre-training forward only
     dropout_features: float = 0.1          # pre-training forward only
-    # positions: the blockwise encoder adds sinusoidal ones; "conv" belongs
-    # to the full-context encoder, which comes with item 12
-    # (``check_ported``)
+    # positions: the blockwise encoder adds sinusoidal ones, the full one
+    # conv ones; as in the JAX package pos_type is read nowhere
     pos_type: str = "sin"
     conv_pos: int = 128
     conv_pos_groups: int = 16
@@ -128,20 +140,16 @@ class Wav2Vec2Config:
 def check_ported(cfg: Wav2Vec2Config) -> None:
     """Raise ``NotImplementedError`` for every value that would change the
     forward in the JAX package and is not ported, naming the ROADMAP item."""
-    todo = []
-    if cfg.extractor_mode != "layer_norm":
-        todo.append(f"extractor_mode={cfg.extractor_mode!r} (ROADMAP Queue 1 "
-                    f"item 12: the group-norm conv front-end of the ASR "
-                    f"family; only 'layer_norm' is ported)")
-    if cfg.pos_type != "sin":
-        todo.append(f"pos_type={cfg.pos_type!r} (ROADMAP Queue 1 item 12: "
-                    f"the full-context encoder with conv positions; the "
-                    f"blockwise encoder adds sinusoidal positions)")
     if cfg.remat_extractor:
-        todo.append("remat_extractor (ROADMAP Queue 1 item 9: a TPU memory "
-                    "switch that waits for a measurement on the card)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError(
+            "not ported yet: remat_extractor (ROADMAP Queue 1 item 9: a TPU "
+            "memory switch that waits for a measurement on the card)")
+
+
+def wav2vec2_base_config(**kw) -> Wav2Vec2Config:
+    """wav2vec 2.0 Base (the JAX ``wav2vec2_base_config``): the group-norm
+    front-end; build it with ``encoder_type="full"`` for conv positions."""
+    return Wav2Vec2Config(pos_type="conv", extractor_mode="default", **kw)
 
 
 def wav2vec_s_base_config(**kw) -> Wav2Vec2Config:
@@ -150,7 +158,81 @@ def wav2vec_s_base_config(**kw) -> Wav2Vec2Config:
     return Wav2Vec2Config(**kw)
 
 
+class ConvPositionalEmbedding(nn.Module):
+    """wav2vec 2.0 conv positions (wav2vec2.py:791-804, JAX
+    ``ConvPositionalEmbedding``): a grouped conv of ``kernel`` taps padded
+    by ``kernel // 2`` on each side, the last frame dropped for an even
+    kernel (SamePad), exact GELU.  ``weight`` [D, D / groups, kernel] is
+    the folded weight-norm parametrisation (module docstring)."""
+
+    def __init__(self, dim: int, kernel: int = 128, groups: int = 16):
+        super().__init__()
+        self.kernel, self.groups = kernel, groups
+        self.weight = nn.Parameter(torch.zeros(dim, dim // groups, kernel))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    @torch.no_grad()
+    def random_init_(self, generator: torch.Generator) -> None:
+        """The JAX ``nn.Conv`` initialiser: lecun-normal, zero bias."""
+        fan_in = self.weight[0].numel()
+        self.weight.copy_(torch.randn(self.weight.shape, generator=generator,
+                                      device=generator.device)
+                          * fan_in ** -0.5)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, T, D] -> [B, T, D] in ``x.dtype``."""
+        h = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype), padding=self.kernel // 2,
+                     groups=self.groups)
+        if self.kernel % 2 == 0:
+            h = h[:, :, :-1]
+        return gelu(h).transpose(1, 2)
+
+
 class TransformerEncoder(nn.Module):
+    """The wav2vec 2.0 full-context encoder (wav2vec2.py:784-871, JAX
+    ``TransformerEncoder``): every frame attends every unpadded frame.
+    Attention is dense whatever ``attention_impl`` says, and the encoder
+    neither pads to ``required_seq_len_multiple`` nor appends rc copies,
+    as in JAX."""
+
+    def __init__(self, cfg: Wav2Vec2Config):
+        super().__init__()
+        self.cfg = cfg
+        self.pos_conv = nn.Sequential(ConvPositionalEmbedding(
+            cfg.encoder_embed_dim, cfg.conv_pos, cfg.conv_pos_groups))
+        self.layer_norm = nn.LayerNorm(cfg.encoder_embed_dim)
+        self.layers = nn.ModuleList(
+            TransformerEncoderLayer(cfg.encoder_embed_dim,
+                                    cfg.encoder_ffn_embed_dim,
+                                    cfg.encoder_attention_heads)
+            for _ in range(cfg.encoder_layers))
+
+    def forward(self, x: torch.Tensor,
+                padding_mask: Optional[torch.Tensor] = None,
+                ctx: Optional[DropoutContext] = None) -> torch.Tensor:
+        """x: [B, T, D] features, padding_mask: [B, T] bool (True = pad) ->
+        [B, T, D]: zero the pad frames, add the conv positions, post-LN
+        norm, dropout, the layers under a key-padding bias (each skipped on
+        a host layerdrop draw), pre-LN norm."""
+        c = self.cfg
+        bias = None
+        if padding_mask is not None:
+            x = x * (~padding_mask)[:, :, None].to(x.dtype)
+            bias = torch.where(padding_mask, MASK_VALUE,
+                               0.0)[:, None, None, :]
+        x = x + self.pos_conv[0](x)
+        if not c.layer_norm_first:
+            x = ln(self.layer_norm, x)
+        x = drop(ctx, x, c.dropout)
+        x = encoder_layers(self.layers, c, x, bias, ctx)
+        if c.layer_norm_first:
+            x = ln(self.layer_norm, x)
+        return x
+
+
+class BlockwiseTransformerEncoder(nn.Module):
     """The wav2vec-S blockwise encoder (wav2vec_S.py:355-440).
 
     ``seq_group``: the process group of context parallelism, set by
@@ -312,27 +394,38 @@ def vector_logits(x: torch.Tensor, y: torch.Tensor, idxs: torch.Tensor,
         neg_is_pos, float("-inf"), logits[:, :, 1:])], dim=-1)
 
 
+ENCODER_TYPES = ("blockwise", "full")
+
+
 class Wav2Vec2Model(nn.Module):
-    """The wav2vec-S model on the blockwise encoder; ``pretraining=True``
-    adds the quantizer (``quantize_targets``), ``project_q`` and
-    ``final_proj`` that the pre-training ``forward`` needs."""
+    """The wav2vec-S model on the blockwise encoder, or wav2vec 2.0 on the
+    full-context one (``encoder_type="full"``); ``pretraining=True`` adds
+    the quantizer (``quantize_targets``), ``project_q`` and ``final_proj``
+    that the pre-training ``forward`` needs."""
 
     #: the transformer encoder, which the freeze schedules reach in
     #: pre-training (``CaatModelBase``)
     encoder_prefix = "encoder."
 
-    def __init__(self, cfg: Wav2Vec2Config, pretraining: bool = False):
+    def __init__(self, cfg: Wav2Vec2Config, pretraining: bool = False,
+                 encoder_type: str = "blockwise"):
         super().__init__()
         check_ported(cfg)
+        if encoder_type not in ENCODER_TYPES:
+            raise ValueError(f"encoder_type={encoder_type!r} is not one of "
+                             f"{ENCODER_TYPES}")
         self.cfg = cfg
+        self.encoder_type = encoder_type
         self.feature_extractor = ConvFeatureExtractor(
-            cfg.conv_feature_layers, cfg.layer_norm_num, cfg.conv_bias)
+            cfg.conv_feature_layers, cfg.layer_norm_num, cfg.conv_bias,
+            cfg.extractor_mode)
         embed = cfg.conv_feature_layers[-1][0]
         self.layer_norm = nn.LayerNorm(embed)
         self.post_extract_proj = (nn.Linear(embed, cfg.encoder_embed_dim)
                                   if embed != cfg.encoder_embed_dim else None)
         self.mask_emb = nn.Parameter(torch.zeros(cfg.encoder_embed_dim))
-        self.encoder = TransformerEncoder(cfg)
+        self.encoder = (TransformerEncoder(cfg) if encoder_type == "full"
+                        else BlockwiseTransformerEncoder(cfg))
         self.pretraining = pretraining
         self.quantizer = self.project_q = self.final_proj = None
         if pretraining:
@@ -375,9 +468,17 @@ class Wav2Vec2Model(nn.Module):
                                                    feats.shape[1])
         if self.post_extract_proj is not None:
             feats = dense(self.post_extract_proj, feats)
-        x = self.encoder(feats, padding_mask, main_context, right_context,
+        x = self._encode(feats, padding_mask, main_context, right_context,
                          ctx)
         return x, padding_mask
+
+    def _encode(self, x, padding_mask, main_context, right_context, ctx):
+        """The encoder of ``encoder_type``; the full one has no block
+        context (JAX ``_encode``)."""
+        if self.encoder_type == "full":
+            return self.encoder(x, padding_mask, ctx)
+        return self.encoder(x, padding_mask, main_context, right_context,
+                            ctx)
 
     def _negative_indices(self, B: int, M: int,
                           ctx: Optional[DropoutContext],
@@ -439,7 +540,7 @@ class Wav2Vec2Model(nn.Module):
                              device=feats.device).scatter_(1, pos, True)
         x = torch.where(masked[:, :, None], self.mask_emb.to(feats.dtype),
                         feats)
-        x = self.encoder(x, padding_mask, main_context, right_context, ctx)
+        x = self._encode(x, padding_mask, main_context, right_context, ctx)
 
         rows = torch.arange(B, device=x.device)[:, None]
         y, x_masked = unmasked[rows, pos], x[rows, pos]           # [B, M, .]

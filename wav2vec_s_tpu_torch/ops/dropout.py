@@ -223,13 +223,13 @@ class DropoutContext:
 
     ``seed``: the step's 63-bit base seed, drawn once from ``generator``;
     each dropout site (``ctx(x, rate)``) takes the next ``offset`` (the
-    count of sites so far, in ``sites``).  ``layer_dropped``, ``randint``
-    and ``uniform`` draw layerdrop decisions, decoder position offsets,
-    contrastive negatives and Gumbel noise on the host from the same
-    generator.  Give it a CPU generator: the draws then need no
-    device-to-host sync, and a card run draws what a CPU run does.  A
-    context always means training: inference passes ``ctx=None`` (see
-    ``drop``).
+    count of sites so far, in ``sites``).  ``layer_dropped``, ``randint``,
+    ``uniform`` and ``normal`` draw layerdrop decisions, decoder position
+    offsets, contrastive negatives, Gumbel noise and the MMA energy noise
+    on the host from the same generator.  Give it a CPU generator: the
+    draws then need no device-to-host sync, and a card run draws what a
+    CPU run does.  A context always means training: inference passes
+    ``ctx=None`` (see ``drop``).
 
     ``shard``: this rank's rows of the batch under data parallelism.  Every
     site then drops the rows' part of the whole batch's mask, and
@@ -317,6 +317,12 @@ class DropoutContext:
         """CPU int64 tensor of draws in [0, high)."""
         whole, rows = self._whole(shape)
         return torch.randint(0, high, whole, generator=self.generator)[rows]
+
+    def normal(self, shape) -> torch.Tensor:
+        """CPU float32 tensor of standard normal draws (the MMA training
+        noise, the JAX ``mono_noise`` stream's ``jax.random.normal``)."""
+        whole, rows = self._whole(shape)
+        return torch.randn(whole, generator=self.generator)[rows]
 
     def uniform(self, shape) -> torch.Tensor:
         """CPU float32 tensor of draws in [1e-10, 1) (the JAX quantizer's

@@ -81,11 +81,12 @@ class SeqShard:
 def enable(model: torch.nn.Module, group) -> torch.nn.Module:
     """Split every blockwise encoder of ``model`` over ``group`` (its
     config must name a ``seq_axis``)."""
-    from wav2vec_s_tpu_torch.models.wav2vec2 import TransformerEncoder
+    from wav2vec_s_tpu_torch.models.wav2vec2 import (
+        BlockwiseTransformerEncoder)
 
     found = False
     for m in model.modules():
-        if isinstance(m, TransformerEncoder):
+        if isinstance(m, BlockwiseTransformerEncoder):
             if m.cfg.seq_axis is None:
                 raise ValueError("context parallelism needs the encoder's "
                                  "seq_axis set (model.seq_axis=seq)")

@@ -1,7 +1,8 @@
 """Inference engine of the host beam searcher (torch).
 
 Port of ``wav2vec_s_tpu/stream/engine.py``: the CAAT model behind the two
-calls ``stream/searcher.StreamingTransducerSearcher`` makes,
+calls ``stream/searcher.StreamingTransducerSearcher`` makes (the MMA agent,
+``stream/mma_agent.py``, uses the encoder call alone),
 
 - ``encode_prefix(prefix_audio, finished)`` — full-prefix blockwise encode
   with the right-context tail trimmed while the stream is open.  The
@@ -38,7 +39,7 @@ class StreamingEngine:
                  token_buckets: Sequence[int] = (16, 32, 64, 128, 256),
                  max_audio_sec: float = 60.0):
         self.model = model
-        self.device = model.decoder.lm.embed_tokens.weight.device
+        self.device = next(model.parameters()).device
         self.mc, self.rc = main_context, right_context
         # frame accounting follows the model's conv stack (default: 320
         # samples per frame), not a hardcoded hop

@@ -85,20 +85,14 @@ def dropout_sites(family: str, frontend, jointer) -> set:
     forward, recorded on the CPU (K4's shapes on this path)."""
     from unittest import mock
 
-    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
     from wav2vec_s_tpu_torch.train import recipes
 
     sites = set()
-
-    class Recorded(DropoutContext):
-        def __call__(self, x, rate, seq=None):
-            if rate:
-                sites.add((tuple(x.shape), rate))
-            return super().__call__(x, rate, seq)
-
-    with mock.patch.object(recipes, "DropoutContext", Recorded):
+    with mock.patch.object(recipes, "DropoutContext",
+                           recording_context(sites)):
         loss_and_grads(family, frontend, jointer, "cpu")
-    return sites
+    return {(shape, rate) for shape, _, rate in sites}
 
 
 def agent(dev) -> List[Tuple[str, List[float]]]:

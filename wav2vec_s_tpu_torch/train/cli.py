@@ -17,7 +17,10 @@ early stop, json progress records and resume.  The same yaml and the same
 ``section.key=value`` overrides drive both packages; fairseq ``.pt`` warm
 starts (``run.load_pretrained_model_from``, ``run.w2v2_model_path``, a
 ``.pt`` ``run.pretrained_encoder_path``) go through
-``checkpoint/torch_import.py``.
+``checkpoint/torch_import.py``: a stock wav2vec 2.0 ``.pt`` under
+``model.extractor_mode=default`` keeps its group norm, and its conv
+positions are dropped (the encoder is blockwise, as the JAX CLI builds
+it).
 
 What differs from the JAX CLI, on purpose:
 - ``--device`` (default ``cuda``) takes the place of ``--platform``; the
