@@ -309,6 +309,37 @@ Phases, each printed on its own line:
                audio-sec/s, AL, K2 launches per model call.  Then K4
                against its twin at every (shape, dtype, rate) that (b) and
                (c) dropped.
+  20. parallel more, prep and debug — (a) the CAAT step by hand at phase
+               16a's shapes (Base + CAAT base, flash, the recipe's
+               dropouts, B 8 x 10 s, U 40, two updates) under tensor
+               parallelism, ranks on cuda:0 over gloo: data 1 x model 2 in
+               float32 and bfloat16, data 2 x model 2 with FSDP and with
+               ZeRO-1 in bfloat16, against phase 16a's one process: loss
+               and grad norm within DDP_TOL, the parameters (and, in
+               bfloat16, Adam's first moments) no further than phase 16a's
+               yardsticks; per rank the update times, peak memory and the
+               K2/K3/K4/walk launches; K2 and K3 with a head base (heads
+               6-11 of 12 on rows 4: of 8) equal to the whole call's heads
+               and rows bit for bit and to their twins, then timed at one
+               rank's call (6 heads) beside bound, twin and library call;
+               K4 against its twin at every (shape, dtype, rate, index map)
+               the ranks dropped.  (b) The training entry point on 4 ranks
+               (data 2 x seq 2) with run.seq=2 and run.zero=true, then
+               run.fsdp=true, dense attention, bf16, 3 updates, against
+               run.seq=1 on the same ranks (data 4, the same 8-row
+               batches): losses and grad norms within DDP_TOL (bfloat16).
+               (c) The Base encoder's 12 layers (flash, bf16 activations,
+               dropouts 0) pipelined over 2 stages with 8 microbatches of
+               B 8 x 10 s (parallel/pipeline.py): the loss and every
+               layer's gradient against apply_stacked in one process over
+               the same microbatches (PIPE_TOL); K2 == K3 == 6 x 8 per
+               stage.  (d) A seeded LibriSpeech-layout tree of 16 wavs of
+               10 s -> prep librispeech -> prep s2t -> preprocess; the
+               training entry point on those files, 12 updates, flash,
+               bf16, with run.profile_dir and run.debug_nan: the trace of
+               updates 11-12 names K2's and K4's kernels among its CUDA
+               kernels; a NaN planted in one parameter of the checkpoint:
+               the next update raises FloatingPointError naming it.
 Each phase prints its wall seconds ("phase clock"), and the whole script's
 before the card line.  Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
@@ -943,33 +974,33 @@ def _keep_share(keep, p):
 DROPOUT_SEED = 0x1234_5678_9ABC_DEF
 
 
-def _hold_dropout(x, p, seed, offset):
-    """K4 on ``x`` at rate ``p``: output and mask bit-equal to the twin's,
-    keep share within 4 sigma of 1 - p, the backward's mask the forward's,
-    a new seed and a new offset a new mask -> (max abs error, keep
-    share)."""
+def _hold_dropout(x, p, seed, offset, index=None):
+    """K4 on ``x`` at rate ``p`` (``index``: a shard's index map): output
+    and mask bit-equal to the twin's, keep share within 4 sigma of 1 - p,
+    the backward's mask the forward's, a new seed and a new offset a new
+    mask -> (max abs error, keep share)."""
     import torch
     from wav2vec_s_tpu_torch.ops.dropout import (
         dropout_ref, hw_dropout, keep_mask)
 
-    key = (tuple(x.shape), x.dtype, p)
-    got = hw_dropout(x, p, seed, offset)
+    key = (tuple(x.shape), x.dtype, p, index)
+    got = hw_dropout(x, p, seed, offset, index)
     torch.cuda.synchronize()
-    want = dropout_ref(x, p, seed, offset)
+    want = dropout_ref(x, p, seed, offset, index)
     err = (got.float() - want.float()).abs().max().item()
     assert torch.equal(got, want), key
     del got, want
     ones = torch.ones_like(x)
-    mask = hw_dropout(ones, p, seed, offset) != 0
-    assert torch.equal(mask, keep_mask(x.numel(), p, seed, offset, x.device)
-                       .reshape(x.shape)), key
+    mask = hw_dropout(ones, p, seed, offset, index) != 0
+    assert torch.equal(mask, keep_mask(x.numel(), p, seed, offset, x.device,
+                                       index).reshape(x.shape)), key
     share, ok = _keep_share(mask, p)
     assert ok, (key, share)
     xg = x.detach().clone().requires_grad_(True)
-    hw_dropout(xg, p, seed, offset).backward(ones)
+    hw_dropout(xg, p, seed, offset, index).backward(ones)
     assert torch.equal(xg.grad != 0, mask), ("fwd/bwd masks", key)
     for s, o in ((seed + 1, offset), (seed, offset + 1)):
-        other = hw_dropout(ones, p, s, o) != 0
+        other = hw_dropout(ones, p, s, o, index) != 0
         diff = (other != mask).float().mean().item()
         assert diff > p * (1 - p), (key, s, o, diff)
     return err, share
@@ -3632,9 +3663,12 @@ def _ddp_updates(dtype, plan=None, rows=slice(None), split=False):
             batch = {k: v.reshape((DDP_WORLD, -1) + v.shape[1:])
                      for k, v in batch.items()}
             split_rows.part, seed[0] = 0, i
+        torch.cuda.synchronize()
+        t = time.perf_counter()
         state, out = step(state, batch, torch.Generator().manual_seed(i))
-        logs.append({k: float(out[k]) for k in ("loss_total", "sample_size",
-                                                "grad_norm", "skipped")})
+        rec = {k: float(out[k]) for k in ("loss_total", "sample_size",
+                                          "grad_norm", "skipped")}
+        logs.append(dict(rec, update_s=time.perf_counter() - t))
     payload = state_to_host(state)
     params = {k: v.float() for k, v in payload["model"].items()}
     mu = dict(zip((n for n, _ in model.named_parameters()),
@@ -3661,7 +3695,7 @@ def _ddp_rank(rank, world, store, out):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        mesh = make_mesh(world, 1, "cuda", "gloo")
+        mesh = make_mesh(world, device_type="cuda", backend="gloo")
         res = {}
         for name, (dtype, mode) in DDP_JOBS.items():
             plan = ParallelPlan(mesh, mode)
@@ -3793,7 +3827,7 @@ def phase_ddp(card):
                        for b in r["moment_bytes"]), (r["moment_bytes"],
                                                       whole)
         counts[name] = c
-    return counts
+    return counts, one, split
 
 
 def _diff_text(d):
@@ -4067,21 +4101,27 @@ def phase_asr_full(card):
 
 
 def _hold_sites(sites, label):
-    """K4 == its twin at each (shape, dtype, rate) that a phase's training
-    calls dropped -> the max abs error."""
+    """K4 == its twin at each (shape, dtype, rate[, index map]) that a
+    phase's training calls dropped (``recording_context``) -> the max abs
+    error."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    for shape, dtype, p in sorted(sites, key=str):
+    for shape, dtype, p, *index in sorted(sites, key=str):
         x = torch.randn(shape, generator=g, device="cuda").to(dtype)
-        err, _ = _hold_dropout(x, p, DROPOUT_SEED, 17)
+        err, _ = _hold_dropout(x, p, DROPOUT_SEED, 17, *index)
         worst = max(worst, err)
         del x
+    split = sorted((s[0], s[3]) for s in sites
+                   if len(s) > 3 and s[3] is not None)
     print(f"phase {label} dropout: K4 at the {len(sites)} (shape, dtype, "
-          f"rate) sites of the phase's training calls: outputs and masks "
-          f"bit-equal to the twin, fwd == bwd mask: "
-          f"{sorted((s, str(d)[6:], p) for s, d, p in sites)}")
+          f"rate) sites of the phase's training calls"
+          + (f" ({len(split)} of them a shard placed by its index map: "
+             f"rows, heads or hidden columns; {split[:6]} ...)"
+             if split else "")
+          + f": outputs and masks bit-equal to the twin, fwd == bwd mask: "
+          f"{sorted({(s[0], str(s[1])[6:], s[2]) for s in sites})}")
     torch.cuda.empty_cache()
     return worst
 
@@ -5023,6 +5063,709 @@ def phase_baselines_full(card):
     return paths, _hold_sites(sites, "baselines")
 
 
+# -- phase 20: tensor parallelism, the pipeline, sharded state under context
+# parallelism, corpus preparation and the debug hooks ------------------------
+
+# (dtype, mode, model width) of 20a's layouts, by world size
+TP_JOBS = {2: {"f32 tp": ("float32", "dp", 2),
+               "bf16 tp": ("bfloat16", "dp", 2)},
+           4: {"bf16 tp fsdp": ("bfloat16", "fsdp", 2),
+               "bf16 tp zero": ("bfloat16", "zero", 2)}}
+PIPE_STAGES, PIPE_MICRO = 2, 8       # 20c: B 8 in 8 microbatches of 1 row
+CP_UPDATES = 3                       # 20b
+# 20b's learning rate, from the first update (no warmup: the schedule's
+# warmup gives update 1 a rate of 0), so that each update moves every
+# parameter by about it and a misapplied sharded update shows
+CP_LR = 1e-3
+PREP_CLIPS, PREP_WORDS = 16, 39      # 20d: a LibriSpeech-layout tree
+DEBUG_UPDATES = 12
+# 20c: the stages against apply_stacked in one process over the same
+# microbatches: the loss, and each layer's gradient over its largest entry
+PIPE_TOL = {"loss_rtol": 1e-5, "grad": 1e-2}
+# 20b: run.seq=2 with ZeRO-1 / FSDP against run.seq=1: losses and grad
+# norms within DDP_TOL (bfloat16); the split attention's GEMMs run over
+# other row counts and round otherwise
+CP_TOL = DDP_TOL["bfloat16"]
+# 20b's parameters after CP_UPDATES updates: their mean |diff| to run.seq=1
+# within this share of run.seq=1's own mean |update| (from the seeded
+# initial weights), so that an update misapplied to a twentieth of the
+# parameters (a ZeRO gather that misses the seq ranks, rows updated with
+# another block's gradient) fails; the seq ranks' rounding alone gives
+# ~0.005 on the H100
+CP_PARAM_SHARE = 0.05
+
+
+def _flash_heads(card):
+    """K2 and K3 with a head base at the tensor-parallel call: a rank's
+    heads 6-11 of 12 (D 384 of 768) on the rows 4: of the training batch
+    (B 8, T 500 -> S 748, bfloat16, dropout 0.1, dropout_row0 4,
+    dropout_h0 6, dropout_heads 12): output and gradients equal to the
+    whole call's heads and rows bit for bit, the twins under the same base
+    equal to the whole twin's; then both timed at the rank's call (B 8,
+    6 heads) beside their bounds, twins and library call -> {K2, K3: (ms,
+    plain ms, bound, library ms)}."""
+    import torch
+    import torch.nn.functional as F
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        _keep_scale, blockwise_flash_attention_bwd,
+        blockwise_flash_attention_bwd_ref, blockwise_flash_attention_packed,
+        blockwise_flash_attention_ref)
+
+    B, T, mc, rc, H, D = TRAIN_B, TRAIN_T, 16, 8, 12, 768
+    r0, h0, Hl = 4, 6, 6
+    dh = D // H
+    S = block_layout(T, mc, rc).total_len
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    seed, offset, rate = DROPOUT_SEED, 23, 0.1
+    q, k, v, do = (torch.randn((B, S, D), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    pad = torch.zeros((B, S), dtype=torch.bool, device=dev)
+    pad[5, T - 10:T] = True
+    lay = (pad, H, T, mc, rc)
+    out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, rate, True,
+                                                 seed, offset)
+    grads = blockwise_flash_attention_bwd(q, k, v, out, do, m, l, *lay,
+                                          rate, seed, offset)
+    cols = slice(h0 * dh, (h0 + Hl) * dh)
+    part = [t[r0:, :, cols].contiguous() for t in (q, k, v, do)]
+    lay_p = (pad[r0:].contiguous(), Hl, T, mc, rc)
+    base = dict(dropout_row0=r0, dropout_h0=h0, dropout_heads=H)
+    _reset_counts()
+    o, mp, lp = blockwise_flash_attention_packed(*part[:3], *lay_p, rate,
+                                                 True, seed, offset, **base)
+    got = blockwise_flash_attention_bwd(*part[:3], o, part[3], mp, lp,
+                                        *lay_p, rate, seed, offset, r0, h0,
+                                        H)
+    torch.cuda.synchronize()
+    _on_tensor_cores(_set_paths(), {"K2": 1, "K3": 1})
+    assert torch.equal(o, out[r0:, :, cols])
+    assert torch.equal(mp, m[r0:, h0:h0 + Hl])
+    for a, b in zip(got, grads):
+        assert torch.equal(a, b[r0:, :, cols])
+    assert torch.equal(
+        _keep_scale(B - r0, Hl, S, rate, seed, offset, dev, r0, h0, H),
+        _keep_scale(B, H, S, rate, seed, offset, dev)[r0:, h0:h0 + Hl])
+    valid = ~lay_p[0]
+    want = blockwise_flash_attention_ref(*part[:3], *lay_p, rate, seed,
+                                         offset, r0, h0, H)[0]
+    err = (o[valid].float() - want[valid].float()).abs().max().item()
+    assert err <= 2e-2, err
+    ref = blockwise_flash_attention_bwd_ref(*part[:3], o, part[3], mp, lp,
+                                            *lay_p, rate, seed, offset, r0,
+                                            h0, H)
+    errs = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if i == 0:
+            a, b = a[valid], b[valid]
+        errs.append(((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item())
+    assert max(errs) <= 1e-2, errs
+    print(f"phase tp flash: heads {h0}:{h0 + Hl} of {H} on rows {r0}: of "
+          f"{B} (dropout_h0 {h0}, dropout_heads {H}, dropout_row0 {r0}, "
+          f"rate {rate}, S {S}): K2 output and row stats and K3 grads == "
+          f"the whole call's heads and rows bit for bit; the twins' masks "
+          f"under the head base == the whole twin's; forward max_abs_err "
+          f"{err:.3g} (tol 2e-2), dQ, dK, dV max |diff| / max |grad| "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (tol 1e-2)")
+    del out, m, l, grads, got, ref, want
+    # timing: one rank's call, 6 heads of 64 over the whole batch
+    q, k, v, do = (t[:, :, cols].contiguous() for t in (q, k, v, do))
+    lay = (pad, Hl, T, mc, rc)
+    kw = dict(dropout_h0=h0, dropout_heads=H)
+    o, mp, lp = blockwise_flash_attention_packed(q, k, v, *lay, rate, True,
+                                                 seed, offset, **kw)
+    k2 = _cuda_ms(lambda: blockwise_flash_attention_packed(
+        q, k, v, *lay, rate, True, seed, offset, **kw), 20)
+    k3 = _cuda_ms(lambda: blockwise_flash_attention_bwd(
+        q, k, v, o, do, mp, lp, *lay, rate, seed, offset, 0, h0, H), 20)
+    k2_plain = _cuda_ms(lambda: blockwise_flash_attention_ref(
+        q, k, v, *lay, rate, seed, offset, 0, h0, H), 3)
+    k3_plain = _cuda_ms(lambda: blockwise_flash_attention_bwd_ref(
+        q, k, v, o, do, mp, lp, *lay, rate, seed, offset, 0, h0, H), 3)
+    qh, kh, vh, mask = _sdpa_inputs(q, k, v, pad, Hl, T, mc, rc)
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    doh = do.reshape(B, S, Hl, dh).transpose(1, 2)
+
+    def library():
+        oh = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                            dropout_p=rate)
+        torch.autograd.grad(oh, leaves, doh)
+
+    lib_fwd = _cuda_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, dropout_p=rate), 20)
+    lib_bwd = _cuda_ms(library, 20) - lib_fwd
+    Dl, pairs = Hl * dh, _allowed_pairs(T, mc, rc)
+    # bounds: K2 reads q, k, v and the mask and writes out, m, l, two
+    # products over the allowed pairs; K3 as phase 3b's
+    b2 = _bound(2 * 4 * B * S * Dl + 2 * 4 * B * Hl * S + B * S,
+                4 * B * Dl * pairs, "bfloat16")
+    b3 = _bound(2 * 8 * B * S * Dl + 2 * 4 * B * Hl * S + B * S,
+                10 * B * Dl * pairs, "bfloat16")
+    print(f"phase tp flash: one rank's call (B {B}, S {S}, {Hl} of {H} "
+          f"heads of {dh}, bf16, dropout {rate}, tensor-core kernels): K2 "
+          f"{k2:.4f} ms (twin {k2_plain:.4f}, library "
+          f"scaled_dot_product_attention {lib_fwd:.4f}, bound "
+          f"{b2[0]:.5f} ms by {b2[1]}); K3 {k3:.4f} ms (twin "
+          f"{k3_plain:.4f}, library backward alone {lib_bwd:.4f}, bound "
+          f"{b3[0]:.5f} ms by {b3[1]}) [{card}]")
+    return {"K2": (k2, k2_plain, b2, lib_fwd), "K3": (k3, k3_plain, b3,
+                                                      lib_bwd)}
+
+
+def _encoder_stack(dev):
+    """The Base encoder's 12 layers (random weights, seed 4, float32
+    parameters) stacked, and its layer as a function of (stacked params,
+    x) through the flash path (bfloat16 activations, no padding, dropouts
+    0)."""
+    import torch
+    from torch.func import functional_call
+    from wav2vec_s_tpu_torch.models import wav2vec_s_base_config
+    from wav2vec_s_tpu_torch.models.modules import (
+        FlashSpec, TransformerEncoderLayer, random_init_)
+    from wav2vec_s_tpu_torch.parallel.pipeline import stack_layer_params
+
+    cfg = wav2vec_s_base_config()
+    g = torch.Generator(device=dev).manual_seed(4)
+    with dev:
+        layers = [random_init_(TransformerEncoderLayer(
+            cfg.encoder_embed_dim, cfg.encoder_ffn_embed_dim,
+            cfg.encoder_attention_heads), g)
+            for _ in range(cfg.encoder_layers)]
+    template = layers[0]
+
+    def layer_fn(p, x):
+        spec = FlashSpec(torch.zeros(x.shape[:2], dtype=torch.bool,
+                                     device=x.device), TRAIN_T - 1, 16, 8)
+        return functional_call(template, p,
+                               (x, spec, cfg.layer_norm_first))
+    return stack_layer_params(layers), layer_fn, cfg.encoder_embed_dim
+
+
+def _pipe_inputs(dev, dim):
+    import torch
+    from wav2vec_s_tpu_torch.ops.block_mask import block_layout
+
+    S = block_layout(TRAIN_T - 1, 16, 8).total_len
+    g = torch.Generator(device=dev).manual_seed(12)
+    x, tgt = (torch.randn((TRAIN_B, S, dim), generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    return x, tgt
+
+
+def _pipe_loss(out, tgt):
+    return ((out.float() - tgt.float()) ** 2).sum() / tgt.numel()
+
+
+def _pipeline_rank(mesh):
+    """20c on this rank: the stack over the pipe stages, 8 microbatches ->
+    (loss, gradients summed over the stages, counts, wall s, peak GB)."""
+    import torch
+    import torch.distributed as dist
+    from wav2vec_s_tpu_torch.parallel.pipeline import (
+        local_rows, pipeline_apply)
+
+    dev = torch.device("cuda")
+    stacked, layer_fn, dim = _encoder_stack(dev)
+    x, tgt = _pipe_inputs(dev, dim)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t = time.perf_counter()
+    out = pipeline_apply(layer_fn, stacked, x, mesh, PIPE_MICRO)
+    loss = _pipe_loss(out, local_rows(tgt, mesh, PIPE_MICRO))
+    loss.backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = _counts()
+    grads = {k: v.grad for k, v in stacked.items()}
+    for gr in grads.values():
+        dist.all_reduce(gr)
+    return (loss.item(), {k: v.cpu() for k, v in grads.items()}, counts,
+            wall, torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _cp_cli_rank(calls):
+    """20b on this rank: each ``train.cli`` call of ``calls`` ({name:
+    argv}) with the counts set to 0 before it -> {name: (progress
+    records, counts, wall s, peak GB)}."""
+    import io
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.train import cli
+    from wav2vec_s_tpu_torch.utils.metrics import JsonProgress
+
+    out = {}
+    for name, argv in calls.items():
+        records = []
+
+        class Kept(JsonProgress):
+            def __init__(self, **kw):
+                super().__init__(stream=io.StringIO(), **kw)
+
+            def log(self, stats, step, tag="train"):
+                records.append(dict(stats, step=step, tag=tag))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t = time.perf_counter()
+        with mock.patch.object(cli, "JsonProgress", Kept):
+            cli.main(argv)
+        torch.cuda.synchronize()
+        out[name] = (records, _counts(), time.perf_counter() - t,
+                     torch.cuda.max_memory_allocated() / 1e9)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _phase20_rank(rank, world, store, out, cli_calls):
+    """One rank of 20a-c on cuda:0 over gloo: the tensor-parallel jobs of
+    its world size (two CAAT updates by hand), then with 2 ranks the
+    pipeline, with 4 the context-parallel trainer calls.  Every rank's
+    logs, counts, times and sites are gathered to rank 0, which writes
+    them with its own parameters, moments and gradients (the single-process
+    layout, the same on every rank)."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from wav2vec_s_tpu_torch.parallel.mesh import (
+        make_mesh, process_local_rows)
+    from wav2vec_s_tpu_torch.parallel.sharding import ParallelPlan
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
+    from wav2vec_s_tpu_torch.train import recipes
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mine = {"tp": {}}
+        for name, (dtype, mode, n_model) in TP_JOBS[world].items():
+            mesh = make_mesh(world // n_model, n_model=n_model,
+                             device_type="cuda", backend="gloo")
+            plan = ParallelPlan(mesh, mode)
+            rows = process_local_rows(TRAIN_B, mesh)
+            sites = set()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            with mock.patch.object(recipes, "DropoutContext",
+                                   recording_context(sites, index=True)):
+                logs, params, mu, state = _ddp_updates(dtype, plan, rows)
+            torch.cuda.synchronize()
+            mine["tp"][name] = {
+                "logs": logs, "params": params, "mu": mu,
+                "counts": _counts(), "sites": sites,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "tp_keys": len(plan.tp_keys)}
+            del state
+            torch.cuda.empty_cache()
+        if world == PIPE_STAGES:
+            mesh = make_mesh(1, n_pipe=PIPE_STAGES, device_type="cuda",
+                             backend="gloo")
+            mine["pipe"] = _pipeline_rank(mesh)
+        if cli_calls:
+            mine["cli"] = _cp_cli_rank(cli_calls)
+        light = {"tp": {n: {k: v for k, v in job.items()
+                            if k not in ("params", "mu")}
+                        for n, job in mine["tp"].items()}}
+        if "pipe" in mine:
+            light["pipe"] = mine["pipe"][:1] + (None,) + mine["pipe"][2:]
+        if "cli" in mine:
+            light["cli"] = mine["cli"]
+        every = [None] * world
+        dist.all_gather_object(every, light)
+        if rank == 0:
+            every[0] = mine
+            torch.save(every, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(fn, world, args, label):
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=(world, *args), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + 900
+    try:
+        while not ctx.join(timeout=30):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{label}: the ranks did not finish")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+
+
+def _cp_calls(root):
+    """20b's trainer calls at Base + CAAT base, bf16, dense attention, the
+    recipe's dropouts, B 8 x 10 s: run.seq=1 (data 4), then run.seq=2 with
+    run.zero, then with run.fsdp (data 2 x seq 2)."""
+    S = int(SECONDS * 16000)
+    tsv, vocab = _cli_corpus(root, CLI_CLIPS, S, 10000, CLI_WORDS)
+
+    def argv(tag, *extra):
+        return ["--device", "cuda", "run.task=caat",
+                f"run.save_dir={root}/{tag}", f"run.max_update={CP_UPDATES}",
+                "run.log_interval=1", "run.save_interval_updates=0",
+                "run.keep_last=1", "run.validate_interval_updates=0",
+                f"data.train_manifest={tsv}", f"data.vocab={vocab}",
+                f"data.max_tokens={TRAIN_B * S}", f"data.max_sample_size={S}",
+                f"optim.lr={CP_LR}", "optim.warmup_updates=0",
+                "model.dtype=bfloat16", "model.attention_impl=dense",
+                "caat.dtype=bfloat16", "caat.step_mode=constant", *extra]
+    return {"seq1 dp": argv(_cp_tag("seq1 dp")),
+            "seq2 zero": argv(_cp_tag("seq2 zero"), "run.seq=2",
+                              "run.zero=true"),
+            "seq2 fsdp": argv(_cp_tag("seq2 fsdp"), "run.seq=2",
+                              "run.fsdp=true")}
+
+
+def _cp_tag(name):
+    """The save directory of a 20b call."""
+    return name.replace(" ", "_")
+
+
+def _rank_line(r, name):
+    c = r["counts"]
+    return (f"K2 {c['blockwise_flash_attention_packed']} K3 "
+            f"{c['blockwise_flash_attention_bwd']} K4 {c['hw_dropout']} "
+            f"walks {c['transducer_forward_walk']} / "
+            f"{c['transducer_reverse_walk']}")
+
+
+def phase_parallel_more(card, one, split):
+    """20a-c: two ranks, then four, on cuda:0 over gloo.  (a) The CAAT
+    step by hand (phase 16a's: Base + CAAT base, flash, the recipe's
+    dropouts, B 8 x 10 s, U 40, two updates) under tensor parallelism:
+    data 1 x model 2 in float32 and bfloat16, then data 2 x model 2 with
+    FSDP and with ZeRO-1 in bfloat16, against phase 16a's one process over
+    the 8 rows in the same dtype (``one``): loss and grad norm within
+    DDP_TOL; Adam's first moments and the parameters, in float32, no
+    further from it than phase 16a's split process (``split``) is (twice
+    it, plus DDP_FLOOR); in bfloat16 (where a row-parallel product rounds
+    each half before the sum) no further from the float32 one process
+    than the bfloat16 one process is (twice it, plus DDP_FLOOR).  K2 and
+    K3 with the head base held at the rank's call, K4 at every site the
+    ranks dropped.  (b) The trainer with run.seq=2 and run.zero /
+    run.fsdp (data 2 x seq 2), dense attention, 3 updates at CP_LR from
+    the first, against run.seq=1 on the same 4 ranks (data 4, the same
+    8-row batches): losses and grad norms within CP_TOL, the parameters'
+    mean |diff| within CP_PARAM_SHARE of run.seq=1's mean |update|.  (c)
+    The Base encoder's 12 layers (flash, dropouts 0) pipelined over 2
+    stages, 8 microbatches of B 8 x 10 s, against apply_stacked in one
+    process over the same microbatches -> ({path: rank 0's counts}, K4's
+    max abs error, {K2, K3: the head-base call's timing})."""
+    import math
+    import pathlib
+    import tempfile
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.parallel.pipeline import apply_stacked
+    from wav2vec_s_tpu_torch.train import cli
+    from wav2vec_s_tpu_torch.train.config import load_config
+
+    torch.cuda.empty_cache()
+    timing = _flash_heads(card)
+    torch.cuda.empty_cache()
+    ranks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        calls = _cp_calls(root)
+        for world in (2, 4):
+            out = os.path.join(tmp, f"ranks{world}.pt")
+            t = time.perf_counter()
+            _spawn_ranks(_phase20_rank, world,
+                         (os.path.join(tmp, f"store{world}"), out,
+                          calls if world == 4 else {}),
+                         f"phase 20 ({world} ranks)")
+            ranks[world] = torch.load(out, weights_only=False)
+            print(f"phase parallel more: {world} ranks: "
+                  f"{time.perf_counter() - t:.1f} s (spawn included)")
+        final = {name: CheckpointManager(root / _cp_tag(name),
+                                         keep_last=0).restore()[0]["model"]
+                 for name in calls}
+        # 20b's yardstick: the seeded initial weights the three calls
+        # start from, built as the trainer builds them
+        init = cli.build_caat(load_config(
+            None, calls["seq1 dp"][2:]))[2].state_dict()
+    paths, sites = {}, set()
+    # (a) tensor parallelism
+    for world, jobs in TP_JOBS.items():
+        for name, (dtype, _, _) in jobs.items():
+            tol = DDP_TOL[dtype]
+            rs = [r["tp"][name] for r in ranks[world]]
+            r = rs[0]
+            d = _run_diff(r, one[dtype], tol)
+            if dtype == "float32":      # the yardstick: the split process
+                far = d
+                ds = _run_diff(split[dtype], one[dtype], tol)
+                yard = "phase 16a's split process"
+            else:                       # the bfloat16 one process's own
+                far = _run_diff(r, one["float32"], tol)
+                ds = _run_diff(one[dtype], one["float32"], tol)
+                yard = (f"against float32 {_diff_text(far)}; the bfloat16 "
+                        f"one process against float32")
+            per_rank = "; ".join(
+                f"rank {i}: updates "
+                f"{[round(x['update_s'], 3) for x in q['logs']]}"
+                f" s, peak {q['peak_gb']:.2f} GB, {_rank_line(q, name)}"
+                for i, q in enumerate(rs))
+            print(f"phase tp: {name}, {world} ranks on one card over gloo "
+                  f"(data {world // 2} x model 2, B 8 x {SECONDS:g} s, U "
+                  f"{TRAIN_U}, flash, the recipe's dropouts, "
+                  f"{r['tp_keys']} split tensors): loss "
+                  f"{[x['loss_total'] for x in r['logs']]}, grad norm "
+                  f"{[x['grad_norm'] for x in r['logs']]}; against one "
+                  f"process over the 8 rows {_diff_text(d)} (tolerances "
+                  f"{tol}; {yard} {_diff_text(ds)}); "
+                  f"{per_rank} [{card}]")
+            assert all(x["skipped"] == 0.0 for x in r["logs"])
+            assert all(a["sample_size"] == b["sample_size"]
+                       for a, b in zip(r["logs"], one[dtype]["logs"]))
+            for q in rs:
+                c = q["counts"]
+                assert all(c[k] > 0 for k in (
+                    "blockwise_flash_attention_packed",
+                    "blockwise_flash_attention_bwd", "hw_dropout",
+                    *WALKS)), (name, c)
+                sites |= q["sites"]
+            assert d["loss"] <= tol["loss_rtol"], d
+            assert d["gnorm"] <= tol["grad_norm_rtol"], d
+            assert far["mu"] <= 2 * ds["mu"] + DDP_FLOOR["mu"], (far, ds)
+            floor = DDP_FLOOR["param_over_lr"] * DDP_LR
+            assert far["pmax"] <= 2 * ds["pmax"] + floor, (far, ds)
+            assert far["pmean"] <= 2 * ds["pmean"] + floor, (far, ds)
+            paths["tp " + name] = r["counts"]
+    k4_err = _hold_sites(sites, "tp")
+    # (c) the pipeline
+    dev = torch.device("cuda")
+    stacked, layer_fn, dim = _encoder_stack(dev)
+    x, tgt = _pipe_inputs(dev, dim)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t = time.perf_counter()
+    per = TRAIN_B // PIPE_MICRO
+    per_stage = next(iter(stacked.values())).shape[0] // PIPE_STAGES
+    want_loss = 0.0
+    for m in range(PIPE_MICRO):
+        rows = slice(m * per, (m + 1) * per)
+        loss = _pipe_loss(apply_stacked(layer_fn, stacked, x[rows]),
+                          tgt[rows]) * per / TRAIN_B
+        loss.backward()
+        want_loss += loss.item()
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t
+    one_counts = _counts()
+    whole = _pipe_loss(apply_stacked(layer_fn, {k: v.detach() for k, v in
+                                                stacked.items()}, x),
+                       tgt).item()
+    errs = {k: ((ranks[2][0]["pipe"][1][k] - v.grad.cpu()).abs().max()
+                / v.grad.abs().max().cpu()).item()
+            for k, v in stacked.items()}
+    worst = max(errs, key=errs.get)
+    for i, r in enumerate(ranks[2]):
+        loss, _, c, wall, peak = r["pipe"]
+        print(f"phase pipeline: stage {i} of {PIPE_STAGES} ({per_stage} of "
+              f"the Base encoder's layers, flash, bf16, dropouts 0; "
+              f"{PIPE_MICRO} microbatches of {per} x {SECONDS:g} s): "
+              f"loss {loss:.6f}, forward + backward {wall:.2f} s, peak "
+              f"{peak:.2f} GB, K2 {c['blockwise_flash_attention_packed']} K3 "
+              f"{c['blockwise_flash_attention_bwd']} [{card}]")
+        assert abs(loss - want_loss) <= PIPE_TOL["loss_rtol"] * abs(
+            want_loss), (loss, want_loss)
+        assert (c["blockwise_flash_attention_packed"]
+                == c["blockwise_flash_attention_bwd"]
+                == per_stage * PIPE_MICRO), c
+    print(f"phase pipeline: apply_stacked in one process over the same "
+          f"microbatches: loss {want_loss:.6f} (over the whole batch at "
+          f"once {whole:.6f}), {one_wall:.2f} s, K2 "
+          f"{one_counts['blockwise_flash_attention_packed']}; the stages' "
+          f"gradients (summed) against it: max |diff| / max |grad| "
+          f"{errs[worst]:.3g} in {worst} (tol {PIPE_TOL['grad']}) [{card}]")
+    assert errs[worst] <= PIPE_TOL["grad"], (worst, errs[worst])
+    paths["pipeline"] = ranks[2][0]["pipe"][2]
+    del stacked
+    torch.cuda.empty_cache()
+    # (b) context parallelism with sharded state, through the trainer
+    runs = {name: ranks[4][0]["cli"][name] for name in calls}
+    want, ref = runs["seq1 dp"][0], final["seq1 dp"]
+    assert [r["step"] for r in want] == list(range(1, CP_UPDATES + 1))
+    moved = {k: (v.float() - init[k].float()).abs() for k, v in ref.items()}
+    step_mean = torch.cat([t.flatten() for t in moved.values()]).mean()
+    for name in ("seq2 zero", "seq2 fsdp"):
+        recs = runs[name][0]
+        assert [r["step"] for r in recs] == [r["step"] for r in want]
+        assert all(r["skipped"] == 0.0 and math.isfinite(r["loss_total"])
+                   for r in recs + want), (recs, want)
+        loss = max(abs(a["loss_total"] - b["loss_total"])
+                   / abs(b["loss_total"]) for a, b in zip(recs, want))
+        gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                    for a, b in zip(recs, want))
+        per = {k: (final[name][k].float() - v.float()).abs()
+               for k, v in ref.items()}
+        diffs = torch.cat([t.flatten() for t in per.values()])
+        share = (diffs.mean() / step_mean).item()
+        # the tensor whose mean |diff| is the largest share of its own
+        # mean |update| (of the tensors that moved)
+        ratios = {k: (t.mean() / moved[k].mean()).item()
+                  for k, t in per.items() if moved[k].mean() > 0}
+        worst = max(ratios, key=ratios.get)
+        per_rank = "; ".join(
+            f"rank {i}: {r['cli'][name][2]:.1f} s, peak "
+            f"{r['cli'][name][3]:.2f} GB, K4 "
+            f"{r['cli'][name][1]['hw_dropout']} walks "
+            f"{r['cli'][name][1]['transducer_forward_walk']}"
+            for i, r in enumerate(ranks[4]))
+        print(f"phase cp sharded: train.cli {name} on 4 ranks (data 2 x "
+              f"seq 2, dense, bf16, the recipe's dropouts, B 8 x "
+              f"{SECONDS:g} s), {CP_UPDATES} updates: loss "
+              f"{[r['loss_total'] for r in recs]} against run.seq=1 (data "
+              f"4) {[r['loss_total'] for r in want]}: max rel diff "
+              f"{loss:.3g}, grad norm {gnorm:.3g} (tolerances {CP_TOL}); "
+              f"params max |diff| {diffs.max().item():.3g} mean "
+              f"{diffs.mean().item():.3g}, {share:.3g} of run.seq=1's mean "
+              f"|update| {step_mean.item():.3g} (lr {CP_LR:g}, tolerance "
+              f"{CP_PARAM_SHARE}; the largest share in one tensor "
+              f"{ratios[worst]:.3g}, {worst}); {per_rank}; run.seq=1 "
+              f"{runs['seq1 dp'][2]:.1f} s [{card}]")
+        assert loss <= CP_TOL["loss_rtol"] and gnorm <= CP_TOL[
+            "grad_norm_rtol"], (name, loss, gnorm)
+        assert share <= CP_PARAM_SHARE, (name, share, worst)
+        for r in ranks[4]:
+            c = r["cli"][name][1]
+            assert c["hw_dropout"] > 0 and c["transducer_forward_walk"] > 0
+        paths["cp " + name] = runs[name][1]
+    return paths, k4_err, timing
+
+
+def _librispeech_tree(root, n, seconds, words, n_words, seed):
+    """A seeded LibriSpeech-layout split (<root>/train/<spk>/<chapter>/
+    <spk>-<ch>-<utt>.wav and per-chapter .trans.txt) of ``n`` wavs."""
+    from wav2vec_s_tpu_torch.data.audio import write_wav
+
+    rng = np.random.default_rng(seed)
+    for c in range(2):
+        d = root / "train" / str(100 + c) / str(200 + c)
+        d.mkdir(parents=True)
+        lines = []
+        for u in range(n // 2):
+            uid = f"{100 + c}-{200 + c}-{u:04d}"
+            write_wav(d / f"{uid}.wav", rng.standard_normal(
+                int(seconds * 16000)).astype(np.float32) * 0.1)
+            text = " ".join(words[j] for j in rng.integers(0, len(words),
+                                                           n_words))
+            lines.append(f"{uid} {text}")
+        (d / f"{100 + c}-{200 + c}.trans.txt").write_text(
+            "\n".join(lines) + "\n")
+
+
+def phase_prep_debug(card):
+    """20d: a seeded LibriSpeech-layout tree of 16 wavs of 10 s -> ``prep
+    librispeech`` -> ``prep s2t`` -> ``preprocess`` (the word dictionary
+    of the tsv's targets); the trainer on those files (Base + CAAT base,
+    bf16, flash, the recipe's dropouts, B 8) for 12 updates with
+    run.profile_dir and run.debug_nan: the trace of updates 10-12 names
+    K2's and K4's kernels among its CUDA kernels; then a NaN planted in one
+    parameter of the checkpoint and one more update: FloatingPointError
+    naming it -> the path's counts."""
+    import json as js
+    import pathlib
+    import tempfile
+
+    import torch
+    from wav2vec_s_tpu_torch.data import prep, preprocess
+    from wav2vec_s_tpu_torch.data.dictionary import Dictionary
+    from wav2vec_s_tpu_torch.train import cli
+
+    S = int(SECONDS * 16000)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t = time.perf_counter()
+        words = [f"w{i}" for i in range(200)]
+        _librispeech_tree(root / "LibriSpeech", PREP_CLIPS, SECONDS, words,
+                          PREP_WORDS, 3)
+        out = root / "manifests"
+        assert prep.main(["librispeech", str(root / "LibriSpeech"),
+                          "--split", "train", "--out", str(out), "--ext",
+                          "wav"]) == 0
+        tsv = out / "train_asr.tsv"
+        assert prep.main(["s2t", "--manifest", str(out / "train.tsv"),
+                          "--wrd", str(out / "train.wrd"), "--out",
+                          str(tsv), "--config-out",
+                          str(out / "config.yaml")]) == 0
+        preprocess.main(["--manifests", str(tsv), "--tokenizer", "word",
+                         "--padding-factor", "8", "--out",
+                         str(out / "dict.txt")])
+        vocab = Dictionary.load(out / "dict.txt")
+        prep_s = time.perf_counter() - t
+        lines = tsv.read_text().splitlines()
+        assert len(lines) == PREP_CLIPS + 1 and len(vocab) % 8 == 0
+        print(f"phase prep: {PREP_CLIPS} LibriSpeech-layout wavs of "
+              f"{SECONDS:g} s -> prep librispeech (manifest, .wrd, .ltr) -> "
+              f"prep s2t ({len(lines) - 1} rows, config) -> preprocess "
+              f"({len(vocab)} entries, padding factor 8) in {prep_s:.1f} s")
+        prof = root / "profile"
+        argv = ["--device", "cuda", "run.task=caat",
+                f"run.save_dir={root}/ckpt", "run.log_interval=1",
+                "run.save_interval_updates=0", "run.keep_last=1",
+                "run.debug_nan=true", f"run.profile_dir={prof}",
+                f"data.train_manifest={tsv}", f"data.vocab={out}/dict.txt",
+                f"data.max_tokens={TRAIN_B * S}", f"data.max_sample_size={S}",
+                "optim.lr=1e-4", "optim.warmup_updates=100",
+                "model.dtype=bfloat16", "model.attention_impl=flash",
+                "caat.dtype=bfloat16", "caat.step_mode=constant"]
+        t = time.perf_counter()
+        counts, recs, _, kept, peak_gb = _run_cli(
+            argv + [f"run.max_update={DEBUG_UPDATES}"], 12, 12)
+        wall = time.perf_counter() - t
+        assert [r["step"] for r in recs] == list(range(1, DEBUG_UPDATES + 1))
+        assert all(r["skipped"] == 0.0 for r in recs)
+        assert counts["blockwise_flash_attention_packed"] == sum(kept) == \
+            counts["blockwise_flash_attention_bwd"] > 0
+        assert counts["hw_dropout"] > 0 and all(counts[w] > 0 for w in WALKS)
+        trace = js.loads((prof / "trace.json").read_text())
+        kernels = {e["name"] for e in trace["traceEvents"]
+                   if e.get("cat") == "kernel"}
+        k2 = sorted(n for n in kernels if "flash_fwd_mma_kernel" in n)
+        k4 = sorted(n for n in kernels if "dropout_kernel" in n)
+        print(f"phase debug: train.cli on the prepared files, "
+              f"{DEBUG_UPDATES} updates with run.debug_nan and "
+              f"run.profile_dir (B 8 x {SECONDS:g} s, flash, bf16): "
+              f"{wall:.1f} s, peak {peak_gb:.2f} GB, loss "
+              f"{recs[0]['loss_total']:.2f} -> {recs[-1]['loss_total']:.2f};"
+              f" trace of updates 11-{DEBUG_UPDATES} "
+              f"({(prof / 'trace.json').stat().st_size} bytes, "
+              f"{len(kernels)} distinct CUDA kernels) names K2 {k2[:2]} and "
+              f"K4 {k4[:2]} [{card}]")
+        assert k2 and k4, sorted(kernels)[:40]
+        ckpt = root / "ckpt" / f"step_{DEBUG_UPDATES:09d}" / "state.pt"
+        payload = torch.load(ckpt, weights_only=False)
+        name = "decoder.jointer.layers.0.fc1.weight"
+        payload["model"][name][3, :5] = float("nan")
+        torch.save(payload, ckpt)
+        try:
+            cli.main(argv + [f"run.max_update={DEBUG_UPDATES + 1}"])
+        except FloatingPointError as e:
+            msg = str(e)
+        else:
+            raise AssertionError("a planted NaN went through run.debug_nan")
+        assert f"params['{name}']: 5/" in msg and msg.count("params[") == 1, (
+            msg)
+        print(f"phase debug: a NaN planted in 5 entries of {name}: the "
+              f"resumed update raised FloatingPointError: {msg[:160]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -5091,7 +5834,8 @@ def main() -> int:
     paths.update(_clocked(phase_eval_cli_full, card))
     paths["serving"] = _clocked(phase_serving_full, card)
     paths.update(_clocked(phase_pretrain_full, card))
-    for name, counts in _clocked(phase_ddp, card).items():
+    ddp_counts, ddp_one, ddp_split = _clocked(phase_ddp, card)
+    for name, counts in ddp_counts.items():
         paths["ddp " + name] = counts
     _clocked(phase_cli_parallel, card)
     _clocked(phase_asr_parity)
@@ -5106,8 +5850,12 @@ def main() -> int:
     paths.update(full_paths)
     baseline_paths, baseline_k4_err = _clocked(phase_baselines_full, card)
     paths.update(baseline_paths)
+    more_paths, tp_k4_err, tp_timing = _clocked(
+        phase_parallel_more, card, ddp_one, ddp_split)
+    paths.update(more_paths)
+    paths["prep_debug_cli"] = _clocked(phase_prep_debug, card)
     k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err, family_k4_err,
-                            full_k4_err, baseline_k4_err)
+                            full_k4_err, baseline_k4_err, tp_k4_err)
     for walk, err in family_walk_errs.items():
         lat[walk]["max_abs_err"] = max(lat[walk]["max_abs_err"], err)
     # K4 and the warp set's two fused walks carry both families' training
@@ -5116,7 +5864,8 @@ def main() -> int:
             "hw_dropout", *WALKS)), (path, paths[path])
     # K4 carries every new training path, K2 and K3 the flash ones
     for path in ("pretrain_from_pt", "waitk_train", "mma_train",
-                 "mma_train_short"):
+                 "mma_train_short", "prep_debug_cli",
+                 *(p for p in paths if p.startswith("tp "))):
         assert all(paths[path][name] > 0 for name in (
             "hw_dropout", "blockwise_flash_attention_packed",
             "blockwise_flash_attention_bwd")), (path, paths[path])
@@ -5154,10 +5903,15 @@ def main() -> int:
              "train_long", lat["reverse_walk_block"])]
     for name, _, _, path, _ in rows:
         assert paths[path][name] > 0, (name, path, paths[path])
-    # K2 and K3 at the pre-training call, per context bucket (phase 3c)
+    # K2 and K3 at the pre-training call, per context bucket (phase 3c),
+    # and at a tensor-parallel rank's call with its head base (phase 20a)
     for name, key in (("blockwise_flash_attention_packed", "K2"),
                       ("blockwise_flash_attention_bwd", "K3")):
         row = next(r for n, _, _, _, r in rows if n == name)
+        ms, plain_ms, bound, library_ms = tp_timing[key]
+        row["tp_call"] = {"ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound[0], "bound_by": bound[1],
+                          "library_ms": library_ms}
         row["pretrain_call"] = {
             b: {"ms": t[f"{key}_ms"], "bound_ms": t[f"{key}_bound_ms"],
                 "library_ms": t[f"{key}_library_ms"], "S": t["S"]}

@@ -1,9 +1,12 @@
-"""Rank side of ``tests/test_torch_port_parallel.py`` and
-``tests/test_torch_port_parallel_cli.py``: torch and the port only (no
-JAX), run in processes started by ``spawn`` over a gloo group of the CPU.
+"""Rank side of ``tests/test_torch_port_parallel.py``,
+``tests/test_torch_port_parallel_cli.py``,
+``tests/test_torch_port_tensor_parallel.py`` and
+``tests/test_torch_port_pipeline.py``: torch and the port only (no JAX),
+run in processes started by ``spawn`` over a gloo group of the CPU.
 ``run_rank`` executes every scenario of a job file and rank 0 writes the
 results the test process compares; ``run_cli_rank`` runs ``train.cli``
-calls.  ``run_job`` / ``run_cli_job`` (in the test process) start the
+calls, ``run_pipeline_rank`` the pipeline's.  ``run_job`` /
+``run_cli_job`` / ``run_pipeline_job`` (in the test process) start the
 ranks, the wait bounded, and return the results."""
 
 from __future__ import annotations
@@ -140,9 +143,34 @@ def moment_bytes(state) -> int:
                for t in getattr(state.opt_state, f.name))
 
 
+def refusals(world):
+    """The errors of what the plan does not compose: Adafactor under TP,
+    and TP with context parallelism (a 1 x 2 x 1 x 2 mesh)."""
+    from wav2vec_s_tpu_torch.train.optim import Adafactor
+
+    out = {}
+    plan = ParallelPlan(make_mesh(world // 2, n_model=2, device_type="cpu",
+                                  backend="gloo"))
+    model = torch.nn.Linear(4, 4)
+    try:
+        TrainState.create(model, Adafactor(OptimConfig(
+            optimizer="adafactor")), plan)
+    except ValueError as e:
+        out["adafactor"] = str(e)
+    try:
+        ParallelPlan(make_mesh(world // 4, n_model=2, n_seq=2,
+                               device_type="cpu", backend="gloo"))
+    except ValueError as e:
+        out["seq"] = str(e)
+    return out
+
+
 def run_scenario(sc, world):
-    mesh = make_mesh(world // sc.get("seq", 1), sc.get("seq", 1), "cpu",
-                     "gloo")
+    if sc.get("kind") == "refusals":
+        return {"errors": refusals(world)}
+    seq, model = sc.get("seq", 1), sc.get("model", 1)
+    mesh = make_mesh(world // (seq * model), n_model=model, n_seq=seq,
+                     device_type="cpu", backend="gloo")
     plan = ParallelPlan(mesh, sc.get("mode", "dp"))
     kind = sc.get("kind", "train")
     if kind == "adafactor":
@@ -155,11 +183,21 @@ def run_scenario(sc, world):
         logs, state = train(sc, plan, slice(1, 2), sc["payload"])
         return {"logs": logs, "payload": state_to_host(state)}
     if kind == "save":               # 1 update, then the checkpoint
+        from unittest import mock
+
+        from torch.distributed.tensor import DTensor
+
         logs, state = train(sc, plan, slice(0, 1))
-        return {"logs": logs, "payload": state_to_host(state)}
+        # FSDP: the plan gathers through the process group's own
+        # collectives (DTensor.full_tensor's crash over gloo on CUDA)
+        with mock.patch.object(DTensor, "full_tensor", side_effect=(
+                AssertionError("a functional collective"))):
+            payload = state_to_host(state)
+        return {"logs": logs, "payload": payload}
     logs, state = train(sc, plan)
     return {"logs": logs, "payload": state_to_host(state),
-            "moment_bytes": moment_bytes(state)}
+            "moment_bytes": moment_bytes(state),
+            "tp_keys": sorted(plan.tp_keys)}
 
 
 def run_rank(rank, world, store, job, out):
@@ -237,3 +275,136 @@ def run_cli_job(scenarios, workdir, world=2):
     job = os.path.join(workdir, "cli_job.pt")
     torch.save(scenarios, job)
     _spawn(run_cli_rank, world, os.path.join(workdir, "cli_store"), job)
+
+
+# -- the pipeline (tests/test_torch_port_pipeline.py) --------------------
+
+
+def mlp_layer(p, x):
+    """``tests/test_pipeline.py`` ``_mlp_layer``."""
+    h = torch.tanh(x @ p["w1"] + p["b1"])
+    return x + h @ p["w2"]
+
+
+def attn_layer(p, x):
+    """``tests/test_pipeline.py`` ``_attn_layer``: pre-LN attention of 2
+    heads and a tanh FFN over [B, T, D]."""
+    def ln(z):
+        m = z.mean(-1, keepdim=True)
+        v = ((z - m) ** 2).mean(-1, keepdim=True)
+        return (z - m) * torch.rsqrt(v + 1e-5)
+
+    h = ln(x)
+    B, T, D = x.shape
+    H = 2
+    q = (h @ p["wq"]).reshape(B, T, H, D // H)
+    k = (h @ p["wk"]).reshape(B, T, H, D // H)
+    v = (h @ p["wv"]).reshape(B, T, H, D // H)
+    a = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k)
+                      / (D // H) ** 0.5, -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, T, D)
+    x = x + o @ p["wo"]
+    return x + torch.tanh(ln(x) @ p["w1"]) @ p["w2"]
+
+
+def encoder_layer_fn(sc):
+    """The port's ``TransformerEncoderLayer`` (tiny, pre-LN, GELU) as a
+    layer function over its stacked state dict, attending through the
+    block-sparse flash path (``FlashSpec``, no padding)."""
+    from torch.func import functional_call
+
+    from wav2vec_s_tpu_torch.models.modules import (
+        FlashSpec, TransformerEncoderLayer)
+
+    dim, ffn, heads, T, mc, rc = sc["encoder"]
+    template = TransformerEncoderLayer(dim, ffn, heads)
+
+    def fn(p, x):
+        spec = FlashSpec(torch.zeros(x.shape[:2], dtype=torch.bool,
+                                     device=x.device), T, mc, rc)
+        return functional_call(template, p, (x, spec, True))
+    return fn
+
+
+def layer_fn_of(sc):
+    return {"mlp": lambda sc: mlp_layer, "attn": lambda sc: attn_layer,
+            "encoder": encoder_layer_fn}[sc["layer"]](sc)
+
+
+def pipeline_loss(sc, mesh=None):
+    """(loss, gradients of the stacked leaves) of the mean squared error
+    against ``sc["target"]``: ``pipeline_apply`` on ``mesh``, or
+    ``apply_stacked`` in one process.  Under a mesh the loss and the
+    gradients come back summed over the world (each stage holds its
+    layers' gradients, each data rank its rows')."""
+    from wav2vec_s_tpu_torch.parallel.pipeline import (
+        apply_stacked, local_rows, pipeline_apply)
+
+    stacked = {k: v.clone().requires_grad_() for k, v in
+               sc["stacked"].items()}
+    fn = layer_fn_of(sc)
+    x, tgt = sc["x"], sc["target"]
+    if mesh is None:
+        out = apply_stacked(fn, stacked, x)
+    else:
+        out = pipeline_apply(fn, stacked, x, mesh, sc["micro"])
+        tgt = local_rows(tgt, mesh, sc["micro"])
+    loss = ((out - tgt) ** 2).sum() / sc["target"].numel()
+    loss.backward()
+    grads = {k: v.grad for k, v in stacked.items()}
+    loss = loss.detach()
+    if mesh is not None:
+        from wav2vec_s_tpu_torch.parallel.mesh import AXES
+        dist.all_reduce(loss, group=mesh.get_group(AXES.data))
+        for g in grads.values():
+            dist.all_reduce(g)
+    return loss, grads
+
+
+def ring(mesh):
+    """``ring_shift`` over the pipe group: stage s's ``x`` is s + [0, 1,
+    2]; the loss is (s + 1) times the sum of what s received.  Returns
+    every stage's (received, gradient of x), gathered."""
+    from wav2vec_s_tpu_torch.parallel.functional import ring_shift
+    from wav2vec_s_tpu_torch.parallel.mesh import AXES
+
+    group = mesh.get_group(AXES.pipe)
+    s = mesh.get_local_rank(AXES.pipe)
+    x = (torch.arange(3.0) + s).requires_grad_()
+    y = ring_shift(x, group)
+    ((s + 1) * y).sum().backward()
+    both = torch.stack([y.detach(), x.grad])
+    parts = [torch.empty_like(both) for _ in range(dist.get_world_size(
+        group))]
+    dist.all_gather(parts, both, group=group)
+    return torch.stack(parts)
+
+
+def run_pipeline_rank(rank, world, store, job, out):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        results = {}
+        for name, sc in torch.load(job, weights_only=False).items():
+            mesh = make_mesh(sc["data"], n_pipe=sc["pipe"],
+                             device_type="cpu", backend="gloo")
+            results[name] = (ring(mesh) if sc["layer"] == "ring"
+                             else pipeline_loss(sc, mesh))
+        if rank == 0:
+            torch.save(results, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_pipeline_job(scenarios, workdir, world):
+    """Pipeline scenarios (each of ``data * pipe == world`` ranks) on
+    ``world`` spawned ranks; rank 0's results."""
+    job, out = (os.path.join(workdir, f"pipe{world}.pt"),
+                os.path.join(workdir, f"pipe{world}_out.pt"))
+    torch.save(scenarios, job)
+    _spawn(run_pipeline_rank, world, os.path.join(workdir,
+                                                  f"pipe{world}_store"),
+           job, out)
+    return torch.load(out, weights_only=False)

@@ -491,11 +491,8 @@ def test_cli_patience_stops_early(corpus, capsys):
 
 
 UNSUPPORTED = {
-    "seq_zero": ({"run.seq": 2, "run.zero": "true"}, "item 11b"),
     "remat": ({"run.remat": "dots"}, "item 9"),
     "flat_optimizer": ({"run.flat_optimizer": "true"}, "item 9"),
-    "profile_dir": ({"run.profile_dir": "/tmp/p"}, "item 12"),
-    "debug_nan": ({"run.debug_nan": "true"}, "item 12"),
     "remat_extractor": ({"model.remat_extractor": "True"}, "item 9"),
 }
 

@@ -835,6 +835,56 @@ def test_flash_dropout_row_base_on_the_card(cuda, T, mc, rc, dtype, dh):
     assert torch.equal(fwd, want) and torch.equal(bwd, want)
 
 
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, None),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+@pytest.mark.parametrize("T,mc,rc", [(32, 8, 4), (33, 8, 4)])   # S % 4: 0, 1
+@pytest.mark.parametrize("r0,h0,heads", [(1, 2, 5), (0, 3, 5), (0, 0, 2)])
+def test_flash_dropout_head_base_on_the_card(cuda, T, mc, rc, dtype, dh, r0,
+                                             h0, heads):
+    """A tensor-parallel rank's heads [h0, h0 + 2) of ``heads`` (with a
+    data-parallel shard's rows 1: of 3 in one case): the masks the forward
+    and backward kernels draw are those heads (and rows) of the whole
+    batch's, bit-equal to the twins'; with h0 0 and ``heads`` = H (the
+    defaults) the output is bit-equal to the call without them."""
+    from wav2vec_s_tpu_torch.ops.dropout import keep_mask
+    from wav2vec_s_tpu_torch.ops.flash_attention import (
+        blockwise_flash_attention_bwd_ref, blockwise_flash_attention_ref)
+
+    B, H, rate = 3, 2, 0.25
+    S = block_layout(T, mc, rc).total_len
+    dh = dh or S
+    q = k = torch.zeros((B - r0, S, H * dh), device=cuda, dtype=dtype)
+    v = torch.eye(S, dh, device=cuda, dtype=dtype).repeat(B - r0, 1, H)
+    pad = torch.zeros((B - r0, S), dtype=torch.bool, device=cuda)
+    lay = (pad, H, T, mc, rc, rate)
+    drop = dict(dropout_row0=r0, dropout_h0=h0, dropout_heads=heads)
+    out, m, l = blockwise_flash_attention_packed(q, k, v, *lay, True, SEED,
+                                                 OFFSET, **drop)
+    dv = blockwise_flash_attention_bwd(q, k, v, out, v, m, l, *lay, SEED,
+                                       OFFSET, r0, h0, heads)[2]
+    fwd = out.reshape(B - r0, S, H, dh)[..., :S].transpose(1, 2) != 0
+    bwd = dv.reshape(B - r0, S, H, dh)[..., :S].transpose(1, 2).transpose(
+        2, 3) != 0
+    allowed = torch.as_tensor(block_layout(T, mc, rc).allowed, device=cuda)
+    want = keep_mask(B * heads * S * S, rate, SEED, OFFSET, cuda).reshape(
+        B, heads, S, S)[r0:, h0:h0 + H] & allowed
+    assert torch.equal(fwd, want) and torch.equal(bwd, want)
+    # the twins on the CPU draw the same masks
+    cpu = [t.cpu() for t in (q, k, v, pad)]
+    out_t = blockwise_flash_attention_ref(*cpu, H, T, mc, rc, rate, SEED,
+                                          OFFSET, r0, h0, heads)[0]
+    dv_t = blockwise_flash_attention_bwd_ref(
+        *cpu[:3], out_t, cpu[2], m.cpu(), l.cpu(), cpu[3], H, T, mc, rc,
+        rate, SEED, OFFSET, r0, h0, heads)[2]
+    assert torch.equal(out_t != 0, out.cpu() != 0)
+    assert torch.equal(dv_t != 0, dv.cpu() != 0)
+    if (h0, heads) == (0, H):
+        plain = blockwise_flash_attention_packed(
+            q, k, v, *lay, False, SEED, OFFSET, dropout_row0=r0)
+        assert torch.equal(plain, out)
+
+
 def test_flash_autograd_on_the_card_equals_the_cpu(cuda):
     """The wrapper's autograd.Function on CUDA tensors (kernels, a
     non-contiguous cotangent) against the same on the CPU (twins), dropout

@@ -22,6 +22,9 @@ the test process runs the one-process references and the JAX steps.
   process's.
 - 2-rank context parallelism: the encoder's features, and two CAAT and
   pre-training updates, equal one process.
+- Context parallelism with sharded state on 4 ranks (data 2 x seq 2, ZeRO-1
+  and FSDP; every dropout on in one FSDP case): two updates equal one
+  process, i.e. the ``run.seq=1`` update.
 
 Tolerances: losses and grad norms rtol 1e-5; parameters atol 1e-5 rtol
 1e-4 (``tests/test_context_parallel.py``), features atol 1e-5.
@@ -320,3 +323,47 @@ def test_context_parallel_updates_equal_one_process(runs, task):
     one, got = runs
     logs, state = one[task]
     assert_same_run(got[f"cp_{task}"], logs, state.model.state_dict())
+
+
+@pytest.fixture(scope="module")
+def runs4(tmp_path_factory):
+    """Context parallelism with ZeRO-1 and FSDP on 4 ranks (data 2 x seq
+    2), and the dropout case's one-process reference."""
+    dropout_w2v = dataclasses.replace(
+        W2V_TINY, dropout=0.1, attention_dropout=0.1, activation_dropout=0.1,
+        encoder_layerdrop=0.3, seq_axis="seq")
+    dropout_caat = dataclasses.replace(
+        CAAT_TINY, dropout=0.1, attention_dropout=0.1,
+        activation_dropout=0.1, rand_pos_decoder=8)
+    scenarios = {}
+    for m in ("zero", "fsdp"):
+        scenarios[f"cp_caat_{m}"] = caat_scenario(
+            dataclasses.replace(W2V, seq_axis="seq"), seq=2, mode=m)
+        scenarios[f"cp_pretrain_{m}"] = pretrain_scenario(
+            dataclasses.replace(W2V_PRE, seq_axis="seq"), seq=2, mode=m)
+    scenarios["cp_dropout_fsdp"] = caat_scenario(dropout_w2v, dropout_caat,
+                                                 seq=2, mode="fsdp")
+    one = worker.train(caat_scenario(
+        dataclasses.replace(dropout_w2v, seq_axis=None), dropout_caat))
+    return one, worker.run_job(scenarios,
+                               str(tmp_path_factory.mktemp("ranks4")),
+                               world=4)
+
+
+@pytest.mark.parametrize("mode", ["zero", "fsdp"])
+@pytest.mark.parametrize("task", ["caat", "pretrain"])
+def test_context_parallel_sharded_state_equals_one_process(runs, runs4,
+                                                           task, mode):
+    one, _ = runs
+    logs, state = one[task]
+    got = runs4[1][f"cp_{task}_{mode}"]
+    assert_same_run(got, logs, state.model.state_dict())
+    # the moments are split over the 2 data ranks, not the seq ranks
+    b = got["moment_bytes"]
+    assert b[0] == b[1] and b[2] == b[3] and b[0] < sum(b) / 2
+
+
+def test_context_parallel_fsdp_dropout_equals_one_process(runs4):
+    logs, state = runs4[0]
+    assert_same_run(runs4[1]["cp_dropout_fsdp"], logs,
+                    state.model.state_dict())

@@ -108,7 +108,7 @@ def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
             for i, (d, s) in enumerate(zip(dst, src)):
                 if plan is not None:
                     s = plan.moment_block(s, state.shards[i],
-                                          sharded[name][i], d)
+                                          sharded[name][i], d, i)
                 if d.shape != s.shape:
                     raise ValueError(f"optimizer {name} tensor of shape "
                                      f"{tuple(s.shape)} for "

@@ -123,7 +123,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   unsigned long long row_base[kRowsPerWarp];
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
-    row_base[i] = (((unsigned long long)b * H + h) * S + (r0 + wr + i)) * S;
+    row_base[i] =
+        (((unsigned long long)b * drop.heads + h) * S + (r0 + wr + i)) * S;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][4];
@@ -292,9 +293,11 @@ int launch(const void* q, const void* k, const void* v,
 // m_out, l_out: [B, H, S] f32, both null or both set; all contiguous, on the
 // current device.  dtype_code 0 is float32, 1 is bfloat16.  Attention dropout:
 // threshold = ceil(rate * 2^24) (0: none), keep_scale = 1 / (1 - rate), under
-// the step seed and the site offset; base: the flat index of element
-// (0, 0, 0, 0) in the probabilities of the whole batch (b0 * H * S * S for
-// a shard whose first row is row b0; 0 unsharded).
+// the step seed and the site offset; heads: the whole probabilities' head
+// count (H unsharded; at least H); base: the flat index of element
+// (0, 0, 0, 0) in the probabilities of the whole batch ((b0 * heads + h0) *
+// S * S for a shard whose first row is row b0 and first head head h0; 0
+// unsharded).
 extern "C" int w2vs_flash_attention(const void* q, const void* k,
                                     const void* v, const void* key_pad,
                                     const void* kinds, void* out, void* m_out,
@@ -302,13 +305,15 @@ extern "C" int w2vs_flash_attention(const void* q, const void* k,
                                     int T_frames, int mc, int rc,
                                     int dtype_code, unsigned long long seed,
                                     unsigned long long offset,
-                                    unsigned long long base,
+                                    unsigned long long base, int heads,
                                     unsigned threshold, double keep_scale,
                                     void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const auto* pad = (const unsigned char*)key_pad;
   const auto* kd = (const signed char*)kinds;
-  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
+  if (heads < H) return (int)cudaErrorInvalidValue;
+  const Dropout drop =
+      make_dropout(seed, offset, base, heads, threshold, keep_scale);
   if (dtype_code == 1) {
     return launch<__nv_bfloat16>(q, k, v, pad, kd, out, (float*)m_out,
                                  (float*)l_out, B, S, D, H, T_frames, mc, rc,

@@ -126,7 +126,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = r0 + wr + i;
     q_blk[i] = query_block(r, T_frames, mc, rc);
-    row_base[i] = (((unsigned long long)b * H + h) * S + r) * S;
+    row_base[i] = (((unsigned long long)b * drop.heads + h) * S + r) * S;
     m[i] = INFINITY;
     inv_l[i] = 0.f;
     float part = 0.f;
@@ -287,7 +287,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       inv_l[c] = in[c] ? 1.f / fmaxf(l_in[stat0 + r], 1e-20f) : 0.f;
       dvec[c] = in[c] ? dvec_in[stat0 + r] : 0.f;
       q_blk[c] = query_block(r, T_frames, mc, rc);
-      query_base[c] = (((unsigned long long)b * H + h) * S + r) * S;
+      query_base[c] = (((unsigned long long)b * drop.heads + h) * S + r) * S;
     }
 
     // s[i][c] = k_(wr+i) . qs_(2*lane+c), dp[i][c] = v_(wr+i) . do_(2*lane+c)
@@ -379,13 +379,15 @@ extern "C" int w2vs_flash_attention_bwd(
     const void* kinds, const void* kinds_t, void* dq, void* dk, void* dv,
     void* dvec, int B, int S, int D, int H, int T_frames, int mc, int rc,
     int dtype_code, unsigned long long seed, unsigned long long offset,
-    unsigned long long base, unsigned threshold, double keep_scale,
+    unsigned long long base, int heads, unsigned threshold, double keep_scale,
     void* stream) {
   if (H < 1 || D % H || D / H > kMaxDh || mc < 1 || rc < 0) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
+  if (heads < H) return (int)cudaErrorInvalidValue;
+  const Dropout drop =
+      make_dropout(seed, offset, base, heads, threshold, keep_scale);
 #define W2VS_BWD(T, DROP)                                                     \
   launch<T, DROP>(q, k, v, out, dout, (const float*)m, (const float*)l,      \
                   (const unsigned char*)key_pad, (const signed char*)kinds,  \

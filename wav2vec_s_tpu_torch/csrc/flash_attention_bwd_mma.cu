@@ -173,7 +173,7 @@ flash_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = row_a + 8 * i;
     q_blk[i] = query_block(r, T_frames, mc, rc);
-    row_base[i] = (((unsigned long long)b * H + h) * S + r) * S;
+    row_base[i] = (((unsigned long long)b * drop.heads + h) * S + r) * S;
     m[i] = r < S ? m_in[stat0 + r] : INFINITY;
     inv_l[i] = r < S ? 1.f / fmaxf(l_in[stat0 + r], 1e-20f) : 0.f;
   }
@@ -364,7 +364,8 @@ flash_dkv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bool padded = key < S && key_pad[(long)b * S + key] != 0;
     key_rule(key, S, T_frames, mc, rc, padded, lo[i], span[i], bias[i]);
   }
-  const unsigned long long bh_rows = ((unsigned long long)b * H + h) * S;
+  const unsigned long long bh_rows =
+      ((unsigned long long)b * drop.heads + h) * S;
 
   cp_async_wait<1>();                       // k and v rows have landed
   __syncthreads();
@@ -529,7 +530,7 @@ extern "C" int w2vs_flash_attention_bwd_mma(
     const void* kinds, const void* kinds_t, void* dq, void* dk, void* dv,
     void* dvec, int B, int S, int D, int H, int T_frames, int mc, int rc,
     int dtype_code, unsigned long long seed, unsigned long long offset,
-    unsigned long long base, unsigned threshold, double keep_scale,
+    unsigned long long base, int heads, unsigned threshold, double keep_scale,
     void* stream) {
   if (dtype_code != 1 || H < 1 || D % H || mc < 1 || rc < 0 ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
@@ -537,7 +538,9 @@ extern "C" int w2vs_flash_attention_bwd_mma(
        15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
+  if (heads < H) return (int)cudaErrorInvalidValue;
+  const Dropout drop =
+      make_dropout(seed, offset, base, heads, threshold, keep_scale);
 #define W2VS_BWD(DH, DROP)                                                   \
   launch<DH, DROP>(q, k, v, out, dout, (const float*)m, (const float*)l,    \
                    (const unsigned char*)key_pad, (const signed char*)kinds, \

@@ -117,7 +117,7 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int r = row_a + 8 * i;
     q_blk[i] = query_block(r, T_frames, mc, rc);
-    row_base[i] = (((unsigned long long)b * H + h) * S + r) * S;
+    row_base[i] = (((unsigned long long)b * drop.heads + h) * S + r) * S;
   }
 
   cp_async_wait<1>();                       // q has landed
@@ -281,14 +281,16 @@ extern "C" int w2vs_flash_attention_mma(
     const void* kinds, void* out, void* m_out, void* l_out, int B, int S,
     int D, int H, int T_frames, int mc, int rc, int dtype_code,
     unsigned long long seed, unsigned long long offset,
-    unsigned long long base, unsigned threshold, double keep_scale,
+    unsigned long long base, int heads, unsigned threshold, double keep_scale,
     void* stream) {
   if (dtype_code != 1 || H < 1 || D % H || mc < 1 || rc < 0 ||
       (m_out == nullptr) != (l_out == nullptr) ||
       (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Dropout drop = make_dropout(seed, offset, base, threshold, keep_scale);
+  if (heads < H) return (int)cudaErrorInvalidValue;
+  const Dropout drop =
+      make_dropout(seed, offset, base, heads, threshold, keep_scale);
 #define W2VS_FWD(DH)                                                        \
   launch<DH>(q, k, v, (const unsigned char*)key_pad,                        \
              (const signed char*)kinds, out, (float*)m_out, (float*)l_out,  \

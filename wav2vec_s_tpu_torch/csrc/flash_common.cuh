@@ -19,14 +19,18 @@
 //
 // Attention dropout.  The keep mask is a function of absolute coordinates:
 // element (b, h, q, k) of the [B, H, S, S] probabilities has the flat index
-// i = ((b*H + h)*S + q)*S + k and takes word i % 4 of
+// i = ((b*H_all + h)*S + q)*S + k and takes word i % 4 of
 //   philox4x32_10(counter = (i/4 lo, i/4 hi, offset lo, offset hi),
 //                 key = seed),
 // keep <=> (word >> 8) >= threshold, kept probabilities scaled by
 // 1/(1 - rate): exactly the scheme of dropout.cu applied to the
-// probabilities tensor that never exists.  A shard of a data-parallel
-// batch passes the element index of its first row, base = b0*H*S*S, added
-// to every i: its masks are the matching rows of the whole batch's.  Any tiling regenerates the same
+// probabilities tensor that never exists.  A shard places itself in the
+// whole batch's [B_all, H_all, S, S] probabilities: H_all (`heads`) is the
+// whole head count (H unsharded, H * tp for a tensor-parallel rank's H
+// heads) and base = (b0*H_all + h0)*S*S the index of its element
+// (0, 0, 0, 0), for a shard whose first row is row b0 and first head head
+// h0 of the whole; base is added to every i: its masks are the matching
+// part of the whole batch's.  Any tiling regenerates the same
 // bits, so the forward and both backward kernels agree, the plain twin
 // builds the mask with ops/dropout.keep_mask, and flash training equals
 // dense training (which drops the materialised probabilities through
@@ -107,16 +111,17 @@ struct Dropout {
   uint2 key;            // the step seed
   uint32_t off_lo, off_hi;   // the site offset
   unsigned long long base;   // flat index of element (0, 0, 0, 0)
+  int heads;            // heads of the whole probabilities (the b stride)
   uint32_t threshold;   // ceil(rate * 2^24)
   float scale;          // 1 / (1 - rate)
 };
 
 // the C entry points' dropout arguments (threshold 0: none)
 inline Dropout make_dropout(unsigned long long seed, unsigned long long offset,
-                            unsigned long long base, unsigned threshold,
-                            double keep_scale) {
+                            unsigned long long base, int heads,
+                            unsigned threshold, double keep_scale) {
   return {make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)), (uint32_t)offset,
-          (uint32_t)(offset >> 32), base, threshold, (float)keep_scale};
+          (uint32_t)(offset >> 32), base, heads, threshold, (float)keep_scale};
 }
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {

@@ -27,7 +27,7 @@ from torch import nn
 
 from wav2vec_s_tpu_torch.models.caat.config import CaatConfig
 from wav2vec_s_tpu_torch.models.modules import (
-    MultiheadAttention, dense, dot_product_attention, ln)
+    MultiheadAttention, dense, dot_product_attention, ln, split_site)
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 
@@ -66,14 +66,16 @@ def expand_attention(att: MultiheadAttention, query: torch.Tensor,
                      ctx: Optional[DropoutContext] = None) -> torch.Tensor:
     """``ExpandMultiheadAttention``: query [B, G, U, D] or [B, U, D] (the
     first layer's decoder states, shared by every group); source [B, S, Dk];
-    group_bias [B|1, G, S] -> [B, G, U, D], ``out_proj`` applied."""
-    H = att.num_heads
+    group_bias [B|1, G, S] -> [B, G, U, D], ``out_proj`` applied.  Under
+    tensor parallelism the projections hold this rank's heads
+    (``models/modules.self_attention``)."""
     q = dense(att.q_proj, query)
     if q.dim() == 3:
         q = q[:, None]
     B, _, U, D = q.shape
     G = q.shape[1] if group_bias is None else group_bias.shape[1]
-    Dh = D // H
+    Dh = att.head_dim
+    H = D // Dh
     S = source.shape[1]
     q = q.expand(B, G, U, D).reshape(B, G * U, H, Dh).transpose(1, 2)
     k = dense(att.k_proj, source).reshape(B, S, H, Dh).transpose(1, 2)
@@ -82,7 +84,8 @@ def expand_attention(att: MultiheadAttention, query: torch.Tensor,
     if group_bias is not None:          # [B|1, G, S] -> [B|1, 1, G*U, S]
         gb = group_bias[:, :, None, :].expand(-1, G, U, S)
         bias = gb.reshape(group_bias.shape[0], 1, G * U, S)
-    out = dot_product_attention(q, k, v, bias, dropout_rate, ctx)
+    out = dot_product_attention(q, k, v, bias, dropout_rate, ctx,
+                                split_site(att.q_proj, q, 1))
     out = out.transpose(1, 2).reshape(B, G, U, D)
     return dense(att.out_proj, out)
 
@@ -116,7 +119,8 @@ class TransformerJointerLayer(nn.Module):
             x = ln(self.attn_layer_norm, x)
         residual = x
         h = ln(self.final_layer_norm, x) if pre else x
-        h = drop(ctx, F.relu(dense(self.fc1, h)), c.activation_dropout)
+        h = F.relu(dense(self.fc1, h))
+        h = drop(ctx, h, c.activation_dropout, split_site(self.fc1, h, -1))
         x = residual + drop(ctx, dense(self.fc2, h), c.dropout)
         if not pre:
             x = ln(self.final_layer_norm, x)

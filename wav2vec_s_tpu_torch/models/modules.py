@@ -20,6 +20,15 @@ Context parallelism (``parallel/context.py``): given a ``SeqShard``, a
 layer holds its rows of the time axis, gathers the keys and values of the
 whole sequence, attends its queries (dense only) and drops each row at its
 place in the whole sequence.
+
+Tensor parallelism (``parallel/sharding.py`` ``shard_params``): a linear
+layer that carries a ``TensorSplit`` holds its rank's block, and ``dense``
+runs it as megatron does (``copy_to_model`` before a column-parallel
+layer, ``reduce_from_model`` after a row-parallel one, its bias added
+once, after the sum).  The attention takes its head count from the local
+width (``q.shape[-1] // head_dim``), and the two dropout sites of a split
+tensor, the probabilities of the rank's heads and the FFN's hidden
+columns, draw the bits of their place in the whole tensor.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from torch import nn
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext, drop
 from wav2vec_s_tpu_torch.ops.flash_attention import (
     blockwise_flash_attention_packed)
+from wav2vec_s_tpu_torch.parallel.functional import (
+    copy_to_model, reduce_from_model)
 
 
 def fp32_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -70,9 +81,26 @@ def ln(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 def dense(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``x @ W.T + b`` in ``x.dtype`` (the weight is cast; a no-op when the
-    module already holds compute-dtype weights, see ``compute_copy``)."""
+    module already holds compute-dtype weights, see ``compute_copy``).
+    A layer split over the model group (its ``tp``, a ``TensorSplit``)
+    returns its columns (column-parallel) or the whole sum (row-parallel)."""
     b = None if lin.bias is None else lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), b)
+    w = lin.weight.to(x.dtype)
+    tp = getattr(lin, "tp", None)
+    if tp is None:
+        return F.linear(x, w, b)
+    if tp.kind == "column":
+        return F.linear(copy_to_model(x, tp.group), w, b)
+    out = reduce_from_model(F.linear(x, w), tp.group)
+    return out if b is None else out + b
+
+
+def split_site(lin: nn.Linear, x: torch.Tensor, axis: int):
+    """The split-axis argument of a dropout site on ``x``, the output of
+    ``lin`` (or of heads drawn from it) whose ``axis`` holds this rank's
+    block under tensor parallelism; None when ``lin`` is whole."""
+    tp = getattr(lin, "tp", None)
+    return None if tp is None else tp.site(x, axis)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -110,6 +138,7 @@ class MultiheadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, kdim: Optional[int] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(kdim or dim, dim)
         self.v_proj = nn.Linear(kdim or dim, dim)
@@ -154,19 +183,20 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor],
                           dropout_rate: float = 0.0,
                           ctx: Optional[DropoutContext] = None,
-                          seq=None) -> torch.Tensor:
+                          site=None) -> torch.Tensor:
     """[B, H, T, Dh] attention as ``wav2vec_s_tpu/models/modules.py:106``:
     f32 logits plus the additive bias (broadcastable to [B, H, Tq, Tk]: a
     block mask, a causal-plus-padding mask, a group mask), softmax,
-    probabilities cast to the compute dtype, dropped, then P.V.  ``seq``:
-    the queries are a ``SeqShard``'s rows of the keys' sequence."""
+    probabilities cast to the compute dtype, dropped, then P.V.  ``site``:
+    the split axis of the probabilities' dropout site (``ops/dropout.py``:
+    a ``SeqShard``'s query rows, or a model rank's heads), None when they
+    are whole."""
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     logits = logits * q.shape[-1] ** -0.5
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    probs = drop(ctx, probs, dropout_rate,
-                 None if seq is None else seq.site(2))
+    probs = drop(ctx, probs, dropout_rate, site)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -186,32 +216,42 @@ def self_attention(att: MultiheadAttention, x: torch.Tensor,
     values of the whole sequence are gathered and ``bias`` holds the rows'
     [.., rows, whole] block.  ``kv`` [B, Tk, kdim]: the keys and values
     are projected from it instead of ``x`` (the decoder's encoder
-    attention; dense only)."""
-    B, T, D = x.shape
-    H = att.num_heads
+    attention; dense only).  Under tensor parallelism (``att.q_proj.tp``)
+    the projections hold this rank's heads: their count is the local
+    width over ``att.head_dim``, and the probabilities' dropout draws
+    the heads' place among all ``att.num_heads``."""
+    B, T, _ = x.shape
     src = x if kv is None else kv
     q = dense(att.q_proj, x)
     k, v = dense(att.k_proj, src), dense(att.v_proj, src)
+    Dl, Dh = q.shape[-1], att.head_dim
+    H = Dl // Dh
+    tp = getattr(att.q_proj, "tp", None)
     if seq is not None:
         if isinstance(bias, FlashSpec):
             raise ValueError("context parallelism runs the dense attention")
         k, v = seq.gather(k), seq.gather(v)
     if isinstance(bias, FlashSpec):
         rate, seed, offset, row0 = 0.0, 0, 0, 0
+        h0, heads = (0, H) if tp is None else (tp.rank * H, tp.size * H)
         if ctx is not None and dropout_rate:
             rate, (seed, offset) = dropout_rate, ctx.next_site()
             row0 = ctx.first_row()
         out = blockwise_flash_attention_packed(
             q, k, v, bias.key_padding_mask, H, bias.seq_len,
             bias.main_context, bias.right_context, dropout_rate=rate,
-            dropout_seed=seed, dropout_offset=offset, dropout_row0=row0)
+            dropout_seed=seed, dropout_offset=offset, dropout_row0=row0,
+            dropout_h0=h0, dropout_heads=heads)
     else:
         def split(t):
-            return t.reshape(B, t.shape[1], H, D // H).transpose(1, 2)
+            return t.reshape(B, t.shape[1], H, Dh).transpose(1, 2)
 
-        out = dot_product_attention(split(q), split(k), split(v), bias,
-                                    dropout_rate, ctx, seq)
-        out = out.transpose(1, 2).reshape(B, T, D)
+        qh = split(q)
+        site = (seq.site(2) if seq is not None
+                else split_site(att.q_proj, qh, 1))
+        out = dot_product_attention(qh, split(k), split(v), bias,
+                                    dropout_rate, ctx, site)
+        out = out.transpose(1, 2).reshape(B, T, Dl)
     return dense(att.out_proj, out)
 
 
@@ -234,7 +274,9 @@ def layer_tail(layer: TransformerEncoderLayer, x: torch.Tensor,
     site = None if seq is None else seq.site(1)
 
     def ffn(t):
-        t = drop(ctx, act(dense(layer.fc1, t)), rates.activation, site)
+        t = act(dense(layer.fc1, t))
+        t = drop(ctx, t, rates.activation,
+                 site if seq is not None else split_site(layer.fc1, t, -1))
         return drop(ctx, dense(layer.fc2, t), rates.dropout, site)
 
     h = drop(ctx, h, rates.dropout, site)

@@ -12,7 +12,10 @@ block-diagonal codebook (an MXU lowering); here each group's selection
 meets its own codebook in one grouped einsum.  The hard choice is the first
 maximum (``torch.argmax``, as ``jnp.argmax``); the perplexities are
 float32.  The Gumbel uniforms come from the forward's ``DropoutContext``
-(a host generator), so one seed gives one draw on any device.
+(a host generator), so one seed gives one draw on any device.  Under
+tensor parallelism ``weight_proj`` is column-parallel (the JAX rule): its
+logits are gathered over the model group before the group reshape, and
+the rest runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from torch import nn
 
 from wav2vec_s_tpu_torch.models.modules import dense
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
-from wav2vec_s_tpu_torch.parallel.functional import batch_mean
+from wav2vec_s_tpu_torch.parallel.functional import (
+    batch_mean, gather_from_model)
 from wav2vec_s_tpu_torch.parallel.mesh import Shard
 
 
@@ -75,7 +79,11 @@ class GumbelVectorQuantizer(nn.Module):
         perplexities' means are summed over (None: one process)."""
         B, T, _ = x.shape
         G, V = self.groups, self.num_vars
-        logits = dense(self.weight_proj, x).reshape(B * T, G, V).float()
+        logits = dense(self.weight_proj, x)
+        tp = getattr(self.weight_proj, "tp", None)
+        if tp is not None:      # column-parallel: every rank's codes
+            logits = gather_from_model(logits, tp.group)
+        logits = logits.reshape(B * T, G, V).float()
         hard_idx = logits.argmax(dim=-1)                          # [BT, G]
         hard_onehot = F.one_hot(hard_idx, V).float()
         code_ppl = _perplexity(batch_mean(hard_onehot, 0, shard))

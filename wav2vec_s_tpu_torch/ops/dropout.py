@@ -27,8 +27,9 @@ words, not by wrapped seeds.
 
 Shards: every rank of a parallel run draws the same step seed, so a rank
 that holds part of a tensor (its rows of a data-parallel batch, its time
-block under context parallelism) draws the bits of its elements' places in
-the whole tensor, through an ``index`` map ``(base, span_local,
+block under context parallelism, its heads of the attention probabilities
+or its columns of the FFN's hidden layer under tensor parallelism) draws
+the bits of its elements' places in the whole tensor, through an ``index`` map ``(base, span_local,
 span_global)``: local element ``i`` takes the bits of
 ``base + (i // span_local) * span_global + i % span_local``.  The JAX
 package draws the mask of the global array under SPMD; with the map a
@@ -214,7 +215,9 @@ def hw_dropout(x: torch.Tensor, rate: float, seed: int, offset: int,
 hw_dropout.launches = 0
 
 
-#: time-sharded site: (axis, first index held, length of the whole axis)
+#: a site split along one axis (context parallelism's time rows, tensor
+#: parallelism's heads or hidden columns): (axis, first index held, length
+#: of the whole axis)
 SeqSplit = Tuple[int, int, int]
 
 
@@ -250,8 +253,9 @@ class DropoutContext:
     def __call__(self, x: torch.Tensor, rate: float,
                  seq: Optional[SeqSplit] = None) -> torch.Tensor:
         """Drop ``x``; ``seq`` = (axis, start, total) when ``x`` holds the
-        rows [start, start + x.shape[axis]) of a time axis of ``total``
-        (context parallelism)."""
+        indices [start, start + x.shape[axis]) of an axis of ``total``
+        (context parallelism's time rows, tensor parallelism's heads or
+        hidden columns)."""
         if rate == 0.0:
             return x
         return hw_dropout(x, rate, *self.next_site(),

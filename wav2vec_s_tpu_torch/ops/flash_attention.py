@@ -22,10 +22,15 @@ Attention dropout acts on the normalised probabilities (``l`` sums the
 plain ``p``, the value product takes ``p * keep``; ``m`` and ``l`` do not
 depend on it).  The keep mask is a function of the element's coordinates in
 the [B, H, S, S] probabilities: K4's Philox scheme (``ops/dropout.py``) on
-the flat index, under the step ``seed`` and the site ``offset``; a shard
-of a data-parallel batch whose first row is row ``dropout_row0`` of the
-whole batch adds ``dropout_row0 * H * S * S`` to every index, so its masks
-are the matching rows of the whole batch's.  The twin's
+the flat index, under the step ``seed`` and the site ``offset``.  A shard
+places itself in the whole batch's [B_all, H_all, S, S] probabilities: a
+data-parallel shard whose first row is row ``dropout_row0`` of the whole
+batch, a tensor-parallel rank whose first head is head ``dropout_h0`` of
+``dropout_heads`` (None: ``H``, the shard holds every head), so element
+(b, h, q, k) takes the bits of index ``((row0 + b) * H_all + h0 + h) * S *
+S + q * S + k``, and its masks are the matching part of the whole
+batch's.  The defaults (``row0 = h0 = 0``, ``H_all = H``) give the index
+of an unsharded call.  The twin's
 mask is ``keep_mask(B*H*S*S, ...)`` reshaped, bit-equal to the kernels';
 flash training therefore equals dense training, which drops the
 materialised probabilities at the same site, under one seed.
@@ -83,14 +88,18 @@ def _bias(key_padding_mask, seq_len, main_context, right_context):
             + torch.where(key_padding_mask, NEG, 0.0)[:, None, None, :])
 
 
-def _keep_scale(B, H, S, rate, seed, offset, device, row0=0):
+def _keep_scale(B, H, S, rate, seed, offset, device, row0=0, h0=0,
+                heads=None):
     """[B, H, S, S] float32 tensor of 0 or 1/(1 - rate) (the kernels' keep
     mask), or None when ``rate`` is 0."""
     if not rate:
         return None
     n = B * H * S * S
-    keep = keep_mask(n, rate, seed, offset, device,
-                     (row0 * H * S * S, n, n) if row0 else None)
+    heads = H if heads is None else heads
+    index = None
+    if row0 or h0 or heads != H:
+        index = ((row0 * heads + h0) * S * S, H * S * S, heads * S * S)
+    keep = keep_mask(n, rate, seed, offset, device, index)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32,
                          device=device)
     return torch.where(keep.reshape(B, H, S, S), scale, 0.0)
@@ -112,7 +121,9 @@ def blockwise_flash_attention_ref(q, k, v, key_padding_mask, num_heads: int,
                                   dropout_rate: float = 0.0,
                                   dropout_seed: int = 0,
                                   dropout_offset: int = 0,
-                                  dropout_row0: int = 0):
+                                  dropout_row0: int = 0,
+                                  dropout_h0: int = 0,
+                                  dropout_heads=None):
     """Plain PyTorch twin; same arguments as
     ``blockwise_flash_attention_packed``.  Returns ``(out, m, l)``: out
     [B, S, D] in ``q.dtype``, and the row max ``m`` and row sum of
@@ -127,7 +138,7 @@ def blockwise_flash_attention_ref(q, k, v, key_padding_mask, num_heads: int,
     l = e.sum(dim=-1)
     p = e / l[..., None]
     keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
-                       q.device, dropout_row0)
+                       q.device, dropout_row0, dropout_h0, dropout_heads)
     if keep is not None:
         p = p * keep
     o = torch.einsum("bhqk,bhkd->bhqd", p, _split(v, H))
@@ -141,7 +152,9 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
                                       dropout_rate: float = 0.0,
                                       dropout_seed: int = 0,
                                       dropout_offset: int = 0,
-                                      dropout_row0: int = 0):
+                                      dropout_row0: int = 0,
+                                      dropout_h0: int = 0,
+                                      dropout_heads=None):
     """Plain PyTorch twin of the backward kernels, formula by formula
     (``csrc/flash_attention_bwd.cu``): from the forward's inputs, its
     ``out`` and row stats ``m``, ``l`` and the cotangent ``dout`` to
@@ -155,7 +168,7 @@ def blockwise_flash_attention_bwd_ref(q, k, v, out, dout, m, l,
         key_padding_mask, seq_len, main_context, right_context)
     p = torch.exp(s - m[..., None]) / l.clamp(min=1e-20)[..., None]
     keep = _keep_scale(B, H, S, dropout_rate, dropout_seed, dropout_offset,
-                       q.device, dropout_row0)
+                       q.device, dropout_row0, dropout_h0, dropout_heads)
     dvec = (do * _split(out, H)).sum(dim=-1, keepdim=True)
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vh)
     pt = p
@@ -209,11 +222,15 @@ def _kinds_on(seq_len: int, main_context: int, right_context: int,
 
 def _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate, dropout_seed, dropout_offset,
-           dropout_row0=0):
+           dropout_row0=0, dropout_h0=0, dropout_heads=None):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout rate {dropout_rate} is not in [0, 1)")
     if dropout_row0 < 0:
         raise ValueError(f"dropout_row0 {dropout_row0} is negative")
+    heads = num_heads if dropout_heads is None else dropout_heads
+    if not 0 <= dropout_h0 <= heads - num_heads:
+        raise ValueError(f"heads [{dropout_h0}, {dropout_h0 + num_heads}) "
+                         f"are not among dropout_heads={heads}")
     if not (0 <= dropout_seed < 1 << 64 and 0 <= dropout_offset < 1 << 64):
         raise ValueError(f"seed {dropout_seed} and offset {dropout_offset} "
                          f"must be unsigned 64-bit integers")
@@ -271,7 +288,7 @@ def _count(wrapper, path):
 def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
     """Twin (CPU) or kernel K2 (CUDA) -> (out, m, l); m and l are None on
     CUDA unless ``want_stats``.  ``layout`` = (num_heads, seq_len, mc, rc),
-    ``drop`` = (rate, seed, offset, row0)."""
+    ``drop`` = (rate, seed, offset, row0, h0, heads)."""
     if q.device.type == "cpu":
         return blockwise_flash_attention_ref(q, k, v, key_padding_mask,
                                              *layout, *drop)
@@ -280,7 +297,7 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
 
     B, S, D = q.shape
     H, seq_len, mc, rc = layout
-    rate, seed, offset, row0 = drop
+    rate, seed, offset, row0, h0, heads = drop
     path = _path_of(q, H, q, k, v)
     with torch.cuda.device(q.device):
         lib = native.library()
@@ -298,8 +315,8 @@ def _forward(q, k, v, key_padding_mask, layout, drop, want_stats: bool):
             None if m is None else m.data_ptr(),
             None if l is None else l.data_ptr(),
             B, S, D, H, seq_len, mc, rc, _DTYPE_CODES[q.dtype], seed, offset,
-            row0 * H * S * S, _threshold(rate), 1.0 / (1.0 - rate),
-            torch.cuda.current_stream().cuda_stream)
+            (row0 * heads + h0) * S * S, heads, _threshold(rate),
+            1.0 / (1.0 - rate), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -313,7 +330,9 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
                                   dropout_rate: float = 0.0,
                                   dropout_seed: int = 0,
                                   dropout_offset: int = 0,
-                                  dropout_row0: int = 0):
+                                  dropout_row0: int = 0,
+                                  dropout_h0: int = 0,
+                                  dropout_heads=None):
     """The backward of ``blockwise_flash_attention_packed``: the forward's
     inputs, its ``out`` [B, S, D] and row stats ``m``, ``l`` [B, H, S]
     float32, and the cotangent ``dout`` [B, S, D] -> ``(dq, dk, dv)`` in
@@ -324,9 +343,10 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
     ``path_launches`` under the kernel set that ran) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate, dropout_seed, dropout_offset,
-           dropout_row0)
+           dropout_row0, dropout_h0, dropout_heads)
     B, S, D = q.shape
     H = num_heads
+    heads = H if dropout_heads is None else int(dropout_heads)
     for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
                                   ("dout", dout, q.shape, q.dtype),
                                   ("m", m, (B, H, S), torch.float32),
@@ -339,7 +359,7 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
         return blockwise_flash_attention_bwd_ref(
             q, k, v, out, dout, m, l, key_padding_mask, num_heads, seq_len,
             main_context, right_context, dropout_rate, dropout_seed,
-            dropout_offset, dropout_row0)
+            dropout_offset, dropout_row0, dropout_h0, dropout_heads)
     _contiguous(q, k, v, out, dout, m, l, key_padding_mask)
     from wav2vec_s_tpu_torch.ops import native
 
@@ -359,8 +379,8 @@ def blockwise_flash_attention_bwd(q, k, v, out, dout, m, l, key_padding_mask,
             kinds_t.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dvec.data_ptr(), B, S, D, H, seq_len, main_context,
             right_context, _DTYPE_CODES[q.dtype], dropout_seed,
-            dropout_offset, dropout_row0 * H * S * S,
-            _threshold(dropout_rate),
+            dropout_offset, (dropout_row0 * heads + dropout_h0) * S * S,
+            heads, _threshold(dropout_rate),
             1.0 / (1.0 - dropout_rate),
             torch.cuda.current_stream().cuda_stream)
     if err:
@@ -400,7 +420,9 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
                                      return_stats: bool = False,
                                      dropout_seed: int = 0,
                                      dropout_offset: int = 0,
-                                     dropout_row0: int = 0):
+                                     dropout_row0: int = 0,
+                                     dropout_h0: int = 0,
+                                     dropout_heads=None):
     """q, k, v: [B, S, D] packed projections (head h at columns
     ``h*dh:(h+1)*dh``, q NOT pre-scaled), S = ``block_layout(seq_len,
     main_context, right_context).total_len``; key_padding_mask: [B, S]
@@ -408,7 +430,9 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
     ``dropout_rate`` > 0 drops the normalised probabilities with the mask
     of ``(dropout_seed, dropout_offset)`` (one site of the step's
     ``DropoutContext``) at the index of the batch row ``dropout_row0`` on
-    (a data-parallel shard's first row; 0 for a whole batch).
+    (a data-parallel shard's first row; 0 for a whole batch) and of the
+    head ``dropout_h0`` of ``dropout_heads`` (a tensor-parallel rank's
+    first head and the whole head count; 0 and None for every head).
 
     Returns [B, S, D] in ``q.dtype`` (padded query rows hold anything;
     callers strip them), or ``(out, m, l)`` with the [B, H, S] float32 row
@@ -420,10 +444,11 @@ def blockwise_flash_attention_packed(q, k, v, key_padding_mask,
     ``path_launches``) or raise."""
     _check(q, k, v, key_padding_mask, num_heads, seq_len, main_context,
            right_context, dropout_rate, dropout_seed, dropout_offset,
-           dropout_row0)
+           dropout_row0, dropout_h0, dropout_heads)
     layout = (num_heads, seq_len, main_context, right_context)
     drop = (float(dropout_rate), int(dropout_seed), int(dropout_offset),
-            int(dropout_row0))
+            int(dropout_row0), int(dropout_h0),
+            int(num_heads if dropout_heads is None else dropout_heads))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if q.device.type == "cuda":
             q, k, v = (t.contiguous() for t in (q, k, v))

@@ -180,9 +180,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    # (seed, offset, base, threshold, keep scale) of the attention dropout
+    # (seed, offset, base, heads, threshold, keep scale) of the attention
+    # dropout
     drop = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_ulonglong,
-            ctypes.c_uint, ctypes.c_double]
+            ctypes.c_int, ctypes.c_uint, ctypes.c_double]
     # the CUDA-core and the tensor-core kernels share their signatures
     for fn in (lib.w2vs_flash_attention, lib.w2vs_flash_attention_mma):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + drop

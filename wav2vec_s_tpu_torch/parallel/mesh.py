@@ -4,21 +4,26 @@
 The JAX package lays its devices out as a ``jax.sharding.Mesh`` and lets
 XLA place the collectives; here one process drives one device, and the
 ranks are laid out as a ``torch.distributed.device_mesh.DeviceMesh`` with
-named dims ``data`` (the batch) and ``seq`` (the encoder's time axis,
-context parallelism).  Rank ``r`` sits at data coordinate ``r // n_seq``
-and seq coordinate ``r % n_seq``.
+the JAX mesh's named dims in its order: ``data`` (the batch), ``model``
+(tensor parallelism, ``parallel/sharding.py``), ``pipe`` (the pipeline
+stages, ``parallel/pipeline.py``) and ``seq`` (the encoder's time axis,
+context parallelism), row-major: rank ``r`` of a (data, model, pipe, seq)
+mesh sits at the coordinates of ``r`` in ``arange(world).reshape(n_data,
+n_model, n_pipe, n_seq)``.  Every dim is present, of size 1 where unused
+(the JAX mesh leaves ``pipe`` and ``seq`` out then; the rank order is the
+same).
 
 A run is launched by ``python -m torch.distributed.run --nproc-per-node N
 ...``, which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``
 and ``MASTER_PORT``; ``init_from_env`` reads them.  The backend is always
 explicit: ``nccl`` for CUDA devices, ``gloo`` for the CPU (tests, and
-ranks that share one card, pass ``gloo`` for CUDA too).  The tensor and
-pipeline axes of the JAX mesh are not ported (ROADMAP item 11b).
+ranks that share one card, pass ``gloo`` for CUDA too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from typing import Optional
 
@@ -29,6 +34,8 @@ import torch.distributed as dist
 @dataclasses.dataclass(frozen=True)
 class MeshAxes:
     data: str = "data"
+    model: str = "model"
+    pipe: str = "pipe"
     seq: str = "seq"
 
 
@@ -90,29 +97,39 @@ def device_for(device_type: str, local_rank: int) -> torch.device:
     return torch.device(device_type)
 
 
-def make_mesh(n_data: int, n_seq: int = 1, device_type: str = "cuda",
+def make_mesh(n_data: int, n_model: int = 1, n_pipe: int = 1,
+              n_seq: int = 1, device_type: str = "cuda",
               backend: Optional[str] = None):
-    """The (data, seq) ``DeviceMesh`` over the started process group
-    (``n_data * n_seq`` must be its world size).  ``backend`` must be the
-    group's own (it is checked); None takes it."""
+    """The (data, model, pipe, seq) ``DeviceMesh`` over the started process
+    group, ranks laid out row-major in the JAX order (JAX ``make_mesh``;
+    ``n_data * n_model * n_pipe * n_seq`` must be the world size).
+    ``backend`` must be the group's own (it is checked); None takes it."""
     from torch.distributed.device_mesh import DeviceMesh
 
     world = dist.get_world_size()
-    if n_data * n_seq != world:
-        raise ValueError(f"mesh {n_data} x {n_seq} != world size {world}")
+    shape = (n_data, n_model, n_pipe, n_seq)
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {n_data} x {n_model} x {n_pipe} x {n_seq} "
+                         f"!= world size {world}")
     if backend is not None and dist.get_backend() != backend:
         raise ValueError(f"the process group runs {dist.get_backend()}, "
                          f"not {backend}")
-    layout = torch.arange(world).reshape(n_data, n_seq)
+    layout = torch.arange(world).reshape(shape)
     return DeviceMesh(device_type, layout,
-                      mesh_dim_names=(AXES.data, AXES.seq))
+                      mesh_dim_names=(AXES.data, AXES.model, AXES.pipe,
+                                      AXES.seq))
+
+
+def dim_size(mesh, name: str) -> int:
+    """The size of the mesh's dim ``name``."""
+    return mesh.size(mesh.mesh_dim_names.index(name))
 
 
 def process_local_rows(n_rows: int, mesh) -> slice:
     """The contiguous block of a global batch's rows that this rank's data
     coordinate owns (JAX ``process_local_rows``): every rank draws the
     same batch order and collates only its block."""
-    n = mesh.size(mesh.mesh_dim_names.index(AXES.data))
+    n = dim_size(mesh, AXES.data)
     p = mesh.get_local_rank(AXES.data)
     if n_rows % n:
         raise ValueError(f"{n_rows} rows do not split over {n} data ranks")

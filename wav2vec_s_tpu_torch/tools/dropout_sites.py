@@ -15,22 +15,22 @@ from __future__ import annotations
 
 from typing import List, Optional, Set, Tuple, Type
 
-import torch
-
 from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
 
-Site = Tuple[Tuple[int, ...], torch.dtype, float]
+#: (shape, dtype, rate), with ``index=True`` also the site's index map
+Site = Tuple
 
 
 def recording_context(sites: Optional[Set[Site]] = None,
                       kept: Optional[List[int]] = None,
-                      contexts: Optional[list] = None
-                      ) -> Type[DropoutContext]:
+                      contexts: Optional[list] = None,
+                      index: bool = False) -> Type[DropoutContext]:
     """A ``DropoutContext`` subclass whose instances add each dropout
-    site's (shape, dtype, rate) with rate > 0 to ``sites``, append the
-    count of the layers that layerdrop kept to ``kept`` (one entry per
-    context) and append themselves to ``contexts``; None records nothing
-    of that kind."""
+    site's (shape, dtype, rate) with rate > 0 to ``sites`` (``index``:
+    (shape, dtype, rate, index map), the map that places a shard's
+    elements in the whole tensor), append the count of the layers that
+    layerdrop kept to ``kept`` (one entry per context) and append
+    themselves to ``contexts``; None records nothing of that kind."""
 
     class Recorded(DropoutContext):
         def __init__(self, *a, **kw):
@@ -48,7 +48,10 @@ def recording_context(sites: Optional[Set[Site]] = None,
 
         def __call__(self, x, rate, seq=None):
             if rate and sites is not None:
-                sites.add((tuple(x.shape), x.dtype, rate))
+                site = (tuple(x.shape), x.dtype, rate)
+                if index:
+                    site += (self.index(tuple(x.shape), seq),)
+                sites.add(site)
             return super().__call__(x, rate, seq)
 
     return Recorded

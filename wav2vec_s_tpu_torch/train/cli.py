@@ -56,7 +56,10 @@ What differs from the JAX CLI, on purpose:
   ``gloo`` on the CPU).  ``run.num_devices``, when set, must equal the
   world size; ``run.seq`` ranks split the encoder's time axis (context
   parallelism), the rest form the ``data`` dim; ``run.zero`` shards the
-  optimizer moments and ``run.fsdp`` the parameters over it.  As in the
+  optimizer moments and ``run.fsdp`` the parameters over it, with or
+  without ``run.seq``.  (Tensor parallelism and the pipeline, like the
+  JAX CLI's, are not options of the trainer: ``parallel/sharding.py`` and
+  ``parallel/pipeline.py`` run them by hand.)  As in the
   JAX CLI every batch is a multiple of the data width and each rank
   collates its contiguous rows with the global batch's shapes; a rank's
   dropout masks and host draws are its rows' part of the global batch's,
@@ -67,6 +70,13 @@ What differs from the JAX CLI, on purpose:
   collate order, as the JAX one does; the JAX CLI collates two rows for
   its ``init_params`` first (the port does not), and under data
   parallelism each rank masks its own rows.
+- ``run.debug_nan``: a ``utils/debug.Watchdog(600)`` pinged every update,
+  and every update's loss read on the host; a non-finite loss raises
+  ``FloatingPointError`` naming the non-finite logs and parameters (by
+  their fairseq names).  ``run.profile_dir``: a ``torch.profiler`` trace
+  of updates [10, 20) (CPU and CUDA activity) written as
+  ``<profile_dir>/trace.json``, stopped early if the run ends inside the
+  window.
 - What the port does not do yet raises at start-up and names the ROADMAP
   item that will bring it; no configuration key is ignored silently
   (``data.features=fbank|text`` outside ``run.task=caat``, and
@@ -79,6 +89,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import hashlib
+import math
 import random
 import sys
 from typing import Dict, Optional
@@ -134,21 +145,12 @@ def check_supported(cfg: TrainConfig) -> None:
                              f"fbank family (data.features=fbank), not of "
                              f"data.features={data.features}")
     todo = []
-    if run.seq > 1 and (run.zero or run.fsdp):
-        todo.append("run.seq > 1 with run.zero or run.fsdp (item 11b: "
-                    "context parallelism composes with data parallelism "
-                    "only)")
     if run.remat != "none":
         todo.append("run.remat (item 9: a TPU experiment that waits for a "
                     "measurement on the card)")
     if run.flat_optimizer:
         todo.append("run.flat_optimizer (item 9: a TPU experiment that "
                     "waits for a measurement on the card)")
-    if run.profile_dir:
-        todo.append("run.profile_dir (item 12: utils/debug.py and the "
-                    "profiler hook)")
-    if run.debug_nan:
-        todo.append("run.debug_nan (item 12: utils/debug.py)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
 
@@ -434,7 +436,8 @@ def _parallel_plan(cfg: TrainConfig, device_type: str):
         # the encoder splits its time axis over the mesh's seq dim (the
         # JAX CLI sets the same default)
         cfg.model.setdefault("seq_axis", pmesh.AXES.seq)
-    mesh = pmesh.make_mesh(world // run.seq, run.seq, device_type)
+    mesh = pmesh.make_mesh(world // run.seq, n_seq=run.seq,
+                           device_type=device_type)
     mode = "fsdp" if run.fsdp else "zero" if run.zero else "dp"
     return ParallelPlan(mesh, mode), started
 
@@ -623,6 +626,29 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
                           for k, v in host_batch.items()}
         return host_batch
 
+    # failure detection behind run.debug_nan (fairseq nan_detector.py via
+    # trainer.py:801-811 + DistributedTimeoutWrapper): name the non-finite
+    # logs and parameters instead of silently skipping the update, and
+    # signal the process if no update completes for 10 minutes
+    watchdog = None
+    if run.debug_nan:
+        from wav2vec_s_tpu_torch.utils.debug import NanDetector, Watchdog
+        watchdog = Watchdog(timeout=600.0)
+
+    def check_finite(logs):
+        if watchdog is None:
+            return
+        watchdog.ping()
+        if not math.isfinite(float(logs["loss_total"])):
+            bad = (NanDetector.check(logs, "logs")
+                   + NanDetector.check(dict(model.named_parameters()),
+                                       "params"))
+            raise FloatingPointError(
+                "non-finite loss; offending tensors: " + "; ".join(bad))
+
+    # run.profile_dir (the --profile twin): trace updates [10, 20) once warm
+    profile = None
+
     progress = JsonProgress(tensorboard_dir=run.tensorboard_dir or None)
     speed = TimeMeter()
     gen = torch.Generator()
@@ -637,113 +663,137 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
     # reads one scalar, the gradient norm, to decide the non-finite skip)
     host_step = state.step
     position = itr.state_dict()
-    while host_step < run.max_update and not stop:
-        # the consumer's position in the epoch: what a checkpoint saves (the
-        # prefetch thread runs ahead of it)
-        position = itr.state_dict()
-        for (_, batch_idx), host_batch in prefetch_batches(
-                _keyed(itr.next_epoch_itr(), position["epoch"],
-                       position["batch_offset"]), collate_train,
-                run.prefetch):
-            if host_step >= run.max_update:
-                break
-            position["batch_offset"] += 1
-            draw = random.Random(_step_seed(run.seed, host_step))
-            mc, rc = (sample_context_bucket(draw, cfg.context.buckets)
-                      if sampled_contexts else (mc0, rc0))
-            ds = (sampled_steps[draw.randrange(len(sampled_steps))]
-                  if sampled_steps else None)
-            gen.manual_seed(_step_seed(run.seed, host_step))
-            try:
-                state, logs = get_step(mc, rc, ds)(
-                    state, to_device(host_batch, device), gen)
-                oom = None
-            except torch.cuda.OutOfMemoryError as e:
-                if plan is not None:
-                    raise        # the other ranks wait in a collective
-                oom = e
-            if oom is not None:
-                # skip the batch: free what the failed step left behind
-                # (outside the handler, where its traceback pins nothing)
-                oom_in_a_row += 1
-                if oom_in_a_row >= len(batches):
-                    raise oom              # no batch of the epoch fits
-                oom = None
-                for p in model.parameters():
-                    p.grad = None
-                if device.type == "cuda":
-                    torch.cuda.empty_cache()
-                oom_skipped += 1
-                print(f"out of device memory on a batch of "
-                      f"{len(batch_idx)}: skipped", file=sys.stderr)
-                continue
-            oom_in_a_row = 0
-            host_step += 1
+    if watchdog is not None:
+        watchdog.start()
+    try:
+        while host_step < run.max_update and not stop:
+            # the consumer's position in the epoch: what a checkpoint saves
+            # (the prefetch thread runs ahead of it)
+            position = itr.state_dict()
+            for (_, batch_idx), host_batch in prefetch_batches(
+                    _keyed(itr.next_epoch_itr(), position["epoch"],
+                           position["batch_offset"]), collate_train,
+                    run.prefetch):
+                if host_step >= run.max_update:
+                    break
+                position["batch_offset"] += 1
+                draw = random.Random(_step_seed(run.seed, host_step))
+                mc, rc = (sample_context_bucket(draw, cfg.context.buckets)
+                          if sampled_contexts else (mc0, rc0))
+                ds = (sampled_steps[draw.randrange(len(sampled_steps))]
+                      if sampled_steps else None)
+                gen.manual_seed(_step_seed(run.seed, host_step))
+                try:
+                    state, logs = get_step(mc, rc, ds)(
+                        state, to_device(host_batch, device), gen)
+                    oom = None
+                except torch.cuda.OutOfMemoryError as e:
+                    if plan is not None:
+                        raise        # the other ranks wait in a collective
+                    oom = e
+                if oom is not None:
+                    # skip the batch: free what the failed step left behind
+                    # (outside the handler, where its traceback pins nothing)
+                    oom_in_a_row += 1
+                    if oom_in_a_row >= len(batches):
+                        raise oom              # no batch of the epoch fits
+                    oom = None
+                    for p in model.parameters():
+                        p.grad = None
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
+                    oom_skipped += 1
+                    print(f"out of device memory on a batch of "
+                          f"{len(batch_idx)}: skipped", file=sys.stderr)
+                    continue
+                oom_in_a_row = 0
+                host_step += 1
 
-            speed.update(1)
-            for k, v in logs.items():
-                window.setdefault(k, []).append(v)   # device tensors: no sync
-            if ds is not None:
-                window.setdefault("decision_step", []).append(float(ds))
-            if sampled_contexts:
-                window.setdefault("main_context", []).append(float(mc))
-                window.setdefault("right_context", []).append(float(rc))
+                check_finite(logs)
+                if run.profile_dir:
+                    if host_step == 10:
+                        from wav2vec_s_tpu_torch.utils.debug import Profile
+                        profile = Profile(run.profile_dir)
+                    elif host_step == 20 and profile is not None:
+                        path, profile = profile.stop(), None
+                        print(f"profile trace written to {path}",
+                              file=sys.stderr)
 
-            if host_step % run.log_interval == 0:
-                stats = {k: float(np.mean([float(x) for x in v]))
-                         for k, v in window.items()}
-                if "loss_total" in stats and "sample_size" in stats:
-                    stats["loss_per_sample"] = (
-                        stats["loss_total"] / max(stats["sample_size"], 1))
-                stats["ups"] = round(speed.avg, 2)
-                if oom_skipped:
-                    stats["oom_skipped"], oom_skipped = oom_skipped, 0
-                if writer:
-                    progress.log(stats, host_step)
-                window.clear()
+                speed.update(1)
+                for k, v in logs.items():
+                    # device tensors: no sync
+                    window.setdefault(k, []).append(v)
+                if ds is not None:
+                    window.setdefault("decision_step", []).append(float(ds))
+                if sampled_contexts:
+                    window.setdefault("main_context", []).append(float(mc))
+                    window.setdefault("right_context", []).append(float(rc))
 
-            if valid_setup is not None and run.validate_interval_updates \
-                    and host_step % run.validate_interval_updates == 0:
-                vloss, vscore, vacc = validate()
-                vstats = {"valid_loss": vloss}
-                if vscore is not None:
-                    vstats["valid_wer" if run.task == "ctc"
-                           else "valid_bleu"] = vscore
-                if vacc is not None:
-                    vstats["valid_accuracy"] = vacc
-                if writer:
-                    progress.log(vstats, host_step, tag="valid")
-                # patience and the best checkpoint track WER for CTC, BLEU
-                # (negated: lower is better) under eval_bleu, else the s2s
-                # accuracy (the reference's --best-checkpoint-metric
-                # accuracy --maximize), else the loss
-                if vscore is not None:
-                    vmetric = vscore if run.task == "ctc" else -vscore
-                elif vacc is not None:
-                    vmetric = -vacc
-                else:
-                    vmetric = vloss
-                if vmetric < best_valid - 1e-6:
-                    best_valid, bad_validations = vmetric, 0
-                else:
-                    bad_validations += 1
-                    if run.patience and bad_validations >= run.patience:
-                        if writer:
-                            print(f"early stop: no improvement in "
-                                  f"{run.patience} validations",
-                                  file=sys.stderr)
-                        stop = True
+                if host_step % run.log_interval == 0:
+                    stats = {k: float(np.mean([float(x) for x in v]))
+                             for k, v in window.items()}
+                    if "loss_total" in stats and "sample_size" in stats:
+                        stats["loss_per_sample"] = (
+                            stats["loss_total"] / max(stats["sample_size"], 1))
+                    stats["ups"] = round(speed.avg, 2)
+                    if oom_skipped:
+                        stats["oom_skipped"], oom_skipped = oom_skipped, 0
+                    if writer:
+                        progress.log(stats, host_step)
+                    window.clear()
 
-            if run.save_interval_updates and \
-                    host_step % run.save_interval_updates == 0:
-                mgr.save(host_step, state, extra={"iterator": dict(position)},
-                         metric=(best_valid if valid_setup is not None else
-                                 float(logs["loss_total"])
-                                 / max(float(logs["sample_size"]), 1)))
-            if stop:
-                break
-        else:
-            position = {"epoch": position["epoch"] + 1, "batch_offset": 0}
+                if valid_setup is not None and run.validate_interval_updates \
+                        and host_step % run.validate_interval_updates == 0:
+                    vloss, vscore, vacc = validate()
+                    vstats = {"valid_loss": vloss}
+                    if vscore is not None:
+                        vstats["valid_wer" if run.task == "ctc"
+                               else "valid_bleu"] = vscore
+                    if vacc is not None:
+                        vstats["valid_accuracy"] = vacc
+                    if writer:
+                        progress.log(vstats, host_step, tag="valid")
+                    # patience and the best checkpoint track WER for CTC, BLEU
+                    # (negated: lower is better) under eval_bleu, else the s2s
+                    # accuracy (the reference's --best-checkpoint-metric
+                    # accuracy --maximize), else the loss
+                    if vscore is not None:
+                        vmetric = vscore if run.task == "ctc" else -vscore
+                    elif vacc is not None:
+                        vmetric = -vacc
+                    else:
+                        vmetric = vloss
+                    if vmetric < best_valid - 1e-6:
+                        best_valid, bad_validations = vmetric, 0
+                    else:
+                        bad_validations += 1
+                        if run.patience and bad_validations >= run.patience:
+                            if writer:
+                                print(f"early stop: no improvement in "
+                                      f"{run.patience} validations",
+                                      file=sys.stderr)
+                            stop = True
+
+                if run.save_interval_updates and \
+                        host_step % run.save_interval_updates == 0:
+                    mgr.save(host_step, state,
+                             extra={"iterator": dict(position)},
+                             metric=(best_valid if valid_setup is not None else
+                                     float(logs["loss_total"])
+                                     / max(float(logs["sample_size"]), 1)))
+                if stop:
+                    break
+            else:
+                position = {"epoch": position["epoch"] + 1, "batch_offset": 0}
+    finally:
+        # every exit stops the watchdog and the trace, a raise too: a
+        # caller that catches the error keeps a process the daemon would
+        # otherwise signal 10 minutes later
+        if watchdog is not None:
+            watchdog.stop()
+        if profile is not None:    # the run ended inside the window
+            print(f"profile trace written to {profile.stop()}",
+                  file=sys.stderr)
 
     mgr.save(host_step, state, extra={"iterator": dict(position)})
     mgr.wait()                         # commit any in-flight async write

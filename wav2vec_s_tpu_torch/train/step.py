@@ -61,6 +61,10 @@ class TrainState:
         if plan is None:
             return cls(0, model, optimizer.init(params),
                        optimizer=optimizer)
+        if plan.n_model > 1 and isinstance(optimizer, Adafactor):
+            raise ValueError("Adafactor under tensor parallelism: its "
+                             "factored moments of a split weight are not "
+                             "summed over the model group")
         shards = plan.row_shards(params)
         return cls(0, model, optimizer.init(plan.blocks(params, shards),
                                             shards),
