@@ -220,11 +220,12 @@ Phases, each printed on its own line:
                launched on each rank; the plan's all-reduce of one update's
                gradients timed; ZeRO-1's optimizer moments per rank (about
                half).  (b) the training entry point under
-               python -m torch.distributed.run with one rank on nccl, data
-               parallel, then run.zero=true, then run.fsdp=true, on
-               configs/pretrain_base.yaml at phase 15's shapes, 3 updates,
-               each against the same call without a process group: the same
-               updates and skips, losses rtol 1e-5, grad norms rtol 1e-4,
+               python -m torch.distributed.run with one rank on nccl: one
+               launch that runs data parallelism, then run.zero=true, then
+               run.fsdp=true in that rank, on configs/pretrain_base.yaml at
+               phase 15's shapes, 3 updates, each against the same call
+               without a process group (in this process): the same updates
+               and skips, losses rtol 1e-5, grad norms rtol 1e-4,
                parameters within 1e-2 x lr.
   17. asr    — the offline-ASR family (models/asr.py, eval/generator.py).
                (a) Tiny CTC (also with a row whose labels cannot fit its
@@ -340,6 +341,31 @@ Phases, each printed on its own line:
                updates 11-12 names K2's and K4's kernels among its CUDA
                kernels; a NaN planted in one parameter of the checkpoint:
                the next update raises FloatingPointError naming it.
+  21. remat, flat optimizer, reader — (a) the CAAT Large widths (1024, 16
+               heads, FFN 4096) cut to 4 encoder and 2 + 2 decoder and
+               jointer layers, bf16, flash, the recipe's dropouts, B 4 x 10
+               s, U 40, 3 updates by hand under run.remat none, dots,
+               nothing, offload_dots, remat_extractor alone and with
+               nothing, the flat Adam, and the flat Adafactor against the
+               tree Adafactor over the vector raveled every update: each
+               against its reference, losses rtol 1e-5, grad norms 1e-4,
+               parameters within 1e-2 x lr, the same skips, the update
+               generator in the same state; a recompute launches K2 twice
+               and K3 once per kept layer and K4 once more per forward K4
+               site, the forward's and the recompute's contexts alike.
+               (b) The training entry point on
+               configs/caat_simulasr_large.yaml at full depth and width
+               (24 x 1024 encoder, 12 + 12 x 1024 decoder and jointer),
+               data.max_tokens 1440000 (8 of 9 x 10 s in 2 microbatches),
+               bf16, flash, the word tokenizer, 2 updates per call: no
+               switch, run.remat=dots, nothing + remat_extractor,
+               offload_dots, then run.flat_optimizer: peak memory, the
+               second update's seconds, K2/K3/K4/walk launches (the final
+               checkpoint is not written); then Adam's update alone over
+               the recipe's parameters, tree against flat, in turns.  (c) The native batched reader
+               against the per-file reader on 9 PCM16 wavs of 10 s and a
+               stereo one, bit for bit; an 8 kHz file; the Large batch's
+               collate with either reader, in turns.
 Each phase prints its wall seconds ("phase clock"), and the whole script's
 before the card line.  Each of the full paths runs with every launch count set to 0 just before
 it and read just after.  Beside each kernel's time stands its bound (the
@@ -638,6 +664,10 @@ def phase_kernel():
               f"{bound[1]}")
         if row is None:
             row = _row(worst, ms, plain_ms, bound, library_ms)
+        else:                 # the row's second call: 8 streams
+            row["b8_call"] = {k: v for k, v in _row(
+                worst, ms, plain_ms, bound, library_ms).items()
+                if k != "max_abs_err"}
         del q, kc, vc, kn, vn
 
     # the kernel alone (device time under a CUDA graph) where the main path
@@ -3532,10 +3562,10 @@ def phase_pretrain_full(card):
         snap = {}
         real_create = cli.TrainState.create
 
-        def create(model, optimizer, plan=None):
+        def create(model, optimizer, plan=None, **kw):
             snap.update({k: v.detach().cpu().clone() for k, v in
                          model.encoder.w2v2_model.state_dict().items()})
-            return real_create(model, optimizer, plan)
+            return real_create(model, optimizer, plan, **kw)
 
         caat_argv = ["--device", "cuda", "run.task=caat",
                      f"run.save_dir={root}/caat", "run.max_update=1",
@@ -3871,20 +3901,49 @@ def _free_port():
         return sock.getsockname()[1]
 
 
+def _cli_parallel_rank(spec) -> int:
+    """16b's rank, launched by torch.distributed.run: the trainer's entry
+    point once per run of ``spec`` (a json list of [argv, stdout file]) in
+    this one process, each run's output into its file.  No group is
+    started here: every ``cli.main`` starts the default group from the
+    launcher's environment (``parallel.mesh.init_from_env``: the rank's
+    device, nccl, ``env://``) and destroys it when it ends, as a user's
+    torchrun launch of the trainer does, so each of the three runs covers
+    that path."""
+    import contextlib
+    import json
+
+    import torch.distributed as dist
+    from wav2vec_s_tpu_torch.train import cli
+
+    with open(spec) as f:
+        runs = json.load(f)
+    for argv, out in runs:
+        with open(out, "w") as f, contextlib.redirect_stdout(f):
+            cli.main(argv)
+        assert not dist.is_initialized(), "the trainer left its group up"
+    return 0
+
+
 def phase_cli_parallel(card):
     """16b: the training entry point under torch.distributed.run with one
-    rank (nccl): data parallelism, then run.zero=true, then run.fsdp=true,
-    each against the same call with no process group, on
+    rank (nccl), one launch that runs data parallelism, then run.zero=true,
+    then run.fsdp=true (``_cli_parallel_rank``; each run starts and ends
+    the process group itself), each against the same call
+    without a process group (in this process), on
     configs/pretrain_base.yaml at phase 15's shapes (B 5 x 200960 samples,
     flash, the recipe's dropouts, sampled contexts), 3 updates: the same
     updates and skips, the losses within rtol 1e-5 and the grad norms
     within 1e-4, the final parameters within 1e-2 x lr."""
+    import contextlib
+    import io
     import json
     import pathlib
     import tempfile
 
     import torch
     from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
+    from wav2vec_s_tpu_torch.train import cli
     from wav2vec_s_tpu_torch.train.config import load_config
 
     torch.cuda.empty_cache()
@@ -3893,42 +3952,58 @@ def phase_cli_parallel(card):
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+
+    def records(text):
+        return [json.loads(x) for x in text.splitlines()
+                if x.startswith("{")]
+
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
         manifest = _pretrain_corpus(root)
-        runs = {}
+        argvs = {}
         for name, extra in (("no group", []), ("dp", []),
                             ("zero", ["run.zero=true"]),
                             ("fsdp", ["run.fsdp=true"])):
             tag = name.replace(" ", "_")
-            argv = ["--config", config, "--device", "cuda",
-                    f"run.save_dir={root}/{tag}", "run.max_update=3",
-                    "run.log_interval=1", "run.save_interval_updates=0",
-                    "run.keep_last=1", "run.validate_interval_updates=0",
-                    f"data.train_manifest={manifest}",
-                    "model.attention_impl=flash", *extra]
-            launch = ([] if name == "no group" else
-                      ["-m", "torch.distributed.run", "--nnodes", "1",
-                       "--nproc-per-node", "1", "--master-addr", "localhost",
-                       "--master-port", str(_free_port())])
-            cmd = [sys.executable, *launch, "-m",
-                   "wav2vec_s_tpu_torch.train.cli", *argv]
-            t = time.perf_counter()
-            done = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600, env=env, cwd=repo)
-            wall = time.perf_counter() - t
-            if done.returncode:
-                raise RuntimeError(f"phase cli parallel: {name} failed:\n"
-                                   f"{done.stdout[-3000:]}\n"
-                                   f"{done.stderr[-3000:]}")
-            recs = [json.loads(x) for x in done.stdout.splitlines()
-                    if x.startswith("{")]
-            payload = CheckpointManager(root / tag, keep_last=0).restore()[0]
-            runs[name] = (recs, payload, wall)
-    want, ref, _ = runs["no group"]
+            argvs[name] = ["--config", config, "--device", "cuda",
+                           f"run.save_dir={root}/{tag}", "run.max_update=3",
+                           "run.log_interval=1", "run.save_interval_updates=0",
+                           "run.keep_last=1",
+                           "run.validate_interval_updates=0",
+                           f"data.train_manifest={manifest}",
+                           "model.attention_impl=flash", *extra]
+        t = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(argvs["no group"])
+        runs = {"no group": (records(out.getvalue()), CheckpointManager(
+            root / "no_group", keep_last=0).restore()[0])}
+        no_group_s = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        spec = root / "ranks.json"
+        group = ("dp", "zero", "fsdp")
+        spec.write_text(json.dumps([[argvs[name], str(root / f"{name}.out")]
+                                    for name in group]))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes",
+               "1", "--nproc-per-node", "1", "--master-addr", "localhost",
+               "--master-port", str(_free_port()), os.path.abspath(__file__),
+               "--cli-parallel-rank", str(spec)]
+        t = time.perf_counter()
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600, env=env, cwd=repo)
+        launch_s = time.perf_counter() - t
+        if done.returncode:
+            raise RuntimeError(f"phase cli parallel: the launch failed:\n"
+                               f"{done.stdout[-3000:]}\n"
+                               f"{done.stderr[-3000:]}")
+        for name in group:
+            runs[name] = (records((root / f"{name}.out").read_text()),
+                          CheckpointManager(root / name,
+                                            keep_last=0).restore()[0])
+    want, ref = runs["no group"]
     assert [r["step"] for r in want] == [1, 2, 3], want
-    for name in ("dp", "zero", "fsdp"):
-        recs, payload, wall = runs[name]
+    for name in group:
+        recs, payload = runs[name]
         assert [r["step"] for r in recs] == [1, 2, 3], recs
         assert [r["skipped"] for r in recs] == [r["skipped"] for r in want]
         loss = max(abs(a["loss_total"] - b["loss_total"]) / abs(b["loss_total"])
@@ -3943,11 +4018,13 @@ def phase_cli_parallel(card):
               f"{[r['loss_total'] for r in recs]} (max rel diff {loss:.3g}),"
               f" grad norm max rel diff {gnorm:.3g}, params max |diff| "
               f"{pmax:.3g} (lr {lr:g}), the same "
-              f"{int(sum(r['skipped'] for r in recs))} skips; call "
-              f"{wall:.1f} s (no group {runs['no group'][2]:.1f} s) [{card}]")
+              f"{int(sum(r['skipped'] for r in recs))} skips [{card}]")
         assert loss <= 1e-5 and gnorm <= 1e-4, (name, loss, gnorm)
         assert pmax <= 1e-2 * lr, (name, pmax)
         assert payload["step"] == ref["step"] == 3
+    print(f"phase cli parallel: the launch of dp, zero and fsdp in one "
+          f"rank {launch_s:.1f} s; the call without a group, in this "
+          f"process, {no_group_s:.1f} s [{card}]")
 
 
 # -- phase 17: the offline-ASR family ----------------------------------------
@@ -4784,10 +4861,10 @@ def phase_full_context(card):
         snap = {}
         real_create = cli.TrainState.create
 
-        def create(m, optimizer, plan=None):
+        def create(m, optimizer, plan=None, **kw):
             snap.update({k: v.detach().cpu().clone()
                          for k, v in m.state_dict().items()})
-            return real_create(m, optimizer, plan)
+            return real_create(m, optimizer, plan, **kw)
 
         sites = set()
         t = time.perf_counter()
@@ -5766,6 +5843,477 @@ def phase_prep_debug(card):
     return counts
 
 
+# -- phase 21: rematerialization, the flat optimizer, the native reader ------
+
+LARGE_CAAT = os.path.join(CONFIGS, "caat_simulasr_large.yaml")
+REMAT_B, REMAT_U, REMAT_UPDATES = 4, 40, 3
+REMAT_CUT = ("model.encoder_layers=4", "caat.decoder_layers=2",
+             "caat.jointer_layers=2")
+REMAT_LR = 1e-3
+REMAT_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-4,
+             "param_over_lr": 1e-2}
+#: 21a's runs: (label, run.remat, model.remat_extractor, optimizer, flat
+#: optimizer ("raveled": the tree optimizer over the vector raveled and
+#: padded every update, the JAX package's ravel), the run it must equal)
+REMAT_RUNS = (
+    ("none", "none", False, "adam", False, None),
+    ("dots", "dots", False, "adam", False, "none"),
+    ("nothing", "nothing", False, "adam", False, "none"),
+    ("offload_dots", "offload_dots", False, "adam", False, "none"),
+    ("extractor", "none", True, "adam", False, "none"),
+    ("nothing+extractor", "nothing", True, "adam", False, "none"),
+    ("flat adam", "none", False, "adam", True, "none"),
+    ("adafactor raveled", "none", False, "adafactor", "raveled", None),
+    ("flat adafactor", "none", False, "adafactor", True,
+     "adafactor raveled"))
+LARGE_CLIPS = 18           # 21b: two batches of 9 x 10 s (max_tokens)
+LARGE_MAX_TOKENS = 1440000
+#: 21b's calls of the trainer: (tag, overrides)
+LARGE_CALLS = (("none", ()), ("dots", ("run.remat=dots",)),
+               ("nothing+extractor", ("run.remat=nothing",
+                                      "model.remat_extractor=True")),
+               ("offload_dots", ("run.remat=offload_dots",)),
+               ("flat", ("run.flat_optimizer=true",)))
+READER_REPS = 5
+
+
+def _large_caat(dev, *overrides):
+    """(model on ``dev``, w2v config, caat config) of
+    caat_simulasr_large.yaml under ``overrides``, random weights from seed
+    0, a 10000-entry vocabulary."""
+    import torch
+    from wav2vec_s_tpu_torch.models.caat import W2V2CaatModel
+    from wav2vec_s_tpu_torch.models.modules import random_init_
+    from wav2vec_s_tpu_torch.train import cli, config
+
+    w2v, caat = cli.caat_configs(config.load_config(LARGE_CAAT, overrides),
+                                 10000)
+    with dev:
+        model = W2V2CaatModel(w2v, caat)
+    random_init_(model, torch.Generator(device=dev).manual_seed(0))
+    return model, w2v, caat
+
+
+def _raveled_step(opt, loss_fn, model):
+    """The train step with the tree optimizer over ONE parameter: the
+    vector raveled (``torch.cat``) and padded to 64 every update, then cut
+    back into the parameters: what the JAX package's flat path computes,
+    without the flat views."""
+    import math
+
+    import torch
+
+    params = list(model.parameters())
+    n_all = sum(p.numel() for p in params)
+    pad = (-n_all) % 64
+    ostate = opt.init([params[0].new_zeros(n_all + pad)])
+
+    def step(state_no, batch, generator):
+        for p in params:
+            p.grad = None
+        loss, n, logs = loss_fn(batch, generator, state_no)
+        loss.backward()
+        with torch.no_grad():
+            tail = [params[0].new_zeros(pad)]
+            vec = torch.cat([p.reshape(-1) for p in params] + tail)
+            g = torch.cat([(p.grad if p.grad is not None else
+                            torch.zeros_like(p)).reshape(-1)
+                           for p in params] + tail)
+            g /= torch.clamp(torch.as_tensor(n, dtype=torch.float32,
+                                             device=g.device), min=1.0)
+            gnorm = torch.linalg.vector_norm(g)
+            ok = math.isfinite(gnorm.item())
+            if ok:
+                opt.update([vec], [g], ostate, gnorm)
+                off = 0
+                for p in params:
+                    p.copy_(vec[off:off + p.numel()].view_as(p))
+                    off += p.numel()
+        for p in params:
+            p.grad = None
+        return {"loss_total": loss.detach(), "grad_norm": gnorm,
+                "skipped": torch.tensor(0.0 if ok else 1.0)}
+
+    return step
+
+
+def _remat_run(label, policy, extractor, optimizer, flat):
+    """21a: ``REMAT_UPDATES`` updates of the cut Large model by hand ->
+    {logs, params (on the card), generator state, per update (launch
+    counts, [(seed, sites, layers kept)] of each DropoutContext), counts,
+    peak GB above what the run found allocated (the reference runs' kept
+    parameters), s}."""
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.tools.dropout_sites import recording_context
+    from wav2vec_s_tpu_torch.train import recipes
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, w2v, caat = _large_caat(
+        dev, *REMAT_CUT, "model.attention_impl=flash",
+        f"model.remat_extractor={extractor}")
+    opt = build_optimizer(OptimConfig(
+        optimizer=optimizer, lr=REMAT_LR, clip_norm=25.0,
+        lr_scheduler="polynomial_decay", warmup_updates=0,
+        total_updates=100))
+    contexts, kept = [], []
+    with mock.patch.object(recipes, "DropoutContext",
+                           recording_context(kept=kept, contexts=contexts)):
+        loss_fn = recipes.make_caat_loss_fn(model, caat, 16, 8)
+        if flat == "raveled":
+            step = _raveled_step(opt, loss_fn, model)
+        else:
+            state = TrainState.create(model, opt, flat_optimizer=flat)
+            train_step = make_train_step(loss_fn, opt, remat_policy=policy)
+
+            def step(i, batch, generator):
+                return train_step(state, batch, generator)[1]
+        gen = torch.Generator().manual_seed(21)
+        S = int(SECONDS * 16000)
+        logs, updates = [], []
+        _reset_counts()
+        t = time.perf_counter()
+        for i in range(REMAT_UPDATES):
+            batch = _train_batch(REMAT_B, S, REMAT_U, caat.vocab_size,
+                                 caat.eos, dev, seed=i)
+            before = _counts()
+            contexts.clear()
+            kept.clear()
+            out = step(i, batch, gen)
+            after = _counts()
+            logs.append({k: float(out[k]) for k in ("loss_total",
+                                                    "grad_norm", "skipped")})
+            updates.append(({k: after[k] - before[k] for k in after},
+                            [(c.seed, c.sites, n)
+                             for c, n in zip(contexts, kept)]))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    params = {k: p.detach().clone() for k, p in model.named_parameters()}
+    return {"logs": logs, "params": params, "gen": gen.get_state(),
+            "updates": updates, "counts": _counts(), "sets": _set_paths(),
+            "peak": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "s": wall,
+            "attention_dropout": w2v.attention_dropout}
+
+
+def _check_remat_launches(label, policy, run, none):
+    """Under ``none`` K2 == K3 == the encoder layers kept; a policy that
+    recomputes the forward launches K2 twice and K3 once per kept layer,
+    and K4 once more per forward K4 site (the context's sites less the
+    flash layers' in-kernel dropout sites) and no more; the forward and
+    the recompute take the same seed, sites and layers; the lattice walks
+    run as in the plain step."""
+    for (c, ctxs), (c0, ctxs0) in zip(run["updates"], none["updates"]):
+        (seed, sites, kept), = ctxs0
+        flash_sites = kept if run["attention_dropout"] else 0
+        k2, k3, k4 = (c[n] for n in ("blockwise_flash_attention_packed",
+                                     "blockwise_flash_attention_bwd",
+                                     "hw_dropout"))
+        if policy in ("dots", "nothing", "offload_dots"):
+            assert ctxs == ctxs0 * 2, (label, ctxs, ctxs0)
+            assert k2 == 2 * kept and k3 == kept, (label, c, kept)
+            assert k4 == c0["hw_dropout"] + sites - flash_sites, (
+                label, k4, c0["hw_dropout"], sites, flash_sites)
+        else:
+            assert ctxs == ctxs0, (label, ctxs, ctxs0)
+            assert k2 == k3 == kept and k4 == c0["hw_dropout"], (label, c)
+        # the loss's forward walk saves nothing for the backward (its
+        # backward walks again), so the recompute stops before it
+        # (checkpoint's early stop): the walks are the plain step's
+        for walk in WALKS:
+            assert c[walk] == c0[walk] > 0, (label, walk, c, c0)
+
+
+def phase_remat_parity(card):
+    """21a: the CAAT Large widths (1024, 16 heads, FFN 4096) cut to 4
+    encoder and 2 + 2 decoder and jointer layers, bf16, flash, the
+    recipe's dropouts, B 4 x 10 s, U 40, 3 updates through make_train_step
+    under each run of REMAT_RUNS; each against its reference run: losses
+    within rtol 1e-5, grad norms within 1e-4, every parameter within 1e-2
+    x lr, the same skips, the update generator in the same state; the
+    launch counts of ``_check_launches``.  -> {path: launch counts}."""
+    import torch
+
+    runs, paths = {}, {}
+    for label, policy, extractor, optimizer, flat, ref in REMAT_RUNS:
+        run = _remat_run(label, policy, extractor, optimizer, flat)
+        c = run["counts"]
+        line = (f"phase remat parity: {label} (run.remat={policy}, "
+                f"remat_extractor={extractor}, {optimizer}, flat={flat}): "
+                f"losses {[round(x['loss_total'], 3) for x in run['logs']]}"
+                f", grad norms {[round(x['grad_norm'], 4) for x in run['logs']]}"
+                f"; per update K2/K3/K4/walks "
+                f"{[(u['blockwise_flash_attention_packed'], u['blockwise_flash_attention_bwd'], u['hw_dropout'], u['transducer_forward_walk'], u['transducer_reverse_walk']) for u, _ in run['updates']]}"
+                f", (seed, sites, layers kept) of each context "
+                f"{[[x[1:] for x in ctx] for _, ctx in run['updates']]}; "
+                f"peak {run['peak']:.3f} GB above the run's start, "
+                f"{REMAT_UPDATES} updates "
+                f"{run['s']:.2f} s")
+        if ref is not None:
+            want = runs[ref]
+            loss = max(abs(a["loss_total"] - b["loss_total"])
+                       / abs(b["loss_total"])
+                       for a, b in zip(run["logs"], want["logs"]))
+            gnorm = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                        for a, b in zip(run["logs"], want["logs"]))
+            pmax = max((p - want["params"][k]).abs().max().item()
+                       for k, p in run["params"].items())
+            line += (f"; against {ref}: loss max rel diff {loss:.3g}, grad "
+                     f"norm {gnorm:.3g}, params max |diff| {pmax:.3g} (lr "
+                     f"{REMAT_LR:g}), generator state equal "
+                     f"{torch.equal(run['gen'], want['gen'])}")
+            assert [x["skipped"] for x in run["logs"]] == [
+                x["skipped"] for x in want["logs"]], label
+            assert loss <= REMAT_TOL["loss_rtol"], (label, loss)
+            assert gnorm <= REMAT_TOL["grad_norm_rtol"], (label, gnorm)
+            assert pmax <= REMAT_TOL["param_over_lr"] * REMAT_LR, (label,
+                                                                   pmax)
+            assert torch.equal(run["gen"], want["gen"]), label
+        print(line + f" [{card}]")
+        assert all(x["skipped"] == 0.0 for x in run["logs"]), label
+        if flat != "raveled":
+            _check_remat_launches(label, policy, run, runs.get("none", run))
+            kept = sum(ctx[0][2] for _, ctx in run["updates"])
+            _on_tensor_cores(run["sets"], {
+                "K1": 0, "K3": kept,
+                "K2": c["blockwise_flash_attention_packed"]})
+        paths[f"remat {label}"] = c
+        runs[label] = run
+        for other in [k for k in runs if k not in (
+                "none", "adafactor raveled")]:
+            runs[other] = None        # only the references are kept
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _large_corpus(root):
+    """21b-c's files: ``LARGE_CLIPS`` seeded-noise wavs of 10 s (S2T tsv,
+    20-word transcripts) and the 10000-entry word dict -> tsv."""
+    _asr_dicts(root)
+    return _asr_corpus(root, "large", LARGE_CLIPS, SECONDS, 21)[1]
+
+
+def phase_large_recipe(card, root, train):
+    """21b: the training entry point on caat_simulasr_large.yaml at full
+    depth and width (24 x 1024 encoder, 12 + 12 x 1024 decoder and
+    jointer), data.max_tokens 1440000 (9 x 10 s; update_freq 2 takes 8
+    rows in 2 microbatches of 4), bf16, flash, the recipe's dropouts and
+    freeze schedule, seeded weights and noise, the word tokenizer, 2
+    updates per call, one call per LARGE_CALLS; the final checkpoint (8
+    GB of weights and moments) is not written.  -> {path: launch
+    counts}."""
+    import math
+    from unittest import mock
+
+    import torch
+    from wav2vec_s_tpu_torch.checkpoint import io as ckpt_io
+    from wav2vec_s_tpu_torch.train import cli
+
+    class NoSave(ckpt_io.CheckpointManager):
+        def save(self, *args, **kwargs):
+            pass
+
+    S = int(SECONDS * 16000)
+    paths = {}
+    for tag, extra in LARGE_CALLS:
+        torch.cuda.empty_cache()
+        argv = ["--config", LARGE_CAAT, "--device", "cuda",
+                f"data.train_manifest={train}", f"data.vocab={root}/words.txt",
+                "data.tokenizer=word", f"data.max_tokens={LARGE_MAX_TOKENS}",
+                f"data.max_sample_size={S}", "run.w2v2_model_path=",
+                "run.max_update=2", "run.log_interval=1",
+                "run.save_interval_updates=0", "run.keep_last=1",
+                f"run.save_dir={root}/{tag.replace('+', '_')}",
+                "model.attention_impl=flash", *extra]
+        t = time.perf_counter()
+        with mock.patch.object(cli, "CheckpointManager", NoSave):
+            counts, sets, recs, kept, peak = _run_asr_cli(argv, set())
+        wall = time.perf_counter() - t
+        assert [r["step"] for r in recs] == [1, 2] and all(
+            math.isfinite(r["loss_total"]) and r["skipped"] == 0.0
+            for r in recs), (tag, recs)
+        k2, k3 = (counts["blockwise_flash_attention_packed"],
+                  counts["blockwise_flash_attention_bwd"])
+        recompute = any(x.startswith("run.remat=") for x in extra)
+        if recompute:        # kept counts the forward's and the recompute's
+            assert k2 == sum(kept) == 2 * k3 > 0, (tag, counts, kept)
+        else:
+            assert k2 == k3 == sum(kept) > 0, (tag, counts, kept)
+        _on_tensor_cores(sets, {"K1": 0, "K2": k2, "K3": k3})
+        print(f"phase large recipe: {tag}: configs/caat_simulasr_large.yaml"
+              f" {' '.join(extra) or '(no switch)'}, full depth and width, "
+              f"bf16, flash, B 8 of 9 x {SECONDS:g} s in 2 microbatches of "
+              f"4: peak memory {peak:.3f} GB; second update "
+              f"{recs[1]['at'] - recs[0]['at']:.3f} s (the first, with the "
+              f"warm-up, {recs[0]['at'] - t:.1f} s after the call's start); "
+              f"losses {[round(r['loss_total'], 2) for r in recs]}; launches "
+              f"K2 {k2} K3 {k3} K4 {counts['hw_dropout']} walks "
+              f"{counts['transducer_forward_walk']} / "
+              f"{counts['transducer_reverse_walk']}; the whole call "
+              f"{wall:.1f} s [{card}]")
+        paths[f"large {tag}"] = counts
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _optimizer_ms(card):
+    """21b: the optimizer's update alone over the parameters of
+    caat_simulasr_large.yaml at full depth (shapes from a model on the
+    meta device, seeded values on the card): Adam over one tensor per
+    parameter (the tree) against Adam over the flat vector
+    (``FlatParams``), device ms between CUDA events and host ms per
+    update, in turns (tree, flat, flat, tree).  -> {kind: best ms}."""
+    import math
+
+    import torch
+    from wav2vec_s_tpu_torch.models.caat import W2V2CaatModel
+    from wav2vec_s_tpu_torch.train import cli, config
+    from wav2vec_s_tpu_torch.train.optim import Adam, OptimConfig
+    from wav2vec_s_tpu_torch.train.step import FlatParams
+
+    w2v, caat = cli.caat_configs(config.load_config(LARGE_CAAT, []), 10000)
+    with torch.device("meta"):
+        shapes = [p.shape for p in W2V2CaatModel(w2v, caat).parameters()]
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    opt = Adam(OptimConfig(lr=1e-4, clip_norm=25.0,
+                           lr_scheduler="polynomial_decay",
+                           warmup_updates=0, total_updates=100))
+    sides = {}
+    for kind in ("tree", "flat"):
+        params = [torch.randn(s, device="cuda", generator=g) * 0.02
+                  for s in shapes]
+        grads = [torch.randn(s, device="cuda", generator=g) * 1e-3
+                 for s in shapes]
+        if kind == "flat":
+            flat = FlatParams(params)
+            flat.grad.copy_(torch.cat([t.reshape(-1) for t in grads]
+                                      + [flat.grad.new_zeros(
+                                          flat.grad.numel() - flat.size)]))
+            params, grads = [flat.param], [flat.grad]
+        state = opt.init(params)
+        gnorm = torch.tensor(1.0, device="cuda")
+        sides[kind] = lambda p=params, gr=grads, st=state: opt.update(
+            p, gr, st, gnorm)
+    ms = {"tree": [], "flat": []}
+    host = {"tree": [], "flat": []}
+    for kind in ("tree", "flat", "flat", "tree"):
+        ms[kind].append(_cuda_ms(sides[kind], 5))
+        host[kind].append(_host_ms(sides[kind], 1, reps=3))
+    n = sum(math.prod(s) for s in shapes)
+    print(f"phase large recipe: Adam's update alone over the recipe's "
+          f"{len(shapes)} parameters ({n} values, full depth): tree "
+          f"{['%.3f' % x for x in ms['tree']]} ms device, "
+          f"{['%.3f' % x for x in host['tree']]} ms host; flat "
+          f"{['%.3f' % x for x in ms['flat']]} ms device, "
+          f"{['%.3f' % x for x in host['flat']]} ms host [{card}]")
+    del sides
+    torch.cuda.empty_cache()
+    return {k: min(v) for k, v in ms.items()}
+
+
+def phase_native_reader(card, root, train):
+    """21c: 9 PCM16 wavs of 10 s, a stereo one and one at 8 kHz: the
+    native batched reader equals the per-file reader row for row, bit for
+    bit (stereo: 2 channels, exact in both); the 8 kHz file raises at 16
+    kHz and reads equal without a rate; then the Large batch's collate
+    (CaatBatcher of caat_simulasr_large.yaml, normalize, 9 x 10 s) with the
+    native reader against the per-file twin, in turns.  -> {reader: host
+    ms per collate}."""
+    from unittest import mock
+
+    from wav2vec_s_tpu_torch import native
+    from wav2vec_s_tpu_torch.data import audio, dataset
+    from wav2vec_s_tpu_torch.train import cli, config
+
+    t = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t
+    rng = np.random.default_rng(22)
+    S = int(SECONDS * 16000)
+    pcm = rng.integers(-32768, 32768, (2, S)).astype("<i2")
+    stereo = root / "stereo.wav"
+    import wave
+    for path, rate, ch, data in ((stereo, 16000, 2, pcm.T), (
+            root / "rate8k.wav", 8000, 1, pcm[0, :8000])):
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(ch)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(np.ascontiguousarray(data).tobytes())
+    from wav2vec_s_tpu_torch.data.manifests import read_s2t_manifest
+    man = read_s2t_manifest(train, "")
+    paths = [man.audio_paths[i] for i in range(9)] + [str(stereo)]
+    got = audio.read_audio_batch(paths, S)
+    for p, row in zip(paths, got):
+        assert np.array_equal(row, audio.read_audio(p)), p
+    try:
+        audio.read_audio_batch([paths[0], str(root / "rate8k.wav")], S)
+        raise AssertionError("a file of 8 kHz read at 16 kHz")
+    except ValueError as e:
+        assert "sample rate 8000 != 16000" in str(e), e
+    eight = audio.read_audio_batch([str(root / "rate8k.wav")], S, None)[0]
+    assert np.array_equal(eight, audio.read_audio(root / "rate8k.wav",
+                                                  None))
+    cfg = config.load_config(LARGE_CAAT, [
+        f"data.train_manifest={train}", f"data.vocab={root}/words.txt",
+        "data.tokenizer=word", f"data.max_sample_size={S}"])
+    batcher = cli._s2t_data(cfg)[2]
+
+    def per_file(paths, stride, expected_rate=16000):
+        return [audio.read_audio(p, expected_rate) for p in paths]
+
+    def collate_ms(twin):
+        with mock.patch.object(dataset, "read_audio_batch",
+                               per_file if twin else audio.read_audio_batch):
+            t = time.perf_counter()
+            out = batcher.collate(np.arange(9))
+            return (time.perf_counter() - t) * 1e3, out
+
+    ms = {"native": [], "per-file": []}
+    outs = {}
+    for i in range(READER_REPS):
+        for twin in ((False, True) if i % 2 == 0 else (True, False)):
+            t_ms, outs[twin] = collate_ms(twin)
+            ms["per-file" if twin else "native"].append(t_ms)
+    for k in outs[False]:
+        assert np.array_equal(outs[False][k], outs[True][k]), k
+    best = {k: min(v) for k, v in ms.items()}
+    print(f"phase native reader: read_audio_batch == read_audio on 9 mono "
+          f"PCM16 wavs of {SECONDS:g} s and a stereo one, bit for bit; an 8 "
+          f"kHz file raises at 16 kHz and reads equal without a rate; the "
+          f"library built in {build_s:.2f} s (g++, cached after); the Large "
+          f"batch's collate (9 x {SECONDS:g} s, normalize) ms per call, "
+          f"native {['%.2f' % x for x in ms['native']]} (best "
+          f"{best['native']:.2f}), per-file "
+          f"{['%.2f' % x for x in ms['per-file']]} (best "
+          f"{best['per-file']:.2f}), the same batch [{card}]")
+    return best
+
+
+def phase_remat_flat_reader(card):
+    """21: 21a, then 21b and 21c on one corpus."""
+    import pathlib
+    import tempfile
+
+    paths = phase_remat_parity(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        train = _large_corpus(root)
+        collate = phase_native_reader(card, root, train)
+        paths.update(phase_large_recipe(card, root, train))
+    _optimizer_ms(card)
+    print(f"phase large recipe: host ms per collate of the Large batch "
+          f"(phase 21c): {collate} [{card}]")
+    return paths
+
+
 def _check_launches(path, counts, sets, want, k2_per_call=None):
     """K1 and K2 launches of a path == ``want``, all on the tensor-core
     kernels, no K3; with ``k2_per_call`` K2 must be a positive multiple of
@@ -5800,6 +6348,8 @@ def main() -> int:
     # float32 references in full precision (cuDNN convs default to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--cli-parallel-rank"]:    # phase 16b's rank
+        return _cli_parallel_rank(sys.argv[2])
     card = _card()
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, cuda {torch.version.cuda})")
@@ -5854,6 +6404,7 @@ def main() -> int:
         phase_parallel_more, card, ddp_one, ddp_split)
     paths.update(more_paths)
     paths["prep_debug_cli"] = _clocked(phase_prep_debug, card)
+    paths.update(_clocked(phase_remat_flat_reader, card))
     k4["max_abs_err"] = max(k4["max_abs_err"], asr_k4_err, family_k4_err,
                             full_k4_err, baseline_k4_err, tp_k4_err)
     for walk, err in family_walk_errs.items():
@@ -5865,7 +6416,8 @@ def main() -> int:
     # K4 carries every new training path, K2 and K3 the flash ones
     for path in ("pretrain_from_pt", "waitk_train", "mma_train",
                  "mma_train_short", "prep_debug_cli",
-                 *(p for p in paths if p.startswith("tp "))):
+                 *(p for p in paths if p.startswith(("tp ", "remat ",
+                                                     "large ")))):
         assert all(paths[path][name] > 0 for name in (
             "hw_dropout", "blockwise_flash_attention_packed",
             "blockwise_flash_attention_bwd")), (path, paths[path])

@@ -44,21 +44,23 @@ def build(sc):
 def train(sc, plan=None, updates=None, payload=None):
     """(logs per update, state) of the scenario's updates on ``plan``
     (None: one process over the whole batches); ``payload``: a checkpoint
-    of ``state_to_host`` to resume from first."""
+    of ``state_to_host`` to resume from first; the scenario's ``remat``
+    policy and ``flat`` optimizer, when it names them."""
     model = build(sc)
     if plan is not None:
         plan.prepare(model)
         if plan.seq_group is not None:
             enable(model, plan.seq_group)
     opt = build_optimizer(OptimConfig(**sc["optim"]))
-    state = TrainState.create(model, opt, plan)
+    flat = sc.get("flat", False)
+    state = TrainState.create(model, opt, plan, flat_optimizer=flat)
     if payload is not None:
         load_into_state(state, payload)
     if sc["task"] == "caat":
         loss = make_caat_loss_fn(model, sc["caat"], plan=plan)
     else:
         loss = make_pretrain_loss_fn(model, 8, 4, plan=plan)
-    step = make_train_step(loss, opt)
+    step = make_train_step(loss, opt, remat_policy=sc.get("remat", "none"))
     logs_all = []
     batches = sc["batches"] if updates is None else sc["batches"][updates]
     for batch in batches:
@@ -145,8 +147,9 @@ def moment_bytes(state) -> int:
 
 def refusals(world):
     """The errors of what the plan does not compose: Adafactor under TP,
-    and TP with context parallelism (a 1 x 2 x 1 x 2 mesh)."""
-    from wav2vec_s_tpu_torch.train.optim import Adafactor
+    TP with context parallelism (a 1 x 2 x 1 x 2 mesh), and the flat
+    optimizer under TP and under FSDP."""
+    from wav2vec_s_tpu_torch.train.optim import Adafactor, Adam
 
     out = {}
     plan = ParallelPlan(make_mesh(world // 2, n_model=2, device_type="cpu",
@@ -157,6 +160,14 @@ def refusals(world):
             optimizer="adafactor")), plan)
     except ValueError as e:
         out["adafactor"] = str(e)
+    fsdp = ParallelPlan(make_mesh(world, device_type="cpu", backend="gloo"),
+                        "fsdp")
+    for name, p in (("flat_tp", plan), ("flat_fsdp", fsdp)):
+        try:
+            TrainState.create(model, Adam(OptimConfig()), p,
+                              flat_optimizer=True)
+        except ValueError as e:
+            out[name] = str(e)
     try:
         ParallelPlan(make_mesh(world // 4, n_model=2, n_seq=2,
                                device_type="cpu", backend="gloo"))

@@ -17,7 +17,8 @@ checkpoints.
   second call resumes from the saved step at the saved iterator position
   and ends with the same parameters as one uninterrupted run (bit-equal:
   the same arithmetic in the same order); an out-of-memory batch is
-  skipped and counted; every configuration the port does not take raises.
+  skipped and counted; each rematerialization switch and the flat
+  optimizer train as the plain run does.
 """
 
 import dataclasses
@@ -490,18 +491,61 @@ def test_cli_patience_stops_early(corpus, capsys):
     assert CheckpointManager(corpus[0] / "pat").all_steps() == [2]
 
 
-UNSUPPORTED = {
-    "remat": ({"run.remat": "dots"}, "item 9"),
-    "flat_optimizer": ({"run.flat_optimizer": "true"}, "item 9"),
-    "remat_extractor": ({"model.remat_extractor": "True"}, "item 9"),
+#: the trainer's memory and launch switches (JAX train/step.py), each
+#: run against the plain run with every dropout on: rematerialization
+#: recomputes the same arithmetic from the same draws (bit-equal); the
+#: flat Adam sums the gradient norm in another order, over parameters
+#: that are views into one vector
+SWITCHES = {
+    "remat_dots": {"run.remat": "dots"},
+    "remat_nothing": {"run.remat": "nothing"},
+    "remat_offload_dots": {"run.remat": "offload_dots"},
+    "remat_extractor": {"model.remat_extractor": "True"},
+    "remat_nothing_and_extractor": {"run.remat": "nothing",
+                                    "model.remat_extractor": "True"},
+    "flat_optimizer": {"run.flat_optimizer": "true"},
 }
+DROPOUTS = {"model.dropout": 0.1, "model.attention_dropout": 0.1,
+            "model.activation_dropout": 0.1, "model.encoder_layerdrop": 0.3,
+            "caat.dropout": 0.1, "caat.rand_pos_decoder": 4,
+            "model.feature_grad_mult": 0.1}
 
 
-@pytest.mark.parametrize("case", sorted(UNSUPPORTED))
-def test_cli_raises_on_what_is_not_ported(corpus, case):
-    extra, item = UNSUPPORTED[case]
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(_overrides(corpus, "never", **extra))
+@pytest.mark.parametrize("case", sorted(SWITCHES))
+def test_cli_trains_under_each_switch(corpus, capsys, case):
+    """Each switch through ``train.cli``: the same progress records and
+    the same parameters as the plain run (4 updates, flash attention,
+    sampled decision steps, the dropouts, layerdrop and position offsets
+    on)."""
+    cli.main(_overrides(corpus, "plain", **DROPOUTS))
+    plain = [r for r in _records(capsys) if r["tag"] == "train"]
+    cli.main(_overrides(corpus, "switch", **DROPOUTS, **SWITCHES[case]))
+    got = [r for r in _records(capsys) if r["tag"] == "train"]
+    want, _ = _final_params(corpus, "plain")
+    have, _ = _final_params(corpus, "switch")
+    assert len(got) == len(plain) == 4
+    if case == "flat_optimizer":
+        assert have["opt"]["flat"] and len(have["opt"]["mu"]) == 1
+        for a, b in zip(got, plain):
+            for k in ("loss_total", "grad_norm"):
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-5, err_msg=k)
+        # a hundredth of one step (tests/test_torch_port_train.py): the
+        # k-projection biases' true gradient is 0, so their updates follow
+        # rounding noise, which the flat views' alignment moves
+        for k, v in want["model"].items():
+            torch.testing.assert_close(have["model"][k], v, rtol=0,
+                                       atol=1e-2 * 0.001, msg=k)
+        return
+    for a, b in zip(got, plain):
+        assert {k: v for k, v in a.items() if k != "ups"} == {
+            k: v for k, v in b.items() if k != "ups"}
+    for k, v in want["model"].items():
+        assert torch.equal(have["model"][k], v), k
+
+
+def test_cli_refuses_an_unknown_remat_policy(corpus):
+    with pytest.raises(ValueError, match="run.remat='everything'"):
+        cli.main(_overrides(corpus, "never", **{"run.remat": "everything"}))
     assert not (corpus[0] / "never").exists()
 
 
@@ -703,18 +747,31 @@ def test_model_builds_what_jax_builds_for_the_ported_values(case):
     _built_as_in_jax(case, model, plain, jax_sd, jax_plain_sd)
 
 
-@pytest.mark.parametrize("field, value, item", [
-    ("remat_extractor", True, "item 9")])
-def test_model_raises_on_values_that_are_not_ported(field, value, item):
-    """Built directly, not through the CLI: the encoder refuses a value
-    whose forward differs from what the port builds, instead of building
-    the layer-norm, sinusoidal-position model without a word."""
-    cfg = Wav2Vec2Config(
-        conv_feature_layers=((8, 10, 5), (8, 3, 2)), encoder_layers=1,
-        encoder_embed_dim=8, encoder_ffn_embed_dim=16,
-        encoder_attention_heads=2, **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        Wav2Vec2Model(cfg)
+def test_remat_extractor_gives_the_plain_features_and_gradients():
+    """``remat_extractor`` recomputes the conv front-end in the backward:
+    the same pre-training loss and every gradient as the plain model, with
+    ``feature_grad_mult`` scaling the front-end's gradient in both."""
+    from wav2vec_s_tpu_torch.ops.dropout import DropoutContext
+
+    cfg = dict(conv_feature_layers=((8, 10, 5), (8, 3, 2)), encoder_layers=1,
+               encoder_embed_dim=8, encoder_ffn_embed_dim=16,
+               encoder_attention_heads=2, main_context=4, right_context=2,
+               final_dim=8, feature_grad_mult=0.1)
+    source = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 2400)).astype(np.float32))
+    grads = []
+    for remat in (False, True):
+        model = random_init_(Wav2Vec2Model(Wav2Vec2Config(
+            **cfg, remat_extractor=remat), pretraining=True),
+            torch.Generator().manual_seed(1))
+        out = model(source, torch.arange(0, 40, 4).repeat(2, 1), 3,
+                    ctx=DropoutContext(torch.Generator().manual_seed(0)))
+        (out["logits"].float().logsumexp(-1).sum()
+         + out["features_pen"]).backward()
+        grads.append({k: p.grad for k, p in model.named_parameters()})
+    assert grads[0].keys() == grads[1].keys()
+    for k, g in grads[0].items():
+        assert torch.equal(grads[1][k], g), k
 
 
 @pytest.mark.parametrize("case", [{"run.num_devices": 2},

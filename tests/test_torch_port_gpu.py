@@ -12,8 +12,10 @@ front-end x jointer and of the text model, the fbank agent) on the card
 against the CPU with K4 at their dropout sites, and the group-norm
 wav2vec 2.0 model (full-context and blockwise), the wait-k and MMA
 baselines (loss and gradients, ``hard_decode_step``, the two agents) on
-the card against the CPU with K4 at the baselines' dropout sites.  They
-skip without a CUDA device.  On a card:
+the card against the CPU with K4 at the baselines' dropout sites, each
+rematerialization policy and the flat optimizer on the card against the
+plain update, and the native wav reader built and read on the card's
+machine.  They skip without a CUDA device.  On a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_port_gpu.py
@@ -1282,3 +1284,95 @@ def test_dropout_kernel_at_the_baseline_sites(cuda, kind, dtype):
         mask = hw_dropout(torch.ones_like(x), p, 0xABCDEF, offset) != 0
         assert torch.equal(mask.reshape(-1), keep_mask(
             x.numel(), p, 0xABCDEF, offset, cuda)), shape
+
+
+def _remat_updates(policy, flat=False, extractor=False):
+    """Three updates of the tiny CAAT model on the card, flash attention
+    (the CUDA-core kernels at dh 6) and every dropout, layerdrop and
+    position offset on -> (logs, parameters, generator state, launches of
+    K2, K3, K4)."""
+    from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
+    from wav2vec_s_tpu_torch.train.optim import OptimConfig, build_optimizer
+    from wav2vec_s_tpu_torch.train.recipes import make_caat_loss_fn
+    from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+
+    w2v = dataclasses.replace(W2V_TINY, attention_impl="flash",
+                              encoder_layerdrop=0.3, feature_grad_mult=0.1,
+                              remat_extractor=extractor)
+    caat = dataclasses.replace(CAAT_TINY, dropout=0.1, attention_dropout=0.1,
+                               activation_dropout=0.1, rand_pos_decoder=4,
+                               transducer_downsample=8, tokens_per_step=200)
+    model = random_init_(W2V2CaatModel(w2v, caat),
+                         torch.Generator().manual_seed(0)).cuda()
+    opt = build_optimizer(OptimConfig(lr=1e-3, clip_norm=2.0,
+                                      lr_scheduler="polynomial_decay",
+                                      warmup_updates=0, total_updates=10))
+    state = TrainState.create(model, opt, flat_optimizer=flat)
+    step = make_train_step(make_caat_loss_fn(model, caat), opt,
+                           remat_policy=policy)
+    wrappers = (blockwise_flash_attention_packed,
+                blockwise_flash_attention_bwd, hw_dropout)
+    before = [w.launches for w in wrappers]
+    gen = torch.Generator().manual_seed(1)
+    g = torch.Generator().manual_seed(0)
+    logs = []
+    for _ in range(3):
+        src = torch.randn((3, 2400), generator=g)
+        tgt = torch.randint(4, caat.vocab_size, (3, 6), generator=g)
+        tgt[:, -1] = caat.eos
+        state, out = step(state, {"source": src.cuda(),
+                                  "targets": tgt.cuda()}, gen)
+        logs.append((float(out["loss_total"]), float(out["grad_norm"]),
+                     float(out["skipped"])))
+    return (logs, {k: v.detach().cpu() for k, v in
+                   model.named_parameters()}, gen.get_state(),
+            [w.launches - b for w, b in zip(wrappers, before)])
+
+
+@pytest.mark.parametrize("policy,extractor", [
+    ("dots", False), ("nothing", False), ("offload_dots", False),
+    ("none", True), ("nothing", True)])
+def test_remat_policy_on_the_card_equals_none(cuda, policy, extractor):
+    """Every policy and remat_extractor, the randomness on: the updates of
+    the plain step (losses rtol 1e-5, grad norms 1e-4, parameters within
+    1e-2 x lr), the generator in the same state; a recompute launches K2
+    twice and K3 once."""
+    logs, params, gen, (k2, k3, k4) = _remat_updates(policy,
+                                                     extractor=extractor)
+    logs0, params0, gen0, (k20, k30, k40) = _remat_updates("none")
+    for (l, g, s), (l0, g0, s0) in zip(logs, logs0):
+        assert s == s0 == 0.0
+        assert abs(l - l0) <= 1e-5 * abs(l0) and abs(g - g0) <= 1e-4 * g0
+    for k, v in params0.items():
+        assert (params[k] - v).abs().max() <= 1e-2 * 1e-3, k
+    assert torch.equal(gen, gen0)
+    assert k3 == k30 > 0
+    if policy == "none":
+        assert (k2, k4) == (k20, k40)
+    else:
+        assert k2 == 2 * k20 and k4 > k40
+
+
+def test_flat_optimizer_on_the_card_equals_the_tree(cuda):
+    logs, params, gen, counts = _remat_updates("none", flat=True)
+    logs0, params0, gen0, counts0 = _remat_updates("none")
+    for (l, g, _), (l0, g0, _) in zip(logs, logs0):
+        assert abs(l - l0) <= 1e-5 * abs(l0) and abs(g - g0) <= 1e-4 * g0
+    for k, v in params0.items():
+        assert (params[k] - v).abs().max() <= 1e-2 * 1e-3, k
+    assert torch.equal(gen, gen0) and counts == counts0
+
+
+def test_native_reader_builds_and_reads_on_the_card_machine(cuda, tmp_path):
+    """``g++`` builds the reader there; a batch of PCM16 wavs equals the
+    per-file reader bit for bit."""
+    from wav2vec_s_tpu_torch.data import audio
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for i, n in enumerate((16000, 900, 12345)):
+        paths.append(tmp_path / f"a{i}.wav")
+        audio.write_wav(paths[-1], rng.standard_normal(n).astype(
+            np.float32) * 0.3)
+    for row, p in zip(audio.read_audio_batch(paths, 16000), paths):
+        np.testing.assert_array_equal(row, audio.read_audio(p))

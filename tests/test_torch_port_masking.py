@@ -115,7 +115,7 @@ def test_audio_manifest_and_batch_reader_match_jax(audio_corpus, lo, hi):
     assert (got.root, got.paths, got.sizes) == (want.root, want.paths,
                                                 want.sizes)
     paths = [got.full_path(i) for i in range(len(got))]
-    for a, b in zip(audio.read_audio_batch(paths),
+    for a, b in zip(audio.read_audio_batch(paths, 12000),
                     jax_audio.read_audio_batch(paths, 12000)):
         np.testing.assert_array_equal(a, b)
 

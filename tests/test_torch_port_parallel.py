@@ -18,6 +18,9 @@ the test process runs the one-process references and the JAX steps.
 - A checkpoint of a 2-rank ZeRO-1 / FSDP run resumes in one process, and
   one of one process resumes on 2 ranks, equal to an uninterrupted run.
 - Adafactor's factored moments under dim-0 shards equal the whole update.
+- ``run.remat=dots`` under DP (the randomness on), ZeRO-1 and FSDP, and
+  the flat optimizer under ZeRO-1 (each rank owning half of the padded
+  vector's moments), equal one process.
 - The pre-training validation loss summed over 2 data ranks equals one
   process's.
 - 2-rank context parallelism: the encoder's features, and two CAAT and
@@ -142,6 +145,7 @@ def runs(tmp_path_factory):
         one[task] = worker.train(make())
         one[task + "_half"] = worker.train(make(), updates=slice(0, 1))
     one["dropout"] = worker.train(caat_scenario(dropout_w2v, dropout_caat))
+    one["caat_flat"] = worker.train(caat_scenario(flat=True))
     one["valid"] = worker.validate(pretrain_scenario())
     one["cp_features"] = worker.features(
         pretrain_scenario(dataclasses.replace(W2V_PRE, seq_axis=None)))
@@ -149,6 +153,11 @@ def runs(tmp_path_factory):
                  for t, make in (("caat", caat_scenario),
                                  ("pretrain", pretrain_scenario))}
     scenarios["dropout"] = caat_scenario(dropout_w2v, dropout_caat)
+    scenarios["dropout_dots"] = caat_scenario(dropout_w2v, dropout_caat,
+                                              remat="dots")
+    scenarios["caat_zero_dots"] = caat_scenario(mode="zero", remat="dots")
+    scenarios["caat_fsdp_dots"] = caat_scenario(mode="fsdp", remat="dots")
+    scenarios["caat_zero_flat"] = caat_scenario(mode="zero", flat=True)
     for m in ("zero", "fsdp"):
         scenarios[f"save_{m}"] = caat_scenario(mode=m, kind="save")
         scenarios[f"resume_{m}"] = caat_scenario(
@@ -241,6 +250,40 @@ def test_dropout_on_equals_one_process(runs, name):
     one, got = runs
     logs, state = one["dropout"]
     assert_same_run(got[name], logs, state.model.state_dict())
+
+
+@pytest.mark.parametrize("name,ref", [("dropout_dots", "dropout"),
+                                      ("caat_zero_dots", "caat"),
+                                      ("caat_fsdp_dots", "caat")])
+def test_remat_dots_on_two_ranks_equals_one_process(runs, name, ref):
+    """``run.remat=dots`` under data parallelism (every dropout, layerdrop
+    and rand_pos_decoder on: each rank's recompute replays its rows' part
+    of the whole batch's draws), under ZeRO-1 and under FSDP (its units
+    gather their parameters again in the recompute)."""
+    one, got = runs
+    logs, state = one[ref]
+    assert_same_run(got[name], logs, state.model.state_dict())
+
+
+def test_flat_optimizer_under_zero_equals_one_process(runs):
+    """The flat optimizer under ZeRO-1: each rank owns half of the padded
+    vector's moments, and the two updates equal the flat optimizer in one
+    process (moments compared whole, in the single-process layout)."""
+    one, got = runs
+    logs, state = one["caat_flat"]
+    res = got["caat_zero_flat"]
+    assert_same_run(res, logs, state.model.state_dict())
+    want_opt = worker.state_to_host(state)["opt"]
+    assert res["payload"]["opt"]["flat"] and want_opt["flat"]
+    for name in ("mu", "nu"):
+        (a,), (b,) = res["payload"]["opt"][name], want_opt[name]
+        assert a.numel() % 64 == 0
+        torch.testing.assert_close(a, b, **TOL)
+    whole, zero = (got[k]["moment_bytes"] for k in ("caat_dp",
+                                                     "caat_zero_flat"))
+    # two moments of half the vector, padded by under 64 elements
+    assert zero[0] == zero[1]
+    assert whole[0] // 2 <= zero[0] < whole[0] // 2 + 64 * 4
 
 
 def test_zero_keeps_half_the_moments_on_each_rank(runs):

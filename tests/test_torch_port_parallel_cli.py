@@ -6,7 +6,10 @@ whole batch).
 
 - CAAT fine-tuning with ``run.fsdp=true`` and ``run.eval_bleu``, seq2seq
   fine-tuning under data parallelism with ``run.eval_bleu``, and
-  pre-training with ``run.zero=true`` (sampled block contexts): every
+  pre-training with ``run.zero=true`` (sampled block contexts), CAAT
+  with ``run.zero=true``, ``run.flat_optimizer`` and ``run.remat=dots``,
+  and CAAT with ``run.fsdp=true`` and ``run.flat_optimizer`` (off under
+  FSDP; one process trains the flat vector): every
   batch of the corpora holds 2 rows, so one process and 2 data ranks see
   the same batches; rank 0's progress records equal one process's (losses
   and grad norms rtol 1e-5; the validation loss, a sum over rows, and the
@@ -36,6 +39,16 @@ DROPOUTS = {"model.dropout": 0.1, "model.attention_dropout": 0.1,
             "caat.attention_dropout": 0.1, "caat.activation_dropout": 0.1,
             "caat.rand_pos_decoder": 4}
 COMPARED = ("loss_total", "sample_size", "grad_norm", "skipped")
+#: the CAAT scenarios' parallel settings; the one-process run drops run.fsdp
+#: and run.zero and keeps the rest (under run.fsdp the flat optimizer is
+#: off, as in the JAX CLI: the ranks train the tree, one process the flat
+#: vector, and the two updates are equal)
+SWITCHED = {"caat_fsdp": {"run.fsdp": "true"},
+            "caat_zero_flat_dots": {"run.zero": "true",
+                                    "run.flat_optimizer": "true",
+                                    "run.remat": "dots"},
+            "caat_fsdp_flat": {"run.fsdp": "true",
+                               "run.flat_optimizer": "true"}}
 VALID = ("valid_loss", "valid_bleu", "valid_accuracy")
 
 
@@ -57,8 +70,7 @@ def run(request, corpus, audio_corpus, tmp_path, capsys):  # noqa: F811
                                 "run.validate_interval_updates": 0})
     else:
         root = corpus[0]
-        extra = ({"run.fsdp": "true"} if name == "caat_fsdp"
-                 else {"run.task": "s2s"})
+        extra = SWITCHED.get(name, {"run.task": "s2s"})
         argv = caat_overrides(corpus, f"two_{name}", **DROPOUTS,
                               **{"run.eval_bleu": "true"}, **extra)
     single = [a.replace("/two_", "/one_") for a in argv]
@@ -71,7 +83,8 @@ def run(request, corpus, audio_corpus, tmp_path, capsys):  # noqa: F811
     return one, two, root
 
 
-@pytest.mark.parametrize("run", ["caat_fsdp", "s2s_dp", "pretrain_zero"],
+@pytest.mark.parametrize("run", ["caat_fsdp", "s2s_dp", "pretrain_zero",
+                                 "caat_zero_flat_dots", "caat_fsdp_flat"],
                          indirect=True)
 def test_two_rank_cli_equals_one_process(run, request):
     name = request.node.callspec.params["run"]
@@ -93,6 +106,11 @@ def test_two_rank_cli_equals_one_process(run, request):
     for k, v in theirs["model"].items():
         torch.testing.assert_close(mine["model"][k], v, rtol=1e-4,
                                    atol=1e-5, msg=k)
+    flat = theirs["opt"].pop("flat", False)
+    if flat and name == "caat_fsdp_flat":       # the ranks trained the tree
+        assert "flat" not in mine["opt"]
+        return
+    assert mine["opt"].pop("flat", False) == flat
     for field, tensors in theirs["opt"].items():
         if field == "count":
             assert mine["opt"]["count"] == tensors

@@ -19,7 +19,8 @@ references of ``tests/test_torch_port_parallel.py``:
   through its head base), so the update equals one process's.
 - A TP checkpoint (gathered into the single-process layout) resumes in
   one process, and one process's resumes under TP.
-- Adafactor under TP and TP with context parallelism raise.
+- Adafactor under TP, TP with context parallelism, and the flat optimizer
+  under TP and under FSDP raise.
 
 Tolerances (``tests/test_torch_port_parallel.py``'s): losses and grad
 norms rtol 1e-5; parameters atol 1e-5 rtol 1e-4; against JAX, atol
@@ -162,3 +163,13 @@ def test_what_does_not_compose_raises(runs):
     errors = runs[1]["refusals"]["errors"]
     assert "Adafactor under tensor parallelism" in errors["adafactor"]
     assert "does not compose with context parallelism" in errors["seq"]
+
+
+def test_the_flat_optimizer_refuses_tp_and_fsdp(runs):
+    """No rank holds the whole flat vector under tensor parallelism or
+    FSDP (the trainer turns the flat optimizer off under run.fsdp, as the
+    JAX CLI does)."""
+    errors = runs[1]["refusals"]["errors"]
+    assert "a TP shard does not hold the whole flat vector" in (
+        errors["flat_tp"])
+    assert "flat optimizer under FSDP" in errors["flat_fsdp"]

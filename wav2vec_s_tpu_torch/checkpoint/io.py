@@ -6,7 +6,10 @@ fairseq's policies (fairseq/fairseq/checkpoint_utils.py:31-163):
 every-N-updates, keep-K pruning, best metric, full resume of optimizer and
 iterator state.  On disk: ``<dir>/step_<N>/state.pt`` (model state dict,
 the optimizer's moments (Adam or adafactor) and update count, the step)
-plus ``meta.json`` (step, metric, iterator state).  ``meta.json`` doubles as the commit marker: both files
+plus ``meta.json`` (step, metric, iterator state).  The moments of the
+flat optimizer (``train/step.py`` ``FlatParams``) are one vector each, and
+a checkpoint says which kind it holds: a restore under the other kind
+raises.  ``meta.json`` doubles as the commit marker: both files
 are written to a temp name and renamed, ``meta.json`` last, so an
 interrupted save leaves a step directory that ``all_steps`` / ``restore``
 ignore.
@@ -53,7 +56,7 @@ def _sharded_moments(state: TrainState) -> Dict[str, List[bool]]:
     """{moment field: per parameter, whether it is a row block}."""
     fields = _moment_fields(state.opt_state)
     out = {name: [] for name in fields}
-    for p, sh in zip(state.model.parameters(), state.shards):
+    for p, sh in zip(state.opt_params(), state.shards):
         which = state.optimizer.sharded_moments(tuple(p.shape))
         for name in fields:
             out[name].append(sh is not None and which[name])
@@ -75,6 +78,8 @@ def state_to_host(state: TrainState) -> Dict[str, Any]:
         model, moments = state.plan.full_state(
             state.model, moments, _sharded_moments(state), state.shards)
     opt = {"count": state.opt_state.count}
+    if state.flat is not None:
+        opt["flat"] = True
     for name, tensors in moments.items():
         opt[name] = [cpu(t) for t in tensors]
     return {"step": state.step,
@@ -96,6 +101,13 @@ def load_into_state(state: TrainState, payload: Dict[str, Any]) -> TrainState:
     if opt is None:
         raise ValueError("the checkpoint holds no optimizer state (a "
                          "converted model: warm-start from it instead)")
+    saved_flat, flat = bool(opt.get("flat", False)), state.flat is not None
+    if saved_flat != flat:
+        raise ValueError(f"the checkpoint's optimizer state was saved "
+                         f"under run.flat_optimizer={str(saved_flat).lower()}"
+                         f", this run has run.flat_optimizer="
+                         f"{str(flat).lower()}: the moments of one flat "
+                         f"vector and of every parameter do not convert")
     for name in _moment_fields(state.opt_state):
         if name not in opt:
             raise ValueError(f"the checkpoint holds no optimizer {name!r} "

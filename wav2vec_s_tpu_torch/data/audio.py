@@ -9,7 +9,10 @@ rain/data/st_raw_audio_triple_dataset.py:155-186 zip/flac/npy resolution):
 - 16-bit PCM WAV via the stdlib ``wave`` module,
 - ``.npy`` arrays,
 - anything else through ``soundfile`` when installed (flac etc.),
-- raw int16 little-endian with explicit ``.raw`` extension.
+- raw int16 little-endian with explicit ``.raw`` extension;
+
+and a batch of them at once (``read_audio_batch``: the native reader of
+``native/``, the batchers' path).
 
 All readers return float32 in [-1, 1] at the file's native rate.
 """
@@ -149,14 +152,32 @@ def read_audio(path, expected_rate: int | None = 16000) -> np.ndarray:
     return np.ascontiguousarray(data, dtype=np.float32)
 
 
-def read_audio_batch(paths, expected_rate: int | None = 16000) -> list:
-    """Decode a batch of audio files: a list of float32 arrays.  The JAX
-    package reads plain ``.wav`` files through its native thread pool and
-    the rest per file; here every file takes ``read_audio`` (same
-    values).  Kept under the JAX name so that the batchers of both
-    packages read the same way and a faster batched reader can take its
-    place without touching them."""
-    return [read_audio(p, expected_rate) for p in paths]
+def read_audio_batch(paths, stride: int,
+                     expected_rate: int | None = 16000) -> list:
+    """Decode a batch of audio files: a list of float32 arrays.  Plain
+    ``.wav`` paths go through the native parallel reader (a C++ thread
+    pool, ``native/src/speech_native.cpp``) into one ``[n, stride]``
+    buffer, each row a view of it; what the reader cannot read (not PCM16,
+    longer than ``stride``, a segment path, ``.npy``, flac) and a file of
+    another rate take ``read_audio``, which reads the rest or raises, as
+    in the JAX package.  ``read_audio`` is the reader's twin: on mono
+    PCM16 the two give the same bits."""
+    paths = [str(p) for p in paths]
+    outs: list = [None] * len(paths)
+    wav_idx = [i for i, p in enumerate(paths) if p.endswith(".wav")]
+    if wav_idx:
+        from wav2vec_s_tpu_torch.native import read_wav_batch
+
+        buf, lens, rates = read_wav_batch([paths[i] for i in wav_idx],
+                                          stride)
+        for j, i in enumerate(wav_idx):
+            if lens[j] >= 0 and (expected_rate is None
+                                 or rates[j] == expected_rate):
+                outs[i] = buf[j, :lens[j]]
+    for i, p in enumerate(paths):
+        if outs[i] is None:
+            outs[i] = read_audio(p, expected_rate)
+    return outs
 
 
 def write_wav(path, data: np.ndarray, rate: int = 16000) -> None:

@@ -27,6 +27,10 @@ does not read), so the ranks' rows are the rows one process collates.
 
 ``to_device`` moves a batch to the card in one pinned, non-blocking copy
 per array.
+
+Both audio batchers read their rows with ``data/audio.read_audio_batch``
+(the native reader) at the stride of the longest row the manifest gives,
+as the JAX batchers do.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 
 from wav2vec_s_tpu_torch.data.audio import (
-    instance_normalize, logmel_fbank, read_audio, read_audio_batch)
+    instance_normalize, logmel_fbank, read_audio_batch)
 from wav2vec_s_tpu_torch.data.batching import bucket_for
 from wav2vec_s_tpu_torch.data.dictionary import Dictionary
 from wav2vec_s_tpu_torch.data.manifests import AudioManifest, S2TManifest
@@ -69,8 +73,10 @@ class PretrainBatcher:
         -> {source [B, T] float32, mask_positions [B, M] int32}."""
         rng = np.random.default_rng((self.seed, *key))
         rows = rows or slice(0, len(indices))
+        mine = indices[rows]
         wavs = read_audio_batch(
-            [self.manifest.full_path(i) for i in indices[rows]])
+            [self.manifest.full_path(i) for i in mine],
+            int(max(self.manifest.sizes[i] for i in mine)))
         if self.normalize:
             wavs = [instance_normalize(w) for w in wavs]
         shortest = min(len(w) for w in wavs)
@@ -135,9 +141,11 @@ class CaatBatcher:
         targets = [np.asarray(self.encode_target(i), np.int64)
                    for i in indices]
         U = bucket_for(max(len(t) for t in targets), self.target_buckets)
+        mine = indices[rows]
         wavs = []
-        for i in indices[rows]:
-            wav = read_audio(self.manifest.audio_paths[i])
+        for wav in read_audio_batch(
+                [self.manifest.audio_paths[i] for i in mine],
+                int(max(self.manifest.n_frames[i] for i in mine))):
             if self.normalize:
                 wav = instance_normalize(wav)
             if self.features == "fbank":

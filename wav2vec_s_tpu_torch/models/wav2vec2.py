@@ -55,6 +55,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from wav2vec_s_tpu_torch.models.feature_extractor import (
     ConvFeatureExtractor, DEFAULT_CONV_LAYERS)
@@ -120,7 +121,8 @@ class Wav2Vec2Config:
     required_seq_len_multiple: int = 2
     attention_impl: str = "dense"          # "dense" | "flash" (the
                                            # block-sparse kernel)
-    remat_extractor: bool = False          # TPU memory switch: not ported
+    remat_extractor: bool = False          # recompute the conv front-end
+                                           # in the backward
     seq_axis: Optional[str] = None         # the mesh dim of context
                                            # parallelism (parallel/
                                            # context.py)
@@ -135,15 +137,6 @@ class Wav2Vec2Config:
     @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
-
-
-def check_ported(cfg: Wav2Vec2Config) -> None:
-    """Raise ``NotImplementedError`` for every value that would change the
-    forward in the JAX package and is not ported, naming the ROADMAP item."""
-    if cfg.remat_extractor:
-        raise NotImplementedError(
-            "not ported yet: remat_extractor (ROADMAP Queue 1 item 9: a TPU "
-            "memory switch that waits for a measurement on the card)")
 
 
 def wav2vec2_base_config(**kw) -> Wav2Vec2Config:
@@ -410,7 +403,6 @@ class Wav2Vec2Model(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, pretraining: bool = False,
                  encoder_type: str = "blockwise"):
         super().__init__()
-        check_ported(cfg)
         if encoder_type not in ENCODER_TYPES:
             raise ValueError(f"encoder_type={encoder_type!r} is not one of "
                              f"{ENCODER_TYPES}")
@@ -447,8 +439,15 @@ class Wav2Vec2Model(nn.Module):
 
     def forward_features(self, source: torch.Tensor) -> torch.Tensor:
         """[B, S] samples -> [B, T, C] conv features in the compute dtype,
-        their gradient scaled by ``feature_grad_mult`` (cut at 0)."""
-        feats = self.feature_extractor(source, self.cfg.compute_dtype)
+        their gradient scaled by ``feature_grad_mult`` (cut at 0).  Under
+        ``remat_extractor`` a forward that records gradients keeps only
+        the samples and recomputes the convolutions in the backward (JAX
+        ``nn.remat(ConvFeatureExtractor)``; the front-end draws nothing)."""
+        if self.cfg.remat_extractor and torch.is_grad_enabled():
+            feats = checkpoint(self.feature_extractor, source,
+                               self.cfg.compute_dtype, use_reentrant=False)
+        else:
+            feats = self.feature_extractor(source, self.cfg.compute_dtype)
         mult = self.cfg.feature_grad_mult
         if mult == 1.0:
             return feats

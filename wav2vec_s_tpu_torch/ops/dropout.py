@@ -336,6 +336,34 @@ class DropoutContext:
             min=1e-10)
 
 
+def replayed(fn, generator: torch.Generator):
+    """``fn`` for ``torch.utils.checkpoint``, which restores the global
+    RNGs in its recompute and knows nothing of the step's own draws.  The
+    first call draws from ``generator`` (``fn`` builds its
+    ``DropoutContext`` from it, so the seed of every K4 site comes from
+    it too) as it would; every later call (the recompute in the backward)
+    starts from the state the first call started from, so each K4 site
+    takes its first seed and offset again and layerdrop, the negatives,
+    the Gumbel uniforms and the MMA noise draw what they drew, and leaves
+    ``generator`` as the first call left it, whether the recompute runs
+    to its end or the checkpoint stops it early."""
+    marks = []
+
+    def run(*args, **kwargs):
+        if not marks:
+            marks.append(generator.get_state())
+            out = fn(*args, **kwargs)
+            marks.append(generator.get_state())
+            return out
+        generator.set_state(marks[0])
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            generator.set_state(marks[1])
+
+    return run
+
+
 def drop(ctx: Optional[DropoutContext], x: torch.Tensor, rate: float,
          seq: Optional[SeqSplit] = None) -> torch.Tensor:
     """``ctx(x, rate, seq)``, or ``x`` when there is no context

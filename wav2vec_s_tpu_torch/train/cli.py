@@ -77,11 +77,14 @@ What differs from the JAX CLI, on purpose:
   of updates [10, 20) (CPU and CUDA activity) written as
   ``<profile_dir>/trace.json``, stopped early if the run ends inside the
   window.
-- What the port does not do yet raises at start-up and names the ROADMAP
-  item that will bring it; no configuration key is ignored silently
-  (``data.features=fbank|text`` outside ``run.task=caat``, and
-  ``caat.frontend`` / ``caat.jointer_type`` outside the fbank family,
-  raise where the JAX CLI ignores them).
+- ``run.remat`` rematerializes the loss forward (``train/remat.py``) and
+  ``run.flat_optimizer`` runs the optimizer over one flat vector
+  (``train/step.py``), as in the JAX CLI; the flat optimizer is off under
+  ``run.fsdp`` (said on stderr), and under tensor parallelism it raises.
+- No configuration key is ignored silently (``data.features=fbank|text``
+  outside ``run.task=caat``, and ``caat.frontend`` /
+  ``caat.jointer_type`` outside the fbank family, raise where the JAX CLI
+  ignores them).
 """
 
 from __future__ import annotations
@@ -116,6 +119,7 @@ from wav2vec_s_tpu_torch.train.optim import build_optimizer
 from wav2vec_s_tpu_torch.train.recipes import (
     make_caat_loss_fn, make_ctc_loss_fn, make_freeze_mask,
     make_pretrain_loss_fn, make_s2s_loss_fn, sample_context_bucket)
+from wav2vec_s_tpu_torch.train.remat import REMAT_POLICIES
 from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
 from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
 
@@ -125,8 +129,7 @@ FEATURES = ("raw", "fbank", "text")
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for every configuration the JAX CLI
-    takes and the port does not yet, naming the ROADMAP item."""
+    """Raise ``ValueError`` for a value the trainer does not take."""
     run, data = cfg.run, cfg.data
     if run.task not in TASKS:
         raise ValueError(f"run.task={run.task!r} is not one of {TASKS}")
@@ -144,15 +147,9 @@ def check_supported(cfg: TrainConfig) -> None:
             raise ValueError(f"caat.{key}={value} picks a module of the "
                              f"fbank family (data.features=fbank), not of "
                              f"data.features={data.features}")
-    todo = []
-    if run.remat != "none":
-        todo.append("run.remat (item 9: a TPU experiment that waits for a "
-                    "measurement on the card)")
-    if run.flat_optimizer:
-        todo.append("run.flat_optimizer (item 9: a TPU experiment that "
-                    "waits for a measurement on the card)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+    if run.remat not in REMAT_POLICIES:
+        raise ValueError(f"run.remat={run.remat!r} is not one of "
+                         f"{REMAT_POLICIES}")
 
 
 def _config(cls, kwargs: Dict, section: str, **fixed):
@@ -503,7 +500,14 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
     itr = EpochBatchIterator(batches, seed=cfg.data.seed)
 
     optimizer = build_optimizer(cfg.optim)
-    state = TrainState.create(model, optimizer, plan)
+    # the flat optimizer is off under FSDP, as in the JAX CLI: a rank holds
+    # no whole parameter to ravel
+    flat_opt = run.flat_optimizer and not run.fsdp
+    if run.flat_optimizer and run.fsdp and writer:
+        print("run.flat_optimizer is off under run.fsdp: the optimizer "
+              "updates each parameter's rows", file=sys.stderr)
+    state = TrainState.create(model, optimizer, plan,
+                              flat_optimizer=flat_opt)
 
     mgr = CheckpointManager(run.save_dir, keep_last=run.keep_last,
                             keep_best=run.keep_best,
@@ -529,7 +533,8 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
         if (mc, rc, ds) not in steps:
             steps[(mc, rc, ds)] = make_train_step(
                 make_loss(mc, rc, ds, plan=plan), optimizer,
-                accum_steps=run.update_freq, grad_mask=grad_mask)
+                accum_steps=run.update_freq, grad_mask=grad_mask,
+                remat_policy=run.remat)
         return steps[(mc, rc, ds)]
 
     # sampled block contexts (pre-training, context_type=sampling): one

@@ -85,15 +85,15 @@ class RunConfig:
     zero: bool = False                 # ZeRO-1: shard optimizer state
     fsdp: bool = False                 # shard parameters over the data axis
     flat_optimizer: bool = False       # raveled single-vector optimizer
-    # update (exact ZeRO-1 sharding; measured slower single-chip — see
-    # train/step.py::TrainState.create)
+    # update (exact ZeRO-1 sharding; off under fsdp; see
+    # train/step.py::FlatParams)
     # context parallelism: shard the encoder's time axis over `seq`-many
     # devices (mesh axis "seq"; model.seq_axis is set automatically).  The
     # reference has no sequence/context parallelism (SURVEY §2.7).
     seq: int = 1
     # rematerialization of the loss forward: none | dots | nothing |
     # offload_dots (offload saveables to pinned host memory); see
-    # train/step.py::REMAT_POLICIES
+    # train/remat.py::REMAT_POLICIES
     remat: str = "none"
     # NaN localization (fairseq nan_detector.py, trainer.py:801-811)
     debug_nan: bool = False
