@@ -1,11 +1,9 @@
 """Corpus preparation, the debug hooks and the meters of the port
-(``wav2vec_s_tpu_torch/data/{prep,preprocess}.py``,
-``utils/{debug,metrics}.py``, ``run.debug_nan`` / ``run.profile_dir`` of
-``train/cli.py``).
+(``wav2vec_s_tpu_torch/data/{prep,preprocess}.py``, ``utils/debug.py``,
+``run.debug_nan`` / ``run.profile_dir`` of ``train/cli.py``).
 
 - ``NanDetector`` and ``Watchdog`` as ``tests/test_debug_utils.py`` tests
-  the JAX ones; ``AverageMeter`` / ``MetricsAggregator`` give the JAX
-  values on the same calls.
+  the JAX ones; ``profile_trace`` writes a trace that holds a ``span``.
 - ``train.cli.main --device cpu`` (the tiny corpus of
   ``tests/test_torch_port_cli.py``): ``run.debug_nan`` trains as without
   it, and a NaN planted in one parameter of the checkpoint it resumes
@@ -31,13 +29,11 @@ from tests.test_prep import _fake_librispeech, _write_wav
 from tests.test_torch_port_cli import _overrides, corpus  # noqa: F401
 from wav2vec_s_tpu.data import prep as jax_prep
 from wav2vec_s_tpu.data import preprocess as jax_preprocess
-from wav2vec_s_tpu.utils import metrics as jax_metrics
 from wav2vec_s_tpu_torch.checkpoint.io import CheckpointManager
 from wav2vec_s_tpu_torch.data import prep, preprocess
 from wav2vec_s_tpu_torch.train import cli
-from wav2vec_s_tpu_torch.utils import metrics
 from wav2vec_s_tpu_torch.utils.debug import (
-    NanDetector, Watchdog, annotate, profile_trace)
+    NanDetector, Watchdog, profile_trace, span)
 
 torch.set_num_threads(1)
 
@@ -72,28 +68,13 @@ def test_watchdog_fires_and_pings():
         signal.signal(signal.SIGUSR1, old)
 
 
-def test_meters_equal_jax():
-    def drive(mod):
-        agg = mod.MetricsAggregator()
-        agg.log_scalar("loss", 2.0, 3)
-        with agg.aggregate() as frame:
-            agg.log_scalar("loss", 4.0)
-            agg.log_scalar("acc", 0.5, 2)
-            inner = {k: m.avg for k, m in frame.items()}
-        meter = mod.AverageMeter()
-        for v, n in ((1.0, 1), (3.0, 3)):
-            meter.update(v, n)
-        return agg.values(), inner, meter.avg, meter.count
-    assert drive(metrics) == drive(jax_metrics)
-
-
 def test_profile_trace_and_annotate(tmp_path):
     with profile_trace(str(tmp_path / "p")):
-        with annotate("matmul_range"):
+        with span("matmul_range"):
             torch.randn(8, 8) @ torch.randn(8, 8)
     trace = json.loads((tmp_path / "p" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "matmul_range" in names and "aten::mm" in names
+    assert "w2vs/matmul_range" in names and "aten::mm" in names
 
 
 def test_cli_debug_nan_trains_as_without_it(corpus):  # noqa: F811

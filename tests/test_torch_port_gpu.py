@@ -1,7 +1,9 @@
 """CUDA checks of the torch port: the hand-written kernels (chunk attention,
 block-sparse flash attention forward and backward with its in-kernel
 dropout, dropout, the transducer lattices and affine rows) against their
-plain twins, the tiny cached and one-shot decodes, the four tiny beam
+plain twins, the tiny cached and one-shot decodes (and the kernel
+launches of a profiled cached decode inside its ``w2vs/decoder.*``
+spans), the four tiny beam
 decodes, the tiny training step and a tiny run of the training CLI on the
 card against the same on the CPU, the flash kernels at the pre-training
 call under each context bucket and two tiny pre-training updates on the
@@ -273,6 +275,59 @@ def test_flash_kernel_rejects(cuda, bad):
         pad = pad.cpu()
     with pytest.raises(ValueError):
         blockwise_flash_attention_packed(q, k, v, pad, 4, 96, 16, 8)
+
+
+def _spanned_launches(prof):
+    """(kernel launches on the host, those inside a ``w2vs/decoder.*``
+    span of their thread)."""
+    spans, launches = [], []
+    for e in prof.profiler.kineto_results.events():
+        item = (e.start_ns(), e.start_ns() + e.duration_ns(),
+                e.start_thread_id())
+        if e.is_user_annotation() and e.name().startswith("w2vs/decoder."):
+            spans.append(item)
+        elif e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            launches.append(item)
+    inside = [x for x in launches
+              if any(s[0] <= x[0] and x[1] <= s[1] and s[2] == x[2]
+                     for s in spans)]
+    return launches, inside
+
+
+def test_decoder_spans_hold_the_launches_and_counters_count(cuda):
+    """Under CPU + CUDA profiling of one tiny agent corpus, at least 99%
+    of the host's kernel launches lie inside a ``w2vs/decoder.*`` span and
+    the counters count; under CUDA-only profiling the counters count
+    exactly when ``debug.tracing()`` reads true there (printed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vec_s_tpu_torch.utils import debug
+
+    vocab, model, wavs = _tiny(W2V_TINY)
+    dec = CachedFusedGreedyDecoder(
+        model.to("cuda"), vocab, W2V_TINY, max_len=256,
+        max_emit_per_chunk=4, t_cap=640, blocks_per_step=2)
+    handle = dec.stage(wavs)
+    dec.decode_corpus(handle)
+    torch.cuda.synchronize()
+    debug.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        dec.decode_corpus(handle)
+        torch.cuda.synchronize()
+    launches, inside = _spanned_launches(prof)
+    print(f"launches {len(launches)}, inside decoder spans {len(inside)}")
+    assert launches and len(inside) >= 0.99 * len(launches)
+    assert debug.counters()["decoder.emit_iters"] == 79 * 4   # 79 chunks
+    debug.reset_counters()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        on = debug.tracing()
+        dec.decode_corpus(handle)
+        torch.cuda.synchronize()
+    counted = debug.counters()
+    debug.reset_counters()
+    print(f"CUDA-only profiling: tracing() {on}, counters {counted}")
+    assert bool(counted) == on
 
 
 def test_tiny_oneshot_on_cuda_equals_cpu(cuda):

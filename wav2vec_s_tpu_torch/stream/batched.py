@@ -11,6 +11,12 @@ N streams run in lockstep; per chunk of ``n_main`` new frames
 Nothing is read back to the host inside the chunk loop: per-chunk prefix
 lengths are stacked on the device and fetched once at the end.
 
+Under a profiler the spans ``w2vs/decoder.*`` (``utils/debug.span``) tile
+a corpus: ``setup``, per chunk ``encoder_step`` / ``jointer_kv`` /
+``emit_loop`` (one-shot: ``encode`` per sub-batch and one ``jointer_kv``,
+then ``emit_loop`` per chunk), ``readback`` and ``texts``; the emission
+counters (``count_emissions``) are taken from the prefix lengths read back.
+
 ``OneShotCorpusDecoder`` is the corpus-evaluation twin: the whole utterance
 is encoded at once (blockwise, prefix-exact at block granularity) and the
 same greedy loop is replayed on the chunk schedule, with the same texts and
@@ -27,6 +33,29 @@ import torch
 from wav2vec_s_tpu_torch.models.modules import compute_copy
 from wav2vec_s_tpu_torch.stream import caat_step
 from wav2vec_s_tpu_torch.stream.incremental import IncrementalBlockwiseEncoder
+from wav2vec_s_tpu_torch.utils.debug import count, span, tracing
+
+
+EMISSION_COUNTERS = ("emit_iters", "emit_iters_live", "emit_iters_emitting",
+                     "tokens")
+
+
+def count_emissions(layer: str, emitted: np.ndarray, max_emit: int,
+                    names=EMISSION_COUNTERS) -> None:
+    """Count the masked emission loop's work under ``<layer>.<name>`` for
+    each of ``names``: ``emitted`` [runs, streams] holds the tokens each
+    stream emitted in each run of ``max_emit`` iterations (the streams it
+    ran for).  A stream emits in iterations 0 .. e - 1 and is blocked from
+    iteration e on, so a run's iterations with an unblocked stream at their
+    start (what the JAX ``while_loop`` runs) are ``min(max_emit, max e +
+    1)``, and those in which a token came out ``max e``."""
+    most = emitted.max(axis=1, initial=-1)         # -1: no stream ran
+    value = {"emit_iters": max_emit * emitted.shape[0],
+             "emit_iters_live": np.minimum(most + 1, max_emit).sum(),
+             "emit_iters_emitting": np.maximum(most, 0).sum(),
+             "tokens": emitted.sum()}
+    for name in names:
+        count(f"{layer}.{name}", value[name])
 
 
 class CachedFusedGreedyDecoder:
@@ -116,9 +145,13 @@ class CachedFusedGreedyDecoder:
         return greedy
 
     def _texts_and_delays(self, prefixes, lens_hist, n_chunks, stride, W, N):
-        """Per-chunk delay bookkeeping + surface assembly (host)."""
+        """Per-chunk delay bookkeeping + surface assembly (host); while
+        tracing, the emission counters of the corpus."""
         vocab = self.vocab
         lens_all = np.asarray(lens_hist)
+        if tracing():
+            count_emissions("decoder", np.diff(lens_all, axis=0, prepend=1),
+                            self.max_emit)
         delays = [[] for _ in range(N)]
         prev = np.ones(N, np.int64)
         for k in range(n_chunks):
@@ -145,29 +178,32 @@ class CachedFusedGreedyDecoder:
             N, max_samples, audio = wavs          # pre-staged handle
         else:
             N, max_samples, audio = self.stage(wavs)
-        enc = self._encoder(N)
-        hop, W, n_main, rc = enc.hop, enc.window, enc.n_main, self.rc
-        int16 = self.transfer_dtype == "int16"
-        total_frames = (max_samples - enc.rf) // hop + 1
-        n_chunks = max((total_frames - rc) // n_main, 1)
-        stride = n_main * hop
-        # LM cache slots: bos + one per greedy iteration of the chunk loop
-        n_slots = -(-(n_chunks * self.max_emit + 1) // 8) * 8
+        with span("decoder.setup"):
+            enc = self._encoder(N)
+            hop, W, n_main, rc = enc.hop, enc.window, enc.n_main, self.rc
+            int16 = self.transfer_dtype == "int16"
+            total_frames = (max_samples - enc.rf) // hop + 1
+            n_chunks = max((total_frames - rc) // n_main, 1)
+            stride = n_main * hop
+            # LM cache slots: bos + one per greedy iteration of the chunk
+            # loop
+            n_slots = -(-(n_chunks * self.max_emit + 1) // 8) * 8
 
-        model, vocab = self.model, self.vocab
-        caat = model.cfg
-        t_cap, dev = self.t_cap, self.device
-        estate = enc.init()
-        cdtype = estate.out_cache.dtype
-        jk = [torch.zeros((t_cap, N, caat.jointer_embed_dim), dtype=cdtype,
-                          device=dev) for _ in range(caat.jointer_layers)]
-        jv = [torch.zeros_like(k) for k in jk]
-        prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
-                              dtype=torch.long, device=dev)
-        prefixes[:, 0] = vocab.bos()
-        lens = torch.ones(N, dtype=torch.long, device=dev)
-        lm = caat_step.lm_slot_init(model, caat, N, n_slots)
-        greedy = self._make_greedy()
+            model, vocab = self.model, self.vocab
+            caat = model.cfg
+            t_cap, dev = self.t_cap, self.device
+            estate = enc.init()
+            cdtype = estate.out_cache.dtype
+            jk = [torch.zeros((t_cap, N, caat.jointer_embed_dim),
+                              dtype=cdtype, device=dev)
+                  for _ in range(caat.jointer_layers)]
+            jv = [torch.zeros_like(k) for k in jk]
+            prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
+                                  dtype=torch.long, device=dev)
+            prefixes[:, 0] = vocab.bos()
+            lens = torch.ones(N, dtype=torch.long, device=dev)
+            lm = caat_step.lm_slot_init(model, caat, N, n_slots)
+            greedy = self._make_greedy()
 
         # cache capacity per chunk, in steps of seg rows: early chunks
         # attend only a prefix of the encoder/jointer K/V buffers (a free
@@ -182,21 +218,27 @@ class CachedFusedGreedyDecoder:
             flush = k == n_chunks - 1
             n_new = n_main + rc if flush else n_main
             cap = cap_of(k * n_main + n_new)
-            win = audio[:, k * stride:k * stride + W]
-            win = win.float() / 32768.0 if int16 else win
-            t0 = estate.t_main
-            estate = enc.step_fn_cap(cap, flush=flush)(estate, win)
-            k_new, v_new = caat_step.jointer_kv(
-                model, caat, estate.out_cache[t0:t0 + n_new])
-            caat_step.jointer_kv_append(jk, jv, k_new, v_new, t0)
-            visible = torch.full((N,), estate.t_main, device=dev)
-            prefixes, lens, lm = greedy(prefixes, lens, lm,
-                                        [x[:cap] for x in jk],
-                                        [x[:cap] for x in jv], visible)
+            with span("decoder.encoder_step"):
+                win = audio[:, k * stride:k * stride + W]
+                win = win.float() / 32768.0 if int16 else win
+                t0 = estate.t_main
+                estate = enc.step_fn_cap(cap, flush=flush)(estate, win)
+            with span("decoder.jointer_kv"):
+                k_new, v_new = caat_step.jointer_kv(
+                    model, caat, estate.out_cache[t0:t0 + n_new])
+                caat_step.jointer_kv_append(jk, jv, k_new, v_new, t0)
+            with span("decoder.emit_loop"):
+                visible = torch.full((N,), estate.t_main, device=dev)
+                prefixes, lens, lm = greedy(prefixes, lens, lm,
+                                            [x[:cap] for x in jk],
+                                            [x[:cap] for x in jv], visible)
             hist.append(lens)
-        lens_hist = torch.stack(hist).cpu()
-        return self._texts_and_delays(prefixes.cpu(), lens_hist, n_chunks,
-                                      stride, W, N)
+        with span("decoder.readback"):
+            lens_hist = torch.stack(hist).cpu()
+            prefixes = prefixes.cpu()
+        with span("decoder.texts"):
+            return self._texts_and_delays(prefixes, lens_hist, n_chunks,
+                                          stride, W, N)
 
 
 class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
@@ -225,7 +267,8 @@ class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
             N, max_samples, audio = wavs          # pre-staged handle
         else:
             N, max_samples, audio = self.stage(wavs)
-        enc = self._encoder(N)
+        with span("decoder.setup"):
+            enc = self._encoder(N)
         hop, W, n_main, rc = enc.hop, enc.window, enc.n_main, self.rc
         int16 = self.transfer_dtype == "int16"
         total_frames = (max_samples - enc.rf) // hop + 1
@@ -253,20 +296,23 @@ class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
         # the incremental path
         enc_tm = None
         for i in range(0, N, eb):
-            au = audio[i:i + eb, :n_samples]
-            au = au.float() / 32768.0 if int16 else au
-            e, _ = model.encode(au, None, self.mc, rc)    # [eb, t_frames, D]
-            if enc_tm is None:
-                enc_tm = e.new_zeros((t_cap, N, e.shape[-1]))
-            enc_tm[:t_frames, i:i + eb] = e.transpose(0, 1)
-        jk, jv = caat_step.jointer_kv(model, caat, enc_tm)
+            with span("decoder.encode"):
+                au = audio[i:i + eb, :n_samples]
+                au = au.float() / 32768.0 if int16 else au
+                e, _ = model.encode(au, None, self.mc, rc)  # [eb, t_frames, D]
+                if enc_tm is None:
+                    enc_tm = e.new_zeros((t_cap, N, e.shape[-1]))
+                enc_tm[:t_frames, i:i + eb] = e.transpose(0, 1)
+        with span("decoder.jointer_kv"):
+            jk, jv = caat_step.jointer_kv(model, caat, enc_tm)
 
-        prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
-                              dtype=torch.long, device=dev)
-        prefixes[:, 0] = vocab.bos()
-        lens = torch.ones(N, dtype=torch.long, device=dev)
-        lm = caat_step.lm_slot_init(model, caat, N, n_slots)
-        greedy = self._make_greedy()
+        with span("decoder.setup"):
+            prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
+                                  dtype=torch.long, device=dev)
+            prefixes[:, 0] = vocab.bos()
+            lens = torch.ones(N, dtype=torch.long, device=dev)
+            lm = caat_step.lm_slot_init(model, caat, N, n_slots)
+            greedy = self._make_greedy()
 
         # chunk k reveals (k+1)*n_main frames, the last also the flushed
         # look-ahead; the jointer reads a prefix view of its K/V in steps
@@ -276,11 +322,15 @@ class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
         for k in range(n_chunks):
             vis = (k + 1) * n_main + (rc if k == n_chunks - 1 else 0)
             cap = min(-(-vis // seg) * seg, t_cap)
-            visible = torch.full((N,), vis, device=dev)
-            prefixes, lens, lm = greedy(prefixes, lens, lm,
-                                        [x[:cap] for x in jk],
-                                        [x[:cap] for x in jv], visible)
+            with span("decoder.emit_loop"):
+                visible = torch.full((N,), vis, device=dev)
+                prefixes, lens, lm = greedy(prefixes, lens, lm,
+                                            [x[:cap] for x in jk],
+                                            [x[:cap] for x in jv], visible)
             hist.append(lens)
-        lens_hist = torch.stack(hist).cpu()
-        return self._texts_and_delays(prefixes.cpu(), lens_hist, n_chunks,
-                                      stride, W, N)
+        with span("decoder.readback"):
+            lens_hist = torch.stack(hist).cpu()
+            prefixes = prefixes.cpu()
+        with span("decoder.texts"):
+            return self._texts_and_delays(prefixes, lens_hist, n_chunks,
+                                          stride, W, N)

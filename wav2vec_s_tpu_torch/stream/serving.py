@@ -34,6 +34,17 @@ only in steps that reset a slot (``reset`` is a host array): in the others
 it would change nothing.  Emission semantics (greedy blank -> advance,
 delay bookkeeping) equal ``CachedFusedGreedyDecoder``'s per stream
 (``tests/test_torch_port_serving.py``).
+
+Under a profiler the spans ``w2vs/serving.*`` (``utils/debug.span``) tile
+a step: ``compact`` (when it runs), ``gather``, ``upload``, ``reset`` (in
+steps that reset a slot), ``encoder_step``, ``jointer_kv``, ``emit_loop``,
+``readback`` and ``words``; the counters ``serving.emit_iters`` and
+``serving.emit_iters_live`` (``batched.count_emissions`` over the fired
+slots), ``serving.plane_rows_read`` (slots x the plane's rows that the
+attention reads, from the shape of the plane it is handed) and
+``serving.plane_rows_visible`` (the rows of the plane visible to each
+slot's stream when the jointer reads it, from the slots' chunk counts)
+come from host bookkeeping.
 """
 
 from __future__ import annotations
@@ -46,7 +57,9 @@ import torch
 
 from wav2vec_s_tpu_torch.models.modules import compute_copy
 from wav2vec_s_tpu_torch.stream import caat_step
+from wav2vec_s_tpu_torch.stream.batched import count_emissions
 from wav2vec_s_tpu_torch.stream.incremental import IncrementalBlockwiseEncoder
+from wav2vec_s_tpu_torch.utils.debug import count, span, tracing
 
 
 @dataclasses.dataclass
@@ -136,48 +149,56 @@ class ServingSession:
         N, n_new = self.n, self._rows_per_step
         prefixes, lens, frames, lm = (self._prefixes, self._lens,
                                       self._frames, self._lm)
+        vis = self._vis              # the plane both attentions are handed
 
         if any_reset:                                # recycled slots
-            fresh_row = torch.full_like(prefixes[0], pad)
-            fresh_row[0] = blank
-            prefixes = torch.where(reset[:, None], fresh_row[None], prefixes)
-            lens = torch.where(reset, 1, lens)
-            frames = torch.where(reset, 0, frames)
-            self._vis &= ~reset[:, None]
-            lm = caat_step.lm_step(
-                model, caat, lm, torch.full_like(lens, blank),
-                torch.zeros_like(lens), reset)
+            with span("serving.reset"):
+                fresh_row = torch.full_like(prefixes[0], pad)
+                fresh_row[0] = blank
+                prefixes = torch.where(reset[:, None], fresh_row[None],
+                                       prefixes)
+                lens = torch.where(reset, 1, lens)
+                frames = torch.where(reset, 0, frames)
+                vis &= ~reset[:, None]
+                lm = caat_step.lm_step(
+                    model, caat, lm, torch.full_like(lens, blank),
+                    torch.zeros_like(lens), reset)
 
-        t0 = self._estate.t_main
-        self._estate = self._enc_step(self._estate, window, frames,
-                                      self._vis)
+        with span("serving.encoder_step"):
+            t0 = self._estate.t_main
+            self._estate = self._enc_step(self._estate, window, frames,
+                                          vis)
+            # visibility: main rows where ready; the rc tail where flushing
+            new_plane = ready[:, None] & (self._row_is_main[None]
+                                          | flush[:, None])  # [N, n_new]
+            vis[:, t0:t0 + n_new] |= new_plane
 
-        # visibility: main rows where ready; the rc tail where flushing
-        new_plane = ready[:, None] & (self._row_is_main[None]
-                                      | flush[:, None])      # [N, n_new]
-        self._vis[:, t0:t0 + n_new] |= new_plane
-
-        k_new, v_new = caat_step.jointer_kv(
-            model, caat, self._estate.out_cache[t0:t0 + n_new])
-        caat_step.jointer_kv_append(self._jk, self._jv, k_new, v_new, t0)
+        with span("serving.jointer_kv"):
+            k_new, v_new = caat_step.jointer_kv(
+                model, caat, self._estate.out_cache[t0:t0 + n_new])
+            caat_step.jointer_kv_append(self._jk, self._jv, k_new, v_new,
+                                        t0)
 
         # greedy emission loop (CachedFusedGreedyDecoder's), masked by
-        # `ready` and driven by the visibility plane
-        rows = self._rows
-        blocked = ~ready
-        for _ in range(self.max_emit):
-            lp = caat_step.jointer_step(model, caat, lm.h_last, self._jk,
-                                        self._jv, self._vis)
-            lp[:, pad] = -float("inf")
-            tok = torch.argmax(lp, dim=-1)         # first maximum, as jnp
-            emit = ~blocked & (tok != blank) & (lens < self.max_len)
-            prefixes[rows, lens] = torch.where(emit, tok,
-                                               prefixes[rows, lens])
-            lm = caat_step.lm_step(model, caat, lm, tok, lens, emit)
-            lens = lens + emit
-            blocked = blocked | ~emit
-        self._frames = frames + torch.where(ready, self.n_main, 0)
-        self._prefixes, self._lens, self._lm = prefixes, lens, lm
+        # `ready` and driven by the visibility plane, which the encoder's
+        # attention read too
+        count("serving.plane_rows_read", vis.numel())
+        with span("serving.emit_loop"):
+            rows = self._rows
+            blocked = ~ready
+            for _ in range(self.max_emit):
+                lp = caat_step.jointer_step(model, caat, lm.h_last, self._jk,
+                                            self._jv, vis)
+                lp[:, pad] = -float("inf")
+                tok = torch.argmax(lp, dim=-1)     # first maximum, as jnp
+                emit = ~blocked & (tok != blank) & (lens < self.max_len)
+                prefixes[rows, lens] = torch.where(emit, tok,
+                                                   prefixes[rows, lens])
+                lm = caat_step.lm_step(model, caat, lm, tok, lens, emit)
+                lens = lens + emit
+                blocked = blocked | ~emit
+            self._frames = frames + torch.where(ready, self.n_main, 0)
+            self._prefixes, self._lens, self._lm = prefixes, lens, lm
 
     def _compact(self):
         active_rows = [s.first_row for s in self.slots
@@ -247,69 +268,87 @@ class ServingSession:
         """Advance every ready slot by one chunk; returns new words."""
         N, W = self.n, self.window
         if self._estate.t_main + self._rows_per_step > self.t_cap:
-            self._compact()
+            with span("serving.compact"):
+                self._compact()
             if self._estate.t_main + self._rows_per_step > self.t_cap:
                 raise RuntimeError(
                     f"t_cap={self.t_cap} exhausted: the longest active "
                     "stream exceeds the session's cache capacity")
         t_main = self._estate.t_main
 
-        window = np.zeros((N, W), np.float32)
-        ready = np.zeros(N, bool)
-        flush = np.zeros(N, bool)
-        reset = np.zeros(N, bool)
-        fired = []
-        for i, s in enumerate(self.slots):
-            if s.stream_id is None:
-                continue
-            if s.fresh:
-                reset[i] = True
-                s.fresh = False
-                s.first_row = t_main
-            if self._ready(s):
-                ready[i] = True
-                start = s.chunk_idx * self.stride
-                chunk = s.buf[start:start + W]
-                window[i, :len(chunk)] = chunk
-                flush[i] = s.ended and s.chunk_idx == s.n_chunks - 1
-                fired.append(i)
+        with span("serving.gather"):
+            window = np.zeros((N, W), np.float32)
+            ready = np.zeros(N, bool)
+            flush = np.zeros(N, bool)
+            reset = np.zeros(N, bool)
+            fired = []
+            for i, s in enumerate(self.slots):
+                if s.stream_id is None:
+                    continue
+                if s.fresh:
+                    reset[i] = True
+                    s.fresh = False
+                    s.first_row = t_main
+                if self._ready(s):
+                    ready[i] = True
+                    start = s.chunk_idx * self.stride
+                    chunk = s.buf[start:start + W]
+                    window[i, :len(chunk)] = chunk
+                    flush[i] = s.ended and s.chunk_idx == s.n_chunks - 1
+                    fired.append(i)
 
         if not fired and not reset.any():
             return {}
 
         dev = self.device
-        self._device_step(torch.from_numpy(window).to(dev),
-                          torch.from_numpy(ready).to(dev),
-                          torch.from_numpy(flush).to(dev),
-                          torch.from_numpy(reset).to(dev),
-                          bool(reset.any()))
+        with span("serving.upload"):
+            planes = [torch.from_numpy(a).to(dev)
+                      for a in (window, ready, flush, reset)]
+        self._device_step(*planes, bool(reset.any()))
         self.steps += 1
 
-        lens = self._lens.cpu().numpy()
-        pfx = self._prefixes.cpu().numpy()
-        out: Dict[str, List[str]] = {}
-        for i in fired:
-            s = self.slots[i]
-            ms = (s.chunk_idx * self.stride + W) / 16.0
-            new_words = []
-            for u in range(s.emitted, int(lens[i])):
-                tok = int(pfx[i, u])
-                if tok >= self.vocab.nspecial:
-                    s.pieces.append(self.vocab[tok])
-                s.delays_ms.append(ms)
-                new_words.append(self.vocab[tok]
-                                 if tok >= self.vocab.nspecial else "")
-            s.emitted = int(lens[i])
-            s.chunk_idx += 1
-            if new_words:
-                out[s.stream_id] = [w for w in new_words if w]
-            if s.ended and s.chunk_idx >= s.n_chunks:
-                text = ("".join(s.pieces).replace("▁", " ").strip()
-                        if s.pieces else "")
-                self._results[s.stream_id] = (text, list(s.delays_ms))
-                del self._by_id[s.stream_id]
-                self.slots[i] = _Slot()
+        with span("serving.readback"):
+            lens = self._lens.cpu().numpy()
+            pfx = self._prefixes.cpu().numpy()
+        with span("serving.words"):
+            if tracing():
+                self._count_step(lens, fired, int(flush.sum()))
+            out: Dict[str, List[str]] = {}
+            for i in fired:
+                s = self.slots[i]
+                ms = (s.chunk_idx * self.stride + W) / 16.0
+                new_words = []
+                for u in range(s.emitted, int(lens[i])):
+                    tok = int(pfx[i, u])
+                    if tok >= self.vocab.nspecial:
+                        s.pieces.append(self.vocab[tok])
+                    s.delays_ms.append(ms)
+                    new_words.append(self.vocab[tok]
+                                     if tok >= self.vocab.nspecial else "")
+                s.emitted = int(lens[i])
+                s.chunk_idx += 1
+                if new_words:
+                    out[s.stream_id] = [w for w in new_words if w]
+                if s.ended and s.chunk_idx >= s.n_chunks:
+                    text = ("".join(s.pieces).replace("▁", " ").strip()
+                            if s.pieces else "")
+                    self._results[s.stream_id] = (text, list(s.delays_ms))
+                    del self._by_id[s.stream_id]
+                    self.slots[i] = _Slot()
         return out
+
+    def _count_step(self, lens, fired, n_flushed: int) -> None:
+        """The step's counters, before the slots advance past the step: the
+        fired slots' emissions, and the rows visible to each slot's stream
+        when the jointer read the plane (the fired ones' chunk of main rows
+        included, and the look-ahead tail of those that flushed)."""
+        emitted = [int(lens[i]) - self.slots[i].emitted for i in fired]
+        count_emissions("serving", np.array(emitted, np.int64)[None],
+                        self.max_emit, ("emit_iters", "emit_iters_live"))
+        chunks = sum(s.chunk_idx for s in self.slots
+                     if s.stream_id is not None) + len(fired)
+        count("serving.plane_rows_visible",
+              chunks * self.n_main + n_flushed * self.rc)
 
     def drain(self) -> None:
         """Run steps until every admitted stream has finished (requires all

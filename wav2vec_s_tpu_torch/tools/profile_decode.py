@@ -17,11 +17,13 @@ them ``--streams 64``); ``--stop-check n`` makes their beam block read its
 early-stop test from the device every n-th iteration (0: never).
 One warm-up corpus, then ``--corpora`` corpora on the host clock (staging
 included, a synchronize after each), then ONE warm corpus under
-``torch.profiler``.  Prints the corpus times, the device kernels of the
-traced corpus, its device-busy time (the union of the kernel intervals,
-annotation ranges excluded) with its share of the wall, the kernels by
-device time, the launches of the port's own kernels, the peak memory, and
-the card's name and power limit.  Needs a CUDA device.
+``torch.profiler``.  Prints every corpus time and their median, the device
+kernels of the traced corpus, its device-busy time (the union of the
+kernel intervals, annotation ranges excluded) with its share of the wall,
+the kernels by device time, the launches of the port's own kernels, the
+program's spans (``w2vs/...``, ``utils/debug.span``) of the traced corpus
+with their count and host time, the program's counters over it, the peak
+memory, and the card's name and power limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from wav2vec_s_tpu_torch.tools.profile_train import _busy_us
+from wav2vec_s_tpu_torch.utils import debug
 
 
 def main(argv=None) -> int:
@@ -113,6 +116,7 @@ def main(argv=None) -> int:
                blockwise_flash_attention_packed}
     for fn in own.values():
         fn.launches = 0
+    debug.reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -124,6 +128,11 @@ def main(argv=None) -> int:
                and not getattr(e, "is_user_annotation", False)]
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e3
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith(debug.SPAN):
+            n, t_us = spans.get(e.name, (0, 0.0))
+            spans[e.name] = (n + 1, t_us + e.time_range.elapsed_us())
     by_name = {}
     for e in kernels:
         n, t_us = by_name.get(e.name, (0, 0.0))
@@ -138,15 +147,21 @@ def main(argv=None) -> int:
           + (f", early-stop read every {args.stop_check or 'never'}, "
              f"{dec.iterations_run} beam iterations in all" if beam else "")
           + f" [{card}]")
-    print(f"untraced corpus times {['%.4f' % w for w in walls]} s (best "
-          f"{audio / min(walls):.2f} audio-sec/s), words in the last corpus "
-          f"{sum(len(d) for d in delays)}, peak memory {peak_gb:.3f} GB")
+    median = float(np.median(walls))
+    print(f"untraced corpus times {['%.4f' % w for w in walls]} s (median "
+          f"{median:.4f} s: {audio / median:.2f} audio-sec/s), words in the "
+          f"last corpus {sum(len(d) for d in delays)}, peak memory "
+          f"{peak_gb:.3f} GB")
     print(f"traced corpus: wall {traced * 1e3:.2f} ms, {len(kernels)} device "
           f"kernels, device busy {busy_ms:.2f} ms = "
           f"{busy_ms / (traced * 1e3):.3f} of the traced wall, "
-          f"{busy_ms / (min(walls) * 1e3):.3f} of the best untraced corpus; "
+          f"{busy_ms / (median * 1e3):.3f} of the median untraced corpus; "
           f"launches of the port's kernels: "
           + ", ".join(f"{k} {fn.launches}" for k, fn in own.items()))
+    print("program spans of the traced corpus (host ms, count):")
+    for name, (n, t_us) in sorted(spans.items(), key=lambda kv: -kv[1][1]):
+        print(f"  {t_us / 1e3:9.3f} {n:6d}  {name}")
+    print(f"program counters of the traced corpus: {debug.counters()}")
     if not kernels:
         print("the profiler recorded no device time")
         return 1

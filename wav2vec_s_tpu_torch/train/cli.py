@@ -76,7 +76,10 @@ What differs from the JAX CLI, on purpose:
   their fairseq names).  ``run.profile_dir``: a ``torch.profiler`` trace
   of updates [10, 20) (CPU and CUDA activity) written as
   ``<profile_dir>/trace.json``, stopped early if the run ends inside the
-  window.
+  window.  Its program spans (``utils/debug.span``): ``w2vs/train.data_wait``
+  (the wait for the next batch of ``prefetch_batches``), and from
+  ``train/step.py`` ``w2vs/train.forward`` and ``w2vs/train.backward`` per
+  micro-batch and ``w2vs/train.optimizer`` (reduce, clip and update).
 - ``run.remat`` rematerializes the loss forward (``train/remat.py``) and
   ``run.flat_optimizer`` runs the optimizer over one flat vector
   (``train/step.py``), as in the JAX CLI; the flat optimizer is off under
@@ -121,6 +124,7 @@ from wav2vec_s_tpu_torch.train.recipes import (
     make_pretrain_loss_fn, make_s2s_loss_fn, sample_context_bucket)
 from wav2vec_s_tpu_torch.train.remat import REMAT_POLICIES
 from wav2vec_s_tpu_torch.train.step import TrainState, make_train_step
+from wav2vec_s_tpu_torch.utils.debug import span
 from wav2vec_s_tpu_torch.utils.metrics import JsonProgress, TimeMeter
 
 
@@ -454,6 +458,21 @@ def _keyed(epoch_itr, epoch: int, start: int):
         yield (epoch, offset), batch_idx
 
 
+def _waited(batches):
+    """``batches`` (a generator), each wait for the next one under the span
+    ``train.data_wait``; closes ``batches`` when the consumer stops."""
+    end = object()
+    try:
+        while True:
+            with span("train.data_wait"):
+                item = next(batches, end)
+            if item is end:
+                return
+            yield item
+    finally:
+        batches.close()
+
+
 def _train(cfg: TrainConfig, device: torch.device, plan=None):
     run = cfg.run
     pretrain = run.task == "pretrain"
@@ -675,10 +694,10 @@ def _train(cfg: TrainConfig, device: torch.device, plan=None):
             # the consumer's position in the epoch: what a checkpoint saves
             # (the prefetch thread runs ahead of it)
             position = itr.state_dict()
-            for (_, batch_idx), host_batch in prefetch_batches(
+            for (_, batch_idx), host_batch in _waited(prefetch_batches(
                     _keyed(itr.next_epoch_itr(), position["epoch"],
                            position["batch_offset"]), collate_train,
-                    run.prefetch):
+                    run.prefetch)):
                 if host_step >= run.max_update:
                     break
                 position["batch_offset"] += 1

@@ -34,6 +34,11 @@ The JAX step's two memory and launch switches:
   and clips by the whole vector's RMS, as optax is on the JAX flat path.
   Under ZeRO-1 each data rank owns an equal slice of the padded vector;
   FSDP and tensor parallelism hold no whole vector and refuse it.
+
+Under a profiler each micro-batch's ``w2vs/train.forward`` and
+``w2vs/train.backward`` and the update's ``w2vs/train.optimizer`` (the
+gradient reduction, normalisation, norm, skip test and update) are spans
+of the trace (``utils/debug.span``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from wav2vec_s_tpu_torch.parallel.sharding import local
 from wav2vec_s_tpu_torch.train.optim import (
     Adafactor, AdafactorState, Adam, AdamState)
 from wav2vec_s_tpu_torch.train.remat import remat
+from wav2vec_s_tpu_torch.utils.debug import span
 
 Optimizer = Union[Adam, Adafactor]
 #: the flat vector's length is a multiple of this (JAX ``ravel_padded``)
@@ -180,8 +186,10 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
         for i in range(accum_steps):
             mb = batch if accum_steps == 1 else {k: v[i]
                                                   for k, v in batch.items()}
-            loss, n, mlogs = loss_fn(mb, generator, state.step)
-            loss.backward()
+            with span("train.forward"):
+                loss, n, mlogs = loss_fn(mb, generator, state.step)
+            with span("train.backward"):
+                loss.backward()
             loss = loss.detach()
             n = torch.as_tensor(n, dtype=torch.float32, device=loss.device)
             loss_total = loss if loss_total is None else loss_total + loss
@@ -190,46 +198,47 @@ def make_train_step(loss_fn: LossFn, optimizer: Optimizer,
                 v = v.detach().float()
                 logs[k] = logs[k] + v if k in logs else v
 
-        grads = {name: (p.grad if p.grad is not None
-                        else torch.zeros_like(p)) for name, p in named}
-        if grad_mask is not None:
-            grad_mask(grads, state.step)
-        g = [flat.grad] if flat is not None else list(grads.values())
-        plan = state.plan
-        n_norm = n_total
-        if plan is not None:
-            n_norm = plan.reduce(g, n_total)
-            g = [local(t) for t in g]        # FSDP2: this rank's rows
-            logs.update(loss_total=loss_total, sample_size=n_total)
-            plan.reduce_logs(logs)
-            loss_total, n_total = logs["loss_total"], logs["sample_size"]
-        torch._foreach_div_(g, torch.clamp(n_norm, min=1.0))
-        # the flat gradient's norm is summed over its per-parameter views,
-        # in the tree's order: the flat update is the tree's, bit for bit
-        parts = list(grads.values()) if flat is not None else g
-        if plan is None:
-            gnorm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(parts)))
-        else:
-            gnorm = plan.grad_norm(parts)
-        ok = not skip_nonfinite or math.isfinite(gnorm.item())
-        if ok:
-            params = state.opt_params()
+        with span("train.optimizer"):
+            grads = {name: (p.grad if p.grad is not None
+                            else torch.zeros_like(p)) for name, p in named}
+            if grad_mask is not None:
+                grad_mask(grads, state.step)
+            g = [flat.grad] if flat is not None else list(grads.values())
+            plan = state.plan
+            n_norm = n_total
+            if plan is not None:
+                n_norm = plan.reduce(g, n_total)
+                g = [local(t) for t in g]        # FSDP2: this rank's rows
+                logs.update(loss_total=loss_total, sample_size=n_total)
+                plan.reduce_logs(logs)
+                loss_total, n_total = logs["loss_total"], logs["sample_size"]
+            torch._foreach_div_(g, torch.clamp(n_norm, min=1.0))
+            # the flat gradient's norm is summed over its per-parameter views,
+            # in the tree's order: the flat update is the tree's, bit for bit
+            parts = list(grads.values()) if flat is not None else g
             if plan is None:
-                optimizer.update(params, g, state.opt_state, gnorm)
+                gnorm = torch.linalg.vector_norm(torch.stack(
+                    torch._foreach_norm(parts)))
             else:
-                optimizer.update(plan.blocks(params, state.shards),
-                                 plan.blocks(g, state.shards),
-                                 state.opt_state, gnorm, state.shards)
-                plan.after_update(params, state.shards)
-        if flat is None:
-            for _, p in named:
-                p.grad = None
-        state.step += 1
-        logs.update(loss_total=loss_total, sample_size=n_total,
-                    grad_norm=gnorm)
-        if skip_nonfinite:
-            logs["skipped"] = torch.tensor(0.0 if ok else 1.0)
-        return state, logs
+                gnorm = plan.grad_norm(parts)
+            ok = not skip_nonfinite or math.isfinite(gnorm.item())
+            if ok:
+                params = state.opt_params()
+                if plan is None:
+                    optimizer.update(params, g, state.opt_state, gnorm)
+                else:
+                    optimizer.update(plan.blocks(params, state.shards),
+                                     plan.blocks(g, state.shards),
+                                     state.opt_state, gnorm, state.shards)
+                    plan.after_update(params, state.shards)
+            if flat is None:
+                for _, p in named:
+                    p.grad = None
+            state.step += 1
+            logs.update(loss_total=loss_total, sample_size=n_total,
+                        grad_norm=gnorm)
+            if skip_nonfinite:
+                logs["skipped"] = torch.tensor(0.0 if ok else 1.0)
+            return state, logs
 
     return train_step

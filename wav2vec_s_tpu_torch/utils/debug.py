@@ -5,8 +5,14 @@
   40-43): ``torch.profiler`` over the CPU and CUDA activities of a region,
   written as a Chrome trace (``trace.json``) into ``logdir``, opened in
   Perfetto or ``chrome://tracing``.
-- ``annotate`` — ``torch.profiler.record_function``: a named range of the
-  trace (trainer.py:754-795).
+- ``span`` and ``count`` — the program's own tracing: named ranges of the
+  trace (``torch.profiler.record_function``, named ``w2vs/<name>``; the
+  twin of trainer.py:754-795) and a table of named integer counters
+  (``counters`` reads it, ``reset_counters`` empties it).  Both act only
+  while a ``torch.profiler`` runs in the process (``tracing()``); else
+  ``span`` returns a shared null context and ``count`` returns after that
+  one test.  A counter is computed on the host from what the code already
+  holds there: no device op, read or synchronize.
 - ``NanDetector`` — twin of fairseq/fairseq/nan_detector.py: names every
   non-finite tensor of a mapping (a state dict, the logs, the gradients)
   by its key, the fairseq name, with its count.
@@ -22,7 +28,7 @@ import contextlib
 import os
 import signal
 import threading
-from typing import Iterator, List, Mapping, Optional
+from typing import Dict, Iterator, List, Mapping, Optional
 
 import torch
 
@@ -63,9 +69,37 @@ def profile_trace(logdir: str) -> Iterator[Profile]:
         prof.stop()
 
 
-def annotate(name: str):
-    """A named range of the trace."""
-    return torch.profiler.record_function(name)
+#: the prefix of every span of the program (the benchmark's breakdown reads
+#: ranges under it as the innermost spans the host was in)
+SPAN = "w2vs/"
+#: True while a ``torch.profiler`` (any activity) runs in the process
+tracing = torch._C._autograd._profiler_enabled
+_NULL = contextlib.nullcontext()
+_counters: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A named range ``w2vs/<name>`` of the trace while tracing, else the
+    shared null context."""
+    if not tracing():
+        return _NULL
+    return torch.profiler.record_function(SPAN + name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing."""
+    if not tracing():
+        return
+    _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """A snapshot of every counter."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 class NanDetector:

@@ -1,36 +1,16 @@
-"""Metrics aggregation and progress logging (port of
-``wav2vec_s_tpu/utils/metrics.py``): smoothed meters, nested aggregation
-contexts, an items-per-second meter and the json-lines progress records
-of the training CLI, same keys as the JAX package's (fairseq
-logging/{metrics,meters,progress_bar}.py); TensorBoard writing is
-optional, gated on the package being installed.
+"""Progress logging of the training CLI (port of
+``wav2vec_s_tpu/utils/metrics.py``): an items-per-second meter and the
+json-lines progress records, same keys as the JAX package's (fairseq
+logging/{meters,progress_bar}.py); TensorBoard writing is optional, gated
+on the package being installed.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import sys
 import time
-from collections import defaultdict
 from typing import Dict, Optional
-
-
-class AverageMeter:
-    def __init__(self, round: Optional[int] = 3):
-        self.round = round
-        self.reset()
-
-    def reset(self):
-        self.sum, self.count = 0.0, 0
-
-    def update(self, val, n=1):
-        self.sum += float(val) * n
-        self.count += n
-
-    @property
-    def avg(self):
-        return self.sum / self.count if self.count else 0.0
 
 
 class TimeMeter:
@@ -50,34 +30,6 @@ class TimeMeter:
     def avg(self):
         dt = time.perf_counter() - self.start
         return self.n / dt if dt > 0 else 0.0
-
-
-class MetricsAggregator:
-    """Named scalar aggregation with nested contexts
-    (``metrics.aggregate``, logging/metrics.py:30-140)."""
-
-    def __init__(self):
-        self._stack = [defaultdict(AverageMeter)]
-
-    @contextlib.contextmanager
-    def aggregate(self):
-        self._stack.append(defaultdict(AverageMeter))
-        try:
-            yield self._stack[-1]
-        finally:
-            child = self._stack.pop()
-            for k, m in child.items():
-                self._stack[-1][k].update(m.avg, m.count)
-
-    def log_scalar(self, key: str, value, weight: int = 1):
-        for frame in self._stack:
-            frame[key].update(value, weight)
-
-    def values(self) -> Dict[str, float]:
-        return {k: m.avg for k, m in self._stack[-1].items()}
-
-    def reset(self):
-        self._stack = [defaultdict(AverageMeter)]
 
 
 class JsonProgress:
