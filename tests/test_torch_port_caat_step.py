@@ -3,7 +3,8 @@
 
 ``lm_slot_init``, ``lm_slot_step`` (with held streams), ``jointer_kv``,
 ``jointer_kv_append`` and ``jointer_step`` on the same seeded weights and
-inputs, for both decoder layer-norm orders; float32, atol 1e-4.
+inputs, for both decoder layer-norm orders; float32, atol 1e-4.  A slot
+state reset in place (``lm_slot_reset``) steps exactly as a fresh one.
 """
 
 import dataclasses
@@ -39,7 +40,7 @@ def _same_lm(b, a):
         _close(b.k[i], a.k[i])
         _close(b.v[i], a.v[i])
     np.testing.assert_array_equal(b.valid.numpy(), np.asarray(a.valid))
-    assert b.ptr == int(a.ptr)
+    assert b.ptr.shape == () and int(b.ptr) == int(a.ptr)
     _close(b.h_last, a.h_last)
 
 
@@ -68,6 +69,38 @@ def test_lm_slot_steps_match(normalize_before):
                                    torch.from_numpy(adv))
         _same_lm(b, a)
         lens = lens + adv
+
+
+def _steps(model, state, seed):
+    """Four seeded steps, some streams holding; returns the state."""
+    rng = np.random.default_rng(seed)
+    lens = torch.ones(N, dtype=torch.long)
+    for _ in range(4):
+        tok = torch.from_numpy(rng.integers(4, model.cfg.vocab_size, N))
+        adv = torch.from_numpy(rng.random(N) < 0.6)
+        caat_step.lm_slot_step(model, model.cfg, state, tok, lens, adv)
+        lens = lens + adv
+    return state
+
+
+@pytest.mark.parametrize("normalize_before", [True, False])
+def test_lm_slot_reset_in_place_equals_a_fresh_state(normalize_before):
+    """A used state reset in place (``lm_slot_reset``: same tensors, the
+    pointer too) steps exactly as a fresh one."""
+    _, model, _ = _pair(normalize_before)
+    used = _steps(model, caat_step.lm_slot_init(model, model.cfg, N, SLOTS),
+                  1)
+    tensors = used.k + used.v + [used.valid, used.ptr, used.h_last]
+    assert int(used.ptr) == 5
+    reset = caat_step.lm_slot_reset(model, model.cfg, used)
+    assert all(a is b for a, b in zip(
+        reset.k + reset.v + [reset.valid, reset.ptr, reset.h_last], tensors))
+    fresh = caat_step.lm_slot_init(model, model.cfg, N, SLOTS)
+    for a, b in ((reset, fresh), (_steps(model, reset, 2),
+                                  _steps(model, fresh, 2))):
+        for x, y in zip(a.k + a.v + [a.valid, a.ptr, a.h_last],
+                        b.k + b.v + [b.valid, b.ptr, b.h_last]):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("normalize_before", [True, False])

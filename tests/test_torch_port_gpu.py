@@ -278,15 +278,16 @@ def test_flash_kernel_rejects(cuda, bad):
 
 
 def _spanned_launches(prof):
-    """(kernel launches on the host, those inside a ``w2vs/decoder.*``
-    span of their thread)."""
+    """(kernel launches and CUDA graph replays on the host, those inside a
+    ``w2vs/decoder.*`` span of their thread)."""
     spans, launches = [], []
     for e in prof.profiler.kineto_results.events():
         item = (e.start_ns(), e.start_ns() + e.duration_ns(),
                 e.start_thread_id())
         if e.is_user_annotation() and e.name().startswith("w2vs/decoder."):
             spans.append(item)
-        elif e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+        elif e.name().startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaGraphLaunch")):
             launches.append(item)
     inside = [x for x in launches
               if any(s[0] <= x[0] and x[1] <= s[1] and s[2] == x[2]
@@ -328,6 +329,62 @@ def test_decoder_spans_hold_the_launches_and_counters_count(cuda):
     debug.reset_counters()
     print(f"CUDA-only profiling: tracing() {on}, counters {counted}")
     assert bool(counted) == on
+
+
+def test_emission_loop_replays_cuda_graphs(cuda):
+    """Both tiny decoders on the card run each chunk's emission loop as a
+    CUDA graph: one graph per distinct cache capacity the chunks use; texts
+    and delays equal the CPU's on the first corpus (captures), a second
+    (replays only), a corpus of half the length (the same graphs replayed)
+    and corpora of another width (N 2, then N 3 again: the graphs are
+    dropped and captured anew).  Under CPU + CUDA profiling of the second
+    corpus every chunk's iterations are replayed
+    (``decoder.emit_iters_graphed == decoder.emit_iters``), and every
+    kernel launch and graph replay lies inside a ``w2vs/decoder.*`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wav2vec_s_tpu_torch.utils import debug
+
+    w2v = dataclasses.replace(W2V_TINY, attention_impl="flash")
+    vocab, model, wavs = _tiny(w2v)
+    kw = dict(max_len=256, max_emit_per_chunk=4, t_cap=640,
+              blocks_per_step=2)
+    for cls in (CachedFusedGreedyDecoder, OneShotCorpusDecoder):
+        cpu = cls(model.to("cpu"), vocab, w2v, **kw)
+        caps = []
+        greedy = cpu._greedy
+        cpu._greedy = lambda loop, cap: (caps.append(cap), greedy(loop, cap))
+        half = [w[:len(w) // 2] for w in wavs]
+        want = [cpu.decode_corpus(w) for w in (wavs, wavs[1:], half)]
+        dec = cls(model.to("cuda"), vocab, w2v, **kw)
+        handle = dec.stage(wavs)
+        assert dec.decode_corpus(handle) == want[0]
+        graphs = dict(dec._loop.graphs)
+        assert sorted(graphs) == sorted(set(caps))
+        debug.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = dec.decode_corpus(handle)
+            torch.cuda.synchronize()
+        counted = debug.counters()
+        debug.reset_counters()
+        assert out == want[0]
+        assert dec._loop.graphs == graphs            # replayed, not captured
+        assert counted["decoder.emit_iters"] == 79 * 4          # 79 chunks
+        assert counted["decoder.emit_iters_graphed"] == 79 * 4
+        replays = sum(e.name().startswith("cudaGraphLaunch")
+                      for e in prof.profiler.kineto_results.events())
+        launches, inside = _spanned_launches(prof)
+        print(f"{cls.__name__}: graphs at caps {sorted(graphs)}, graph "
+              f"replays {replays}, launches {len(launches)}, inside "
+              f"decoder spans {len(inside)}, counters {counted}")
+        assert replays == 79
+        assert launches and len(inside) == len(launches)
+        assert dec.decode_corpus(half) == want[2]
+        assert dec._loop.graphs == graphs            # kept across lengths
+        assert dec.decode_corpus(wavs[1:]) == want[1]
+        assert dec._loop.key[0] == 2
+        assert dec.decode_corpus(wavs) == want[0]
 
 
 def test_tiny_oneshot_on_cuda_equals_cpu(cuda):

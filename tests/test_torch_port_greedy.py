@@ -1,6 +1,7 @@
 """CachedFusedGreedyDecoder: the port's texts and delays EQUAL the JAX
 decoder's, at tiny dims, for one and two blocks per step (float32 wire
-here, int16 wire in test_torch_port_greedy_int16.py).
+here, int16 wire in test_torch_port_greedy_int16.py); one decoder over
+corpora of changing shapes equals fresh decoders.
 
 Weights: the seeded tree of ``test_torch_port_import.jax_caat`` with the
 blank row of the tied embedding scaled by 1.3, so that on these clips two
@@ -68,3 +69,26 @@ def test_texts_and_delays_equal_jax(blocks):
     assert got_d == want_d
     n_words = [len(d) for d in got_d]
     assert n_words[:2] == [0, 0] and n_words[2] > 100   # blank and emitting
+
+
+def corpora_in_a_row(new_decoder):
+    """One decoder over corpora of N 3, N 2, N 3 (other rows), N 3 again
+    and N 3 of half the length: the width changes twice, then its loop
+    state is reset in place, also for the shorter corpus (fewer chunks).
+    Each corpus's texts and delays equal a fresh decoder's."""
+    c = clips()
+    dec = new_decoder()
+    loops = []
+    for wavs in (c, c[1:], c[::-1], c, [w[:6400] for w in c]):
+        assert dec.decode_corpus(wavs) == new_decoder().decode_corpus(wavs)
+        loops.append(dec._loop)
+    assert [lp.key[0] for lp in loops] == [3, 2, 3, 3, 3]
+    assert loops[0] is not loops[2]
+    assert loops[2] is loops[3] and loops[3] is loops[4]
+
+
+def test_one_decoder_over_corpora_equals_fresh_decoders():
+    _, _, model = _models()
+    cfg = port_cfg(Wav2Vec2Config, W2V_TINY)
+    corpora_in_a_row(lambda: CachedFusedGreedyDecoder(
+        model, _vocab(Dictionary), cfg, blocks_per_step=2, **KW))

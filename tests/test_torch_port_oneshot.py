@@ -6,7 +6,8 @@ package (float32 wire here, int16 wire in test_torch_port_oneshot_int16.py).
   to atol 1e-4, with dense and flash attention, post-LN and pre-LN;
 - the port's one-shot texts and delays EQUAL the JAX one-shot decoder's;
 - the port's one-shot decode equals the port's cached (incremental) decode:
-  the prefix-exactness the slow-marked JAX ``test_oneshot_decode.py`` pins.
+  the prefix-exactness the slow-marked JAX ``test_oneshot_decode.py`` pins;
+- one decoder over corpora of changing shapes equals fresh decoders.
 
 The encoder is 32 wide with 4 heads (dh 8): at the tiny 24/4 dims the JAX
 "flash" path takes its jnp fallback (``dh % 8``), at dh 8 it runs the
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 from tests.test_caat import CAAT_TINY, W2V_TINY
-from tests.test_torch_port_greedy import _vocab, clips
+from tests.test_torch_port_greedy import _vocab, clips, corpora_in_a_row
 from tests.test_torch_port_import import jax_caat, port_caat, port_cfg
 from wav2vec_s_tpu.data.dictionary import Dictionary as JaxDictionary
 from wav2vec_s_tpu.stream.batched import OneShotCorpusDecoder as JaxOneShot
@@ -120,6 +121,13 @@ def test_oneshot_equals_cached(blocks):
     one = OneShotCorpusDecoder(model, _vocab(Dictionary), cfg, **kw)
     cached = CachedFusedGreedyDecoder(model, _vocab(Dictionary), cfg, **kw)
     assert one.decode_corpus(clips()) == cached.decode_corpus(clips())
+
+
+def test_one_decoder_over_corpora_equals_fresh_decoders():
+    w2v, _, _, model = models("flash")
+    cfg = port_cfg(Wav2Vec2Config, w2v)
+    corpora_in_a_row(lambda: OneShotCorpusDecoder(
+        model, _vocab(Dictionary), cfg, blocks_per_step=2, **KW))
 
 
 def test_oneshot_needs_t_cap_for_the_corpus():

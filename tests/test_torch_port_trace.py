@@ -12,7 +12,9 @@ and counters, on only while a ``torch.profiler`` runs.
 - The emission counters equal a hand count from a copy of the masked
   loop, over planted emissions (``caat_step.jointer_step`` scripted):
   drawn at random, every stream blocked after iteration 1, streams
-  running into ``max_len``; the session counts only the two that its
+  running into ``max_len``; on the CPU no chunk's loop is replayed from
+  a CUDA graph (``decoder.emit_iters_graphed`` 0, which the benchmark's
+  ``emit_graphed.decode`` reads); the session counts only the two that its
   metric reads.  ``serving.plane_rows_visible`` equals the
   rows of the plane visible to the occupied slots when the jointer reads
   it, and ``serving.plane_rows_read`` the plane's size, across
@@ -282,12 +284,28 @@ def test_decoder_emission_counters_equal_a_hand_count(monkeypatch, kind,
     runs = [(np.ones(N, bool), np.ones(N, np.int64) if k == 0 else None)
             for k in range(n_chunks)]
     want = _hand_count(script.toks, runs, max_len)
+    want["emit_iters_graphed"] = 0                  # eager on the CPU
     assert debug.counters() == {f"decoder.{k}": v for k, v in want.items()}
     if case == "blocked_after_1":
         assert want["emit_iters_live"] == 2 * n_chunks
         assert want["emit_iters_emitting"] == n_chunks
     if case == "max_len":
         assert want["tokens"] == N * (max_len - 1)
+
+
+@pytest.mark.parametrize("snapshot,want", [
+    ({"decoder.emit_iters": 60}, None),          # a program without it
+    ({"decoder.emit_iters_graphed": 45, "decoder.emit_iters": 60}, 75.0),
+    ({"decoder.emit_iters_graphed": 0, "decoder.emit_iters": 60}, 0.0),
+    ({"decoder.emit_iters_graphed": 0}, None),
+])
+def test_emit_graphed_reader(monkeypatch, snapshot, want):
+    """``emit_graphed.decode`` reads ``decoder.emit_iters_graphed`` over
+    ``decoder.emit_iters`` in %, and is silent where either is missing."""
+    from w2vs_bench import harness, program_counters
+
+    monkeypatch.setattr(program_counters, "snapshot", lambda: snapshot)
+    assert harness.metric_reader("emit_graphed.decode")(None) == want
 
 
 def _serve(sess, lengths=(500, 700, 500, 400, 600), stall="s1"):

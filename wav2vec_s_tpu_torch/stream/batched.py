@@ -9,13 +9,26 @@ N streams run in lockstep; per chunk of ``n_main`` new frames
   4. ``max_emit`` greedy emissions run against the slot-aligned LM cache
      and the one-query jointer.
 Nothing is read back to the host inside the chunk loop: per-chunk prefix
-lengths are stacked on the device and fetched once at the end.
+lengths are copied into a history on the device and fetched once at the
+end.
+
+A decoder keeps the emission loop's state (jointer K/V, slot LM caches,
+prefixes, lengths, the length history) for the number of streams of the
+last corpus, sized for the longest corpus ``t_cap`` holds, and resets it
+in place for each corpus of as many streams, whatever its length.  On CUDA
+the ``max_emit`` iterations of one chunk are a CUDA graph, captured once
+per cache capacity at its first use and replayed for every later chunk
+and corpus of that width: an iteration is a few hundred small kernels (a
+jointer and an LM step over every layer), which eager dispatch leaves the
+card waiting for.  A corpus of another width drops the state and its
+graphs.  On the CPU the same body runs eagerly over the same buffers.
 
 Under a profiler the spans ``w2vs/decoder.*`` (``utils/debug.span``) tile
 a corpus: ``setup``, per chunk ``encoder_step`` / ``jointer_kv`` /
 ``emit_loop`` (one-shot: ``encode`` per sub-batch and one ``jointer_kv``,
 then ``emit_loop`` per chunk), ``readback`` and ``texts``; the emission
-counters (``count_emissions``) are taken from the prefix lengths read back.
+counters (``count_emissions``) are taken from the prefix lengths read back,
+and ``decoder.emit_iters_graphed`` from the chunks replayed.
 
 ``OneShotCorpusDecoder`` is the corpus-evaluation twin: the whole utterance
 is encoded at once (blockwise, prefix-exact at block granularity) and the
@@ -25,7 +38,8 @@ delays.
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +72,51 @@ def count_emissions(layer: str, emitted: np.ndarray, max_emit: int,
         count(f"{layer}.{name}", value[name])
 
 
+@dataclasses.dataclass
+class EmitLoop:
+    """The greedy loop's device state for ``key`` = ``(N, t_cap)``, reset
+    in place for every corpus of N streams.
+
+    jk/jv: per-layer time-major [t_cap, N, D] jointer K/V; lm: the slot LM
+    state, one slot per iteration of the most chunks ``t_cap`` holds, and
+    bos; prefixes: [N, max_len + 1] ids; lens: [N] prefix lengths;
+    visible: [N] encoder frames the jointer sees in the current chunk;
+    hist: [that many chunks, N], row k the lengths after chunk k; graphs:
+    on CUDA, cache capacity -> the CUDA graph of one chunk's loop over that
+    many rows, all in the memory pool ``pool`` (None on the CPU, where the
+    loop runs eagerly)."""
+
+    key: tuple
+    jk: List[torch.Tensor]
+    jv: List[torch.Tensor]
+    lm: caat_step.SlotLMState
+    prefixes: torch.Tensor
+    lens: torch.Tensor
+    visible: torch.Tensor
+    hist: torch.Tensor
+    graphs: Dict[int, "torch.cuda.CUDAGraph"]
+    pool: Optional[tuple]
+
+
+def capture(body: Callable[[], None], pool) -> "torch.cuda.CUDAGraph":
+    """Run ``body`` once eagerly, on a side stream (lazy set-up such as
+    cuBLAS handles stays out of the graph), then capture it into a CUDA
+    graph in the memory pool ``pool``.  Capture runs nothing, so the
+    eager run's result stands.  ``thread_local`` capture leaves other
+    threads free to use the card meanwhile (a corpus staged on a helper
+    thread copies to the card)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool,
+                          capture_error_mode="thread_local"):
+        body()
+    return graph
+
+
 class CachedFusedGreedyDecoder:
     """Cached greedy streaming decoder.
 
@@ -85,6 +144,7 @@ class CachedFusedGreedyDecoder:
         self.t_cap = t_cap
         self.blocks_per_step = blocks_per_step
         self._enc_cache = {}         # n_streams -> encoder
+        self._loop: Optional[EmitLoop] = None
 
     def _encoder(self, n: int) -> IncrementalBlockwiseEncoder:
         enc = self._enc_cache.get(n)
@@ -113,36 +173,105 @@ class CachedFusedGreedyDecoder:
                 audio[i, :len(w)] = w
         return N, max_samples, torch.from_numpy(audio).to(self.device)
 
-    def _make_greedy(self):
-        """Greedy emission loop over cached jointer K/V + slot LM state.
+    def _emit_loop(self, N: int, dtype) -> EmitLoop:
+        """The loop state for N streams, reset (prefixes to bos, lengths to
+        1, the LM to its bos step; the caller fills the jointer K/V): the
+        last corpus's if it had N streams, else new, the old state and its
+        graphs dropped first.  It is sized for the most chunks ``t_cap``
+        holds (the last commits ``n_chunks * n_main + rc`` frames), so a
+        corpus of another length keeps the state and its graphs."""
+        key = (N, self.t_cap)
+        loop = self._loop
+        if loop is None or loop.key != key:
+            self._loop = loop = None     # free the old state and graphs first
+            model, dev = self.model, self.device
+            caat = model.cfg
+            chunks = max((self.t_cap - self.rc) // self._encoder(N).n_main, 1)
+            # LM cache slots: bos + one per greedy iteration of the chunk
+            # loop
+            n_slots = -(-(chunks * self.max_emit + 1) // 8) * 8
+            jk = [torch.empty((self.t_cap, N, caat.jointer_embed_dim),
+                              dtype=dtype, device=dev)
+                  for _ in range(caat.jointer_layers)]
+            loop = self._loop = EmitLoop(
+                key=key, jk=jk, jv=[torch.empty_like(k) for k in jk],
+                lm=caat_step.lm_slot_init(model, caat, N, n_slots),
+                prefixes=torch.empty((N, self.max_len + 1), dtype=torch.long,
+                                     device=dev),
+                lens=torch.empty(N, dtype=torch.long, device=dev),
+                visible=torch.empty(N, dtype=torch.long, device=dev),
+                hist=torch.empty((chunks, N), dtype=torch.long, device=dev),
+                graphs={},
+                pool=(torch.cuda.graph_pool_handle() if dev.type == "cuda"
+                      else None))
+        else:
+            caat_step.lm_slot_reset(self.model, self.model.cfg, loop.lm)
+        loop.prefixes.fill_(self.vocab.pad())
+        loop.prefixes[:, 0] = self.vocab.bos()
+        loop.lens.fill_(1)
+        return loop
+
+    def _greedy(self, loop: EmitLoop, cap: int) -> None:
+        """One chunk's greedy emissions over the first ``cap`` rows of the
+        cached jointer K/V and the slot LM state, in place in ``loop``.
 
         The JAX decoder runs a ``while_loop`` that exits once every stream
         has emitted blank; in eager torch that test is a host sync per
         emission.  This runs the fixed ``max_emit`` iterations with masked
         updates instead — blocked streams never write, so the emissions are
         the same (the JAX package documents and tests this equivalence for
-        its "unroll" loop)."""
+        its "unroll" loop).  The jointer is called through the module
+        attribute ``caat_step.jointer_step``, also while a graph is
+        captured."""
         model, caat = self.model, self.model.cfg
         blank, pad = self.vocab.bos(), self.vocab.pad()
-        max_emit, max_len = self.max_emit, self.max_len
+        prefixes, lens, lm = loop.prefixes, loop.lens, loop.lm
+        jk = [x[:cap] for x in loop.jk]
+        jv = [x[:cap] for x in loop.jv]
+        rows = torch.arange(prefixes.shape[0], device=prefixes.device)
+        blocked = torch.zeros_like(lens, dtype=torch.bool)
+        for _ in range(self.max_emit):
+            lp = caat_step.jointer_step(model, caat, lm.h_last, jk, jv,
+                                        loop.visible)
+            lp[:, pad] = -float("inf")
+            tok = torch.argmax(lp, dim=-1)       # first maximum, as jnp
+            emit = ~blocked & (tok != blank) & (lens < self.max_len)
+            prefixes[rows, lens] = torch.where(emit, tok,
+                                               prefixes[rows, lens])
+            caat_step.lm_slot_step(model, caat, lm, tok, lens, emit)
+            lens.add_(emit)
+            blocked = blocked | ~emit
 
-        def greedy(prefixes, lens, lm, jk, jv, visible):
-            rows = torch.arange(prefixes.shape[0], device=prefixes.device)
-            blocked = torch.zeros_like(lens, dtype=torch.bool)
-            for _ in range(max_emit):
-                lp = caat_step.jointer_step(model, caat, lm.h_last, jk, jv,
-                                            visible)
-                lp[:, pad] = -float("inf")
-                tok = torch.argmax(lp, dim=-1)   # first maximum, as jnp
-                emit = ~blocked & (tok != blank) & (lens < max_len)
-                prefixes[rows, lens] = torch.where(emit, tok,
-                                                   prefixes[rows, lens])
-                lm = caat_step.lm_slot_step(model, caat, lm, tok, lens, emit)
-                lens = lens + emit
-                blocked = blocked | ~emit
-            return prefixes, lens, lm
+    def _emit_chunk(self, loop: EmitLoop, k: int, cap: int,
+                    visible: int) -> None:
+        """Chunk ``k``'s emissions with ``visible`` encoder frames revealed
+        and the jointer K/V read up to row ``cap``; its lengths go to row
+        ``k`` of the history.  On CUDA the loop replays the graph of
+        ``cap``, or runs it eagerly and captures that graph at its first
+        use; while tracing, the counter ``decoder.emit_iters_graphed``
+        counts the ``max_emit`` iterations of each chunk replayed."""
+        loop.visible.fill_(visible)
+        graph = loop.graphs.get(cap)
+        if graph is not None:
+            graph.replay()
+        elif loop.pool is None:
+            self._greedy(loop, cap)
+        else:
+            loop.graphs[cap] = capture(lambda: self._greedy(loop, cap),
+                                       loop.pool)
+        count("decoder.emit_iters_graphed",
+              0 if graph is None else self.max_emit)
+        loop.hist[k].copy_(loop.lens)
 
-        return greedy
+    def _finish(self, loop: EmitLoop, n_chunks: int, stride: int, W: int):
+        """Read the prefixes and the length history back; texts and
+        delays."""
+        with span("decoder.readback"):
+            lens_hist = loop.hist[:n_chunks].cpu()
+            prefixes = loop.prefixes.cpu()
+        with span("decoder.texts"):
+            return self._texts_and_delays(prefixes, lens_hist, n_chunks,
+                                          stride, W, prefixes.shape[0])
 
     def _texts_and_delays(self, prefixes, lens_hist, n_chunks, stride, W, N):
         """Per-chunk delay bookkeeping + surface assembly (host); while
@@ -185,25 +314,15 @@ class CachedFusedGreedyDecoder:
             total_frames = (max_samples - enc.rf) // hop + 1
             n_chunks = max((total_frames - rc) // n_main, 1)
             stride = n_main * hop
-            # LM cache slots: bos + one per greedy iteration of the chunk
-            # loop
-            n_slots = -(-(n_chunks * self.max_emit + 1) // 8) * 8
 
-            model, vocab = self.model, self.vocab
+            model = self.model
             caat = model.cfg
-            t_cap, dev = self.t_cap, self.device
+            t_cap = self.t_cap
             estate = enc.init()
-            cdtype = estate.out_cache.dtype
-            jk = [torch.zeros((t_cap, N, caat.jointer_embed_dim),
-                              dtype=cdtype, device=dev)
-                  for _ in range(caat.jointer_layers)]
-            jv = [torch.zeros_like(k) for k in jk]
-            prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
-                                  dtype=torch.long, device=dev)
-            prefixes[:, 0] = vocab.bos()
-            lens = torch.ones(N, dtype=torch.long, device=dev)
-            lm = caat_step.lm_slot_init(model, caat, N, n_slots)
-            greedy = self._make_greedy()
+            loop = self._emit_loop(N, estate.out_cache.dtype)
+            jk, jv = loop.jk, loop.jv
+            for x in jk + jv:
+                x.zero_()
 
         # cache capacity per chunk, in steps of seg rows: early chunks
         # attend only a prefix of the encoder/jointer K/V buffers (a free
@@ -213,7 +332,6 @@ class CachedFusedGreedyDecoder:
         def cap_of(v):
             return min(-(-v // seg) * seg, t_cap)
 
-        hist = []
         for k in range(n_chunks):
             flush = k == n_chunks - 1
             n_new = n_main + rc if flush else n_main
@@ -228,17 +346,8 @@ class CachedFusedGreedyDecoder:
                     model, caat, estate.out_cache[t0:t0 + n_new])
                 caat_step.jointer_kv_append(jk, jv, k_new, v_new, t0)
             with span("decoder.emit_loop"):
-                visible = torch.full((N,), estate.t_main, device=dev)
-                prefixes, lens, lm = greedy(prefixes, lens, lm,
-                                            [x[:cap] for x in jk],
-                                            [x[:cap] for x in jv], visible)
-            hist.append(lens)
-        with span("decoder.readback"):
-            lens_hist = torch.stack(hist).cpu()
-            prefixes = prefixes.cpu()
-        with span("decoder.texts"):
-            return self._texts_and_delays(prefixes, lens_hist, n_chunks,
-                                          stride, W, N)
+                self._emit_chunk(loop, k, cap, estate.t_main)
+        return self._finish(loop, n_chunks, stride, W)
 
 
 class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
@@ -279,15 +388,13 @@ class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
         # frames, which decides which rc copies are valid
         t_frames = n_chunks * n_main + rc
         n_samples = (t_frames - 1) * hop + enc.rf
-        n_slots = -(-(n_chunks * self.max_emit + 1) // 8) * 8
         t_cap = self.t_cap
         if t_cap < t_frames:
             raise ValueError(f"t_cap={t_cap} does not hold the "
                              f"{t_frames} frames of this corpus")
 
-        model, vocab = self.model, self.vocab
+        model = self.model
         caat = model.cfg
-        dev = self.device
         eb = min(self.encode_batch, N)
         while N % eb:
             eb -= 1
@@ -303,34 +410,23 @@ class OneShotCorpusDecoder(CachedFusedGreedyDecoder):
                 if enc_tm is None:
                     enc_tm = e.new_zeros((t_cap, N, e.shape[-1]))
                 enc_tm[:t_frames, i:i + eb] = e.transpose(0, 1)
-        with span("decoder.jointer_kv"):
-            jk, jv = caat_step.jointer_kv(model, caat, enc_tm)
-
         with span("decoder.setup"):
-            prefixes = torch.full((N, self.max_len + 1), vocab.pad(),
-                                  dtype=torch.long, device=dev)
-            prefixes[:, 0] = vocab.bos()
-            lens = torch.ones(N, dtype=torch.long, device=dev)
-            lm = caat_step.lm_slot_init(model, caat, N, n_slots)
-            greedy = self._make_greedy()
-
+            loop = self._emit_loop(N, enc_tm.dtype)
         # chunk k reveals (k+1)*n_main frames, the last also the flushed
         # look-ahead; the jointer reads a prefix view of its K/V in steps
-        # of seg rows
+        # of seg rows.  The K/V are projected into the loop's buffers seg
+        # rows at a time, so that one slice's projection is all it holds
+        # besides
         seg = 128
-        hist = []
+        with span("decoder.jointer_kv"):
+            for t0 in range(0, t_cap, seg):
+                caat_step.jointer_kv_append(
+                    loop.jk, loop.jv,
+                    *caat_step.jointer_kv(model, caat, enc_tm[t0:t0 + seg]),
+                    t0)
         for k in range(n_chunks):
             vis = (k + 1) * n_main + (rc if k == n_chunks - 1 else 0)
             cap = min(-(-vis // seg) * seg, t_cap)
             with span("decoder.emit_loop"):
-                visible = torch.full((N,), vis, device=dev)
-                prefixes, lens, lm = greedy(prefixes, lens, lm,
-                                            [x[:cap] for x in jk],
-                                            [x[:cap] for x in jv], visible)
-            hist.append(lens)
-        with span("decoder.readback"):
-            lens_hist = torch.stack(hist).cpu()
-            prefixes = prefixes.cpu()
-        with span("decoder.texts"):
-            return self._texts_and_delays(prefixes, lens_hist, n_chunks,
-                                          stride, W, N)
+                self._emit_chunk(loop, k, cap, vis)
+        return self._finish(loop, n_chunks, stride, W)

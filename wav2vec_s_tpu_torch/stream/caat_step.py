@@ -80,14 +80,16 @@ class SlotLMState:
     the same for every stream; a per-stream validity plane selects each
     stream's prefix keys (attention is a set operation).
 
-    k/v: per-layer [S, N, D]; valid: [S, N] bool; ptr: host int, next
-    write slot; h_last: [N, D] jointer query (LM output at the last prefix
-    position, after the final norm when pre-LN)."""
+    k/v: per-layer [S, N, D]; valid: [S, N] bool; ptr: 0-d int64 tensor
+    on the state's device, the next write slot (no step reads it on the
+    host, so a CUDA graph of the steps can be replayed); h_last: [N, D]
+    jointer query (LM output at the last prefix position, after the final
+    norm when pre-LN)."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
     valid: torch.Tensor
-    ptr: int
+    ptr: torch.Tensor
     h_last: torch.Tensor
 
 
@@ -115,54 +117,65 @@ def lm_slot_step(model, cfg, state: SlotLMState, tokens: torch.Tensor,
     prefix length — it drives the positional embedding); advance: [N] bool.
     The new K/V rows land at slot ``state.ptr`` and are marked valid only
     where ``advance``; streams that do not advance keep their ``h_last``.
-    Updates ``state`` in place and returns it."""
+    Updates every tensor of ``state`` in place (the pointer included) and
+    returns it."""
     c = cfg
     lm = model.decoder.lm
     dtype = c.compute_dtype
     x = _embed_at(model, c, tokens, index)                       # [N, D]
 
-    ptr = state.ptr
+    slot = state.ptr.view(1)
     # the new row is visible to its own query regardless of ``advance``;
     # the validity plane keeps it only where the stream advances
-    state.valid[ptr] = True
+    state.valid.index_fill_(0, slot, True)
     for i, layer in enumerate(lm.layers):
         att = layer.self_attn
         h_in = (_ln(layer.self_attn_layer_norm, x)
                 if c.decoder_normalize_before else x)
         q, k1, v1 = _dense_qkv(att, h_in)
-        state.k[i][ptr] = k1
-        state.v[i][ptr] = v1
+        state.k[i].index_copy_(0, slot, k1[None])
+        state.v[i].index_copy_(0, slot, v1[None])
         o = _attend_slots(q, state.k[i].to(dtype), state.v[i].to(dtype),
                           state.valid, c.decoder_attention_heads)
         h = dense(att.out_proj, o)
         x = layer_tail(layer, x, h, c.decoder_normalize_before, F.relu)
 
     x = _final_norm(model, c, x)
-    state.valid[ptr] = advance
-    state.h_last = torch.where(advance[:, None], x, state.h_last)
-    state.ptr = ptr + 1
+    state.valid.index_copy_(0, slot, advance[None])
+    state.h_last.copy_(torch.where(advance[:, None], x, state.h_last))
+    state.ptr.add_(1)
     return state
 
 
 def lm_slot_init(model, cfg, n_streams: int, n_slots: int) -> SlotLMState:
-    """Empty slot caches + one step on bos (slot 0 = bos, valid for all)."""
+    """Slot caches of ``n_slots`` x ``n_streams``, reset
+    (``lm_slot_reset``)."""
     c = cfg
     dtype = c.compute_dtype
     device = model.decoder.lm.embed_tokens.weight.device
 
-    def z():
-        return torch.zeros((n_slots, n_streams, c.decoder_embed_dim),
+    def e():
+        return torch.empty((n_slots, n_streams, c.decoder_embed_dim),
                            dtype=dtype, device=device)
 
     state = SlotLMState(
-        k=[z() for _ in range(c.decoder_layers)],
-        v=[z() for _ in range(c.decoder_layers)],
-        valid=torch.zeros((n_slots, n_streams), dtype=torch.bool,
+        k=[e() for _ in range(c.decoder_layers)],
+        v=[e() for _ in range(c.decoder_layers)],
+        valid=torch.empty((n_slots, n_streams), dtype=torch.bool,
                           device=device),
-        ptr=0,
-        h_last=torch.zeros((n_streams, c.decoder_embed_dim), dtype=dtype,
+        ptr=torch.empty((), dtype=torch.long, device=device),
+        h_last=torch.empty((n_streams, c.decoder_embed_dim), dtype=dtype,
                            device=device))
-    toks = torch.full((n_streams,), c.bos, dtype=torch.long, device=device)
+    return lm_slot_reset(model, cfg, state)
+
+
+def lm_slot_reset(model, cfg, state: SlotLMState) -> SlotLMState:
+    """Empty ``state``'s caches in place + one step on bos (slot 0 = bos,
+    valid for all); returns it."""
+    for t in state.k + state.v + [state.valid, state.ptr, state.h_last]:
+        t.zero_()
+    n_streams, device = state.h_last.shape[0], state.h_last.device
+    toks = torch.full((n_streams,), cfg.bos, dtype=torch.long, device=device)
     return lm_slot_step(model, cfg, state, toks,
                         torch.zeros(n_streams, dtype=torch.long,
                                     device=device),
