@@ -3,7 +3,8 @@
 - ``IncrementalBlockwiseEncoder.make_serving_step`` equals the JAX serving
   step over two steps from a cache already holding rows, with a mixed
   visibility plane and nonzero per-slot frame counts (caches and outputs
-  to 1e-5, float32);
+  to 1e-5, float32), for the post-LN encoder and for the pre-LN one with
+  conv bias (the Large layout);
 - ``caat_step.jointer_step`` with a ``[N, T_cap]`` visibility plane equals
   the JAX one (1e-5), and equals its own ``[N]``-count path bit for bit
   where the plane is the count's prefix;
@@ -21,6 +22,7 @@ at points that depend on the audio they see.  The tiny conv stack hops 20
 samples: 900 / 700 / 500 samples are 10 / 8 / 5 chunks of (mc 4, rc 2).
 """
 
+import dataclasses
 import functools
 
 import jax.numpy as jnp
@@ -88,22 +90,30 @@ def test_oracle_streams_differ():
 
 # -- the step functions ------------------------------------------------------
 
-def _serving_encoders(blocks, N, t_cap):
-    jax_model, params, model = models()
+def _serving_encoders(blocks, N, t_cap, w2v):
+    _, params = jax_caat(w2v)
+    model = port_caat(params, w2v)
     ref = jax_incremental.IncrementalBlockwiseEncoder(
-        W2V_TINY, params["encoder"], N, t_cap=t_cap, blocks_per_step=blocks)
-    port = IncrementalBlockwiseEncoder(W2V, model.encoder.w2v2_model, N,
-                                       t_cap=t_cap, blocks_per_step=blocks)
+        w2v, params["encoder"], N, t_cap=t_cap, blocks_per_step=blocks)
+    port = IncrementalBlockwiseEncoder(
+        port_cfg(Wav2Vec2Config, w2v), model.encoder.w2v2_model, N,
+        t_cap=t_cap, blocks_per_step=blocks)
     return params, ref, port
 
 
-@pytest.mark.parametrize("blocks", [1, 2])
-def test_serving_step_matches_jax(blocks):
+@pytest.mark.parametrize("blocks,pre_ln", [(1, False), (2, False),
+                                           (2, True)],
+                         ids=["1", "2", "2-layer_norm_first"])
+def test_serving_step_matches_jax(blocks, pre_ln):
+    """``pre_ln``: the Large layout's encoder (a norm before attention and
+    before the FFN, the post-stack norm, conv bias)."""
     N, t_cap, t_main = 3, 64, 20
-    params, ref, port = _serving_encoders(blocks, N, t_cap)
+    w2v = (dataclasses.replace(W2V_TINY, layer_norm_first=True,
+                               conv_bias=True) if pre_ln else W2V_TINY)
+    params, ref, port = _serving_encoders(blocks, N, t_cap, w2v)
     rng = np.random.default_rng(blocks)
-    D = W2V_TINY.encoder_embed_dim
-    L = W2V_TINY.encoder_layers
+    D = w2v.encoder_embed_dim
+    L = w2v.encoder_layers
 
     def cache():
         c = np.zeros((t_cap, N, D), np.float32)
