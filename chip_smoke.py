@@ -18,6 +18,26 @@ Phases, each printed on its own line:
                8: device time under a CUDA graph, the eager time and the
                wrapper's host time beside it; then the kernel alone at one
                stream, at R 240 and at t0 0 and 448;
+  2b. decode attention — the emission loop's one-query attention (K7)
+               against its plain version, bfloat16, at the main-path shapes:
+               the serving jointer [1024, 256, 768] and [1024, 256, 1024]
+               under a serving-like plane and slot extents, the decoders'
+               jointer [512, 128, 768] at visible 40, 256 and 512, the LM
+               [257, 256, 768 | 1024] to index + 1, the slot LM
+               [64, 128, 768] under its validity plane; heads of 6 in float32
+               and bfloat16 (the fallback loads); then the jointer's f32
+               log-probs through K7 against the plain version's at Base and
+               Large (serving) and Base (decoder): within twice the plain
+               bf16 version's own distance from a float32 run of the same
+               inputs, tokens equal wherever the top two differ by more
+               than that; that a replayed chunk of both decoders runs
+               (jointer + LM layers) x max_emit K7 kernels (torch.profiler)
+               and their eager loop and every serving step launch as many;
+               each shape timed under a CUDA graph beside its byte bound
+               (the visible rows' K and V, the plane's bytes of the range),
+               the plain version and scaled_dot_product_attention under the
+               boolean mask of the visible rows, with the wrapper's host
+               time a call;
   3. flash   — the block-sparse flash-attention kernel (K2) against its
                plain twin at the one-shot encoder's full-width call (32
                streams, T 488, mc 16, rc 8 -> S 728, 12 heads of 64, float32
@@ -127,12 +147,14 @@ Phases, each printed on its own line:
                agent on 128 streams of 10 s per corpus, one warm-up corpus,
                then CORPORA timed ones; K1's launch count must equal
                layers x chunks x corpora, all of them on the tensor-core
-               kernel;
+               kernel; K7's, read from one more corpus under torch.profiler
+               (the loop replays CUDA graphs), (jointer + LM layers) x
+               max_emit x chunks a corpus;
   10. one-shot full — the same model with attention_impl="flash", the
                one-shot corpus decoder on 256 streams of 10 s, encode batch
                32: one warm-up corpus, then CORPORA timed ones; K2's launch
                count must equal layers x sub-batches x corpora, all of them
-               on the tensor-core kernel;
+               on the tensor-core kernel; K7's as in phase 9;
   10b. beam full — the beam quality path at the same width: bfloat16,
                64 streams of 10 s, beam 5, inter_beam 1, max_steps 8, max_len
                64, eager emission, DECISION_STEP=2, int16 wire, corpus k+1
@@ -189,7 +211,10 @@ Phases, each printed on its own line:
                finishes, delays rise and stay within the stream plus one
                window, compaction runs; steps, compactions, the share of
                streams equal to the cached decoder's, wall per step p50/p99,
-               audio-sec/s, device kernels of one step, peak memory.
+               audio-sec/s, device kernels of one step, peak memory; K7's
+               launches must equal steps x max_emit x (jointer + LM layers)
+               + the LM layers of each step that resets a slot, and in the
+               profiled step the wrapper's count equals the card's.
   15. pretrain full — wav2vec-S streaming pre-training through the
                training entry point with configs/pretrain_base.yaml and
                dot-overrides (Base width, bf16, sampled contexts, the
@@ -397,6 +422,7 @@ SECONDS = 10.0
 
 def _counters():
     from wav2vec_s_tpu_torch.ops.chunk_attention import chunk_cache_attention
+    from wav2vec_s_tpu_torch.ops.decode_attention import decode_attention
     from wav2vec_s_tpu_torch.ops.dropout import hw_dropout
     from wav2vec_s_tpu_torch.ops.flash_attention import (
         blockwise_flash_attention_bwd, blockwise_flash_attention_packed)
@@ -411,7 +437,10 @@ def _counters():
             "transducer_reverse_walk": kernels.betas_and_expected_delay_bwd,
             "transducer_alphas": kernels.alphas,
             "transducer_betas": kernels.betas,
-            "transducer_affine_rows": kernels.affine_rows}
+            "transducer_affine_rows": kernels.affine_rows,
+            # eager launches only: a CUDA graph's replays pass no wrapper
+            # (the decoders' emission loops: _k7_per_corpus)
+            "decode_attention": decode_attention}
 
 
 def _set_wrappers():
@@ -693,6 +722,244 @@ def phase_kernel():
               f"{ms:.4f} ms (tensor_core, device time under a CUDA graph), "
               f"byte bound {n_bytes / PEAK_BYTES_PER_S * 1e3:.5f} ms")
         del q, kc, vc, kn, vn
+    return row
+
+
+K7_TOL = 2e-2        # bf16 outputs of O(1): a few of their last places
+
+
+def _serving_extents(N, T, rows_per_step, main, seed):
+    """(lo, plane) of a full serving step at t_main = T: slot i holds a
+    stream of 3-16 steps (2-10 s at ds2's 0.64 s) that joined ``age_i``
+    steps ago, anywhere in its life; each of its steps showed the step's
+    main rows unless the stream stalled then (1 step in 4 for a quarter of
+    the slots), its latest step the look-ahead rows too (the flush)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    length = torch.randint(3, 17, (N,), generator=g)
+    age = (torch.rand(N, generator=g) * length).long() + 1
+    lo = T - age * rows_per_step
+    t = torch.arange(T)
+    step_of = (T - 1 - t) // rows_per_step          # 0: the latest step
+    in_step = (t - (T % rows_per_step)) % rows_per_step
+    stalls = torch.rand((N, T // rows_per_step + 1), generator=g) < 0.25
+    stalls &= (torch.arange(N) % 4 == 0)[:, None]
+    stalls[:, 0] = False
+    plane = ((t[None] >= lo[:, None])
+             & ((in_step[None] < main) | (step_of[None] == 0))
+             & ~stalls[:, step_of])
+    return lo, plane
+
+
+def phase_decode_attention():
+    """K7 against its plain version at the emission loop's main-path shapes,
+    bf16; the jointer's log-probs through it against the plain version's at
+    Base and Large; that the three paths' loops launch it once per layer and
+    iteration, captured in the decoders' graphs; each shape timed under a
+    CUDA graph beside its bound, the plain version and the library call ->
+    the kernel's row."""
+    import torch
+    import torch.nn.functional as F
+    from wav2vec_s_tpu_torch.ops import decode_attention as k7
+    from wav2vec_s_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_ref)
+    from wav2vec_s_tpu_torch.stream import caat_step
+    from wav2vec_s_tpu_torch.tools.timing import graph_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf16)
+
+    # (name, T, N, D, heads, lo, hi, plane); the serving steps' rows: 32 main
+    # + 8 look-ahead a step (ds2)
+    cases = []
+    for D, H in ((768, 12), (1024, 16)):
+        lo, plane = _serving_extents(256, 1024, 40, 32, D)
+        cases.append((f"serving jointer D={D}", 1024, 256, D, H,
+                      lo.to(dev), torch.tensor(1024, device=dev),
+                      plane.to(dev)))
+    for visible in (40, 256, 512):
+        cases.append((f"decoder jointer visible={visible}", 512, 128, 768,
+                      12, None, torch.full((128,), visible, device=dev),
+                      None))
+    for D, H in ((768, 12), (1024, 16)):
+        idx = torch.randint(0, 60, (256,), generator=g, device=dev)
+        cases.append((f"LM D={D}", 257, 256, D, H, None, idx + 1, None))
+    valid = torch.rand((64, 128), generator=g, device=dev) < 0.3
+    valid[0] = True
+    valid[41:] = False
+    cases.append(("slot LM", 64, 128, 768, 12, None,
+                  torch.tensor(41, device=dev), valid.T))
+    # heads of 6 (the tiny models): loads one element at a time
+    small = [("tiny heads of 6, float32", 24, 4, 24, 4, torch.float32),
+             ("tiny heads of 6, bfloat16", 24, 4, 24, 4, bf16)]
+
+    row, worst = None, 0.0
+    for name, T, N, D, H, lo, hi, plane in cases:
+        q, k, v = rand(N, D), rand(T, N, D), rand(T, N, D)
+        k7.decode_attention.launches = 0
+        got = decode_attention(q, k, v, H, lo=lo, hi=hi, plane=plane)
+        torch.cuda.synchronize()
+        assert k7.decode_attention.launches == 1
+        want = decode_attention_ref(q, k, v, H, lo=lo, hi=hi, plane=plane)
+        err = (got.float() - want.float()).abs().max().item()
+        assert torch.isfinite(got).all(), name
+        assert err <= K7_TOL, (name, err)
+        worst = max(worst, err)
+
+        def run(fn):
+            return lambda: fn(q, k, v, H, lo=lo, hi=hi, plane=plane)
+
+        ms = graph_ms(run(decode_attention), 1)
+        plain_ms = graph_ms(run(decode_attention_ref), 1)
+        # the host time per call, 24 calls back to back (a Large serving
+        # iteration's 12 jointer + 12 LM layers): the wrapper's, and the
+        # plain version's, which the emission loop dispatched before K7
+        host_ms, plain_host_ms = (
+            _host_ms(lambda fn=fn: [run(fn)() for _ in range(24)], 24)
+            for fn in (decode_attention, decode_attention_ref))
+        t = torch.arange(T, device=dev)[None]
+        in_range = (t < hi.reshape(-1, 1)) & (
+            t >= (0 if lo is None else lo.reshape(-1, 1)))
+        in_range = in_range.expand(N, T)
+        seen = in_range if plane is None else in_range & plane
+        rows, visible = int(in_range.sum()), int(seen.sum())
+        # the library call: scaled_dot_product_attention over per-head
+        # views of the time-major cache under the boolean mask of the rows
+        # each stream sees; the mask built outside the timed region
+        qh = q.view(N, 1, H, D // H).transpose(1, 2)        # [N, H, 1, Dh]
+        kh, vh = (x.view(T, N, H, D // H).permute(1, 2, 0, 3)
+                  for x in (k, v))                          # [N, H, T, Dh]
+        mask = seen[:, None, None, :]
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask), 1)
+        # the visible rows' K and V read once, a plane byte for each row of
+        # the range, q read and out written once (bf16); two f32 products
+        # over the visible rows, on the CUDA cores
+        bound = _bound(4 * visible * D + (0 if plane is None else rows)
+                       + 4 * N * D, 4 * visible * D, "float32")
+        print(f"phase decode attention: {name} [T={T}, N={N}, D={D}] "
+              f"{H} heads, rows in range {rows} of {T * N} "
+              f"({100.0 * rows / (T * N):.2f}%), visible {visible} "
+              f"({100.0 * visible / (T * N):.2f}%): max_abs_err {err:.3g} "
+              f"(tol {K7_TOL:g}); kernel {ms:.4f} ms (device time under a "
+              f"CUDA graph; host time a call: the wrapper's {host_ms:.4f} "
+              f"ms, the plain version's {plain_host_ms:.4f} ms), bound "
+              f"{bound[0]:.5f} ms by {bound[1]} "
+              f"({100.0 * bound[0] / ms:.1f}% of it), plain version "
+              f"{plain_ms:.4f} ms, library (scaled_dot_product_attention, "
+              f"boolean mask, under a CUDA graph) {library_ms:.4f} ms")
+        if row is None:
+            row = _row(worst, ms, plain_ms, bound, library_ms)
+            row["host_ms"], row["plain_host_ms"] = host_ms, plain_host_ms
+        del q, k, v, got, want, qh, kh, vh
+    row["max_abs_err"] = worst
+    for name, T, N, D, H, dtype in small:
+        q = torch.randn((N, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((T, N, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((T, N, D), generator=g, device=dev).to(dtype)
+        hi = torch.tensor([0, 1, 7, 24], device=dev)
+        plane = torch.rand((N, T), generator=g, device=dev) < 0.7
+        got = decode_attention(q, k, v, H, hi=hi, plane=plane)
+        want = decode_attention_ref(q, k, v, H, hi=hi, plane=plane)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 1e-5 if dtype == torch.float32 else K7_TOL
+        assert err <= tol and (got[0] == 0).all(), (name, err)
+        print(f"phase decode attention: {name}: max_abs_err {err:.3g} "
+              f"(tol {tol:g}), a stream with no row: zeros")
+
+    # the jointer's log-probs through K7 against the plain version's, at
+    # Base and Large widths, at the serving step's shape and the decoders'
+    w2v, caat, model = _base_model(dev)
+    large, _, caat_l = _large_caat(dev)
+    for label, m, c, T, N, lo, hi, plane in (
+            ("Base serving", model, caat, 1024, 256, cases[0][5],
+             cases[0][6], cases[0][7]),
+            ("Large serving", large, caat_l, 1024, 256, cases[1][5],
+             cases[1][6], cases[1][7]),
+            ("Base decoder", model, caat, 512, 128, None,
+             torch.full((128,), 300, device=dev), None)):
+        D = c.jointer_embed_dim
+        h = rand(N, c.decoder_embed_dim)
+        jk = [rand(T, N, D) for _ in range(c.jointer_layers)]
+        jv = [rand(T, N, D) for _ in range(c.jointer_layers)]
+        vis = hi if plane is None else caat_step.SlotPlane(plane, lo, hi)
+        k7.decode_attention.launches = 0
+        lp = caat_step.jointer_step(m, c, h, jk, jv, vis)
+        assert k7.decode_attention.launches == c.jointer_layers
+        caat_step.decode_attention = decode_attention_ref
+        try:
+            lp_ref = caat_step.jointer_step(m, c, h, jk, jv, vis)
+            # the same inputs in float32 (the weights are float32, cast per
+            # call to the input's dtype): what bfloat16 itself costs here
+            lp_f32 = caat_step.jointer_step(
+                m, c, h.float(), [x.float() for x in jk],
+                [x.float() for x in jv], vis)
+        finally:
+            caat_step.decode_attention = decode_attention
+        # each bf16 version lies up to bf16's own distance from float32, so
+        # two as good as each other lie within twice it
+        err = (lp - lp_ref).abs().max().item()
+        own = (lp_ref - lp_f32).abs().max().item()
+        tol = 2 * own
+        top2 = lp_ref.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        same = (lp.argmax(-1) == lp_ref.argmax(-1))[clear]
+        assert err <= tol and same.all(), (label, err, tol)
+        print(f"phase decode attention: {label} jointer log-probs: max_abs "
+              f"{err:.3g} from the plain version, within {tol:.3g} (twice "
+              f"the plain bf16 version's distance from float32, {own:.3g}; "
+              f"K7's own: {(lp - lp_f32).abs().max().item():.3g}); tokens "
+              f"equal on the {int(clear.sum())} of {N} streams whose top "
+              f"two differ by more than the tolerance")
+        del jk, jv
+    del large
+
+    # the three paths' emission loops go through K7: (jointer + LM layers)
+    # launches an iteration
+    from wav2vec_s_tpu_torch.stream.batched import (
+        CachedFusedGreedyDecoder, OneShotCorpusDecoder)
+    from wav2vec_s_tpu_torch.stream.serving import ServingSession
+
+    per_iter = caat.jointer_layers + caat.decoder_layers
+    vocab = _vocab(caat.vocab_size)
+    wavs = _clips([32000] * 4, seed=3)      # 2 s each
+    for cls in (CachedFusedGreedyDecoder, OneShotCorpusDecoder):
+        dec = cls(model, vocab, w2v, max_len=256, max_emit_per_chunk=4,
+                  t_cap=512, blocks_per_step=2)
+        dec.decode_corpus(wavs)               # captures the graphs
+        loop = dec._loop
+        cap, graph = next(iter(loop.graphs.items()))
+        kernels = _device_kernels(graph.replay)
+        n = sum(c for k, c in kernels.items() if "decode_attention" in k)
+        assert n == dec.max_emit * per_iter, (cls.__name__, n, kernels)
+        k7.decode_attention.launches = 0
+        dec._greedy(loop, cap)                # the same loop, eager
+        assert k7.decode_attention.launches == dec.max_emit * per_iter
+        print(f"phase decode attention: {cls.__name__}: a replayed chunk "
+              f"runs {n} K7 kernels = {dec.max_emit} iterations x "
+              f"({caat.jointer_layers} jointer + {caat.decoder_layers} LM "
+              f"layers)")
+    sess = ServingSession(model, vocab, w2v, n_slots=4, t_cap=1024,
+                          blocks_per_step=2)
+    for i, wav in enumerate(wavs):
+        assert sess.add_stream(f"s{i}")
+        sess.push(f"s{i}", wav, is_end=True)
+    steps = []
+    while sess._by_id:
+        k7.decode_attention.launches = 0
+        sess.step()
+        steps.append(k7.decode_attention.launches)
+    # the first step resets the slots: one more LM step
+    assert steps[0] == sess.max_emit * per_iter + caat.decoder_layers
+    assert set(steps[1:]) == {sess.max_emit * per_iter}, steps
+    print(f"phase decode attention: ServingSession: {steps[1]} K7 "
+          f"launches a step = {sess.max_emit} iterations x {per_iter} "
+          f"layers (+{caat.decoder_layers} in the step that resets)")
     return row
 
 
@@ -1951,6 +2218,27 @@ def _timed_corpora(dec, wavs, corpora=CORPORA):
     return times, texts, delays
 
 
+def _k7_per_corpus(dec, wavs, n_chunks, counts):
+    """K7's launches in the timed corpora of a decoder, whose emission loop
+    replays CUDA graphs that its wrapper's counter cannot see: the wrapper
+    counts only the eager bos step that resets the slot LM before each
+    corpus; one more corpus under torch.profiler must run (jointer + LM
+    layers) x ``max_emit`` K7 kernels a chunk and that step's;
+    ``counts["decode_attention"]`` becomes CORPORA times them."""
+    caat = dec.model.cfg
+    per_chunk = dec.max_emit * (caat.jointer_layers + caat.decoder_layers)
+    assert counts["decode_attention"] == CORPORA * caat.decoder_layers, (
+        counts)
+    kernels = _device_kernels(lambda: dec.decode_corpus(wavs))
+    n = sum(c for k, c in kernels.items() if "decode_attention" in k)
+    assert n == n_chunks * per_chunk + caat.decoder_layers, (
+        n, n_chunks, per_chunk)
+    counts["decode_attention"] = CORPORA * n
+    return (f"K7 {CORPORA * n} = {CORPORA} corpora x ({n_chunks} chunks x "
+            f"{per_chunk} in graph replays, counted by torch.profiler, + "
+            f"{caat.decoder_layers} eager in the LM's reset)")
+
+
 def phase_full(card):
     """Base + CAAT base, bf16, the cached greedy agent at ds2."""
     import torch
@@ -1982,9 +2270,10 @@ def phase_full(card):
     launches = counts["chunk_cache_attention"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = w2v.encoder_layers * n_chunks * CORPORA
+    k7 = _k7_per_corpus(dec, wavs, n_chunks, counts)
     print(f"phase full: kernel launches {counts} (K1 expected {want} = "
           f"{w2v.encoder_layers} layers x {n_chunks} chunks x {CORPORA}, "
-          f"all on the tensor-core kernel: {sets['K1']})")
+          f"all on the tensor-core kernel: {sets['K1']}; {k7})")
     assert launches == want, (launches, want)
     _on_tensor_cores(sets, {"K1": want})
     assert any(texts), "decoder emitted nothing"
@@ -2047,9 +2336,12 @@ def phase_oneshot_full(card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_sub = ONESHOT_STREAMS // ENCODE_BATCH
     want = w2v.encoder_layers * n_sub * CORPORA
+    enc = dec._encoder(ONESHOT_STREAMS)
+    k7 = _k7_per_corpus(dec, wavs, max(
+        (frames - w2v.right_context) // enc.n_main, 1), counts)
     print(f"phase one-shot full: kernel launches {counts} (K2 expected "
           f"{want} = {w2v.encoder_layers} layers x {n_sub} sub-batches x "
-          f"{CORPORA}); by kernel set {flash_paths}")
+          f"{CORPORA}; {k7}); by kernel set {flash_paths}")
     assert launches == want, (launches, want)
     _on_tensor_cores(flash_paths, {"K2": want, "K3": 0})
     assert any(texts), "decoder emitted nothing"
@@ -2503,7 +2795,8 @@ def phase_train_full(card):
             "hw_dropout": 2 * sites,
             "chunk_cache_attention": 0,
             "blockwise_flash_attention_packed": 0,
-            "blockwise_flash_attention_bwd": 0}
+            "blockwise_flash_attention_bwd": 0,
+            "decode_attention": 0}
     per_step = {k: v / n_steps for k, v in counts.items()}
     print(f"phase train full: launches {counts} over {n_steps} steps "
           f"(per step {per_step}); expected {want} (G {G}, U+1 "
@@ -2679,7 +2972,7 @@ def phase_cli_full(card):
                     "transducer_reverse_walk_block": 0,
                     "transducer_alphas": 0, "transducer_betas": 0,
                     "transducer_affine_rows": 0,
-                    "chunk_cache_attention": 0}
+                    "chunk_cache_attention": 0, "decode_attention": 0}
             flash_calls = sum(kept) if impl == "flash" else 0
             want.update(
                 blockwise_flash_attention_packed=flash_calls,
@@ -3009,6 +3302,7 @@ def phase_serving_full(card):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from wav2vec_s_tpu_torch.ops.decode_attention import decode_attention
     from wav2vec_s_tpu_torch.stream.batched import CachedFusedGreedyDecoder
     from wav2vec_s_tpu_torch.stream.serving import ServingSession
 
@@ -3026,6 +3320,16 @@ def phase_serving_full(card):
     stalls = set(rng.choice(sorted(wavs), SERVE_STREAMS // 4, replace=False))
     print(f"phase serving full: model + session ready in "
           f"{time.perf_counter() - t:.1f} s")
+
+    # K7 in the serving step, which no graph replays: its wrapper counts
+    # every launch; the device steps that reset a slot run one LM step more
+    resets, device_step = [], sess._device_step
+
+    def counted(*args):
+        resets.append(bool(args[-1]))
+        return device_step(*args)
+
+    sess._device_step = counted
 
     def run(ids, profile_step=None):
         """Serve ``ids`` to the end -> (step walls, kernels of the profiled
@@ -3047,14 +3351,19 @@ def phase_serving_full(card):
             sent = {s: v for s, v in sent.items()
                     if s not in sess._results}
             if it == profile_step:
+                launched = decode_attention.launches
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     sess.step()
                     torch.cuda.synchronize()
-                kernels = sum(
-                    1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False))
+                names = [e.name for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)]
+                kernels = len(names)
+                # the wrapper's count of the step is the card's
+                k7 = sum("decode_attention" in n for n in names)
+                assert k7 == decode_attention.launches - launched, (
+                    k7, decode_attention.launches - launched)
             else:
                 t_ = time.perf_counter()
                 sess.step()
@@ -3071,6 +3380,7 @@ def phase_serving_full(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    resets.clear()
     t = time.perf_counter()
     walls, _ = run(sorted(wavs))
     wall = time.perf_counter() - t
@@ -3079,6 +3389,11 @@ def phase_serving_full(card):
     steps, compactions = sess.steps - steps0, sess.compactions - comp0
     assert sorted(sess._results) == sorted(wavs)
     assert compactions > 0, "no compaction ran"
+    per_iter = caat.jointer_layers + caat.decoder_layers
+    k7_want = (steps * sess.max_emit * per_iter
+               + sum(resets) * caat.decoder_layers)
+    assert len(resets) == steps and counts["decode_attention"] == k7_want, (
+        counts["decode_attention"], k7_want, steps, sum(resets))
     window_ms = sess.window / 16.0
     for sid, (text, delays) in sess._results.items():
         assert delays == sorted(delays), sid
@@ -3104,7 +3419,9 @@ def phase_serving_full(card):
     print(f"phase serving full: {SERVE_STREAMS} streams of 2-10 s on "
           f"{SERVE_SLOTS} slots, t_cap {SERVE_T_CAP}, {len(stalls)} of them "
           f"stalling one step in four: {steps} steps, {compactions} "
-          f"compactions, launches {counts}; text and delays == the cached "
+          f"compactions, launches {counts} (K7 {k7_want} = {steps} steps x "
+          f"{sess.max_emit} x {per_iter} + {sum(resets)} resetting steps x "
+          f"{caat.decoder_layers}); text and delays == the cached "
           f"decoder's for {same / SERVE_STREAMS:.3f} of the streams; wall "
           f"per step p50 {p50:.2f} ms, p99 {p99:.2f} ms; {audio_s:.1f} "
           f"audio-s in {wall:.2f} s -> {audio_s / wall:.2f} audio-sec/s "
@@ -3517,7 +3834,8 @@ def phase_pretrain_full(card):
                     "transducer_forward_walk_block": 0,
                     "transducer_reverse_walk_block": 0,
                     "transducer_alphas": 0,
-                    "transducer_betas": 0, "transducer_affine_rows": 0}
+                    "transducer_betas": 0, "transducer_affine_rows": 0,
+                    "decode_attention": 0}
             on = (", K2 and K3 all on the tensor-core kernels"
                   if impl == "flash" else "")
             print(f"phase pretrain full: {impl}: launches {counts} over "
@@ -6363,6 +6681,7 @@ def main() -> int:
                       in native.ptxas_summary(native.build_log)))
 
     k1 = _clocked(phase_kernel)
+    k7 = _clocked(phase_decode_attention)
     k2 = _clocked(phase_flash)
     k3 = _clocked(phase_flash_bwd)
     pretrain_calls = _clocked(phase_flash_pretrain)
@@ -6452,9 +6771,16 @@ def main() -> int:
              "train_long", lat["forward_walk_block"]),
             ("transducer_reverse_walk_block", "transducer.cu",
              pk + "224 + " + pk + "99",
-             "train_long", lat["reverse_walk_block"])]
+             "train_long", lat["reverse_walk_block"]),
+            # K7 replaces no TPU kernel: the JAX package's emission loop
+            # left its one-query attentions to XLA
+            ("decode_attention", "decode_attention.cu",
+             "none (XLA: wav2vec_s_tpu/stream/caat_step.py)", "agent", k7)]
     for name, _, _, path, _ in rows:
         assert paths[path][name] > 0, (name, path, paths[path])
+    # K7 carries the emission loops of the three main paths
+    assert all(paths[p]["decode_attention"] > 0
+               for p in ("agent", "one_shot", "serving")), paths
     # K2 and K3 at the pre-training call, per context bucket (phase 3c),
     # and at a tensor-parallel rank's call with its head base (phase 20a)
     for name, key in (("blockwise_flash_attention_packed", "K2"),
@@ -6471,12 +6797,19 @@ def main() -> int:
     print(f"phase clock: the whole script {time.perf_counter() - start:.1f} "
           f"s")
     print(card)
-    print(json.dumps({"kernels": [
+    # K7's launches by path: the three main paths' runs (phases 9, 10 and
+    # 14, graph replays counted by torch.profiler); elsewhere its wrapper
+    # sees only the eager launches
+    k7_paths = ("agent", "one_shot", "serving")
+    kernels = [
         dict({"name": name, "route": "cuda", "source": src + file,
               "replaces": replaces, "launches": paths[path][name],
-              "launches_by_path": {p: c[name] for p, c in paths.items()}},
+              "launches_by_path": {
+                  p: c[name] for p, c in paths.items()
+                  if name != "decode_attention" or p in k7_paths}},
              **row)
-        for name, file, replaces, path, row in rows]}))
+        for name, file, replaces, path, row in rows]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
 """CUDA checks of the torch port: the hand-written kernels (chunk attention,
-block-sparse flash attention forward and backward with its in-kernel
+the emission loop's one-query attention, block-sparse flash attention
+forward and backward with its in-kernel
 dropout, dropout, the transducer lattices and affine rows) against their
 plain twins, the tiny cached and one-shot decodes (and the kernel
 launches of a profiled cached decode inside its ``w2vs/decoder.*``
@@ -194,6 +195,47 @@ def _tiny(w2v):
     wavs = [rng.standard_normal(n).astype(np.float32) * 0.1
             for n in (6400, 9600, 12800)]
     return vocab, model, wavs
+
+
+# (T, N, D, heads, dtype): the serving jointer's and the LM's widths in
+# both dtypes (16-byte loads), the widest head, the tiny heads of 6 (one
+# element at a time)
+K7_CASES = [(T, N, D, H, dtype) for dtype in (torch.float32, torch.bfloat16)
+            for T, N, D, H in ((96, 6, 768, 12), (40, 5, 1024, 16),
+                               (33, 3, 256, 2), (24, 4, 24, 4))]
+
+
+@pytest.mark.parametrize("T,N,D,H,dtype", K7_CASES)
+def test_decode_attention_kernel_matches_plain(cuda, T, N, D, H, dtype):
+    """K7 against its plain version under every bound form (none, [N], 0-d
+    and lo) and a plane of either stride order; a stream with no loaded
+    row, or none the plane shows, gets zeros."""
+    from wav2vec_s_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_ref)
+
+    g = torch.Generator(device=cuda).manual_seed(T + D)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((N, D), (T, N, D), (T, N, D)))
+    hi = torch.randint(0, T + 3, (N,), generator=g, device=cuda)
+    hi[0] = 0
+    lo = torch.randint(0, T, (N,), generator=g, device=cuda)
+    plane = torch.rand((T, N), generator=g, device=cuda) < 0.5
+    plane[:, 1] = False
+    for kw in ({}, {"hi": hi}, {"hi": torch.tensor(T - 2, device=cuda)},
+               {"lo": lo, "hi": hi, "plane": plane.T},
+               {"hi": hi, "plane": plane.T.contiguous()}):
+        launches = decode_attention.launches
+        got = decode_attention(q, k, v, H, **kw)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == launches + 1
+        want = decode_attention_ref(q, k, v, H, **kw)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().max().item() <= tol, kw
+        if "hi" in kw and kw["hi"].dim():
+            assert (got[0] == 0).all()
+        if "plane" in kw:
+            assert (got[1] == 0).all()
 
 
 def test_tiny_decode_on_cuda_equals_cpu(cuda):

@@ -173,17 +173,21 @@ def test_jointer_step_plane_matches_jax_and_count_path():
     want = jax_caat_step.jointer_step(
         params, caat, jnp.asarray(h), tuple(map(jnp.asarray, jk)),
         tuple(map(jnp.asarray, jv)), jnp.asarray(vis))
+    # the plane with every slot's extent the whole cache
+    whole = (torch.zeros(N, dtype=torch.long), torch.tensor(T))
     got = caat_step.jointer_step(
         model, model.cfg, torch.tensor(h), [torch.tensor(x) for x in jk],
-        [torch.tensor(x) for x in jv], torch.tensor(vis))
+        [torch.tensor(x) for x in jv],
+        caat_step.SlotPlane(torch.tensor(vis), *whole))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     # the plane of a count prefix gives the count path's values exactly
     counts = torch.tensor([1, 5, 17, 24])
     plane = torch.arange(T)[None] < counts[:, None]
     args = (model, model.cfg, torch.tensor(h), [torch.tensor(x) for x in jk],
             [torch.tensor(x) for x in jv])
-    assert torch.equal(caat_step.jointer_step(*args, plane),
-                       caat_step.jointer_step(*args, counts))
+    assert torch.equal(
+        caat_step.jointer_step(*args, caat_step.SlotPlane(plane, *whole)),
+        caat_step.jointer_step(*args, counts))
 
 
 # -- the session -------------------------------------------------------------

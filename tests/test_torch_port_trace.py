@@ -17,8 +17,10 @@ and counters, on only while a ``torch.profiler`` runs.
   ``emit_graphed.decode`` reads); the session counts only the two that its
   metric reads.  ``serving.plane_rows_visible`` equals the
   rows of the plane visible to the occupied slots when the jointer reads
-  it, and ``serving.plane_rows_read`` the plane's size, across
-  compactions and slot resets.
+  it, ``serving.plane_rows_read`` the plane's size, and
+  ``serving.jointer_rows_loaded`` the sum of the extents the jointer is
+  handed (each occupied slot's ``[first_row, t_main)``, every visible row
+  inside), across compactions and slot resets.
 """
 
 import numpy as np
@@ -339,20 +341,30 @@ def test_serving_counters_equal_a_hand_count(monkeypatch, case):
     max_len = 6 if case == "max_len" else 64
     script = Script(case, 2)
     sess = _session(max_len=max_len)
-    runs, resets, planes = [], [], []
+    runs, resets, planes, loaded = [], [], [], []
     device_step = sess._device_step
 
-    def recorded(window, ready, flush, reset, any_reset):
+    def recorded(window, ready, flush, reset, extent, any_reset):
         runs.append((ready.numpy().copy(),
                      torch.where(reset, 1, sess._lens).numpy()))
         resets.append(any_reset)
-        return device_step(window, ready, flush, reset, any_reset)
+        return device_step(window, ready, flush, reset, extent, any_reset)
 
-    def on_call(c, visible):
+    def on_call(c, slot_plane):
+        visible, lo, hi = slot_plane
         if c % MAX_EMIT == 0:                # once a step: the plane read
             occupied = torch.tensor([s.stream_id is not None
                                      for s in sess.slots])
             planes.append((int(visible[occupied].sum()), visible.numel()))
+            # the extents: [first_row, hi) for an occupied slot, empty for
+            # a free one, every visible row inside
+            first = torch.tensor([s.first_row for s in sess.slots])
+            assert torch.equal(lo[occupied], first[occupied])
+            assert (lo[~occupied] == hi).all()
+            rows = torch.arange(visible.shape[1])[None]
+            assert not (visible[occupied]
+                        & ((rows < lo[occupied, None]) | (rows >= hi))).any()
+            loaded.append(int((hi - lo).sum()))
     script.on_call = on_call
     monkeypatch.setattr(sess, "_device_step", recorded)
     monkeypatch.setattr(caat_step, "jointer_step", script)
@@ -363,9 +375,13 @@ def test_serving_counters_equal_a_hand_count(monkeypatch, case):
     want = _hand_count(script.toks, runs, max_len)
     c = debug.counters()
     assert set(c) == {"serving.emit_iters", "serving.emit_iters_live",
-                      "serving.plane_rows_read", "serving.plane_rows_visible"}
+                      "serving.plane_rows_read", "serving.plane_rows_visible",
+                      "serving.jointer_rows_loaded"}
     assert {k: c[f"serving.{k}"] for k in ("emit_iters", "emit_iters_live")
             } == {k: want[k] for k in ("emit_iters", "emit_iters_live")}
     assert c["serving.plane_rows_read"] == sum(n for _, n in planes) == (
         len(runs) * 2 * 64)
     assert c["serving.plane_rows_visible"] == sum(v for v, _ in planes)
+    assert c["serving.jointer_rows_loaded"] == sum(loaded)
+    assert (c["serving.plane_rows_visible"] < c["serving.jointer_rows_loaded"]
+            < c["serving.plane_rows_read"])

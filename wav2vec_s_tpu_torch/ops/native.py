@@ -194,6 +194,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + drop
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    # q, q's row stride, k, v, (lo, stride), (hi, stride), (plane, two
+    # strides), mask value, scale, out, T, N, D, H, dtype code
+    fn = lib.w2vs_decode_attention
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_void_p, ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     fn = lib.w2vs_dropout
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_uint,

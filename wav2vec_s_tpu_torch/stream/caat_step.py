@@ -14,16 +14,19 @@ and the beam decoders (``stream/beam_batched.py``):
   ``jointer_step_beam``).
 
 The functions read the parameters of a ``W2V2CaatModel`` (``model``) and the
-``CaatConfig`` (``cfg``).  Attention in the LM and jointer is plain torch,
-as the JAX package left it to XLA: logits in f32, probabilities cast to
-the compute dtype before P.V.  Token ids and cache indices are int64.
-Which functions write their state in place is said in each docstring.
+``CaatConfig`` (``cfg``).  The one-query attentions of ``jointer_step``,
+``lm_slot_step`` and ``lm_step`` go through ``ops/decode_attention`` (K7
+on the card), which loads only the rows each stream can see; the beam
+attentions are plain torch, as the JAX package left them to XLA.  Both:
+logits in f32, probabilities cast to the compute dtype before P.V.  Token
+ids and cache indices are int64.  Which functions write their state in
+place is said in each docstring.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from wav2vec_s_tpu_torch.models.modules import dense, layer_tail
 from wav2vec_s_tpu_torch.models.modules import ln as _ln
 from wav2vec_s_tpu_torch.ops.block_mask import MASK_VALUE
+from wav2vec_s_tpu_torch.ops.decode_attention import decode_attention
 from wav2vec_s_tpu_torch.utils.positional import PADDING_IDX, sinusoidal_table
 
 
@@ -93,21 +97,6 @@ class SlotLMState:
     h_last: torch.Tensor
 
 
-def _attend_slots(q, k_cache, v_cache, valid, n_heads):
-    """One-query attention over slot-aligned caches.
-
-    q: [N, D]; k_cache/v_cache: [S, N, D]; valid: [S, N] bool."""
-    S, N, D = k_cache.shape
-    H, Dh = n_heads, D // n_heads
-    qh = q.reshape(N, H, Dh).float()
-    kh = k_cache.reshape(S, N, H, Dh).float()
-    vh = v_cache.reshape(S, N, H, Dh)
-    logits = torch.einsum("nhd,snhd->nhs", qh, kh) * (Dh ** -0.5)
-    bias = torch.where(valid.T, 0.0, MASK_VALUE)            # [N, S]
-    p = torch.softmax(logits + bias[:, None, :], dim=-1).to(q.dtype)
-    return torch.einsum("nhs,snhd->nhd", p, vh).reshape(N, D)
-
-
 @torch.no_grad()
 def lm_slot_step(model, cfg, state: SlotLMState, tokens: torch.Tensor,
                  index: torch.Tensor, advance: torch.Tensor) -> SlotLMState:
@@ -125,6 +114,8 @@ def lm_slot_step(model, cfg, state: SlotLMState, tokens: torch.Tensor,
     x = _embed_at(model, c, tokens, index)                       # [N, D]
 
     slot = state.ptr.view(1)
+    # slots past the pointer are invalid for every stream: not loaded
+    written = state.ptr + 1
     # the new row is visible to its own query regardless of ``advance``;
     # the validity plane keeps it only where the stream advances
     state.valid.index_fill_(0, slot, True)
@@ -135,8 +126,9 @@ def lm_slot_step(model, cfg, state: SlotLMState, tokens: torch.Tensor,
         q, k1, v1 = _dense_qkv(att, h_in)
         state.k[i].index_copy_(0, slot, k1[None])
         state.v[i].index_copy_(0, slot, v1[None])
-        o = _attend_slots(q, state.k[i].to(dtype), state.v[i].to(dtype),
-                          state.valid, c.decoder_attention_heads)
+        o = decode_attention(q, state.k[i].to(dtype), state.v[i].to(dtype),
+                             c.decoder_attention_heads, hi=written,
+                             plane=state.valid.T)
         h = dense(att.out_proj, o)
         x = layer_tail(layer, x, h, c.decoder_normalize_before, F.relu)
 
@@ -206,39 +198,43 @@ def jointer_kv_append(jk, jv, k_new, v_new, t0: int):
     return jk, jv
 
 
+class SlotPlane(NamedTuple):
+    """The serving step's visibility plane with each slot's extent: slot i
+    loads the rows ``lo[i] <= t < hi`` and sees those of them that ``vis``
+    shows (int64 bounds on the device)."""
+
+    vis: torch.Tensor           # [N, T_cap] bool
+    lo: torch.Tensor            # [N]
+    hi: torch.Tensor            # []
+
+
 @torch.no_grad()
 def jointer_step(model, cfg, h_last: torch.Tensor, jk, jv,
-                 visible: torch.Tensor) -> torch.Tensor:
+                 visible) -> torch.Tensor:
     """Next-symbol log-probs [N, V] (f32) from cached jointer K/V.
 
     h_last: [N, D] LM state; jk/jv: per-layer time-major [T, N, D];
-    visible: [N] number of revealed encoder frames, or a [N, T_cap]
-    boolean plane (True = revealed) for the continuous-batching serving
-    path, whose slots hold scattered global rows (``stream/serving.py``)."""
+    visible: [N] number of revealed encoder frames (the rows loaded), or,
+    for the continuous-batching serving path, whose slots hold scattered
+    global rows (``stream/serving.py``), a ``SlotPlane``: the [N, T_cap]
+    boolean plane (True = revealed) with the rows each slot loads.  Rows
+    that are not loaded would weigh exactly 0 (``ops/decode_attention``)."""
     c = cfg
-    D = c.jointer_embed_dim
     H = c.jointer_attention_heads
-    Dh = D // H
     t_cap = jk[0].shape[0]
-    N = h_last.shape[0]
     dtype = h_last.dtype
-    if visible.dim() == 2:
-        bias = torch.where(visible[:, :t_cap], 0.0, MASK_VALUE)  # [N, T]
+    if isinstance(visible, SlotPlane):
+        plane, lo, hi = visible.vis[:, :t_cap], visible.lo, visible.hi
     else:
-        bias = torch.where(
-            torch.arange(t_cap, device=h_last.device)[None]
-            < visible[:, None], 0.0, MASK_VALUE)                 # [N, T]
+        plane, lo, hi = None, None, visible
     x = h_last
     pre = c.decoder_normalize_before
     for i, layer in enumerate(model.decoder.jointer.layers):
         att = layer.enc_attn
         h = _ln(layer.attn_layer_norm, x) if pre else x
-        q = dense(att.q_proj, h).reshape(N, H, Dh).float()
-        k = jk[i].reshape(t_cap, N, H, Dh).float()
-        v = jv[i].to(dtype).reshape(t_cap, N, H, Dh)
-        logits = torch.einsum("nhd,tnhd->nht", q, k) * (Dh ** -0.5)
-        p = torch.softmax(logits + bias[:, None, :], dim=-1).to(dtype)
-        o = torch.einsum("nht,tnhd->nhd", p, v).reshape(N, D)
+        q = dense(att.q_proj, h)
+        o = decode_attention(q, jk[i].to(dtype), jv[i].to(dtype), H, lo=lo,
+                             hi=hi, plane=plane)
         x = x + dense(att.out_proj, o)
         if not pre:
             x = _ln(layer.attn_layer_norm, x)
@@ -266,24 +262,6 @@ class LMState:
     h_last: torch.Tensor
 
 
-def _attend_one(q, k_cache, v_cache, idx, n_heads):
-    """One-query attention against a per-stream-length cache.
-
-    q: [N, D]; k_cache/v_cache: TIME-MAJOR [U_cap, N, D]; idx: [N] last
-    valid cache row per stream (keys j <= idx attend)."""
-    U_cap, N, D = k_cache.shape
-    H, Dh = n_heads, D // n_heads
-    qh = q.reshape(N, H, Dh).float()
-    kh = k_cache.reshape(U_cap, N, H, Dh).float()
-    vh = v_cache.reshape(U_cap, N, H, Dh)
-    logits = torch.einsum("nhd,unhd->nhu", qh, kh) * (Dh ** -0.5)
-    bias = torch.where(
-        torch.arange(U_cap, device=q.device)[None] <= idx[:, None], 0.0,
-        MASK_VALUE)                                              # [N, U]
-    p = torch.softmax(logits + bias[:, None, :], dim=-1).to(q.dtype)
-    return torch.einsum("nhu,unhd->nhd", p, vh).reshape(N, D)
-
-
 @torch.no_grad()
 def lm_step(model, cfg, state: LMState, tokens: torch.Tensor,
             index: torch.Tensor, advance: torch.Tensor) -> LMState:
@@ -298,6 +276,7 @@ def lm_step(model, cfg, state: LMState, tokens: torch.Tensor,
     dtype = c.compute_dtype
     x = _embed_at(model, c, tokens, index)                       # [N, D]
     rows = torch.arange(tokens.shape[0], device=tokens.device)
+    n_rows = index + 1              # keys j <= index attend: all loaded
     for i, layer in enumerate(model.decoder.lm.layers):
         att = layer.self_attn
         h_in = (_ln(layer.self_attn_layer_norm, x)
@@ -305,8 +284,8 @@ def lm_step(model, cfg, state: LMState, tokens: torch.Tensor,
         q, k1, v1 = _dense_qkv(att, h_in)
         state.k[i][index, rows] = k1.to(state.k[i].dtype)
         state.v[i][index, rows] = v1.to(state.v[i].dtype)
-        o = _attend_one(q, state.k[i].to(dtype), state.v[i].to(dtype),
-                        index, c.decoder_attention_heads)
+        o = decode_attention(q, state.k[i].to(dtype), state.v[i].to(dtype),
+                             c.decoder_attention_heads, hi=n_rows)
         x = layer_tail(layer, x, dense(att.out_proj, o),
                        c.decoder_normalize_before, F.relu)
     x = _final_norm(model, c, x)

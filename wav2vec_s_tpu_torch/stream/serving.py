@@ -43,8 +43,16 @@ steps that reset a slot), ``encoder_step``, ``jointer_kv``, ``emit_loop``,
 slots), ``serving.plane_rows_read`` (slots x the plane's rows that the
 attention reads, from the shape of the plane it is handed) and
 ``serving.plane_rows_visible`` (the rows of the plane visible to each
-slot's stream when the jointer reads it, from the slots' chunk counts)
-come from host bookkeeping.
+slot's stream when the jointer reads it, from the slots' chunk counts) and
+``serving.jointer_rows_loaded`` (the rows the jointer's attention loads:
+the sum of the slots' extents, once a step) come from host bookkeeping.
+
+**Extents.**  A slot's stream sees no row before its ``first_row`` and
+none past the step's last written row, so each step hands the jointer the
+extent ``[first_row, t_main)`` of every occupied slot (an empty slot an
+empty one) with the plane (a ``caat_step.SlotPlane``), and
+``ops/decode_attention`` loads only those rows; the plane still masks the
+rows written while the slot stalled.
 """
 
 from __future__ import annotations
@@ -143,7 +151,8 @@ class ServingSession:
 
     # -- device step -----------------------------------------------------
     @torch.no_grad()
-    def _device_step(self, window, ready, flush, reset, any_reset: bool):
+    def _device_step(self, window, ready, flush, reset, extent,
+                     any_reset: bool):
         model, caat = self.model, self.model.cfg
         blank, pad = self.vocab.bos(), self.vocab.pad()
         N, n_new = self.n, self._rows_per_step
@@ -184,11 +193,12 @@ class ServingSession:
         # attention read too
         count("serving.plane_rows_read", vis.numel())
         with span("serving.emit_loop"):
+            plane = caat_step.SlotPlane(vis, extent[:N], extent[N])
             rows = self._rows
             blocked = ~ready
             for _ in range(self.max_emit):
                 lp = caat_step.jointer_step(model, caat, lm.h_last, self._jk,
-                                            self._jv, vis)
+                                            self._jv, plane)
                 lp[:, pad] = -float("inf")
                 tok = torch.argmax(lp, dim=-1)     # first maximum, as jnp
                 emit = ~blocked & (tok != blank) & (lens < self.max_len)
@@ -281,6 +291,9 @@ class ServingSession:
             ready = np.zeros(N, bool)
             flush = np.zeros(N, bool)
             reset = np.zeros(N, bool)
+            # each slot's extent [lo, hi): from its first row to the step's
+            # last row, empty for a free slot; one int64 array [lo..., hi]
+            extent = np.full(N + 1, t_main + self._rows_per_step, np.int64)
             fired = []
             for i, s in enumerate(self.slots):
                 if s.stream_id is None:
@@ -289,6 +302,7 @@ class ServingSession:
                     reset[i] = True
                     s.fresh = False
                     s.first_row = t_main
+                extent[i] = s.first_row
                 if self._ready(s):
                     ready[i] = True
                     start = s.chunk_idx * self.stride
@@ -300,10 +314,12 @@ class ServingSession:
         if not fired and not reset.any():
             return {}
 
+        count("serving.jointer_rows_loaded",
+              int(extent[N] * N - extent[:N].sum()))
         dev = self.device
         with span("serving.upload"):
             planes = [torch.from_numpy(a).to(dev)
-                      for a in (window, ready, flush, reset)]
+                      for a in (window, ready, flush, reset, extent)]
         self._device_step(*planes, bool(reset.any()))
         self.steps += 1
 
