@@ -23,8 +23,8 @@ Phases, each printed on its own line:
                the serving jointer [1024, 256, 768] and [1024, 256, 1024]
                under a serving-like plane and slot extents, the decoders'
                jointer [512, 128, 768] at visible 40, 256 and 512, the LM
-               [257, 256, 768 | 1024] to index + 1, the slot LM
-               [64, 128, 768] under its validity plane; heads of 6 in float32
+               [257, 256, 768 | 1024] to index + 1, the decoders' LM
+               [61, 128, 768] to index + 1; heads of 6 in float32
                and bfloat16 (the fallback loads); then the jointer's f32
                log-probs through K7 against the plain version's at Base and
                Large (serving) and Base (decoder): within twice the plain
@@ -789,11 +789,9 @@ def phase_decode_attention():
     for D, H in ((768, 12), (1024, 16)):
         idx = torch.randint(0, 60, (256,), generator=g, device=dev)
         cases.append((f"LM D={D}", 257, 256, D, H, None, idx + 1, None))
-    valid = torch.rand((64, 128), generator=g, device=dev) < 0.3
-    valid[0] = True
-    valid[41:] = False
-    cases.append(("slot LM", 64, 128, 768, 12, None,
-                  torch.tensor(41, device=dev), valid.T))
+    # the decoders' LM: min(max_len, chunks x max_emit) + 1 = 61 rows
+    idx = torch.randint(0, 61, (128,), generator=g, device=dev)
+    cases.append(("decoder LM", 61, 128, 768, 12, None, idx + 1, None))
     # heads of 6 (the tiny models): loads one element at a time
     small = [("tiny heads of 6, float32", 24, 4, 24, 4, torch.float32),
              ("tiny heads of 6, bfloat16", 24, 4, 24, 4, bf16)]
@@ -2221,7 +2219,7 @@ def _timed_corpora(dec, wavs, corpora=CORPORA):
 def _k7_per_corpus(dec, wavs, n_chunks, counts):
     """K7's launches in the timed corpora of a decoder, whose emission loop
     replays CUDA graphs that its wrapper's counter cannot see: the wrapper
-    counts only the eager bos step that resets the slot LM before each
+    counts only the eager bos step that resets the LM before each
     corpus; one more corpus under torch.profiler must run (jointer + LM
     layers) x ``max_emit`` K7 kernels a chunk and that step's;
     ``counts["decode_attention"]`` becomes CORPORA times them."""
@@ -2287,7 +2285,7 @@ def phase_full(card):
     state = enc.step(state, win)
     x = state.out_cache[:state.t_main]
     jk, jv = caat_step.jointer_kv(dec.model, dec.model.cfg, x)
-    lm = caat_step.lm_slot_init(dec.model, dec.model.cfg, N_STREAMS, 8)
+    lm = caat_step.lm_init(dec.model, dec.model.cfg, N_STREAMS, 8)
     lp = caat_step.jointer_step(dec.model, dec.model.cfg, lm.h_last, jk, jv,
                                 torch.full((N_STREAMS,), x.shape[0],
                                            device=dev))
@@ -2360,7 +2358,7 @@ def phase_oneshot_full(card):
     assert e.shape == (ENCODE_BATCH, t_frames, w2v.encoder_embed_dim)
     jk, jv = caat_step.jointer_kv(dec.model, dec.model.cfg,
                                   e.transpose(0, 1).contiguous())
-    lm = caat_step.lm_slot_init(dec.model, dec.model.cfg, ENCODE_BATCH, 8)
+    lm = caat_step.lm_init(dec.model, dec.model.cfg, ENCODE_BATCH, 8)
     lp = caat_step.jointer_step(dec.model, dec.model.cfg, lm.h_last, jk, jv,
                                 torch.full((ENCODE_BATCH,), t_frames,
                                            device=dev))

@@ -1,10 +1,11 @@
 """Cached CAAT decode steps: the port against the JAX package's
 ``stream/caat_step.py``.
 
-``lm_slot_init``, ``lm_slot_step`` (with held streams), ``jointer_kv``,
+The port's position-aligned ``lm_init`` / ``lm_step`` (with held streams)
+against the JAX decoders' slot-aligned LM, ``jointer_kv``,
 ``jointer_kv_append`` and ``jointer_step`` on the same seeded weights and
-inputs, for both decoder layer-norm orders; float32, atol 1e-4.  A slot
-state reset in place (``lm_slot_reset``) steps exactly as a fresh one.
+inputs, for both decoder layer-norm orders; float32, atol 1e-4.  A state
+reset in place (``lm_reset``) steps exactly as a fresh one.
 """
 
 import dataclasses
@@ -19,7 +20,7 @@ from tests.test_torch_port_import import jax_caat, port_caat
 from wav2vec_s_tpu.stream import caat_step as jax_step
 from wav2vec_s_tpu_torch.stream import caat_step
 
-N, SLOTS, T_CAP = 3, 8, 16
+N, SLOTS, T_CAP = 3, 8, 16          # SLOTS: LM cache rows
 ATOL = 1e-4
 
 
@@ -35,27 +36,28 @@ def _close(got, want):
                                rtol=0)
 
 
-def _same_lm(b, a):
-    for i in range(len(b.k)):
-        _close(b.k[i], a.k[i])
-        _close(b.v[i], a.v[i])
-    np.testing.assert_array_equal(b.valid.numpy(), np.asarray(a.valid))
-    assert b.ptr.shape == () and int(b.ptr) == int(a.ptr)
-    _close(b.h_last, a.h_last)
+def _steps(model, state, seed):
+    """Four seeded steps, some streams holding; returns the state and the
+    prefix lengths."""
+    rng = np.random.default_rng(seed)
+    lens = torch.ones(N, dtype=torch.long)
+    for _ in range(4):
+        tok = torch.from_numpy(rng.integers(4, model.cfg.vocab_size, N))
+        adv = torch.from_numpy(rng.random(N) < 0.6)
+        caat_step.lm_step(model, model.cfg, state, tok, lens, adv)
+        lens = lens + adv
+    return state, lens
 
 
 @pytest.mark.parametrize("normalize_before", [True, False])
-def test_lm_slot_init_matches(normalize_before):
-    params, model, caat = _pair(normalize_before)
-    _same_lm(caat_step.lm_slot_init(model, model.cfg, N, SLOTS),
-             jax_step.lm_slot_init(params, caat, N, SLOTS))
-
-
-@pytest.mark.parametrize("normalize_before", [True, False])
-def test_lm_slot_steps_match(normalize_before):
+def test_lm_step_matches_jax_slot_lm(normalize_before):
+    """The position-aligned ``lm_step`` gives the ``h_last`` of the LM the
+    JAX decoders run, over a slot-aligned cache (the same keys in the same
+    order), held streams included."""
     params, model, caat = _pair(normalize_before)
     a = jax_step.lm_slot_init(params, caat, N, SLOTS)
-    b = caat_step.lm_slot_init(model, model.cfg, N, SLOTS)
+    b = caat_step.lm_init(model, model.cfg, N, SLOTS)
+    _close(b.h_last, a.h_last)
     rng = np.random.default_rng(0)
     lens = np.ones(N, np.int64)
     for _ in range(4):
@@ -63,44 +65,34 @@ def test_lm_slot_steps_match(normalize_before):
         adv = rng.random(N) < 0.6            # some streams hold
         a = jax_step.lm_slot_step(params, caat, a, jnp.asarray(tok),
                                   jnp.asarray(lens), jnp.asarray(adv))
-        b = caat_step.lm_slot_step(model, model.cfg, b,
-                                   torch.from_numpy(tok),
-                                   torch.from_numpy(lens),
-                                   torch.from_numpy(adv))
-        _same_lm(b, a)
+        h_last = b.h_last
+        b = caat_step.lm_step(model, model.cfg, b, torch.from_numpy(tok),
+                              torch.from_numpy(lens), torch.from_numpy(adv))
+        assert b.h_last is h_last                        # in place
+        _close(b.h_last, a.h_last)
         lens = lens + adv
-
-
-def _steps(model, state, seed):
-    """Four seeded steps, some streams holding; returns the state."""
-    rng = np.random.default_rng(seed)
-    lens = torch.ones(N, dtype=torch.long)
-    for _ in range(4):
-        tok = torch.from_numpy(rng.integers(4, model.cfg.vocab_size, N))
-        adv = torch.from_numpy(rng.random(N) < 0.6)
-        caat_step.lm_slot_step(model, model.cfg, state, tok, lens, adv)
-        lens = lens + adv
-    return state
 
 
 @pytest.mark.parametrize("normalize_before", [True, False])
-def test_lm_slot_reset_in_place_equals_a_fresh_state(normalize_before):
-    """A used state reset in place (``lm_slot_reset``: same tensors, the
-    pointer too) steps exactly as a fresh one."""
+def test_lm_reset_in_place_equals_a_fresh_state(normalize_before):
+    """A used state reset in place (``lm_reset``: same tensors) holds and
+    steps as a fresh one: equal ``h_last`` and equal rows in every
+    stream's prefix (the rows past it are never loaded)."""
     _, model, _ = _pair(normalize_before)
-    used = _steps(model, caat_step.lm_slot_init(model, model.cfg, N, SLOTS),
-                  1)
-    tensors = used.k + used.v + [used.valid, used.ptr, used.h_last]
-    assert int(used.ptr) == 5
-    reset = caat_step.lm_slot_reset(model, model.cfg, used)
-    assert all(a is b for a, b in zip(
-        reset.k + reset.v + [reset.valid, reset.ptr, reset.h_last], tensors))
-    fresh = caat_step.lm_slot_init(model, model.cfg, N, SLOTS)
-    for a, b in ((reset, fresh), (_steps(model, reset, 2),
-                                  _steps(model, fresh, 2))):
-        for x, y in zip(a.k + a.v + [a.valid, a.ptr, a.h_last],
-                        b.k + b.v + [b.valid, b.ptr, b.h_last]):
-            assert torch.equal(x, y)
+    used, _ = _steps(model, caat_step.lm_init(model, model.cfg, N, SLOTS), 1)
+    tensors = used.k + used.v + [used.h_last]
+    reset = caat_step.lm_reset(model, model.cfg, used)
+    assert all(a is b for a, b in zip(reset.k + reset.v + [reset.h_last],
+                                      tensors))
+    fresh = caat_step.lm_init(model, model.cfg, N, SLOTS)
+    ones = torch.ones(N, dtype=torch.long)
+    for (a, lens), (b, _) in (((reset, ones), (fresh, ones)),
+                              (_steps(model, reset, 2),
+                               _steps(model, fresh, 2))):
+        assert torch.equal(a.h_last, b.h_last)
+        for x, y in zip(a.k + a.v, b.k + b.v):
+            for i in range(N):
+                assert torch.equal(x[:lens[i], i], y[:lens[i], i])
 
 
 @pytest.mark.parametrize("normalize_before", [True, False])

@@ -13,7 +13,8 @@
   stream, over staggered joins with a mid-stream stall and slot recycling
   (3 streams on 2 slots), cache compaction, and all streams in lockstep
   (the four cases of tests/test_serving.py, small enough for tier 1); a
-  stream longer than ``t_cap`` raises in both.
+  stream longer than ``t_cap`` raises in both; without a compaction the
+  session's device state keeps its tensors from step to step.
 
 Weights: the seeded tree of ``test_torch_port_import.jax_caat`` with the
 rows of the tied embedding scaled to unit norm and the blank row to 0.75,
@@ -256,6 +257,35 @@ def test_session_equals_jax_and_solo_decodes(scenario):
     for sid in want:
         assert port.result(sid) == ref.result(sid) == want[sid], sid
     assert (port.compactions > 0) == (scenario == "compaction")
+
+
+@pytest.mark.parametrize("scenario", ["stagger_stall_recycle", "lockstep"])
+def test_serving_state_stays_in_place(scenario):
+    """Without a compaction, every step (resets included) writes the
+    prefixes, lengths, frame counts and LM state into the tensors the
+    session started with, as the decoders' graphed loop does."""
+    drive, n_slots, t_cap = SCENARIOS[scenario]
+    sess = ServingSession(models()[2], _vocab(Dictionary), W2V,
+                          n_slots=n_slots, t_cap=t_cap, **SESSION_KW)
+
+    def ptrs():
+        lm = sess._lm
+        return [x.data_ptr() for x in [sess._prefixes, sess._lens,
+                                       sess._frames, lm.h_last] + lm.k
+                + lm.v]
+
+    first, seen, device_step = ptrs(), [], sess._device_step
+
+    def step(*args):
+        device_step(*args)
+        seen.append(ptrs())
+
+    sess._device_step = step
+    drive(sess, clips())
+    assert sess.compactions == 0 and len(seen) == sess.steps > 5
+    assert all(p == first for p in seen)
+    for sid, want in oracle().items():
+        assert sess.result(sid) == want, sid
 
 
 def test_session_raises_when_t_cap_runs_out():

@@ -15,7 +15,8 @@ and counters, on only while a ``torch.profiler`` runs.
   running into ``max_len``; on the CPU no chunk's loop is replayed from
   a CUDA graph (``decoder.emit_iters_graphed`` 0, which the benchmark's
   ``emit_graphed.decode`` reads); the session counts only the two that its
-  metric reads.  ``serving.plane_rows_visible`` equals the
+  metric reads.  Planted emissions on every iteration fill the decoders'
+  LM cache to its last row.  ``serving.plane_rows_visible`` equals the
   rows of the plane visible to the occupied slots when the jointer reads
   it, ``serving.plane_rows_read`` the plane's size, and
   ``serving.jointer_rows_loaded`` the sum of the extents the jointer is
@@ -293,6 +294,24 @@ def test_decoder_emission_counters_equal_a_hand_count(monkeypatch, kind,
         assert want["emit_iters_emitting"] == n_chunks
     if case == "max_len":
         assert want["tokens"] == N * (max_len - 1)
+
+
+@pytest.mark.parametrize("kind", sorted(DECODERS))
+def test_decoder_lm_holds_the_longest_prefix(monkeypatch, kind):
+    """A corpus of the most chunks ``t_cap`` holds, every stream emitting
+    on every iteration (planted, as above), writes the LM cache's last row:
+    the decoders size it at min(max_len, chunks x max_emit) + 1 rows."""
+    N = 2
+    script = Script("max_len", N)                   # never blank
+    monkeypatch.setattr(caat_step, "jointer_step", script)
+    dec = _decoder(kind, max_len=256)
+    enc = dec._encoder(N)
+    chunks = (dec.t_cap - enc.rc) // enc.n_main
+    frames = chunks * enc.n_main + enc.rc
+    dec.decode_corpus(dec.stage(_wavs(N, (frames - 1) * enc.hop + enc.rf)))
+    assert script.calls == chunks * MAX_EMIT
+    assert dec._loop.lm.k[0].shape[0] == chunks * MAX_EMIT + 1
+    assert (dec._loop.lens == chunks * MAX_EMIT + 1).all()
 
 
 @pytest.mark.parametrize("snapshot,want", [

@@ -116,8 +116,8 @@ def decode_attention(q, k_cache, v_cache, n_heads: int, *, lo=None, hi=None,
     """q: [N, D] (rows contiguous, float32 or bfloat16); k_cache/v_cache:
     contiguous time-major [T, N, D] of q's dtype; lo/hi: int64 row bounds
     ``[N]`` or ``[]`` (one for every stream), None for 0 / T; plane: bool
-    ``[N, T]`` of any strides (serving's ``vis``, the slot LM's
-    ``valid.T``), True where a row is visible, or None.  Returns [N, D] in
+    ``[N, T]`` of any strides (serving's ``vis``, cut to the cache's
+    rows), True where a row is visible, or None.  Returns [N, D] in
     ``q.dtype``: per head, the softmax of ``q . k * Dh**-0.5`` (plus
     ``MASK_VALUE`` where the plane says no) over rows ``lo <= t < hi``,
     times V; zeros for a stream with no such row the plane shows.

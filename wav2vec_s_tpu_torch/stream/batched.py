@@ -6,13 +6,14 @@ N streams run in lockstep; per chunk of ``n_main`` new frames
   2. the incremental encoder step runs the conv front-end and every encoder
      layer (chunk attention: the hand-written kernel on CUDA),
   3. the committed frames are projected to jointer K/V and appended,
-  4. ``max_emit`` greedy emissions run against the slot-aligned LM cache
-     and the one-query jointer.
+  4. ``max_emit`` greedy emissions run against the position-aligned LM
+     cache and the one-query jointer (``caat_step.greedy_emit``, the body
+     the serving session runs too).
 Nothing is read back to the host inside the chunk loop: per-chunk prefix
 lengths are copied into a history on the device and fetched once at the
 end.
 
-A decoder keeps the emission loop's state (jointer K/V, slot LM caches,
+A decoder keeps the emission loop's state (jointer K/V, LM caches,
 prefixes, lengths, the length history) for the number of streams of the
 last corpus, sized for the longest corpus ``t_cap`` holds, and resets it
 in place for each corpus of as many streams, whatever its length.  On CUDA
@@ -77,9 +78,9 @@ class EmitLoop:
     """The greedy loop's device state for ``key`` = ``(N, t_cap)``, reset
     in place for every corpus of N streams.
 
-    jk/jv: per-layer time-major [t_cap, N, D] jointer K/V; lm: the slot LM
-    state, one slot per iteration of the most chunks ``t_cap`` holds, and
-    bos; prefixes: [N, max_len + 1] ids; lens: [N] prefix lengths;
+    jk/jv: per-layer time-major [t_cap, N, D] jointer K/V; lm: the LM
+    state, a row for every prefix position the most chunks ``t_cap`` holds
+    can reach; prefixes: [N, max_len + 1] ids; lens: [N] prefix lengths;
     visible: [N] encoder frames the jointer sees in the current chunk;
     hist: [that many chunks, N], row k the lengths after chunk k; graphs:
     on CUDA, cache capacity -> the CUDA graph of one chunk's loop over that
@@ -89,7 +90,7 @@ class EmitLoop:
     key: tuple
     jk: List[torch.Tensor]
     jv: List[torch.Tensor]
-    lm: caat_step.SlotLMState
+    lm: caat_step.LMState
     prefixes: torch.Tensor
     lens: torch.Tensor
     visible: torch.Tensor
@@ -187,15 +188,15 @@ class CachedFusedGreedyDecoder:
             model, dev = self.model, self.device
             caat = model.cfg
             chunks = max((self.t_cap - self.rc) // self._encoder(N).n_main, 1)
-            # LM cache slots: bos + one per greedy iteration of the chunk
-            # loop
-            n_slots = -(-(chunks * self.max_emit + 1) // 8) * 8
+            # LM cache rows: a step writes at the prefix length, which
+            # starts at 1 (bos) and grows by one an emission, to max_len
+            u_cap = min(self.max_len, chunks * self.max_emit) + 1
             jk = [torch.empty((self.t_cap, N, caat.jointer_embed_dim),
                               dtype=dtype, device=dev)
                   for _ in range(caat.jointer_layers)]
             loop = self._loop = EmitLoop(
                 key=key, jk=jk, jv=[torch.empty_like(k) for k in jk],
-                lm=caat_step.lm_slot_init(model, caat, N, n_slots),
+                lm=caat_step.lm_init(model, caat, N, u_cap),
                 prefixes=torch.empty((N, self.max_len + 1), dtype=torch.long,
                                      device=dev),
                 lens=torch.empty(N, dtype=torch.long, device=dev),
@@ -205,42 +206,23 @@ class CachedFusedGreedyDecoder:
                 pool=(torch.cuda.graph_pool_handle() if dev.type == "cuda"
                       else None))
         else:
-            caat_step.lm_slot_reset(self.model, self.model.cfg, loop.lm)
+            caat_step.lm_reset(self.model, self.model.cfg, loop.lm)
         loop.prefixes.fill_(self.vocab.pad())
         loop.prefixes[:, 0] = self.vocab.bos()
         loop.lens.fill_(1)
         return loop
 
     def _greedy(self, loop: EmitLoop, cap: int) -> None:
-        """One chunk's greedy emissions over the first ``cap`` rows of the
-        cached jointer K/V and the slot LM state, in place in ``loop``.
-
-        The JAX decoder runs a ``while_loop`` that exits once every stream
-        has emitted blank; in eager torch that test is a host sync per
-        emission.  This runs the fixed ``max_emit`` iterations with masked
-        updates instead — blocked streams never write, so the emissions are
-        the same (the JAX package documents and tests this equivalence for
-        its "unroll" loop).  The jointer is called through the module
-        attribute ``caat_step.jointer_step``, also while a graph is
-        captured."""
-        model, caat = self.model, self.model.cfg
-        blank, pad = self.vocab.bos(), self.vocab.pad()
-        prefixes, lens, lm = loop.prefixes, loop.lens, loop.lm
-        jk = [x[:cap] for x in loop.jk]
-        jv = [x[:cap] for x in loop.jv]
-        rows = torch.arange(prefixes.shape[0], device=prefixes.device)
-        blocked = torch.zeros_like(lens, dtype=torch.bool)
-        for _ in range(self.max_emit):
-            lp = caat_step.jointer_step(model, caat, lm.h_last, jk, jv,
-                                        loop.visible)
-            lp[:, pad] = -float("inf")
-            tok = torch.argmax(lp, dim=-1)       # first maximum, as jnp
-            emit = ~blocked & (tok != blank) & (lens < self.max_len)
-            prefixes[rows, lens] = torch.where(emit, tok,
-                                               prefixes[rows, lens])
-            caat_step.lm_slot_step(model, caat, lm, tok, lens, emit)
-            lens.add_(emit)
-            blocked = blocked | ~emit
+        """One chunk's greedy emissions (``caat_step.greedy_emit``) over
+        the first ``cap`` rows of the cached jointer K/V and the LM state,
+        in place in ``loop``."""
+        caat_step.greedy_emit(
+            self.model, self.model.cfg, loop.lm,
+            [x[:cap] for x in loop.jk], [x[:cap] for x in loop.jv],
+            loop.visible, loop.prefixes, loop.lens,
+            torch.zeros_like(loop.lens, dtype=torch.bool),
+            max_emit=self.max_emit, max_len=self.max_len,
+            blank=self.vocab.bos(), pad=self.vocab.pad())
 
     def _emit_chunk(self, loop: EmitLoop, k: int, cap: int,
                     visible: int) -> None:

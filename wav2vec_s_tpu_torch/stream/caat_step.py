@@ -1,26 +1,29 @@
 """Incremental CAAT decode steps: cached LM + cached jointer.
 
 Port of ``wav2vec_s_tpu/stream/caat_step.py``, the single home of the
-streaming decode math shared by the greedy decoders (``stream/batched.py``)
-and the beam decoders (``stream/beam_batched.py``):
+streaming decode math shared by the greedy decoders (``stream/batched.py``),
+the serving session (``stream/serving.py``) and the beam decoders
+(``stream/beam_batched.py``):
 
-- greedy: the one-token LM step over a slot-aligned K/V cache
-  (``SlotLMState``) and the one-query jointer pass over pre-projected
-  encoder K/V, so a greedy emission is O(1);
-- beam: the position-aligned ``LMState`` (``lm_init``/``lm_step``), the
-  whole-prefix ``lm_prefill`` and its narrow ``lm_prefill_extend``, the
-  split prefix|suffix ``BeamLMState`` (``lm_beam_init``/``lm_beam_reorder``/
-  ``lm_beam_step``) and the beam-shaped jointer (``jointer_beam_logits``,
+- greedy: the one-query jointer pass over pre-projected encoder K/V, the
+  one-token LM step over the position-aligned ``LMState``
+  (``lm_init``/``lm_step``/``lm_reset``), and ``greedy_emit``, the one
+  masked emission body that both decoders and the session run, so a greedy
+  emission is O(1);
+- beam: the whole-prefix ``lm_prefill`` and its narrow
+  ``lm_prefill_extend`` (over ``LMState``), the split prefix|suffix
+  ``BeamLMState`` (``lm_beam_init``/``lm_beam_reorder``/``lm_beam_step``)
+  and the beam-shaped jointer (``jointer_beam_logits``,
   ``jointer_step_beam``).
 
 The functions read the parameters of a ``W2V2CaatModel`` (``model``) and the
-``CaatConfig`` (``cfg``).  The one-query attentions of ``jointer_step``,
-``lm_slot_step`` and ``lm_step`` go through ``ops/decode_attention`` (K7
-on the card), which loads only the rows each stream can see; the beam
-attentions are plain torch, as the JAX package left them to XLA.  Both:
-logits in f32, probabilities cast to the compute dtype before P.V.  Token
-ids and cache indices are int64.  Which functions write their state in
-place is said in each docstring.
+``CaatConfig`` (``cfg``).  The one-query attentions of ``jointer_step`` and
+``lm_step`` go through ``ops/decode_attention`` (K7 on the card), which
+loads only the rows each stream can see; the beam attentions are plain
+torch, as the JAX package left them to XLA.  Both: logits in f32,
+probabilities cast to the compute dtype before P.V.  Token ids and cache
+indices are int64.  Which functions write their state in place is said in
+each docstring.
 """
 
 from __future__ import annotations
@@ -74,105 +77,6 @@ def _vocab_logits(model, cfg, x: torch.Tensor) -> torch.Tensor:
     f32 accumulation and result."""
     w = model.decoder.transducer_out.output_proj.weight.to(cfg.compute_dtype)
     return x.float() @ w.float().T
-
-
-@dataclasses.dataclass
-class SlotLMState:
-    """Slot-aligned incremental LM state for lockstep greedy decode.
-
-    The K/V row of an emission step is the global step counter ``ptr``,
-    the same for every stream; a per-stream validity plane selects each
-    stream's prefix keys (attention is a set operation).
-
-    k/v: per-layer [S, N, D]; valid: [S, N] bool; ptr: 0-d int64 tensor
-    on the state's device, the next write slot (no step reads it on the
-    host, so a CUDA graph of the steps can be replayed); h_last: [N, D]
-    jointer query (LM output at the last prefix position, after the final
-    norm when pre-LN)."""
-
-    k: List[torch.Tensor]
-    v: List[torch.Tensor]
-    valid: torch.Tensor
-    ptr: torch.Tensor
-    h_last: torch.Tensor
-
-
-@torch.no_grad()
-def lm_slot_step(model, cfg, state: SlotLMState, tokens: torch.Tensor,
-                 index: torch.Tensor, advance: torch.Tensor) -> SlotLMState:
-    """Consume one token per stream through the IsolatedDecoder.
-
-    tokens: [N] ids appended at prefix position ``index`` ([N], the old
-    prefix length — it drives the positional embedding); advance: [N] bool.
-    The new K/V rows land at slot ``state.ptr`` and are marked valid only
-    where ``advance``; streams that do not advance keep their ``h_last``.
-    Updates every tensor of ``state`` in place (the pointer included) and
-    returns it."""
-    c = cfg
-    lm = model.decoder.lm
-    dtype = c.compute_dtype
-    x = _embed_at(model, c, tokens, index)                       # [N, D]
-
-    slot = state.ptr.view(1)
-    # slots past the pointer are invalid for every stream: not loaded
-    written = state.ptr + 1
-    # the new row is visible to its own query regardless of ``advance``;
-    # the validity plane keeps it only where the stream advances
-    state.valid.index_fill_(0, slot, True)
-    for i, layer in enumerate(lm.layers):
-        att = layer.self_attn
-        h_in = (_ln(layer.self_attn_layer_norm, x)
-                if c.decoder_normalize_before else x)
-        q, k1, v1 = _dense_qkv(att, h_in)
-        state.k[i].index_copy_(0, slot, k1[None])
-        state.v[i].index_copy_(0, slot, v1[None])
-        o = decode_attention(q, state.k[i].to(dtype), state.v[i].to(dtype),
-                             c.decoder_attention_heads, hi=written,
-                             plane=state.valid.T)
-        h = dense(att.out_proj, o)
-        x = layer_tail(layer, x, h, c.decoder_normalize_before, F.relu)
-
-    x = _final_norm(model, c, x)
-    state.valid.index_copy_(0, slot, advance[None])
-    state.h_last.copy_(torch.where(advance[:, None], x, state.h_last))
-    state.ptr.add_(1)
-    return state
-
-
-def lm_slot_init(model, cfg, n_streams: int, n_slots: int) -> SlotLMState:
-    """Slot caches of ``n_slots`` x ``n_streams``, reset
-    (``lm_slot_reset``)."""
-    c = cfg
-    dtype = c.compute_dtype
-    device = model.decoder.lm.embed_tokens.weight.device
-
-    def e():
-        return torch.empty((n_slots, n_streams, c.decoder_embed_dim),
-                           dtype=dtype, device=device)
-
-    state = SlotLMState(
-        k=[e() for _ in range(c.decoder_layers)],
-        v=[e() for _ in range(c.decoder_layers)],
-        valid=torch.empty((n_slots, n_streams), dtype=torch.bool,
-                          device=device),
-        ptr=torch.empty((), dtype=torch.long, device=device),
-        h_last=torch.empty((n_streams, c.decoder_embed_dim), dtype=dtype,
-                           device=device))
-    return lm_slot_reset(model, cfg, state)
-
-
-def lm_slot_reset(model, cfg, state: SlotLMState) -> SlotLMState:
-    """Empty ``state``'s caches in place + one step on bos (slot 0 = bos,
-    valid for all); returns it."""
-    for t in state.k + state.v + [state.valid, state.ptr, state.h_last]:
-        t.zero_()
-    n_streams, device = state.h_last.shape[0], state.h_last.device
-    toks = torch.full((n_streams,), cfg.bos, dtype=torch.long, device=device)
-    return lm_slot_step(model, cfg, state, toks,
-                        torch.zeros(n_streams, dtype=torch.long,
-                                    device=device),
-                        torch.ones(n_streams, dtype=torch.bool,
-                                   device=device))
 
 
 @torch.no_grad()
@@ -246,7 +150,7 @@ def jointer_step(model, cfg, h_last: torch.Tensor, jk, jv,
     return torch.log_softmax(_vocab_logits(model, c, x), dim=-1)
 
 
-# -- the beam half ---------------------------------------------------------
+# -- the LM cache and the greedy emission body -----------------------------
 
 @dataclasses.dataclass
 class LMState:
@@ -270,8 +174,8 @@ def lm_step(model, cfg, state: LMState, tokens: torch.Tensor,
     tokens: [N] ids appended at prefix position ``index`` ([N], the old
     prefix length); advance: [N] bool — streams with False keep their
     ``h_last`` (their K/V rows at ``index`` are written but stay invisible
-    until ``index`` grows).  Writes the caches of ``state`` in place and
-    returns it."""
+    until ``index`` grows).  Writes every tensor of ``state`` in place and
+    returns it; reads nothing on the host, so a CUDA graph can replay it."""
     c = cfg
     dtype = c.compute_dtype
     x = _embed_at(model, c, tokens, index)                       # [N, D]
@@ -289,12 +193,12 @@ def lm_step(model, cfg, state: LMState, tokens: torch.Tensor,
         x = layer_tail(layer, x, dense(att.out_proj, o),
                        c.decoder_normalize_before, F.relu)
     x = _final_norm(model, c, x)
-    state.h_last = torch.where(advance[:, None], x, state.h_last)
+    state.h_last.copy_(torch.where(advance[:, None], x, state.h_last))
     return state
 
 
 def lm_init(model, cfg, n_streams: int, u_cap: int) -> LMState:
-    """Empty caches + one step on bos (prefix = [bos])."""
+    """Zeroed caches of ``u_cap`` rows, reset (``lm_reset``)."""
     c = cfg
     dtype = c.compute_dtype
     device = model.decoder.lm.embed_tokens.weight.device
@@ -303,14 +207,56 @@ def lm_init(model, cfg, n_streams: int, u_cap: int) -> LMState:
         return torch.zeros((u_cap, n_streams, c.decoder_embed_dim),
                            dtype=dtype, device=device)
 
-    state = LMState(k=[z() for _ in range(c.decoder_layers)],
-                    v=[z() for _ in range(c.decoder_layers)],
-                    h_last=torch.zeros((n_streams, c.decoder_embed_dim),
-                                       dtype=dtype, device=device))
-    toks = torch.full((n_streams,), c.bos, dtype=torch.long, device=device)
+    return lm_reset(model, cfg, LMState(
+        k=[z() for _ in range(c.decoder_layers)],
+        v=[z() for _ in range(c.decoder_layers)],
+        h_last=torch.zeros((n_streams, c.decoder_embed_dim), dtype=dtype,
+                           device=device)))
+
+
+def lm_reset(model, cfg, state: LMState) -> LMState:
+    """One step on bos at index 0 for every stream (prefix = [bos]), in
+    place; returns ``state``.  The rows past the new prefix keep what they
+    held: no step loads them, and they are finite (``lm_init`` zeroes
+    them), so a reset state steps as a fresh one."""
+    toks = torch.full_like(state.h_last[:, 0], cfg.bos, dtype=torch.long)
     return lm_step(model, cfg, state, toks, torch.zeros_like(toks),
                    torch.ones_like(toks, dtype=torch.bool))
 
+
+@torch.no_grad()
+def greedy_emit(model, cfg, lm: LMState, jk, jv, visible,
+                prefixes: torch.Tensor, lens: torch.Tensor,
+                blocked: torch.Tensor, *, max_emit: int, max_len: int,
+                blank: int, pad: int) -> None:
+    """``max_emit`` masked greedy emissions of the greedy decoders and the
+    serving session, in place in ``prefixes`` [N, max_len + 1], ``lens``
+    [N] and ``lm`` (whose caches hold ``max_len`` + 1 rows, or at least one
+    more than the longest prefix a caller can reach).
+
+    jk/jv/visible: as ``jointer_step`` takes them; blocked: [N] bool, the
+    streams that do not emit at all.  The JAX decoders run a
+    ``while_loop`` that exits once every stream has emitted blank; here
+    that test would be a host read per emission, so the iterations are
+    fixed and masked: a stream that emits blank, reaches ``max_len`` or is
+    blocked writes nothing from then on, so the emissions are the same.
+    Nothing is read on the host, so a CUDA graph can replay the body.
+    ``jointer_step`` is looked up in this module on every call (callers
+    replace it to keep or script its log-probs), and its result's pad
+    column is set to -inf in place."""
+    rows = torch.arange(prefixes.shape[0], device=prefixes.device)
+    for _ in range(max_emit):
+        lp = jointer_step(model, cfg, lm.h_last, jk, jv, visible)
+        lp[:, pad] = -float("inf")
+        tok = torch.argmax(lp, dim=-1)           # first maximum, as jnp
+        emit = ~blocked & (tok != blank) & (lens < max_len)
+        prefixes[rows, lens] = torch.where(emit, tok, prefixes[rows, lens])
+        lm_step(model, cfg, lm, tok, lens, emit)
+        lens.add_(emit)
+        blocked = blocked | ~emit
+
+
+# -- the beam half ---------------------------------------------------------
 
 def lm_reorder(state: LMState, rows: torch.Tensor) -> LMState:
     """Gather beam rows (the fairseq ``reorder_incremental_state``): rows
@@ -447,9 +393,10 @@ class BeamLMState:
       and never reordered or written again (pk/pv: per-layer
       [U_pre, NI, D], NI = N*inter_beam; plen: [NI]);
     - a chunk-local SUFFIX part holding only the tokens emitted inside the
-      current beam block, slot-aligned on the loop iteration like
-      ``SlotLMState`` (sk/sv: [L, S, N*B, D] STACKED over layers, so a beam
-      reorder is one gather per cache; svalid: [S, N*B] bool);
+      current beam block, slot-aligned on the loop iteration (sk/sv:
+      [L, S, N*B, D] STACKED over layers, so a beam reorder is one gather
+      per cache; svalid: [S, N*B] bool, the slots each beam's prefix
+      holds);
     - ``origin``: [N*B] local seed index in [0, IB) each beam descends
       from — reorders permute beams within a stream, so the shared prefix
       stays valid and only origin, suffix and h_last travel.

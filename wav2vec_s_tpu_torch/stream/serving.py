@@ -25,14 +25,17 @@ lockstep:
   slots, the serving analogue of freeing KV-cache pages.
 
 What differs from the JAX session: the JAX emission ``while_loop`` ends
-once every row is blocked; here the step runs ``max_emit_per_chunk`` masked
-iterations and reads nothing back inside it, as ``CachedFusedGreedyDecoder``
-does.  Blocked rows do not change, so the results are the same.  The global
-write offset ``t_main`` is a host int; a step reads ``lens`` and
-``prefixes`` back once, as the JAX host API does.  The reset's LM step runs
-only in steps that reset a slot (``reset`` is a host array): in the others
-it would change nothing.  Emission semantics (greedy blank -> advance,
-delay bookkeeping) equal ``CachedFusedGreedyDecoder``'s per stream
+once every row is blocked; here the step runs the greedy decoders' masked
+body (``caat_step.greedy_emit``, ``max_emit_per_chunk`` iterations) and
+reads nothing back inside it.  Blocked rows do not change, so the results
+are the same.  The step keeps its device state in place, as the decoders
+do: between compactions the prefixes, lengths, frame counts and LM caches
+keep their tensors from step to step.  The global write offset ``t_main``
+is a host int; a step reads ``lens`` and ``prefixes`` back once, as the
+JAX host API does.  The reset's LM step runs only in steps that reset a
+slot (``reset`` is a host array): in the others it would change nothing.
+Emission semantics (greedy blank -> advance, delay bookkeeping) equal
+``CachedFusedGreedyDecoder``'s per stream
 (``tests/test_torch_port_serving.py``).
 
 Under a profiler the spans ``w2vs/serving.*`` (``utils/debug.span``) tile
@@ -145,7 +148,6 @@ class ServingSession:
         self._lens = torch.ones(N, dtype=torch.long, device=dev)
         self._frames = torch.zeros(N, dtype=torch.long, device=dev)
         self._lm = caat_step.lm_init(self.model, caat, N, max_len + 1)
-        self._rows = torch.arange(N, device=dev)
         self._row_is_main = (torch.arange(self._rows_per_step, device=dev)
                              < self.n_main)
 
@@ -153,29 +155,28 @@ class ServingSession:
     @torch.no_grad()
     def _device_step(self, window, ready, flush, reset, extent,
                      any_reset: bool):
+        """One step on the device, in place: the prefixes, lengths, frame
+        counts, plane and LM state keep their tensors (only a compaction
+        rolls the plane and the caches into new ones)."""
         model, caat = self.model, self.model.cfg
         blank, pad = self.vocab.bos(), self.vocab.pad()
         N, n_new = self.n, self._rows_per_step
-        prefixes, lens, frames, lm = (self._prefixes, self._lens,
-                                      self._frames, self._lm)
         vis = self._vis              # the plane both attentions are handed
 
         if any_reset:                                # recycled slots
             with span("serving.reset"):
-                fresh_row = torch.full_like(prefixes[0], pad)
-                fresh_row[0] = blank
-                prefixes = torch.where(reset[:, None], fresh_row[None],
-                                       prefixes)
-                lens = torch.where(reset, 1, lens)
-                frames = torch.where(reset, 0, frames)
+                self._prefixes.masked_fill_(reset[:, None], pad)
+                self._prefixes[:, 0].masked_fill_(reset, blank)
+                self._lens.masked_fill_(reset, 1)
+                self._frames.masked_fill_(reset, 0)
                 vis &= ~reset[:, None]
-                lm = caat_step.lm_step(
-                    model, caat, lm, torch.full_like(lens, blank),
-                    torch.zeros_like(lens), reset)
+                caat_step.lm_step(model, caat, self._lm,
+                                  torch.full_like(self._lens, blank),
+                                  torch.zeros_like(self._lens), reset)
 
         with span("serving.encoder_step"):
             t0 = self._estate.t_main
-            self._estate = self._enc_step(self._estate, window, frames,
+            self._estate = self._enc_step(self._estate, window, self._frames,
                                           vis)
             # visibility: main rows where ready; the rc tail where flushing
             new_plane = ready[:, None] & (self._row_is_main[None]
@@ -188,27 +189,16 @@ class ServingSession:
             caat_step.jointer_kv_append(self._jk, self._jv, k_new, v_new,
                                         t0)
 
-        # greedy emission loop (CachedFusedGreedyDecoder's), masked by
-        # `ready` and driven by the visibility plane, which the encoder's
-        # attention read too
+        # the decoders' emission body, masked by `ready` and driven by the
+        # visibility plane, which the encoder's attention read too
         count("serving.plane_rows_read", vis.numel())
         with span("serving.emit_loop"):
-            plane = caat_step.SlotPlane(vis, extent[:N], extent[N])
-            rows = self._rows
-            blocked = ~ready
-            for _ in range(self.max_emit):
-                lp = caat_step.jointer_step(model, caat, lm.h_last, self._jk,
-                                            self._jv, plane)
-                lp[:, pad] = -float("inf")
-                tok = torch.argmax(lp, dim=-1)     # first maximum, as jnp
-                emit = ~blocked & (tok != blank) & (lens < self.max_len)
-                prefixes[rows, lens] = torch.where(emit, tok,
-                                                   prefixes[rows, lens])
-                lm = caat_step.lm_step(model, caat, lm, tok, lens, emit)
-                lens = lens + emit
-                blocked = blocked | ~emit
-            self._frames = frames + torch.where(ready, self.n_main, 0)
-            self._prefixes, self._lens, self._lm = prefixes, lens, lm
+            caat_step.greedy_emit(
+                model, caat, self._lm, self._jk, self._jv,
+                caat_step.SlotPlane(vis, extent[:N], extent[N]),
+                self._prefixes, self._lens, ~ready, max_emit=self.max_emit,
+                max_len=self.max_len, blank=blank, pad=pad)
+            self._frames.add_(torch.where(ready, self.n_main, 0))
 
     def _compact(self):
         active_rows = [s.first_row for s in self.slots
